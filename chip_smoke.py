@@ -1,0 +1,373 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path — the partial-view engine's fused tick window
+at 1,048,576 members — on the card, and fails (non-zero exit, no result
+line) unless every phase passes:
+
+1. device   — a CUDA device is present; prints its name and power limit;
+2. build    — builds the port's CUDA kernel with nvcc;
+3. kernels  — each kernel against its plain PyTorch version on random
+   inputs at the main path's shapes: bit-equal outputs, timed;
+4. window   — a 4,096-member, 40-tick window on the CPU (plain versions)
+   and on the card (kernels) from the same draws: equal state and metrics;
+5. main path — the 1M-member scenario (warm start, 8 live rumors, a crash
+   wave of 1,024 rows): one warm-up window, then a timed 10-tick window
+   with draws from a CUDA generator; launch counts are zeroed just before
+   it and read just after, and the window's invariants are checked; two
+   more ticks count the operations that wait for the device;
+6. profile  — three more ticks under ``torch.profiler``: the device's busy
+   share and each phase's device and host time.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+import warnings
+
+import numpy as np
+import torch
+
+N_MAIN = 1 << 20
+KERNEL_SHAPES = (65_536, 100_003, N_MAIN)  # the slice's N, one with N % 32 != 0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def phase(name: str, msg: str) -> None:
+    print(f"[{name}] {msg}", flush=True)
+
+
+def time_cuda(fn, reps: int, warmup: int = 3) -> float:
+    """Median device time of ``fn`` in ms (CUDA events around each call)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_ms(fn, kernel: str, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time in ms of the kernel named ``kernel`` over ``reps``
+    calls of ``fn``, from the profiler's record of the device: a call's own
+    host work (checks, allocation) does not count, as it would between two
+    CUDA events around one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    if len(times) != reps:
+        raise AssertionError(f"profiler saw {len(times)} launches of {kernel}, expected {reps}")
+    return statistics.median(times) / 1e3
+
+
+def config16_params(n: int, key_dtype: str = "i16"):
+    """The fused benchmark's 1M-wall configuration (benchmarks/config16_fused.py)."""
+    from scalecube_cluster_tpu_torch.ops.pview import PviewParams
+
+    return PviewParams(
+        capacity=n, view_slots=24, active_slots=8, fanout=3, repeat_mult=3,
+        ping_req_k=3, fd_every=5, sync_every=150, suspicion_mult=5,
+        rumor_slots=8, seed_rows=(0,), key_dtype=key_dtype,
+    )
+
+
+def busy_state(params, n: int, device):
+    """Warm cluster, a live rumor in every slot, a crash wave of n/1024 rows."""
+    from scalecube_cluster_tpu_torch.ops import pview as PV
+
+    st = PV.init_pview_state(params, n, warm=True, device=device)
+    for s in range(params.rumor_slots):
+        st = PV.spread_rumor(st, s, origin=(s * 997) % n)
+    return PV.crash_rows(st, list(range(n // 2, n // 2 + max(2, n // 1024))))
+
+
+def delivery_inputs(n: int, gen: torch.Generator, F: int = 3, R: int = 8, Wm: int = 64):
+    """Random payload rows, and inv with -1s and duplicate senders."""
+    dev = gen.device
+    Wu = -(-R // 32)
+    payload = torch.randint(-(1 << 31), 1 << 31, (n, Wm + Wu + R), generator=gen,
+                            device=dev, dtype=torch.int64).to(torch.int32)
+    payload[:, Wm + Wu:] = torch.randint(-1, n, (n, R), generator=gen, device=dev, dtype=torch.int32)
+    inv = torch.randint(-1, n, (F, n), generator=gen, device=dev, dtype=torch.int32)
+    inv[:, : n // 4] = -1
+    inv[:, n // 4 : n // 2] = torch.randint(0, 3, (F, n // 2 - n // 4), generator=gen,
+                                            device=dev, dtype=torch.int32)
+    origin = torch.randint(-1, n, (R,), generator=gen, device=dev, dtype=torch.int32)
+    return payload.contiguous(), inv.contiguous(), origin, Wm, R
+
+
+def delivery_bound_ms(inv: torch.Tensor, Wt: int, Wm: int, R: int) -> float:
+    """Bytes the combine must move over the device memory rate: inv and the
+    origins read once, each distinct valid sender row read once (a row that
+    several slots name is fetched once), the outputs written once."""
+    F, n = inv.shape
+    senders = torch.unique(inv[inv >= 0]).numel()
+    nbytes = 4 * F * n + 4 * R + 4 * Wt * senders + n * (R + 4 * R + 4 * Wm + 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def check_kernels(device) -> dict:
+    from scalecube_cluster_tpu_torch.ops import delivery
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    rows = {}
+    for n in KERNEL_SHAPES:
+        payload, inv, origin, Wm, R = delivery_inputs(n, gen)
+        args = (payload, inv, origin, Wm, R)
+        got = delivery.delivery_combine(*args)
+        ref = delivery.delivery_combine_ref(*args)
+        torch.cuda.synchronize()
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, ref))
+        if err != 0:
+            raise AssertionError(f"delivery_combine differs from its plain version at N={n}: max abs err {err}")
+        valid = int((inv >= 0).sum())
+        senders = torch.unique(inv[inv >= 0]).numel()
+        ms = kernel_ms(lambda: delivery.delivery_combine(*args), "delivery_combine_kernel")
+        call_ms = time_cuda(lambda: delivery.delivery_combine(*args), reps=20)
+        plain_ms = time_cuda(lambda: delivery.delivery_combine_ref(*args), reps=5, warmup=1)
+        bound = delivery_bound_ms(inv, payload.shape[1], Wm, R)
+        rows[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
+        phase("kernels", f"delivery_combine N={n}: bit-equal, kernel {ms:.4f} ms (wrapper call "
+                         f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms, "
+                         f"valid slots {valid} of {inv.numel()}, distinct senders {senders}")
+    return rows
+
+
+def check_cross_device(device) -> None:
+    """40 ticks at N = 4,096 on the CPU and on the card from the same draws."""
+    from scalecube_cluster_tpu_torch import convert
+    from scalecube_cluster_tpu_torch.ops import pview as PV
+    from scalecube_cluster_tpu_torch.ops import rand as PR
+
+    n, ticks = 4096, 40
+    params = config16_params(n)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    draws = [
+        (PR.draw_sparse_fd(gen, n, params.ping_req_k, params.sample_tries),
+         PR.draw_sparse_round(gen, n, params.fanout, params.sample_tries))
+        for _ in range(ticks)
+    ]
+    cpu_st, cpu_ms, _ = PV.run_pview_ticks_fused(busy_state(params, n, "cpu"), draws, ticks, params)
+    dev_st, dev_ms, _ = PV.run_pview_ticks_fused(busy_state(params, n, device), draws, ticks, params)
+    a, b = convert.state_to_numpy(cpu_st), convert.state_to_numpy(dev_st)
+    bad = [k for k in a if not np.array_equal(a[k], b[k])]
+    for k, v in cpu_ms.items():
+        va, vb = v.numpy(), dev_ms[k].cpu().numpy()
+        if va.dtype == np.float32:
+            # f32 division on the two devices: both IEEE, allow 2 ulp anyway
+            if np.abs(va.view(np.int32).astype(np.int64) - vb.view(np.int32).astype(np.int64)).max() > 2:
+                bad.append(f"metric {k}")
+        elif not np.array_equal(va, vb):
+            bad.append(f"metric {k}")
+    if bad:
+        raise AssertionError(f"CPU and card windows differ in: {bad}")
+    phase("window", f"N={n}, {ticks} ticks: every state leaf and metric equal on CPU and {device}; "
+                    f"mr_accepts {int(cpu_ms['mr_accepts'].sum())}, sync_roundtrips "
+                    f"{int(cpu_ms['sync_roundtrips'].sum())}, rumor_deliveries {int(cpu_ms['rumor_deliveries'].sum())}")
+
+
+def run_main_path(device) -> dict:
+    from scalecube_cluster_tpu_torch.ops import _tensor, delivery
+    from scalecube_cluster_tpu_torch.ops import pview as PV
+
+    n = N_MAIN
+    params = config16_params(n)
+    t0 = time.perf_counter()
+    st = busy_state(params, n, device)
+    torch.cuda.synchronize()
+    phase("main", f"N={n} state built in {time.perf_counter() - t0:.2f} s "
+                  f"(minf_age {tuple(st.minf_age.shape)} {st.minf_age.dtype})")
+    gen = torch.Generator(device=device).manual_seed(11)
+    t0 = time.perf_counter()
+    st, _, _ = PV.run_pview_ticks_fused(st, gen, 5, params)
+    torch.cuda.synchronize()
+    phase("main", f"warm-up window of 5 ticks: {time.perf_counter() - t0:.2f} s")
+
+    ticks = 10
+    torch.cuda.reset_peak_memory_stats()
+    delivery.delivery_combine.launches = 0
+    _tensor.HOST_SYNCS.count = 0
+    t0 = time.perf_counter()
+    st, ms, _ = PV.run_pview_ticks_fused(st, gen, ticks, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = delivery.delivery_combine.launches
+    syncs = _tensor.HOST_SYNCS.count
+    peak = torch.cuda.max_memory_allocated()
+
+    # two more ticks in the mode where every operation that waits for the
+    # device warns: the count shows whether the branch flags are the only
+    # syncs (the mode is kept out of the timed window, which it perturbs)
+    _tensor.HOST_SYNCS.count = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            st, _, _ = PV.run_pview_ticks_fused(st, gen, 2, params)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    device_waits = sum("synchroniz" in str(w.message) for w in caught)
+    flag_reads = _tensor.HOST_SYNCS.count
+
+    n_crash = n // 1024
+    n_up = ms["n_up"].cpu()
+    if not bool((n_up == n - n_crash).all()):
+        raise AssertionError(f"n_up {n_up.tolist()} != {n - n_crash}")
+    ids = st.nbr_id
+    rows = torch.arange(n, device=ids.device, dtype=ids.dtype)[:, None]
+    if bool(((ids >= 0) & (ids == rows)).any()):
+        raise AssertionError("a row tables itself")
+    srt = ids.sort(dim=1).values
+    if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
+        raise AssertionError("a row tables one member twice")
+    cov = ms["rumor_coverage"]
+    if not bool(torch.isfinite(cov).all()) or bool((cov[1:] < cov[:-1]).any()):
+        raise AssertionError(f"rumor coverage fell or is not finite: {cov.cpu().tolist()}")
+    if launches <= 0:
+        raise AssertionError("the main path launched no delivery_combine kernel")
+    for k, v in ms.items():
+        if v.shape[0] != ticks:
+            raise AssertionError(f"metric {k} has {v.shape[0]} ticks, expected {ticks}")
+    phase("main", f"N={n}, {ticks} ticks: {wall / ticks * 1e3:.2f} ms/tick, peak allocated "
+                  f"{peak / 2 ** 30:.2f} GiB, delivery_combine launches {launches}, host syncs {syncs} "
+                  f"({syncs / ticks:.1f}/tick), final coverage {cov[-1].cpu().tolist()}")
+    phase("main", f"2 more ticks: {flag_reads} branch-flag reads, {device_waits} operations "
+                  "waited for the device")
+    return {"launches": launches, "state": st, "gen": gen, "params": params}
+
+
+PHASES = ("_fd_phase", "_maintenance_sweep", "_gossip_phase_fused", "_sync_phase",
+          "_refute_phase", "_rumor_sweeps_fused", "alloc_phase", "state_metrics")
+
+
+def profile_phases(st, gen, params, ticks: int = 3) -> None:
+    """Where a tick's time goes: ``torch.profiler`` over ``ticks`` more
+    ticks of the main path, each phase of the tick inside a labelled range.
+    Prints the wall time per tick, the device's busy share, each phase's
+    device and host time, and the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from scalecube_cluster_tpu_torch.ops import pview as PV
+
+    def labelled(name, fn):
+        def run(*args, **kwargs):
+            with record_function(f"phase:{name.strip('_')}"):
+                return fn(*args, **kwargs)
+        return run
+
+    saved = {name: getattr(PV, name) for name in PHASES}
+    try:
+        for name, fn in saved.items():
+            setattr(PV, name, labelled(name, fn))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            PV.run_pview_ticks_fused(st, gen, ticks, params)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        for name, fn in saved.items():
+            setattr(PV, name, fn)
+    cuda = torch.autograd.DeviceType.CUDA
+    host, span, busy = {}, {}, []
+    for e in prof.events():
+        if e.name.startswith("phase:"):
+            # a labelled range shows twice: on the host, and as the span of
+            # its kernels on the device
+            book = span if e.device_type == cuda else host
+            book[e.name[6:]] = book.get(e.name[6:], 0) + e.time_range.elapsed_us()
+        elif e.device_type == cuda:
+            busy.append((e.time_range.start, e.time_range.end))
+    device_us, reach = 0, float("-inf")
+    for a, b in sorted(busy):  # the union of the device's activity intervals
+        device_us += max(0, b - max(a, reach))
+        reach = max(reach, b)
+    if device_us == 0:
+        phase("profile", f"{ticks} ticks: {wall_us / ticks / 1e3:.2f} ms/tick wall; device time "
+                         "not measured (the profiler recorded no device activity)")
+        return
+    phase("profile", f"{ticks} ticks: {wall_us / ticks / 1e3:.2f} ms/tick wall, device busy "
+                     f"{device_us / ticks / 1e3:.2f} ms/tick, idle share {1 - device_us / wall_us:.3f}")
+    for name in sorted(host, key=lambda k: -host[k]):
+        phase("profile", f"{name}: host {host[name] / ticks / 1e3:.3f} ms/tick, device span "
+                         f"{span.get(name, 0) / ticks / 1e3:.3f} ms/tick")
+    kernels = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+                      if e.self_device_time_total > 0 and not e.key.startswith(("phase:", "aten::"))),
+                     reverse=True)
+    for us, key, count in kernels[:8]:
+        phase("profile", f"top kernel {key[:90]}: {us / ticks / 1e3:.3f} ms/tick ({count} launches)")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    phase("device", f"{name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(nvidia_smi(), flush=True)
+
+    from scalecube_cluster_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.build("delivery_combine")
+    phase("build", f"delivery_combine built in {time.perf_counter() - t0:.2f} s")
+
+    kern = check_kernels(device)
+    check_cross_device(device)
+    main_run = run_main_path(device)
+    profile_phases(main_run["state"], main_run["gen"], main_run["params"])
+
+    k1m = kern[N_MAIN]
+    print(json.dumps({"kernels": [{
+        "name": "delivery_combine",
+        "route": "cuda",
+        "source": "scalecube_cluster_tpu_torch/csrc/delivery_combine.cu",
+        "replaces": "scalecube_cluster_tpu/ops/pallas_delivery.py:251 and :282",
+        "launches": main_run["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
+        "ms": k1m["ms"],
+        "plain_ms": k1m["plain_ms"],
+        "bound_ms": k1m["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": 1,  # the one card the run used
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,15 @@
+"""scalecube_cluster_tpu_torch — the SWIM tick engines in PyTorch and CUDA.
+
+The PyTorch/CUDA counterpart of the JAX package ``scalecube_cluster_tpu``,
+module for module (``ops/lattice.py``, ``ops/rand.py``, ``ops/bitplane.py``,
+``ops/pview.py``, ...). It imports ``torch`` and numpy only: nothing of JAX
+and nothing of the JAX package, whose semantics it copies and is held
+against bit for bit by ``tests/test_torch_*.py``.
+
+What runs today is the partial-view ("pview") engine's fused tick and its
+window runner (:func:`.ops.pview.run_pview_ticks_fused`), with the gossip
+delivery combine as a hand-written CUDA kernel
+(``csrc/delivery_combine.cu``, bound in :mod:`.ops.delivery`). Entry points
+take ``device=`` and default to ``"cuda"``; pass ``device="cpu"`` to run the
+plain PyTorch versions on the host.
+"""
