@@ -7,9 +7,11 @@ at 1,048,576 members — on the card, and fails (non-zero exit, no result
 line) unless every phase passes:
 
 1. device   — a CUDA device is present; prints its name and power limit;
-2. build    — builds the port's CUDA kernel with nvcc;
+2. build    — builds the port's CUDA kernel with nvcc; prints ptxas's
+   registers, stack and spills for each compiled variant;
 3. kernels  — each kernel against its plain PyTorch version on random
-   inputs at the main path's shapes: bit-equal outputs, timed;
+   inputs at the main path's shapes, and at shapes that reach its other
+   compiled variants: bit-equal outputs, timed beside the byte bound;
 4. window   — a 4,096-member, 40-tick window on the CPU (plain versions)
    and on the card (kernels) from the same draws: equal state and metrics;
 5. main path — the 1M-member scenario (warm start, 8 live rumors, a crash
@@ -18,7 +20,8 @@ line) unless every phase passes:
    it and read just after, and the window's invariants are checked; two
    more ticks count the operations that wait for the device;
 6. profile  — three more ticks under ``torch.profiler``: the device's busy
-   share and each phase's device and host time.
+   share, each phase's device and host time, and the kernel's own device
+   time per tick.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -27,6 +30,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -38,6 +42,15 @@ import torch
 
 N_MAIN = 1 << 20
 KERNEL_SHAPES = (65_536, 100_003, N_MAIN)  # the slice's N, one with N % 32 != 0
+# (N, F, R, Wm, ym_offset, variant): the main path's widths at each N, then
+# inputs that reach the kernel's other compiled variants; ``variant`` is
+# what delivery.instantiation must pick (f_template 0: runtime F), and
+# ym_offset > 0 starts ym_p that many words into its rows
+KERNEL_CASES = tuple((n, 3, 8, 64, 0, ("vector", 3)) for n in KERNEL_SHAPES) + (
+    (100_003, 1, 33, 5, 0, ("scalar", 1)),  # Wm % 4 != 0, R > 32
+    (65_536, 6, 8, 64, 0, ("vector", 0)),   # F above the templates
+    (65_536, 3, 8, 64, 1, ("scalar", 3)),   # ym_p's base off 16 bytes
+)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 
 
@@ -112,29 +125,67 @@ def busy_state(params, n: int, device):
     return PV.crash_rows(st, list(range(n // 2, n // 2 + max(2, n // 1024))))
 
 
-def delivery_inputs(n: int, gen: torch.Generator, F: int = 3, R: int = 8, Wm: int = 64):
-    """Random payload rows, and inv with -1s and duplicate senders."""
+def delivery_inputs(n: int, gen: torch.Generator, F: int = 3, R: int = 8, Wm: int = 64,
+                    ym_offset: int = 0):
+    """Random sender planes (ym_p, yu_p, infected_from), and inv with -1s and
+    duplicate senders. ``ym_offset`` > 0 makes ym_p a column slice of a
+    wider tensor, so its base is ``4 * ym_offset`` bytes past an allocation."""
     dev = gen.device
     Wu = -(-R // 32)
-    payload = torch.randint(-(1 << 31), 1 << 31, (n, Wm + Wu + R), generator=gen,
-                            device=dev, dtype=torch.int64).to(torch.int32)
-    payload[:, Wm + Wu:] = torch.randint(-1, n, (n, R), generator=gen, device=dev, dtype=torch.int32)
+
+    def words(rows, cols):
+        return torch.randint(-(1 << 31), 1 << 31, (rows, cols), generator=gen,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+
+    ym_p = words(n, Wm + ym_offset)[:, ym_offset:]
+    yu_p = words(n, Wu)
+    infected_from = torch.randint(-1, n, (n, R), generator=gen, device=dev, dtype=torch.int32)
     inv = torch.randint(-1, n, (F, n), generator=gen, device=dev, dtype=torch.int32)
     inv[:, : n // 4] = -1
     inv[:, n // 4 : n // 2] = torch.randint(0, 3, (F, n // 2 - n // 4), generator=gen,
                                             device=dev, dtype=torch.int32)
     origin = torch.randint(-1, n, (R,), generator=gen, device=dev, dtype=torch.int32)
-    return payload.contiguous(), inv.contiguous(), origin, Wm, R
+    return ym_p, yu_p, infected_from, inv.contiguous(), origin
 
 
-def delivery_bound_ms(inv: torch.Tensor, Wt: int, Wm: int, R: int) -> float:
-    """Bytes the combine must move over the device memory rate: inv and the
-    origins read once, each distinct valid sender row read once (a row that
-    several slots name is fetched once), the outputs written once."""
+def delivery_bytes(ym_p, yu_p, infected_from, inv, reuse: bool) -> int:
+    """Bytes the combine moves: inv and the origins read once, the outputs
+    (u_or as bytes, src_max, m_or, the count) written once, and a sender row
+    (Wm + Wu + R words) per distinct valid sender with ``reuse`` (a row that
+    several slots name is fetched once: the bound), else per valid slot
+    (what a pull kernel moves when no row is found in cache)."""
     F, n = inv.shape
-    senders = torch.unique(inv[inv >= 0]).numel()
-    nbytes = 4 * F * n + 4 * R + 4 * Wt * senders + n * (R + 4 * R + 4 * Wm + 4)
+    Wm, R = ym_p.shape[1], infected_from.shape[1]
+    Wt = Wm + yu_p.shape[1] + R
+    valid = inv[inv >= 0]
+    rows = torch.unique(valid).numel() if reuse else valid.numel()
+    return 4 * F * n + 4 * R + 4 * Wt * rows + n * (R + 4 * R + 4 * Wm) + 4
+
+
+def bytes_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def ptxas_report(log: str) -> list:
+    """One line per compiled kernel variant from ptxas's -v output:
+    template arguments (lanes per receiver, vector path, F or 0 for
+    runtime F), registers, stack and spill bytes."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"ILi(\d+)ELb([01])ELi(\d+)EE", name)
+            name = f"G={t.group(1)} vec={t.group(2)} F={t.group(3)}" if t else name
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            stack, st, ld = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, stack {stack} B, "
+                       f"spill stores {st} B, spill loads {ld} B")
+            name = None
+    return out
 
 
 def check_kernels(device) -> dict:
@@ -142,25 +193,41 @@ def check_kernels(device) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(1)
     rows = {}
-    for n in KERNEL_SHAPES:
-        payload, inv, origin, Wm, R = delivery_inputs(n, gen)
-        args = (payload, inv, origin, Wm, R)
-        got = delivery.delivery_combine(*args)
-        ref = delivery.delivery_combine_ref(*args)
+    for n, F, R, Wm, ym_offset, want in KERNEL_CASES:
+        planes = delivery_inputs(n, gen, F, R, Wm, ym_offset)
+        ym_p, yu_p, infected_from, inv, origin = planes
+        variant = delivery.instantiation(Wm, F, ym_p.data_ptr(), ym_p.stride(0))
+        label = f"N={n} F={F} R={R} Wm={Wm}, ym offset {ym_offset}: {variant[0]} path, " + (
+            f"F template {variant[1]}" if variant[1] else "runtime F")
+        if variant != want:
+            raise AssertionError(f"{label}; expected {want}")
+        got = delivery.delivery_combine(*planes)
+        payload = torch.cat([ym_p, yu_p, infected_from], dim=1)
+        ref_args = (payload, inv, origin, Wm, R)
+        ref = delivery.delivery_combine_ref(*ref_args)
         torch.cuda.synchronize()
         err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, ref))
         if err != 0:
-            raise AssertionError(f"delivery_combine differs from its plain version at N={n}: max abs err {err}")
+            raise AssertionError(f"delivery_combine differs from its plain version at {label}: "
+                                 f"max abs err {err}")
         valid = int((inv >= 0).sum())
         senders = torch.unique(inv[inv >= 0]).numel()
-        ms = kernel_ms(lambda: delivery.delivery_combine(*args), "delivery_combine_kernel")
-        call_ms = time_cuda(lambda: delivery.delivery_combine(*args), reps=20)
-        plain_ms = time_cuda(lambda: delivery.delivery_combine_ref(*args), reps=5, warmup=1)
-        bound = delivery_bound_ms(inv, payload.shape[1], Wm, R)
-        rows[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
-        phase("kernels", f"delivery_combine N={n}: bit-equal, kernel {ms:.4f} ms (wrapper call "
-                         f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms, "
-                         f"valid slots {valid} of {inv.numel()}, distinct senders {senders}")
+        ms = kernel_ms(lambda: delivery.delivery_combine(*planes), "delivery_combine_kernel")
+        call_ms = time_cuda(lambda: delivery.delivery_combine(*planes), reps=20)
+        plain_ms = time_cuda(lambda: delivery.delivery_combine_ref(*ref_args), reps=5, warmup=1)
+        bound = bytes_ms(delivery_bytes(*planes[:4], reuse=True))
+        slot_bytes = delivery_bytes(*planes[:4], reuse=False)
+        rows[(n, F, R, Wm, ym_offset)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
+        phase("kernels", f"delivery_combine {label}: bit-equal, kernel {ms:.4f} ms "
+                         f"(wrapper call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+                         f"{bound:.4f} ms (roofline share {bound / ms:.3f}), no-reuse slot traffic "
+                         f"{bytes_ms(slot_bytes):.4f} ms ({slot_bytes / ms / 1e9:.2f} TB/s at that "
+                         f"traffic), valid slots {valid} of {inv.numel()}, distinct senders {senders}")
+        if n == N_MAIN:
+            cat_ms = time_cuda(lambda: torch.cat([ym_p, yu_p, infected_from], dim=1), reps=20)
+            phase("kernels", f"N={n}: the payload copy the gossip phase no longer makes "
+                             f"(torch.cat of the three planes) {cat_ms:.4f} ms")
+        del planes, ym_p, yu_p, infected_from, inv, origin, payload, ref, got
     return rows
 
 
@@ -327,6 +394,9 @@ def profile_phases(st, gen, params, ticks: int = 3) -> None:
                      reverse=True)
     for us, key, count in kernels[:8]:
         phase("profile", f"top kernel {key[:90]}: {us / ticks / 1e3:.3f} ms/tick ({count} launches)")
+    ours = [(us, count) for us, key, count in kernels if "delivery_combine_kernel" in key]
+    phase("profile", f"delivery_combine_kernel: {sum(u for u, _ in ours) / ticks / 1e3:.4f} "
+                     f"ms/tick device time ({sum(c for _, c in ours)} launches in {ticks} ticks)")
 
 
 def main() -> int:
@@ -343,13 +413,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build("delivery_combine")
     phase("build", f"delivery_combine built in {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_report(_build.build_log("delivery_combine")):
+        phase("build", f"ptxas delivery_combine_kernel {line}")
 
     kern = check_kernels(device)
     check_cross_device(device)
     main_run = run_main_path(device)
     profile_phases(main_run["state"], main_run["gen"], main_run["params"])
 
-    k1m = kern[N_MAIN]
+    k1m = kern[(N_MAIN, 3, 8, 64, 0)]
     print(json.dumps({"kernels": [{
         "name": "delivery_combine",
         "route": "cuda",

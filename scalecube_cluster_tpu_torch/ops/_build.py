@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 with ``nvcc`` into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of
 the checkout, the hash covering the source and the flags, so an edited
-source rebuilds. A source builds at its first use; nothing here runs when
-the module is imported.
+source rebuilds. ptxas reports each kernel's registers, stack and spills
+(``-Xptxas -v``); the report is kept beside the library as
+``lib<name>-<hash>.log`` (:func:`build_log`). A source builds at its first
+use; nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -15,12 +17,13 @@ import os
 import pathlib
 import shutil
 import subprocess
+import sys
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIBS: dict = {}
@@ -48,9 +51,20 @@ def build(name: str) -> pathlib.Path:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")], check=True)
+        run = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                             capture_output=True, text=True)
+        if run.returncode != 0:
+            sys.stderr.write(run.stdout + run.stderr)
+            raise subprocess.CalledProcessError(run.returncode, run.args, run.stdout, run.stderr)
+        out.with_suffix(".log").write_text(run.stdout + run.stderr)
         os.replace(tmp, out)
     return out
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for ``csrc/<name>.cu`` (ptxas's per-kernel registers,
+    stack and spills), building it first if needed."""
+    return build(name).with_suffix(".log").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,15 +1,20 @@
-"""The gossip delivery combine: each receiver folds the payload rows of its
+"""The gossip delivery combine: each receiver folds the sender rows of its
 per-fanout-slot inverse-elected senders into its rumor accumulators.
 
 * :func:`delivery_combine_ref` — the plain PyTorch version, a straight port
   of the JAX package's ``delivery_combine_xla``
-  (``ops/pallas_delivery.py``). It materializes the [F, N, Wt] gathered
-  payload. The CPU path and the on-card comparison use it.
+  (``ops/pallas_delivery.py``), with its signature: one concatenated
+  payload. It materializes the [F, N, Wt] gathered payload. The CPU path and
+  the on-card comparison use it.
 * :func:`delivery_combine` — the wrapper of the CUDA kernel
   ``csrc/delivery_combine.cu``, which replaces the TPU kernel of the same
-  name (both its row-block and its column-split bodies). A CPU tensor goes
-  to the plain version; a CUDA tensor goes to the kernel, or the call
+  name (both its row-block and its column-split bodies). It takes the
+  gossip phase's three sender planes as they are, so no payload is built on
+  the card. A CPU tensor goes to the plain version (the one place the
+  planes are concatenated); a CUDA tensor goes to the kernel, or the call
   raises. ``delivery_combine.launches`` counts kernel launches.
+* :func:`instantiation` — which compiled variant of the kernel a call
+  takes.
 """
 
 from __future__ import annotations
@@ -20,6 +25,9 @@ import torch
 
 from . import _build
 from .bitplane import unpack_bits, words_for
+
+VECTOR_ALIGN = 16  # bytes of one vector load of a membership chunk
+MAX_F_TEMPLATE = 4  # fanouts compiled as a template parameter; larger F is a runtime loop
 
 
 def delivery_combine_ref(payload, inv, rumor_origin, Wm: int, R: int):
@@ -58,7 +66,22 @@ def delivery_combine_ref(payload, inv, rumor_origin, Wm: int, R: int):
     return u_or, src_max, m_or, cnt
 
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def instantiation(Wm: int, F: int, ym_ptr: int, ym_row_stride: int) -> tuple[str, int]:
+    """The kernel variant for these inputs: ``("vector" | "scalar",
+    f_template)``. The vector path (16 lanes per receiver, one 16-byte
+    membership chunk each) needs whole 16-byte chunks: ``Wm % 4 == 0``, the
+    ``ym`` plane's base and row stride (in words) 16-byte aligned; anything
+    else takes the scalar path (32 lanes striding words). ``f_template`` is
+    F where it is compiled as a template parameter (1..4), else 0, the
+    runtime-F instantiation."""
+    vec = Wm % 4 == 0 and ym_ptr % VECTOR_ALIGN == 0 and (4 * ym_row_stride) % VECTOR_ALIGN == 0
+    return ("vector" if vec else "scalar"), (F if 1 <= F <= MAX_F_TEMPLATE else 0)
+
+
+_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+)
 
 
 def _kernel():
@@ -69,45 +92,68 @@ def _kernel():
     return fn
 
 
-def delivery_combine(payload, inv, rumor_origin, Wm: int, R: int):
-    """:func:`delivery_combine_ref`'s function; on CUDA tensors through the
-    hand-written kernel (bit-equal outputs), on CPU tensors through the
-    plain version."""
-    if payload.device.type == "cpu":
-        return delivery_combine_ref(payload, inv, rumor_origin, Wm, R)
-    if payload.device.type != "cuda":
-        raise ValueError(f"delivery_combine: unsupported device {payload.device}")
+def _check(name, t, dtype, shape, device, rows_only=False):
+    if t.device != device:
+        raise ValueError(f"delivery_combine: {name} on {t.device}, ym_p on {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"delivery_combine: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"delivery_combine: {name} shape {tuple(t.shape)} != {shape}")
+    # a plane may be a row slice of a wider tensor (its own row stride); its
+    # words within a row must be adjacent
+    ok = (t.dim() == 2 and (t.shape[1] <= 1 or t.stride(1) == 1)) if rows_only else t.is_contiguous()
+    if not ok:
+        raise ValueError(f"delivery_combine: {name} must be "
+                         f"{'contiguous within each row' if rows_only else 'contiguous'}")
+
+
+def delivery_combine(ym_p, yu_p, infected_from, inv, rumor_origin):
+    """:func:`delivery_combine_ref`'s function over the payload
+    ``cat([ym_p, yu_p, infected_from], 1)``, read as three planes: on CUDA
+    tensors through the hand-written kernel (bit-equal outputs), on CPU
+    tensors through the plain version.
+
+    Args:
+      ym_p: int32 [N, Wm] — packed forwarding & active membership bits.
+      yu_p: int32 [N, ceil(R / 32)] — packed young user-rumor bits.
+      infected_from: int32 [N, R].
+      inv: int32 [F, N]; rumor_origin: int32 [R].
+    """
+    dev = ym_p.device
     F, n = inv.shape
-    Wt = payload.shape[1]
-    for name, t, dtype, shape in (
-        ("payload", payload, torch.int32, (n, Wm + words_for(R) + R)),
-        ("inv", inv, torch.int32, (F, n)),
-        ("rumor_origin", rumor_origin, torch.int32, (R,)),
+    Wm = ym_p.shape[1] if ym_p.dim() == 2 else -1
+    R = infected_from.shape[1] if infected_from.dim() == 2 else -1
+    for name, t, shape, rows_only in (
+        ("ym_p", ym_p, (n, Wm), True),
+        ("yu_p", yu_p, (n, words_for(R)), True),
+        ("infected_from", infected_from, (n, R), True),
+        ("inv", inv, (F, n), False),
+        ("rumor_origin", rumor_origin, (R,), False),
     ):
-        if t.device != payload.device:
-            raise ValueError(f"delivery_combine: {name} on {t.device}, payload on {payload.device}")
-        if t.dtype != dtype:
-            raise ValueError(f"delivery_combine: {name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"delivery_combine: {name} shape {tuple(t.shape)} != {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"delivery_combine: {name} must be contiguous")
-    dev = payload.device
+        _check(name, t, torch.int32, shape, dev, rows_only)
+    if dev.type == "cpu":
+        payload = torch.cat([ym_p, yu_p, infected_from], dim=1)
+        return delivery_combine_ref(payload, inv, rumor_origin, Wm, R)
+    if dev.type != "cuda":
+        raise ValueError(f"delivery_combine: unsupported device {dev}")
+    path, f_template = instantiation(Wm, F, ym_p.data_ptr(), ym_p.stride(0))
     u_or = torch.empty((n, R), dtype=torch.uint8, device=dev)
     src_max = torch.empty((n, R), dtype=torch.int32, device=dev)
     m_or = torch.empty((n, Wm), dtype=torch.int32, device=dev)
-    cnt_rows = torch.empty((n,), dtype=torch.int32, device=dev)
+    cnt = torch.zeros((), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _kernel()(
-            payload.data_ptr(), inv.data_ptr(), rumor_origin.data_ptr(),
-            u_or.data_ptr(), src_max.data_ptr(), m_or.data_ptr(), cnt_rows.data_ptr(),
-            n, F, Wt, Wm, R, stream,
+            ym_p.data_ptr(), ym_p.stride(0), yu_p.data_ptr(), yu_p.stride(0),
+            infected_from.data_ptr(), infected_from.stride(0),
+            inv.data_ptr(), rumor_origin.data_ptr(),
+            u_or.data_ptr(), src_max.data_ptr(), m_or.data_ptr(), cnt.data_ptr(),
+            n, F, Wm, R, int(path == "vector"), f_template, stream,
         )
     if err != 0:
         raise RuntimeError(f"delivery_combine kernel launch failed: cudaError {err}")
     delivery_combine.launches += 1
-    return u_or.view(torch.bool), src_max, m_or, cnt_rows.sum(dtype=torch.int32)
+    return u_or.view(torch.bool), src_max, m_or, cnt
 
 
 delivery_combine.launches = 0

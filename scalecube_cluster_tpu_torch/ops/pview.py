@@ -821,7 +821,6 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
     n = state.capacity
     m = params.mr_pool
     F = params.fanout
-    R = params.rumor_slots
     spread = params.spread_ticks
     W = words_for(m)
     dev = state.device
@@ -856,8 +855,6 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
         state, r.gossip_try, F, params.sample_tries, params.active_slots
     )
     yu_p = pack_bits(young_u)
-    Wm = ym_p.shape[1]
-    payload = torch.cat([ym_p, yu_p, state.infected_from], dim=1).contiguous()
 
     sender_has = young_u.any(dim=1) | (ym_p != 0).any(dim=1)
     p_all = peers.T.contiguous()  # [F, N]
@@ -874,8 +871,9 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
     inv.scatter_reduce_(
         1, p_all.long(), torch.where(ok_all, rows_b, -1), "amax", include_self=True
     )
+    # the kernel reads the three sender planes in place: no payload copy
     recv_u, recv_src, recv_m_p, rumor_sent = delivery.delivery_combine(
-        payload, inv, state.rumor_origin.contiguous(), Wm, R
+        ym_p, yu_p, state.infected_from, inv, state.rumor_origin.contiguous()
     )
 
     newly_u = recv_u & ~state.infected & state.up[:, None] & state.rumor_active[None, :]
