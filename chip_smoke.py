@@ -2,9 +2,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the partial-view engine's fused tick window
-at 1,048,576 members — on the card, and fails (non-zero exit, no result
-line) unless every phase passes:
+Drives the port's main paths — the partial-view engine's tick window and
+``SimDriver`` over it, both at 1,048,576 members — on the card, and fails (non-zero exit, no result line) unless every phase passes:
 
 1. device   — a CUDA device is present; prints its name and power limit;
 2. build    — builds the port's CUDA kernel with nvcc; prints ptxas's
@@ -12,16 +11,29 @@ line) unless every phase passes:
 3. kernels  — each kernel against its plain PyTorch version on random
    inputs at the main path's shapes, and at shapes that reach its other
    compiled variants: bit-equal outputs, timed beside the byte bound;
-4. window   — a 4,096-member, 40-tick window on the CPU (plain versions)
-   and on the card (kernels) from the same draws: equal state and metrics;
+4. window   — a 4,096-member, 40-tick fused window on the CPU (plain
+   versions) and on the card (kernels) from the same draws: equal state
+   and metrics;
 5. main path — the 1M-member scenario (warm start, 8 live rumors, a crash
-   wave of 1,024 rows): one warm-up window, then a timed 10-tick window
-   with draws from a CUDA generator; launch counts are zeroed just before
-   it and read just after, and the window's invariants are checked; two
-   more ticks count the operations that wait for the device;
-6. profile  — three more ticks under ``torch.profiler``: the device's busy
-   share, each phase's device and host time, and the kernel's own device
-   time per tick.
+   wave of 1,024 rows): one warm-up window, then a timed 10-tick fused
+   window with draws from a CUDA generator; launch counts are zeroed just
+   before it and read just after, and the window's invariants are checked;
+   two more ticks count the operations that wait for the device;
+6. profile  — three more fused ticks under ``torch.profiler``: the
+   device's busy share, each phase's device and host time, and the
+   kernel's own device time per tick;
+7. driver-window — a 4,096-member ``SimDriver`` script (spreads, a crash,
+   a join, a leave, metadata bumps, a partition and its heal, two watched
+   rows) on the CPU and on the card from the same draws: equal state,
+   per-tick metrics and event logs;
+8. driver   — the driver main path: ``SimDriver`` on the card at 1M (the
+   config11 widths; warm start, 8 rumors through ``spread_rumor``, a crash
+   wave of 1,024 rows through ``crash``, a ``join``, a ``leave``, two
+   watched rows), a 5-tick warm-up, then three timed ``step(10)`` windows
+   and ``sync()``, with the launch counts zeroed just before and read just
+   after; then three ticks profiled by phase, as in phase 6;
+9. checkpoint — a 65,536-member driver: ``step(5)``, ``checkpoint``,
+   ``step(10)``, ``restore``, ``step(10)``: both trajectories bit-equal.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -30,10 +42,12 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -338,29 +352,30 @@ PHASES = ("_fd_phase", "_maintenance_sweep", "_gossip_phase_fused", "_sync_phase
           "_refute_phase", "_rumor_sweeps_fused", "alloc_phase", "state_metrics")
 
 
-def profile_phases(st, gen, params, ticks: int = 3) -> None:
-    """Where a tick's time goes: ``torch.profiler`` over ``ticks`` more
-    ticks of the main path, each phase of the tick inside a labelled range.
-    Prints the wall time per tick, the device's busy share, each phase's
-    device and host time, and the kernels that took the most device time."""
+def profile_phases(run, phases, ticks: int = 3, label: str = "profile") -> None:
+    """Where a tick's time goes: ``torch.profiler`` over ``run()``, which
+    runs ``ticks`` more ticks of a main path, each function of ``phases``
+    (in ``ops/pview.py``) inside a labelled range. Prints the wall time per
+    tick, the device's busy share, each phase's device and host time, and
+    the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from scalecube_cluster_tpu_torch.ops import pview as PV
 
     def labelled(name, fn):
-        def run(*args, **kwargs):
+        def run_labelled(*args, **kwargs):
             with record_function(f"phase:{name.strip('_')}"):
                 return fn(*args, **kwargs)
-        return run
+        return run_labelled
 
-    saved = {name: getattr(PV, name) for name in PHASES}
+    saved = {name: getattr(PV, name) for name in phases}
     try:
         for name, fn in saved.items():
             setattr(PV, name, labelled(name, fn))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            PV.run_pview_ticks_fused(st, gen, ticks, params)
+            run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     finally:
@@ -381,22 +396,240 @@ def profile_phases(st, gen, params, ticks: int = 3) -> None:
         device_us += max(0, b - max(a, reach))
         reach = max(reach, b)
     if device_us == 0:
-        phase("profile", f"{ticks} ticks: {wall_us / ticks / 1e3:.2f} ms/tick wall; device time "
-                         "not measured (the profiler recorded no device activity)")
+        phase(label, f"{ticks} ticks: {wall_us / ticks / 1e3:.2f} ms/tick wall; device time "
+                     "not measured (the profiler recorded no device activity)")
         return
-    phase("profile", f"{ticks} ticks: {wall_us / ticks / 1e3:.2f} ms/tick wall, device busy "
-                     f"{device_us / ticks / 1e3:.2f} ms/tick, idle share {1 - device_us / wall_us:.3f}")
+    phase(label, f"{ticks} ticks: {wall_us / ticks / 1e3:.2f} ms/tick wall, device busy "
+                 f"{device_us / ticks / 1e3:.2f} ms/tick, idle share {1 - device_us / wall_us:.3f}")
     for name in sorted(host, key=lambda k: -host[k]):
-        phase("profile", f"{name}: host {host[name] / ticks / 1e3:.3f} ms/tick, device span "
-                         f"{span.get(name, 0) / ticks / 1e3:.3f} ms/tick")
+        phase(label, f"{name}: host {host[name] / ticks / 1e3:.3f} ms/tick, device span "
+                     f"{span.get(name, 0) / ticks / 1e3:.3f} ms/tick")
     kernels = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
                       if e.self_device_time_total > 0 and not e.key.startswith(("phase:", "aten::"))),
                      reverse=True)
     for us, key, count in kernels[:8]:
-        phase("profile", f"top kernel {key[:90]}: {us / ticks / 1e3:.3f} ms/tick ({count} launches)")
+        phase(label, f"top kernel {key[:90]}: {us / ticks / 1e3:.3f} ms/tick ({count} launches)")
     ours = [(us, count) for us, key, count in kernels if "delivery_combine_kernel" in key]
-    phase("profile", f"delivery_combine_kernel: {sum(u for u, _ in ours) / ticks / 1e3:.4f} "
-                     f"ms/tick device time ({sum(c for _, c in ours)} launches in {ticks} ticks)")
+    phase(label, f"delivery_combine_kernel: {sum(u for u, _ in ours) / ticks / 1e3:.4f} "
+                 f"ms/tick device time ({sum(c for _, c in ours)} launches in {ticks} ticks)")
+
+
+def state_differences(a, b) -> list:
+    """Names of the state leaves in which two states differ."""
+    from scalecube_cluster_tpu_torch import convert
+
+    a, b = convert.state_to_numpy(a), convert.state_to_numpy(b)
+    return [k for k in a if not np.array_equal(a[k], b[k])]
+
+
+class DrawList:
+    """A driver's ``draws`` source over a fixed list of per-tick draws, made
+    on the CPU: each window takes the next ticks' pairs."""
+
+    def __init__(self, draws):
+        self.draws, self.pos = draws, 0
+
+    def __call__(self, n_ticks: int):
+        out = self.draws[self.pos:self.pos + n_ticks]
+        self.pos += n_ticks
+        return out
+
+
+def cpu_draws(params, ticks: int, seed: int) -> list:
+    from scalecube_cluster_tpu_torch.ops import rand as PR
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return [(PR.draw_sparse_fd(gen, params.capacity, params.ping_req_k, params.sample_tries),
+             PR.draw_sparse_round(gen, params.capacity, params.fanout, params.sample_tries))
+            for _ in range(ticks)]
+
+
+def driver_script(d, n: int) -> None:
+    """The driver-window script: two watched rows, spreads, a crash, a
+    join, a leave, metadata bumps, a partition and its heal (40 ticks)."""
+    for row in (0, n // 3):
+        d.watch(row)
+    for s in range(d.params.rumor_slots):
+        d.spread_rumor((s * 997) % n, f"rumor {s}")
+    for r in range(n // 2, n // 2 + max(2, n // 1024)):
+        d.crash(r)
+    d.step(10)
+    d.join()
+    d.leave(7)
+    d.update_metadata(11)
+    d.update_metadata_batch([11, 12, 13])
+    d.step(13)
+    halves = (list(range(n // 2)), list(range(n // 2, n)))
+    d.block_partition(*halves)
+    d.step(10)
+    d.heal_partition(*halves)
+    d.step(7)
+
+
+def check_driver_window(device, n: int = 4096) -> None:
+    """The ``n``-member driver script on the CPU and on the card from the
+    same draws."""
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    ticks = 40
+    params = config16_params(n)
+    draws = cpu_draws(params, ticks, seed=13)
+    drivers = []
+    for dev in ("cpu", device):
+        d = SimDriver(params, n, seed=0, record_metrics=True, device=dev, draws=DrawList(draws))
+        driver_script(d, n)
+        drivers.append(d)
+    a, b = drivers
+    bad = state_differences(a.state, b.state)
+    if len(a.metrics_history) != ticks or len(b.metrics_history) != ticks:
+        bad.append("metrics history length")
+    for i, (ma, mb) in enumerate(zip(a.metrics_history, b.metrics_history)):
+        for k, va in ma.items():
+            vb = mb[k]
+            if va.dtype == np.float32:
+                if np.abs(va.view(np.int32).astype(np.int64) - vb.view(np.int32).astype(np.int64)).max() > 2:
+                    bad.append(f"metric {k} at tick {i}")
+            elif not np.array_equal(va, vb):
+                bad.append(f"metric {k} at tick {i}")
+    events = {}
+    for row in a._watches:
+        ea = [(e.type.value, e.member.id) for e in a.events_of(row)]
+        eb = [(e.type.value, e.member.id) for e in b.events_of(row)]
+        if ea != eb:
+            bad.append(f"events of row {row}")
+        events[row] = len(ea)
+    if a.health_counters != b.health_counters:
+        bad.append("health counters")
+    if bad:
+        raise AssertionError(f"CPU and card drivers differ in: {sorted(set(bad))}")
+    hist = a.metrics_history
+    phase("driver-window", f"N={n}, {ticks} ticks through SimDriver: every state leaf, per-tick metric "
+                           f"and event log equal on CPU and {device}; events per watched row {events}, "
+                           f"mr_accepts {sum(int(m['mr_accepts']) for m in hist)}, sync_roundtrips "
+                           f"{sum(int(m['sync_roundtrips']) for m in hist)}, rumor_deliveries "
+                           f"{sum(int(m['rumor_deliveries']) for m in hist)}")
+
+
+def main_path_driver(device):
+    """The driver main path's scenario at N_MAIN: the config11 widths
+    (benchmarks/config11_pview.py), a warm start, 8 rumors through
+    ``spread_rumor``, a crash wave of N/1024 rows through ``crash``, one
+    ``join``, one ``leave``, two watched rows. Returns (driver, rumor
+    slots, watched rows)."""
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    n = N_MAIN
+    params = config16_params(n)
+    d = SimDriver(params, n, warm=True, seed=0, device=device)
+    slots = [d.spread_rumor((s * 997) % n, f"rumor {s}") for s in range(params.rumor_slots)]
+    for r in range(n // 2, n // 2 + n // 1024):
+        d.crash(r)
+    d.join()
+    d.leave(777)
+    watched = (0, n // 3)
+    for row in watched:
+        d.watch(row)
+    return d, slots, watched
+
+
+def run_driver_path(device) -> dict:
+    """SimDriver at 1M on the card: the driver main path."""
+    from scalecube_cluster_tpu_torch.ops import _tensor, delivery
+
+    n = N_MAIN
+    n_crash = n // 1024
+    t0 = time.perf_counter()
+    d, slots, watched = main_path_driver(device)
+    torch.cuda.synchronize()
+    phase("driver", f"N={n} driver built, 8 rumors spread, {n_crash} rows crashed, a row joined, "
+                    f"row 777 leaving, rows {watched} watched: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    d.step(5)
+    d.sync()
+    phase("driver", f"warm-up step(5): {time.perf_counter() - t0:.2f} s")
+
+    windows, per = 3, 10
+    ticks = windows * per
+    readbacks = d.dispatch_stats["readbacks"]
+    torch.cuda.reset_peak_memory_stats()
+    delivery.delivery_combine.launches = 0
+    _tensor.HOST_SYNCS.count = 0
+    t0 = time.perf_counter()
+    for _ in range(windows):
+        last = d.step(per)
+    d.sync()
+    wall = time.perf_counter() - t0
+    launches = delivery.delivery_combine.launches
+    flags = _tensor.HOST_SYNCS.count
+    peak = torch.cuda.max_memory_allocated()
+    readbacks = d.dispatch_stats["readbacks"] - readbacks
+
+    if launches != ticks:
+        raise AssertionError(f"{launches} delivery_combine launches in {ticks} driver ticks, expected {ticks}")
+    n_up = int(last["n_up"])
+    if n_up != n - n_crash + 1:
+        raise AssertionError(f"n_up {n_up} != {n - n_crash + 1}")
+    ids = d.state.nbr_id
+    rows = torch.arange(n, device=ids.device, dtype=ids.dtype)[:, None]
+    if bool(((ids >= 0) & (ids == rows)).any()):
+        raise AssertionError("a row tables itself")
+    srt = ids.sort(dim=1).values
+    if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
+        raise AssertionError("a row tables one member twice")
+    cov = [d.rumor_coverage(s) for s in slots]
+    if not all(np.isfinite(c) and 0.0 < c <= 1.0 for c in cov):
+        raise AssertionError(f"rumor coverage out of range: {cov}")
+    events = {row: len(d.events_of(row)) for row in watched}
+    kinds = sorted({e.type.value for row in watched for e in d.events_of(row)})
+    snap = d.health_snapshot()
+    phase("driver", f"N={n}, {windows} x step({per}): {wall / ticks * 1e3:.2f} ms/tick, peak allocated "
+                    f"{peak / 2 ** 30:.2f} GiB, delivery_combine launches {launches} in {ticks} ticks, "
+                    f"branch-flag reads {flags} ({flags / ticks:.1f}/tick), driver readbacks {readbacks}")
+    phase("driver", f"events per watched row {events} ({kinds}), rumor_coverage "
+                    f"{[round(c, 4) for c in cov]}")
+    phase("driver", f"health_snapshot: tick {snap['tick']}, n_up {snap['n_up']}, announce "
+                    f"{snap['announce']}, pool {snap['pool']}, stale subjects "
+                    f"{snap['staleness']['stale_subjects']}, worst recent-join coverage "
+                    f"{snap['staleness']['worst_recent_join_coverage']}, dispatch {snap['dispatch']}")
+    return {"launches": launches, "driver": d}
+
+
+def check_checkpoint(device, n: int = 65_536) -> None:
+    """step(5), checkpoint, step(10), restore, step(10) on an ``n``-member
+    driver on the card: both trajectories end bit-equal, events included."""
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    params = config16_params(n)
+    d = SimDriver(params, n, seed=0, device=device)
+    for s in range(params.rumor_slots):
+        d.spread_rumor((s * 997) % n, f"rumor {s}")
+    for r in range(n // 2, n // 2 + n // 1024):
+        d.crash(r)
+    d.watch(0)
+    d.step(5)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "driver.npz")
+        t0 = time.perf_counter()
+        d.checkpoint(path)
+        ck_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        at = len(d.events_of(0))
+        d.step(10)
+        first, first_events = d.state, [(e.type, e.member.id) for e in d.events_of(0)[at:]]
+        t0 = time.perf_counter()
+        d.restore(path)
+        torch.cuda.synchronize()
+        rs_s = time.perf_counter() - t0
+    at = len(d.events_of(0))
+    d.step(10)
+    bad = state_differences(first, d.state)
+    if [(e.type, e.member.id) for e in d.events_of(0)[at:]] != first_events:
+        bad.append("events of row 0")
+    if bad:
+        raise AssertionError(f"checkpoint round trip at N={n} differs in: {bad}")
+    phase("checkpoint", f"N={n}: step(5), checkpoint ({size} bytes, {ck_s:.2f} s), step(10), restore "
+                        f"({rs_s:.2f} s), step(10): both trajectories bit-equal, "
+                        f"{len(first_events)} events each (tick {d.tick})")
 
 
 def main() -> int:
@@ -409,6 +642,7 @@ def main() -> int:
     print(nvidia_smi(), flush=True)
 
     from scalecube_cluster_tpu_torch.ops import _build
+    from scalecube_cluster_tpu_torch.ops import pview as PV
 
     t0 = time.perf_counter()
     _build.build("delivery_combine")
@@ -419,15 +653,27 @@ def main() -> int:
     kern = check_kernels(device)
     check_cross_device(device)
     main_run = run_main_path(device)
-    profile_phases(main_run["state"], main_run["gen"], main_run["params"])
+    st, gen, params = main_run["state"], main_run["gen"], main_run["params"]
+    profile_phases(lambda: PV.run_pview_ticks_fused(st, gen, 3, params), PHASES)
+    del main_run["state"], st
+    torch.cuda.empty_cache()
+
+    check_driver_window(device)
+    driver_run = run_driver_path(device)
+    profile_phases(lambda: driver_run["driver"].step(3), PHASES, label="driver-profile")
+    del driver_run["driver"]
+    torch.cuda.empty_cache()
+    check_checkpoint(device)
 
     k1m = kern[(N_MAIN, 3, 8, 64, 0)]
+    launches = {"window": main_run["launches"], "driver": driver_run["launches"]}
     print(json.dumps({"kernels": [{
         "name": "delivery_combine",
         "route": "cuda",
         "source": "scalecube_cluster_tpu_torch/csrc/delivery_combine.cu",
         "replaces": "scalecube_cluster_tpu/ops/pallas_delivery.py:251 and :282",
-        "launches": main_run["launches"],
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
         "ms": k1m["ms"],
         "plain_ms": k1m["plain_ms"],

@@ -2,14 +2,16 @@
 
 The PyTorch/CUDA counterpart of the JAX package ``scalecube_cluster_tpu``,
 module for module (``ops/lattice.py``, ``ops/rand.py``, ``ops/bitplane.py``,
-``ops/pview.py``, ...). It imports ``torch`` and numpy only: nothing of JAX
-and nothing of the JAX package, whose semantics it copies and is held
-against bit for bit by ``tests/test_torch_*.py``.
+``ops/pview.py``, ``sim/driver.py``, ...). It imports ``torch`` and numpy
+only: nothing of JAX and nothing of the JAX package, whose semantics it
+copies and is held against bit for bit by ``tests/test_torch_*.py``.
 
-What runs today is the partial-view ("pview") engine's fused tick and its
-window runner (:func:`.ops.pview.run_pview_ticks_fused`), with the gossip
-delivery combine as a hand-written CUDA kernel
-(``csrc/delivery_combine.cu``, bound in :mod:`.ops.delivery`). Entry points
-take ``device=`` and default to ``"cuda"``; pass ``device="cpu"`` to run the
-plain PyTorch versions on the host.
+What runs today is the partial-view ("pview") engine's tick and window
+runner (:func:`.ops.pview.run_pview_ticks`, the driver's window: the JAX
+package's fused tick, which gives the same state as its unfused one), with
+the gossip delivery combine as a hand-written CUDA kernel
+(``csrc/delivery_combine.cu``, bound in :mod:`.ops.delivery`), and
+:class:`.sim.SimDriver` / :class:`.sim.SimCluster` over it. Entry points take ``device=`` and default
+to ``"cuda"``; pass ``device="cpu"`` to run the plain PyTorch versions on
+the host.
 """

@@ -1,9 +1,16 @@
 """The partial-view ("pview") SWIM engine in PyTorch: O(N·k) state, no
 [N, N] plane. A port of the JAX package's ``ops/pview.py`` — its fused tick
-(``pview_tick_fused``) and fused window runner — held against it bit for bit
-(``tests/test_torch_pview_fused.py``). The JAX module's docstring carries the
-protocol account and deviations P1-P8; this file keeps its function names so
-each counterpart is easy to find.
+(``pview_tick_fused``), the window runner, and the host seams the driver
+calls — held against it bit for bit (``tests/test_torch_pview_*.py``). The
+JAX module's docstring carries the protocol account and deviations P1-P8;
+this file keeps its function names so each counterpart is easy to find.
+
+The JAX package has two spellings of the tick: ``pview_tick`` (the driver's
+window, ``make_pview_run``) and ``pview_tick_fused``, its drop-in fast
+spelling with the same trajectory. The port has one: ``pview_tick``,
+``run_pview_ticks`` and ``make_pview_run`` run the fused tick, and are held
+against the JAX unfused window and driver (``tests/test_torch_pview_unfused.py``,
+``tests/test_torch_driver.py``).
 
 What differs from the JAX spelling, and why:
 
@@ -15,15 +22,16 @@ What differs from the JAX spelling, and why:
 * Uniform draws are an input of the tick (:mod:`.rand`), not derived from a
   key inside it.
 * Packed words are int32 (see :mod:`.bitplane`); scatters with duplicate
-  indices are ``scatter_reduce_`` amax/amin elections; fixed-size
-  ``nonzero`` is a cumsum compaction; ``lax.scan`` loops are Python loops.
+  indices are ``scatter_reduce_`` amax/amin elections or integer
+  ``index_add_``; fixed-size ``nonzero`` is a cumsum compaction;
+  ``lax.scan`` loops are Python loops.
 * Wide [N, M] reductions (the early-free cover test, the membership
   segmentation metric) run over row chunks, so no [N, M] int32 temporary
   exists at 1M members.
 
-Not ported yet, and refused: ``delay_slots > 0`` (the pending rings), an
-enabled adaptive spec, non-default dissemination, mesh/ragged delivery,
-trace capture, fleet windows and the unfused ``pview_tick``.
+Not ported yet, and refused: ``delay_slots > 0`` (the pending rings,
+ROADMAP A2), an enabled adaptive spec (A8), non-default dissemination (A8),
+mesh/ragged delivery (A12), trace capture (A10) and fleet windows (A9).
 """
 
 from __future__ import annotations
@@ -118,7 +126,7 @@ class PviewParams:
             raise ValueError(f"partition_groups must be >= 3: got G={self.partition_groups}")
         if self.delay_slots:
             raise NotImplementedError(
-                "delay_slots > 0 (the pending delivery rings) is not ported yet"
+                "delay_slots > 0 (the pending delivery rings) is not ported yet (ROADMAP A2)"
             )
 
     @property
@@ -446,6 +454,121 @@ def set_uniform_loss(state: PviewState, loss, floor: bool = False) -> PviewState
     if floor:
         new = torch.maximum(state.loss, new)
     return state.replace(loss=new.reshape(()))
+
+
+def _part_cell(rows) -> int:
+    """Deterministic partition-cell id for a host-side row group: cells are
+    hashed from the group's minimum row into [1, G). Two simultaneous
+    partitions whose groups hash to the same cell merge (documented bound;
+    G is ``PviewParams.partition_groups``)."""
+    return int(min(int(r) for r in rows))
+
+
+def _cells_for(state: PviewState, group_a, group_b) -> tuple[int, int]:
+    g = state.part_loss.shape[0]
+    ra, rb = _part_cell(group_a), _part_cell(group_b)
+    ca = 1 + (ra % (g - 1))
+    cb = 1 + (rb % (g - 1))
+    if ca == cb:
+        # order-independent collision remap: bump the group with the LARGER
+        # raw min row, so (a, b) and (b, a) resolve to the same cell pair
+        # and the heal path reaches both directions
+        if ra <= rb:
+            cb = 1 + (cb % (g - 1))
+        else:
+            ca = 1 + (ca % (g - 1))
+    return ca, cb
+
+
+def _rows_index(rows, device) -> torch.Tensor:
+    return torch.as_tensor(list(np.atleast_1d(np.asarray(rows))), dtype=torch.int64, device=device)
+
+
+def block_partition(state: PviewState, group_a, group_b) -> PviewState:
+    ca, cb = _cells_for(state, group_a, group_b)
+    part = state.part_id.clone()
+    part[_rows_index(group_a, state.device)] = ca
+    part[_rows_index(group_b, state.device)] = cb
+    pl = state.part_loss.clone()
+    pl[ca, cb] = 1.0
+    pl[cb, ca] = 1.0
+    return state.replace(part_id=part, part_loss=pl)
+
+
+def set_link_loss(state: PviewState, src, dst, loss) -> PviewState:
+    """Group-pair loss only (the partition heal path): ``src``/``dst`` must
+    be the row groups of an earlier :func:`block_partition`. Arbitrary
+    per-link loss needs an [N, N] plane, which this engine bans."""
+    src = list(np.atleast_1d(np.asarray(src)))
+    dst = list(np.atleast_1d(np.asarray(dst)))
+    ca, cb = _cells_for(state, src, dst)
+    return state.replace(part_loss=_set(state.part_loss, (ca, cb), float(np.float32(loss))))
+
+
+def heal_partition(state: PviewState, group_a, group_b) -> PviewState:
+    s = set_link_loss(state, group_a, group_b, 0.0)
+    return set_link_loss(s, group_b, group_a, 0.0)
+
+
+def set_link_delay(state: PviewState, src, dst, mean_delay_ticks: float):
+    raise ValueError(
+        "per-link delay needs an [N, N] plane; the pview engine supports "
+        "uniform delay only (init_pview_state(uniform_delay=...))"
+    )
+
+
+def snapshot(state: PviewState) -> dict:
+    """Every state leaf as a numpy array (``tick`` a 0-d int32), keyed by
+    name: the checkpoint layout of the JAX package's ``snapshot``."""
+    from .. import convert
+
+    return convert.state_to_numpy(state)
+
+
+def restore(arrays: dict, device="cuda") -> PviewState:
+    """The inverse of :func:`snapshot`, onto ``device``; the leaves are
+    copied, never aliased to the caller's buffers. A set of names that is
+    not exactly the state's raises ``TypeError``, as constructing the JAX
+    state from them does."""
+    from .. import convert
+
+    names = {f.name for f in dataclasses.fields(PviewState)}
+    if set(arrays) != names:
+        raise TypeError(
+            f"state planes do not match PviewState: missing {sorted(names - set(arrays))}, "
+            f"unexpected {sorted(set(arrays) - names)}"
+        )
+    return convert.state_from_numpy(arrays, device=device)
+
+
+def remembered_rows(state: PviewState) -> torch.Tensor:
+    """[N] bool — rows some up member still holds a record about (tables
+    only; the driver's prefer-forgotten-rows join policy)."""
+    n = state.capacity
+    held = state.up[:, None] & (state.nbr_id >= 0)
+    idx = torch.where(held, state.nbr_id, n).reshape(-1)
+    return scatter_reduce_1d(n, idx, held.reshape(-1), "amax", 0, torch.int32) > 0
+
+
+def staleness(state: PviewState):
+    """Per-subject count of up observers holding a STALE record (identity/
+    incarnation below the subject's own) — table edges only (unknown
+    observers are not counted stale: a partial view is not staleness).
+    Returns (int32 [N], the up count)."""
+    n = state.capacity
+    keys = _keys_i32(state)
+    sid = state.nbr_id
+    sidc = sid.clamp(min=0)
+    stale_edge = (
+        (sid >= 0)
+        & state.up[:, None]
+        & state.up[sidc]
+        & ((keys >> 2) < (state.self_key[sidc] >> 2))
+    )
+    # integer addition is exact in any order, duplicates included
+    stale = torch.zeros((n + 1,), dtype=torch.int32, device=state.device)
+    stale.index_add_(0, torch.where(stale_edge, sid, n).reshape(-1), stale_edge.reshape(-1).to(torch.int32))
+    return stale[:n], state.up.sum()
 
 
 def view_rows(state: PviewState, rows) -> torch.Tensor:
@@ -1234,6 +1357,8 @@ def run_pview_ticks_fused(state: PviewState, draws, n_ticks: int, params: PviewP
     gen = draws if isinstance(draws, torch.Generator) else None
     if gen is not None and gen.device.type != state.device.type:
         raise ValueError(f"generator on {gen.device}, state on {state.device}")
+    if gen is None and len(draws) != n_ticks:
+        raise ValueError(f"{len(draws)} per-tick draws for a {n_ticks}-tick window")
     per_tick, watched = [], []
     for t in range(n_ticks):
         if gen is not None:
@@ -1260,3 +1385,20 @@ def make_pview_fused_run(params: PviewParams, n_ticks: int):
         return run_pview_ticks_fused(state, draws, n_ticks, params, watch_rows)
 
     return run
+
+
+def pview_tick(state: PviewState, fd_r, round_r: SparseRoundRandoms, params: PviewParams,
+               trace=None, ad=None):
+    """One gossip period (the JAX ``pview_tick``): the fused tick, whose
+    state and metrics are the unfused tick's. ``trace`` and ``ad`` are
+    refused until their planes are ported. Returns ``(state, metrics)``."""
+    if trace is not None:
+        raise NotImplementedError("trace capture on the pview tick is not ported yet (ROADMAP A10)")
+    if ad is not None:
+        raise NotImplementedError("the adaptive failure-detection plane is not ported yet (ROADMAP A8)")
+    return pview_tick_fused(state, fd_r, round_r, params)
+
+
+# The JAX names of the driver's window: the same runners as the fused ones.
+run_pview_ticks = run_pview_ticks_fused
+make_pview_run = make_pview_fused_run
