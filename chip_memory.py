@@ -1,6 +1,8 @@
-"""Device memory of the port's main path, phase by phase, on one NVIDIA GPU.
+"""Device memory of the port's main paths, phase by phase, on one NVIDIA GPU.
 
-    python3 chip_memory.py [--ticks 12]
+    python3 chip_memory.py [--ticks 12] [--sparse-seconds 2] [--path all|pview|sparse]
+
+The pview path (``--path pview``):
 
 Builds chip_smoke's 1M-member scenario from the same seeds, runs the same
 5-tick warm-up, then ``--ticks`` more ticks (chip_smoke's timed window and
@@ -18,6 +20,15 @@ Four variants run in turn, each from a fresh state:
 For each variant it prints the window's peak and the phase and tick that
 set it, each phase's largest rise above the memory live when it began, and
 the ticks on which the pool's eviction branch counted need and cover.
+
+The sparse path (``--path sparse``): chip_smoke's sparse main path
+(config5's churn run at 49,152 members) from the same seeds, its 2-second
+warm-up, then ``--sparse-seconds`` more simulated seconds (5 ticks each,
+the second's crashes and ``join_rows`` first) with every phase of the tick
+and both churn mutators bracketed the same way. Two variants: the passes
+over the [N, N] view plane and the per-cell [N, M] apply in row chunks of
+at most ``PLANE_CHUNK_CELLS`` cells, as the package runs them, or each in
+one chunk (the whole plane at once).
 """
 
 from __future__ import annotations
@@ -114,9 +125,71 @@ def run_variant(device, ticks: int, chunked: bool, sync_debug: bool) -> None:
               f"(tick {rise[name][1]})", flush=True)
 
 
+def run_sparse_variant(device, seconds: int, chunked: bool) -> None:
+    from scalecube_cluster_tpu_torch.ops import _tensor
+    from scalecube_cluster_tpu_torch.ops import sparse as SP
+
+    n = CS.N_SPARSE
+    params = CS.config5_params(n)
+    churn, crash, join = CS.churn_schedule(n, 2 + seconds, params.seed_rows)
+    st = SP.init_sparse_state(params, n - churn, warm=True, device=device)
+    gen = torch.Generator(device=device).manual_seed(11)
+    for sec in range(2):
+        st, _ = CS.churn_second(st, params, crash[sec], join[sec], gen)
+    torch.cuda.synchronize()
+    start_live = torch.cuda.memory_allocated()
+    rise = {}
+    top = {"peak": 0, "phase": None, "tick": None}
+
+    def bracket(name, fn):
+        def run(state, *args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = fn(state, *args, **kwargs)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            if peak - base > rise.get(name, (-1, None))[0]:
+                rise[name] = (peak - base, state.tick)
+            if peak > top["peak"]:
+                top.update(peak=peak, phase=name, tick=state.tick)
+            return out
+        return run
+
+    names = CS.SPARSE_PHASES + ("join_rows", "crash_rows")
+    saved = {name: getattr(SP, name) for name in names}
+    saved_cells = _tensor.PLANE_CHUNK_CELLS
+    t0 = time.perf_counter()
+    try:
+        for name, fn in saved.items():
+            setattr(SP, name, bracket(name, fn))
+        if not chunked:
+            _tensor.PLANE_CHUNK_CELLS = n * n
+        for sec in range(2, 2 + seconds):
+            st, ms = CS.churn_second(st, params, crash[sec], join[sec], gen)
+    finally:
+        for name, fn in saved.items():
+            setattr(SP, name, fn)
+        _tensor.PLANE_CHUNK_CELLS = saved_cells
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ticks = seconds * CS.TICKS_PER_SECOND
+    label = "row-chunked" if chunked else "whole-plane"
+    print(f"[memory] sparse N={n}, {label} view-plane and apply passes: ticks {st.tick - ticks + 1}-{st.tick}, "
+          f"live at start {start_live / GIB:.2f} GiB, window peak {top['peak'] / GIB:.2f} GiB in {top['phase']} "
+          f"at tick {top['tick']}; {wall / ticks * 1e3:.2f} ms/tick with every phase synchronized", flush=True)
+    for name in sorted(rise, key=lambda k: -rise[k][0]):
+        print(f"[memory]   {name}: largest rise {rise[name][0] / GIB:.2f} GiB above its start "
+              f"(tick {rise[name][1]})", flush=True)
+    del st
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=12)
+    ap.add_argument("--sparse-seconds", type=int, default=2)
+    ap.add_argument("--path", choices=("all", "pview", "sparse"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_memory: no CUDA device", file=sys.stderr)
@@ -124,9 +197,13 @@ def main() -> int:
     device = torch.device("cuda", 0)
     print(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}", flush=True)
     print(CS.nvidia_smi(), flush=True)
-    for chunked in (True, False):
-        for sync_debug in (False, True):
-            run_variant(device, args.ticks, chunked, sync_debug)
+    if args.path in ("all", "pview"):
+        for chunked in (True, False):
+            for sync_debug in (False, True):
+                run_variant(device, args.ticks, chunked, sync_debug)
+    if args.path in ("all", "sparse"):
+        for chunked in (True, False):
+            run_sparse_variant(device, args.sparse_seconds, chunked)
     return 0
 
 

@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port's main paths — the partial-view engine's tick window and
-``SimDriver`` over it, both at 1,048,576 members — on the card, and fails (non-zero exit, no result line) unless every phase passes:
+``SimDriver`` over it, both at 1,048,576 members, and the sparse engine's
+window and ``SimDriver`` over it at 49,152 members — on the card, and fails
+(non-zero exit, no result line) unless every phase passes:
 
 1. device   — a CUDA device is present; prints its name and power limit;
 2. build    — builds the port's CUDA kernel with nvcc; prints ptxas's
@@ -33,7 +35,26 @@ Drives the port's main paths — the partial-view engine's tick window and
    and ``sync()``, with the launch counts zeroed just before and read just
    after; then three ticks profiled by phase, as in phase 6;
 9. checkpoint — a 65,536-member driver: ``step(5)``, ``checkpoint``,
-   ``step(10)``, ``restore``, ``step(10)``: both trajectories bit-equal.
+   ``step(10)``, ``restore``, ``step(10)``: both trajectories bit-equal;
+10. sparse-window — a 4,096-member, 40-tick sparse window with dense links
+   (a crash wave, user rumors, a ``join_rows`` batch with rejoins, a
+   partition and its heal) on the CPU and on the card from the same draws:
+   equal state and metrics;
+11. sparse-main — the sparse main path: config5's churn run at 49,152
+   members (``benchmarks/config5_churn.py:sparse_main``: 1% of the members
+   crash and as many join every simulated second of 5 ticks), 2 simulated
+   seconds of warm-up, then 6 timed seconds (30 ticks) with draws from a
+   CUDA generator, launch counts zeroed just before and read just after;
+   ms/tick, the realtime factor, peak memory, flag reads, launches, and the
+   invariants (``n_live`` against a recount, unique pool subjects);
+12. sparse-profile — 5 more ticks, an FD tick and a sweep tick among them,
+   under ``torch.profiler``, as in phase 6;
+13. sparse-driver-window — phase 7's driver script on sparse params with
+   dense links, on the CPU and on the card: equal;
+14. sparse-driver — ``SimDriver`` on the card at 49,152 (config5's widths;
+   2 rumors through ``spread_rumor``, a crash wave of 491 rows through
+   ``crash``, 8 joins, two watched rows): a 5-tick warm-up, then three
+   timed ``step(10)`` windows, launch counts zeroed before and read after.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -60,11 +81,15 @@ KERNEL_SHAPES = (65_536, 100_003, N_MAIN)  # the slice's N, one with N % 32 != 0
 # inputs that reach the kernel's other compiled variants; ``variant`` is
 # what delivery.instantiation must pick (f_template 0: runtime F), and
 # ym_offset > 0 starts ym_p that many words into its rows
+N_SPARSE = 49_152
+SPARSE_CASE = (N_SPARSE, 3, 2, 96, 0)  # the sparse path: 2 rumors, a 3,072-slot pool
 KERNEL_CASES = tuple((n, 3, 8, 64, 0, ("vector", 3)) for n in KERNEL_SHAPES) + (
+    SPARSE_CASE + (("vector", 3),),
     (100_003, 1, 33, 5, 0, ("scalar", 1)),  # Wm % 4 != 0, R > 32
     (65_536, 6, 8, 64, 0, ("vector", 0)),   # F above the templates
     (65_536, 3, 8, 64, 1, ("scalar", 3)),   # ym_p's base off 16 bytes
 )
+TICKS_PER_SECOND = 5  # config5's simulated second
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 
 
@@ -352,15 +377,18 @@ PHASES = ("_fd_phase", "_maintenance_sweep", "_gossip_phase_fused", "_sync_phase
           "_refute_phase", "_rumor_sweeps_fused", "alloc_phase", "state_metrics")
 
 
-def profile_phases(run, phases, ticks: int = 3, label: str = "profile") -> None:
+def profile_phases(run, phases, ticks: int = 3, label: str = "profile", module=None) -> None:
     """Where a tick's time goes: ``torch.profiler`` over ``run()``, which
     runs ``ticks`` more ticks of a main path, each function of ``phases``
-    (in ``ops/pview.py``) inside a labelled range. Prints the wall time per
-    tick, the device's busy share, each phase's device and host time, and
-    the kernels that took the most device time."""
+    (in ``module``, by default ``ops/pview.py``) inside a labelled range.
+    Prints the wall time per tick, the device's busy share, each phase's
+    device and host time, and the kernels that took the most device
+    time."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from scalecube_cluster_tpu_torch.ops import pview as PV
+    from scalecube_cluster_tpu_torch.ops import pview
+
+    PV = module or pview
 
     def labelled(name, fn):
         def run_labelled(*args, **kwargs):
@@ -466,17 +494,20 @@ def driver_script(d, n: int) -> None:
     d.step(7)
 
 
-def check_driver_window(device, n: int = 4096) -> None:
+def check_driver_window(device, n: int = 4096, params=None, label: str = "driver-window",
+                        dense_links=None) -> None:
     """The ``n``-member driver script on the CPU and on the card from the
-    same draws."""
+    same draws (``params``: the pview 1M configuration's widths by
+    default)."""
     from scalecube_cluster_tpu_torch.sim import SimDriver
 
     ticks = 40
-    params = config16_params(n)
+    params = params or config16_params(n)
     draws = cpu_draws(params, ticks, seed=13)
     drivers = []
     for dev in ("cpu", device):
-        d = SimDriver(params, n, seed=0, record_metrics=True, device=dev, draws=DrawList(draws))
+        d = SimDriver(params, n, seed=0, record_metrics=True, device=dev, draws=DrawList(draws),
+                      dense_links=dense_links)
         driver_script(d, n)
         drivers.append(d)
     a, b = drivers
@@ -503,7 +534,7 @@ def check_driver_window(device, n: int = 4096) -> None:
     if bad:
         raise AssertionError(f"CPU and card drivers differ in: {sorted(set(bad))}")
     hist = a.metrics_history
-    phase("driver-window", f"N={n}, {ticks} ticks through SimDriver: every state leaf, per-tick metric "
+    phase(label, f"N={n}, {ticks} ticks through SimDriver: every state leaf, per-tick metric "
                            f"and event log equal on CPU and {device}; events per watched row {events}, "
                            f"mr_accepts {sum(int(m['mr_accepts']) for m in hist)}, sync_roundtrips "
                            f"{sum(int(m['sync_roundtrips']) for m in hist)}, rumor_deliveries "
@@ -631,6 +662,259 @@ def check_checkpoint(device, n: int = 65_536) -> None:
                         f"({rs_s:.2f} s), step(10): both trajectories bit-equal, "
                         f"{len(first_events)} events each (tick {d.tick})")
 
+# -- the sparse engine -----------------------------------------------------------
+
+
+def config5_params(n: int, **over):
+    """config5's churn configuration (benchmarks/config5_churn.py:sparse_main)
+    at ``n`` members: pool of max(1024, n / 16) slots."""
+    from scalecube_cluster_tpu_torch.ops.sparse import SparseParams
+
+    knobs = dict(fanout=3, repeat_mult=3, ping_req_k=3, fd_every=5, sync_every=150,
+                 suspicion_mult=5, rumor_slots=2, mr_slots=max(1024, n // 16),
+                 announce_slots=1024, seed_rows=(0, 1, 2, 3))
+    return SparseParams(capacity=n, **{**knobs, **over})
+
+
+def churn_schedule(n: int, seconds: int, seed_rows):
+    """config5's host-side churn schedule at its default 1% per simulated
+    second: that many members (``churn``) crash — up rows other than the
+    seeds, drawn by ``np.random.default_rng(0)`` — and as many free rows
+    join. The run starts with ``n - churn`` members up. Returns (churn,
+    crash rows per second, join rows per second)."""
+    churn = max(1, n // 100)
+    rng = np.random.default_rng(0)
+    up = np.arange(n) < n - churn
+    free = [int(r) for r in np.nonzero(~up)[0]]
+    seeds = set(int(s) for s in seed_rows)
+    crash, join = [], []
+    for _ in range(seconds):
+        up_rows = np.asarray([r for r in np.nonzero(up)[0] if int(r) not in seeds], np.int32)
+        c = rng.choice(up_rows, size=churn, replace=False)
+        j = np.asarray(free[:churn], np.int32)
+        free = free[churn:]
+        crash.append(c)
+        join.append(j)
+        up[c] = False
+        up[j] = True
+        free.extend(int(r) for r in c)
+    return churn, crash, join
+
+
+def churn_second(st, params, crash, join, draws):
+    """One simulated second of config5: the second's crashes, its joins,
+    then 5 ticks. Returns (state, stacked metrics)."""
+    from scalecube_cluster_tpu_torch.ops import sparse as SP
+
+    st = SP.join_rows(SP.crash_rows(st, crash), join, params.seed_rows)
+    st, ms, _ = SP.run_sparse_ticks(st, draws, TICKS_PER_SECOND, params)
+    return st, ms
+
+
+def sparse_invariants(st) -> None:
+    """``n_live`` equals a recount of every up row's non-DEAD columns (row
+    chunks, int32); active pool slots carry unique subjects."""
+    from scalecube_cluster_tpu_torch.ops import _tensor
+
+    n = st.capacity
+    for lo, hi in _tensor.plane_chunks(n, n):
+        recount = ((st.view_key[lo:hi] & 3) != 3).sum(dim=1, dtype=torch.int32)
+        bad = st.up[lo:hi] & (recount != st.n_live[lo:hi])
+        if bool(bad.any()):
+            raise AssertionError(f"n_live drifts from a recount on {int(bad.sum())} up rows in [{lo}, {hi})")
+    subjects = st.mr_subject[st.mr_active]
+    if torch.unique(subjects).numel() != subjects.numel():
+        raise AssertionError("two active pool slots carry one subject")
+
+
+def check_sparse_window(device, n: int = 4096) -> None:
+    """40 sparse ticks at N = 4,096 with dense links on the CPU and on the
+    card from the same draws: config5's widths, with a 2-tick FD period, a
+    one-period suspicion timeout and a 20-tick SYNC period so that expiry
+    and anti-entropy happen inside the window."""
+    from scalecube_cluster_tpu_torch.ops import sparse as SP
+
+    ticks = 40
+    params = config5_params(n, fd_every=2, suspicion_mult=1, sync_every=20)
+    draws = cpu_draws(params, ticks, seed=17)
+    halves = (list(range(n // 2)), list(range(n // 2, n)))
+    crashed = list(range(n // 2, n // 2 + 16))
+
+    def run(dev):
+        st = SP.init_sparse_state(params, n - 8, dense_links=True, device=dev)
+        st = SP.crash_rows(SP.spread_rumor(st, 0, 5), crashed)
+        st, ms_a, _ = SP.run_sparse_ticks(st, draws[:10], 10, params)
+        st = SP.join_rows(st, [n - 8, n - 7] + crashed[:2], params.seed_rows)  # two rejoins
+        st = SP.block_partition(SP.spread_rumor(st, 1, 77), *halves)
+        st, ms_b, _ = SP.run_sparse_ticks(st, draws[10:25], 15, params)
+        st = SP.heal_partition(st, *halves)
+        st, ms_c, _ = SP.run_sparse_ticks(st, draws[25:], 15, params)
+        return st, {k: torch.cat([ms_a[k], ms_b[k], ms_c[k]]).cpu() for k in ms_a}
+
+    cpu_st, cpu_ms = run("cpu")
+    dev_st, dev_ms = run(device)
+    bad = state_differences(cpu_st, dev_st)
+    for k, va in cpu_ms.items():
+        va, vb = va.numpy(), dev_ms[k].numpy()
+        if va.dtype == np.float32:
+            if np.abs(va.view(np.int32).astype(np.int64) - vb.view(np.int32).astype(np.int64)).max() > 2:
+                bad.append(f"metric {k}")
+        elif not np.array_equal(va, vb):
+            bad.append(f"metric {k}")
+    if bad:
+        raise AssertionError(f"CPU and card sparse windows differ in: {bad}")
+    sums = {k: int(cpu_ms[k].sum()) for k in ("mr_accepts", "sync_roundtrips", "fd_new_suspects",
+                                               "rumor_deliveries", "announced", "pool_evicted")}
+    phase("sparse-window", f"N={n}, {ticks} ticks, dense links: every state leaf and metric equal on "
+                           f"CPU and {device}; {sums}")
+
+
+def run_sparse_main_path(device) -> dict:
+    """The sparse main path: config5's churn run at N_SPARSE."""
+    from scalecube_cluster_tpu_torch.ops import _tensor, delivery
+    from scalecube_cluster_tpu_torch.ops import sparse as SP
+
+    n = N_SPARSE
+    params = config5_params(n)
+    warm_s, timed_s = 2, 6
+    churn, crash, join = churn_schedule(n, warm_s + timed_s, params.seed_rows)
+    t0 = time.perf_counter()
+    st = SP.init_sparse_state(params, n - churn, warm=True, device=device)
+    torch.cuda.synchronize()
+    phase("sparse-main", f"N={n} state built in {time.perf_counter() - t0:.2f} s: view_key "
+                         f"{tuple(st.view_key.shape)} {st.view_key.dtype}, minf_age {tuple(st.minf_age.shape)}, "
+                         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated; churn {churn} "
+                         f"crashes and {churn} joins per simulated second")
+    gen = torch.Generator(device=device).manual_seed(11)
+    t0 = time.perf_counter()
+    for sec in range(warm_s):
+        st, _ = churn_second(st, params, crash[sec], join[sec], gen)
+    torch.cuda.synchronize()
+    phase("sparse-main", f"warm-up, {warm_s} simulated seconds ({warm_s * TICKS_PER_SECOND} ticks): "
+                         f"{time.perf_counter() - t0:.2f} s")
+
+    ticks = timed_s * TICKS_PER_SECOND
+    torch.cuda.reset_peak_memory_stats()
+    delivery.delivery_combine.launches = 0
+    _tensor.HOST_SYNCS.count = 0
+    t0 = time.perf_counter()
+    per_s = []
+    for sec in range(warm_s, warm_s + timed_s):
+        st, ms = churn_second(st, params, crash[sec], join[sec], gen)
+        per_s.append(ms)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = delivery.delivery_combine.launches
+    flags = _tensor.HOST_SYNCS.count
+    peak = torch.cuda.max_memory_allocated()
+    ms = {k: torch.cat([m[k] for m in per_s]).cpu() for k in per_s[0]}
+
+    if launches <= 0:
+        raise AssertionError("the sparse main path launched no delivery_combine kernel")
+    if not bool((ms["n_up"] == n - churn).all()):
+        raise AssertionError(f"n_up {ms['n_up'].tolist()} != {n - churn}")
+    for k in ("fd_probes", "mr_accepts", "announced", "sync_roundtrips"):
+        if int(ms[k].sum()) <= 0:
+            raise AssertionError(f"the churn window never ran {k}")
+    sparse_invariants(st)
+    ms_tick = wall / ticks * 1e3
+    phase("sparse-main", f"N={n}, {timed_s} simulated seconds ({ticks} ticks, churn included): "
+                         f"{ms_tick:.2f} ms/tick, realtime factor {1000 / (TICKS_PER_SECOND * ms_tick):.3f}, "
+                         f"peak allocated {peak / 2 ** 30:.2f} GiB, delivery_combine launches {launches}, "
+                         f"branch-flag reads {flags} ({flags / ticks:.1f}/tick); invariants held")
+    phase("sparse-main", f"pool high-water {int(ms['mr_active_count'].max())} of {params.mr_slots}, announced "
+                         f"{int(ms['announced'].sum())}, dropped {int(ms['announce_dropped'].sum())} (fd "
+                         f"{int(ms['announce_dropped_fd'].sum())}, expiry {int(ms['announce_dropped_expiry'].sum())}, "
+                         f"refute {int(ms['announce_dropped_refute'].sum())}, sync "
+                         f"{int(ms['announce_dropped_sync'].sum())}), evicted {int(ms['pool_evicted'].sum())}, "
+                         f"new suspects {int(ms['fd_new_suspects'].sum())}, mr_accepts {int(ms['mr_accepts'].sum())}")
+    return {"launches": launches, "state": st, "gen": gen, "params": params}
+
+
+SPARSE_PHASES = ("_fd_phase", "_suspicion_sweep", "_gossip_phase_fused", "_mr_apply", "_sync_phase",
+                 "_refute_phase", "_rumor_sweeps_fused", "alloc_phase", "state_metrics")
+
+
+def profile_sparse(run) -> None:
+    """5 sparse ticks under the profiler, ending on a sweep tick (an FD tick
+    falls in any 5)."""
+    from scalecube_cluster_tpu_torch.ops import sparse as SP
+
+    st, gen, params = run["state"], run["gen"], run["params"]
+    ahead = (-(st.tick + 5)) % params.sweep_every
+    if ahead:
+        st, _, _ = SP.run_sparse_ticks(st, gen, ahead, params)
+    phase("sparse-profile", f"ticks {st.tick + 1}-{st.tick + 5}")
+    profile_phases(lambda: SP.run_sparse_ticks(st, gen, 5, params), SPARSE_PHASES, ticks=5,
+                   label="sparse-profile", module=SP)
+
+
+def run_sparse_driver_path(device) -> dict:
+    """SimDriver at N_SPARSE on the card: the sparse driver main path."""
+    from scalecube_cluster_tpu_torch.ops import _tensor, delivery
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    n = N_SPARSE
+    params = config5_params(n)
+    churn = max(1, n // 100)
+    t0 = time.perf_counter()
+    d = SimDriver(params, n, warm=True, seed=0, device=device)
+    slots = [d.spread_rumor((s * 997) % n, f"rumor {s}") for s in range(params.rumor_slots)]
+    for r in range(n // 2, n // 2 + churn):
+        d.crash(r)
+    joined = [d.join(seed_rows=params.seed_rows) for _ in range(8)]
+    watched = (0, n // 3)
+    for row in watched:
+        d.watch(row)
+    torch.cuda.synchronize()
+    phase("sparse-driver", f"N={n} driver built, {len(slots)} rumors spread, {churn} rows crashed, rows "
+                           f"{joined} joined, rows {watched} watched: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    d.step(5)
+    d.sync()
+    phase("sparse-driver", f"warm-up step(5): {time.perf_counter() - t0:.2f} s")
+
+    windows, per = 3, 10
+    ticks = windows * per
+    readbacks = d.dispatch_stats["readbacks"]
+    torch.cuda.reset_peak_memory_stats()
+    delivery.delivery_combine.launches = 0
+    _tensor.HOST_SYNCS.count = 0
+    t0 = time.perf_counter()
+    for _ in range(windows):
+        last = d.step(per)
+    d.sync()
+    wall = time.perf_counter() - t0
+    launches = delivery.delivery_combine.launches
+    flags = _tensor.HOST_SYNCS.count
+    peak = torch.cuda.max_memory_allocated()
+    readbacks = d.dispatch_stats["readbacks"] - readbacks
+
+    if launches <= 0:
+        raise AssertionError("the sparse driver path launched no delivery_combine kernel")
+    n_up = int(last["n_up"])
+    if n_up != n - churn + len(joined):
+        raise AssertionError(f"n_up {n_up} != {n - churn + len(joined)}")
+    sparse_invariants(d.state)
+    cov = [d.rumor_coverage(s) for s in slots]
+    if not all(np.isfinite(c) and 0.0 < c <= 1.0 for c in cov):
+        raise AssertionError(f"rumor coverage out of range: {cov}")
+    events = {row: len(d.events_of(row)) for row in watched}
+    kinds = sorted({e.type.value for row in watched for e in d.events_of(row)})
+    snap = d.health_snapshot()
+    ms_tick = wall / ticks * 1e3
+    phase("sparse-driver", f"N={n}, {windows} x step({per}): {ms_tick:.2f} ms/tick (realtime factor "
+                           f"{1000 / (TICKS_PER_SECOND * ms_tick):.3f}), peak allocated {peak / 2 ** 30:.2f} GiB, "
+                           f"delivery_combine launches {launches} in {ticks} ticks, branch-flag reads {flags} "
+                           f"({flags / ticks:.1f}/tick), driver readbacks {readbacks}; invariants held")
+    phase("sparse-driver", f"events per watched row {events} ({kinds}), rumor_coverage "
+                           f"{[round(c, 4) for c in cov]}")
+    phase("sparse-driver", f"health_snapshot: tick {snap['tick']}, n_up {snap['n_up']}, announce "
+                           f"{snap['announce']}, pool {snap['pool']}, stale subjects "
+                           f"{snap['staleness']['stale_subjects']}, worst recent-join coverage "
+                           f"{snap['staleness']['worst_recent_join_coverage']}")
+    return {"launches": launches}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -665,8 +949,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_checkpoint(device)
 
+    check_sparse_window(device)
+    sparse_run = run_sparse_main_path(device)
+    profile_sparse(sparse_run)
+    sparse_run.pop("state")
+    torch.cuda.empty_cache()
+    check_driver_window(device, params=config5_params(4096, fd_every=2, suspicion_mult=1, sync_every=20),
+                        label="sparse-driver-window", dense_links=True)
+    sparse_driver_run = run_sparse_driver_path(device)
+
     k1m = kern[(N_MAIN, 3, 8, 64, 0)]
-    launches = {"window": main_run["launches"], "driver": driver_run["launches"]}
+    ksp = kern[SPARSE_CASE]
+    launches = {"window": main_run["launches"], "driver": driver_run["launches"],
+                "sparse-window": sparse_run["launches"], "sparse-driver": sparse_driver_run["launches"]}
     print(json.dumps({"kernels": [{
         "name": "delivery_combine",
         "route": "cuda",
@@ -680,6 +975,8 @@ def main() -> int:
         "bound_ms": k1m["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "at_sparse_widths": {"n": N_SPARSE, "ms": ksp["ms"], "plain_ms": ksp["plain_ms"],
+                             "bound_ms": ksp["bound_ms"], "max_abs_err": ksp["max_abs_err"]},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": 1,  # the one card the run used

@@ -6,12 +6,13 @@ module for module (``ops/lattice.py``, ``ops/rand.py``, ``ops/bitplane.py``,
 only: nothing of JAX and nothing of the JAX package, whose semantics it
 copies and is held against bit for bit by ``tests/test_torch_*.py``.
 
-What runs today is the partial-view ("pview") engine's tick and window
-runner (:func:`.ops.pview.run_pview_ticks`, the driver's window: the JAX
-package's fused tick, which gives the same state as its unfused one), with
-the gossip delivery combine as a hand-written CUDA kernel
+What runs today: the partial-view ("pview") engine's tick and window runner
+(:func:`.ops.pview.run_pview_ticks`) and the sparse ("record-queue")
+engine's (:func:`.ops.sparse.run_sparse_ticks`) — each the JAX package's
+fused tick, which gives the same state as its unfused one — with the gossip
+delivery combine as a hand-written CUDA kernel
 (``csrc/delivery_combine.cu``, bound in :mod:`.ops.delivery`), and
-:class:`.sim.SimDriver` / :class:`.sim.SimCluster` over it. Entry points take ``device=`` and default
-to ``"cuda"``; pass ``device="cpu"`` to run the plain PyTorch versions on
-the host.
+:class:`.sim.SimDriver` / :class:`.sim.SimCluster` over either engine.
+Entry points take ``device=`` and default to ``"cuda"``; pass
+``device="cpu"`` to run the plain PyTorch versions on the host.
 """

@@ -11,7 +11,9 @@
 * the host decisions the JAX tick takes with ``lax.cond`` on data: each
   costs one device-to-host read, counted in :data:`HOST_SYNCS`;
 * row chunks for reductions over the [N, M] membership planes, so that no
-  [N, M] temporary wider than a byte exists at a million rows.
+  [N, M] temporary wider than a byte exists at a million rows; and row
+  chunks bounded by a cell count for passes over the sparse engine's
+  [N, N] view plane and its per-cell [N, M] arithmetic.
 """
 
 from __future__ import annotations
@@ -36,6 +38,18 @@ def row_chunks(n: int):
     """``(lo, hi)`` bounds of consecutive row chunks covering ``range(n)``."""
     for lo in range(0, n, ROW_CHUNK):
         yield lo, min(n, lo + ROW_CHUNK)
+
+
+#: cells per chunk of a row-chunked pass over a wide plane
+PLANE_CHUNK_CELLS = 1 << 26
+
+
+def plane_chunks(n: int, width: int):
+    """``(lo, hi)`` bounds of consecutive row chunks of an [n, width] plane,
+    each of at most :data:`PLANE_CHUNK_CELLS` cells (one row at least)."""
+    step = max(1, PLANE_CHUNK_CELLS // max(1, width))
+    for lo in range(0, n, step):
+        yield lo, min(n, lo + step)
 
 
 def host_flags(*flags: torch.Tensor) -> list:

@@ -2,9 +2,9 @@
 
 A port of the JAX package's ``ops/engine_api.py``, cut to the fields the
 driver reads: an engine is one :class:`EngineOps` descriptor, and
-:func:`resolve` picks it by the params type. Only the partial-view ("pview")
-engine is ported; the dense and sparse engines are refused by name until
-their slices land (ROADMAP A6 and A5).
+:func:`resolve` picks it by the params type. The partial-view ("pview") and
+sparse engines are ported; the dense engine is refused by name until its
+slice lands (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -54,13 +54,34 @@ def _pview_engine() -> EngineOps:
     )
 
 
-_NOT_PORTED = {"dense": "A6", "sparse": "A5"}
+def _sparse_engine() -> EngineOps:
+    from . import sparse as SP
+
+    def _init(p, n, warm, dense_links, device):
+        return SP.init_sparse_state(p, n, warm=warm, dense_links=dense_links, device=device)
+
+    return EngineOps(
+        name="sparse",
+        ops=SP,
+        init_state=_init,
+        make_run=SP.make_sparse_run,
+        view_row=lambda state, row: state.view_key[row],
+        remembered_rows=SP.remembered_rows,
+        staleness=SP.staleness,
+        key_plane=lambda state: state.view_key,
+        pool_slots=lambda params: params.mr_slots,
+        dense_links_default=False,
+    )
+
+
+_PORTED = {"pview": _pview_engine, "sparse": _sparse_engine}
+_NOT_PORTED = {"dense": "A6"}
 
 
 def engine(name: str) -> EngineOps:
     """The :class:`EngineOps` of the engine ``name``."""
-    if name == "pview":
-        return _pview_engine()
+    if name in _PORTED:
+        return _PORTED[name]()
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"the {name} engine is not ported yet (ROADMAP {_NOT_PORTED[name]})"
@@ -70,13 +91,16 @@ def engine(name: str) -> EngineOps:
 
 def resolve(params) -> EngineOps:
     """The engine a params object selects, by type (``PviewParams`` →
-    pview)."""
+    pview, ``SparseParams`` → sparse)."""
     from .pview import PviewParams
+    from .sparse import SparseParams
 
     if isinstance(params, PviewParams):
         return engine("pview")
+    if isinstance(params, SparseParams):
+        return engine("sparse")
     raise TypeError(
-        f"params {type(params).__name__} selects no ported engine (expected PviewParams; "
-        "the dense and sparse engines are ROADMAP A6 and A5)"
+        f"params {type(params).__name__} selects no ported engine (expected PviewParams or "
+        "SparseParams; the dense engine is ROADMAP A6)"
     )
 

@@ -1,12 +1,14 @@
 """The bounded membership-rumor pool: allocation of new rumors from a tick's
 accepted-change proposals.
 
-A port of the JAX package's sparse-engine pool machinery, which the pview
-engine imports there: ``_allocate`` (supersede / fresh slot / priority
-eviction of the rumor closest to done) and ``_alloc_phase`` (compaction of
-the tick's proposals to ``announce_slots`` entries, pool dedup, per-source
-drop attribution). See ``ops/sparse.py`` of the JAX package for the
-semantics and the deviations they implement.
+A port of the JAX package's sparse-engine pool machinery, which its pview
+engine imports there, shared here by the pview and sparse engines:
+``_allocate`` (supersede / fresh slot / priority eviction of the rumor
+closest to done) and ``_alloc_phase`` (compaction of the tick's proposals
+to ``announce_slots`` entries, pool dedup, per-source drop attribution).
+Neither engine has the delay rings, so the pending-ring clears of the JAX
+``_allocate`` have nothing to clear. See ``ops/sparse.py`` of the JAX
+package for the semantics and the deviations they implement.
 """
 
 from __future__ import annotations

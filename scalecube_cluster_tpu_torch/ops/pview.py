@@ -37,13 +37,20 @@ mesh/ragged delivery (A12), trace capture (A10) and fleet windows (A9).
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 
 from . import delivery
-from ._tensor import first_true, host_flags, nonzero_fixed, put_drop_, row_chunks, scatter_reduce_1d
+from ._tick import announce, covered_columns, crash_row, crash_rows, rumor_metrics, run_window, spread_rumor  # noqa: F401
+from ._tick import count_i32 as _i32
+from ._tick import no_props as _no_props
+from ._tick import register_sus as _register_sus
+from ._tick import row_index as _row_index
+from ._tick import rows_of as _rows
+from ._tick import seed_rows_tensor as _seed_rows_tensor
+from ._tick import set_at as _set
+from ._tensor import first_true, host_flags, nonzero_fixed, put_drop_, scatter_reduce_1d
 from .bitplane import MASK32, or_rows, pack_bits, popcount, to_i32, to_u32, unpack_bits, words_for
 from .lattice import (
     ALIVE,
@@ -63,8 +70,6 @@ from .rand import (
     SALT_SYNC_REQ,
     SparseFdRandoms,
     SparseRoundRandoms,
-    draw_sparse_fd,
-    draw_sparse_round,
     fetch_uniform,
 )
 from .state import NEVER, NO_CANDIDATE_I32, delay_mean_to_q
@@ -310,26 +315,6 @@ def _pack_self(kdt, status, inc, epoch) -> torch.Tensor:
     return precedence_key(status, inc, epoch, dtype=kdt).to(torch.int32)
 
 
-def _set(t: torch.Tensor, index, value) -> torch.Tensor:
-    """Copy of ``t`` with ``t[index] = value`` (host mutators are functional,
-    like the JAX spelling they mirror)."""
-    out = t.clone()
-    out[index] = value
-    return out
-
-
-def announce(state: PviewState, subject, key, origin) -> PviewState:
-    """Host-side membership-rumor allocation through the pool machinery."""
-    dev = state.device
-
-    def one(x):
-        return torch.as_tensor(x, device=dev).reshape(1).to(torch.int32)
-
-    ones = torch.ones((1,), dtype=torch.bool, device=dev)
-    st, _a, _d, _e = allocate(state, one(subject), one(key), one(origin), ones, prio=ones)
-    return st
-
-
 def _insert_rows_table(state: PviewState, rows, seed_rows):
     """Fresh table for joining ``rows``: seeds in ascending slots."""
     k = state.nbr_id.shape[1]
@@ -409,15 +394,6 @@ def join_rows(state: PviewState, rows, seed_rows) -> PviewState:
     return state
 
 
-def crash_row(state: PviewState, row: int) -> PviewState:
-    return state.replace(up=_set(state.up, row, False))
-
-
-def crash_rows(state: PviewState, rows) -> PviewState:
-    idx = torch.as_tensor(rows, dtype=torch.int64, device=state.device)
-    return state.replace(up=_set(state.up, idx, False))
-
-
 def begin_leave(state: PviewState, row: int) -> PviewState:
     own = state.self_key[row]
     leaving_key = ((own >> 2) << 2) | RANK_LEAVING
@@ -434,19 +410,6 @@ def update_metadata(state: PviewState, row: int) -> PviewState:
     new_key = bump_inc(state.self_key[row].to(_kdt(state)), RANK_ALIVE).to(torch.int32)
     state = state.replace(self_key=_set(state.self_key, row, new_key))
     return announce(state, row, new_key, row)
-
-
-def spread_rumor(state: PviewState, slot: int, origin: int) -> PviewState:
-    infected = _set(state.infected, (slice(None), slot), False)
-    infected[origin, slot] = True
-    return state.replace(
-        rumor_active=_set(state.rumor_active, slot, True),
-        rumor_origin=_set(state.rumor_origin, slot, origin),
-        rumor_created=_set(state.rumor_created, slot, state.tick),
-        infected=infected,
-        infected_at=_set(state.infected_at, (origin, slot), state.tick),
-        infected_from=_set(state.infected_from, (slice(None), slot), -1),
-    )
 
 
 def set_uniform_loss(state: PviewState, loss, floor: bool = False) -> PviewState:
@@ -480,15 +443,11 @@ def _cells_for(state: PviewState, group_a, group_b) -> tuple[int, int]:
     return ca, cb
 
 
-def _rows_index(rows, device) -> torch.Tensor:
-    return torch.as_tensor(list(np.atleast_1d(np.asarray(rows))), dtype=torch.int64, device=device)
-
-
 def block_partition(state: PviewState, group_a, group_b) -> PviewState:
     ca, cb = _cells_for(state, group_a, group_b)
     part = state.part_id.clone()
-    part[_rows_index(group_a, state.device)] = ca
-    part[_rows_index(group_b, state.device)] = cb
+    part[_row_index(group_a, state.device)] = ca
+    part[_row_index(group_b, state.device)] = cb
     pl = state.part_loss.clone()
     pl[ca, cb] = 1.0
     pl[cb, ca] = 1.0
@@ -589,10 +548,6 @@ def view_rows(state: PviewState, rows) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # in-tick helpers
 # ---------------------------------------------------------------------------
-
-
-def _rows(state: PviewState) -> torch.Tensor:
-    return torch.arange(state.capacity, dtype=torch.int32, device=state.device)
 
 
 def _loss_at(state: PviewState, i, j) -> torch.Tensor:
@@ -697,24 +652,6 @@ def _apply_records(state: PviewState, subj, cand, valid, salt: int, ka: int):
     sus_cand = _sus_election(state.capacity, accept, subj, cand)
     state = state.replace(self_key=new_self, nbr_id=new_id, nbr_key=new_key)
     return state, accept, sus_cand
-
-
-def _register_sus(state: PviewState, sus_cand) -> PviewState:
-    new_sus = torch.maximum(state.sus_key, sus_cand)
-    return state.replace(
-        sus_key=new_sus,
-        sus_since=torch.where(new_sus > state.sus_key, state.tick, state.sus_since).to(torch.int32),
-    )
-
-
-def _i32(x) -> torch.Tensor:
-    return x.sum().to(torch.int32) if x.dtype == torch.bool else x.to(torch.int32)
-
-
-def _no_props(state: PviewState):
-    n, dev = state.capacity, state.device
-    z = torch.zeros((n,), dtype=torch.int32, device=dev)
-    return (z, z, _rows(state), torch.zeros((n,), dtype=torch.bool, device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -1084,13 +1021,6 @@ def _merge_entries_compact(state, src_rows, pre_id, pre_key_i32, pre_self, salt,
     return state, acc_full, subj_full, key_full
 
 
-@functools.lru_cache(maxsize=None)
-def _seed_rows_tensor(seed_rows: tuple, device) -> torch.Tensor:
-    """The seed rows on ``device``, made once: a copy from the host each
-    tick would wait for the device."""
-    return torch.tensor(seed_rows, dtype=torch.int32, device=device)
-
-
 def _sync_phase(state: PviewState, r: SparseRoundRandoms, params: PviewParams):
     """Anti-entropy + shuffle: each due caller (forced first, then periodic,
     compacted to K) exchanges its table and self record with one peer drawn
@@ -1209,20 +1139,6 @@ def _refute_phase(state: PviewState, params: PviewParams):
     return state.replace(self_key=new_diag), (rows, new_diag, rows, eff)
 
 
-def _covered_columns(state: PviewState) -> torch.Tensor:
-    """[M] bool: every row has the rumor, is down, or joined after it was
-    created — reduced over row chunks."""
-    n = state.capacity
-    cov = torch.ones(state.mr_active.shape, dtype=torch.bool, device=state.device)
-    for lo, hi in row_chunks(n):
-        cov &= (
-            (state.minf_age[lo:hi] > 0)
-            | ~state.up[lo:hi, None]
-            | (state.joined_at[lo:hi, None] > state.mr_created[None, :])
-        ).all(dim=0)
-    return cov
-
-
 def _rumor_sweeps_fused(state: PviewState, params: PviewParams, fwd_post_p) -> PviewState:
     """Slot reclamation with the static windows (P2). The membership
     forwarding test reads the packed forwarding plane the gossip phase
@@ -1244,7 +1160,7 @@ def _rumor_sweeps_fused(state: PviewState, params: PviewParams, fwd_post_p) -> P
     forwarding_m = unpack_bits(fwd_words[None, :], m)[0]
     keep_m = ((state.tick - state.mr_created) <= sweep) | forwarding_m
     if params.early_free:
-        keep_m = keep_m & ~_covered_columns(state)
+        keep_m = keep_m & ~covered_columns(state)
     keep_m = keep_m & state.mr_active
     freed = state.mr_active & ~keep_m
     return state.replace(
@@ -1254,50 +1170,10 @@ def _rumor_sweeps_fused(state: PviewState, params: PviewParams, fwd_post_p) -> P
     )
 
 
-def _seg_m(state: PviewState) -> torch.Tensor:
-    """Membership-rumor segmentation per row, over row chunks: pool rumors
-    a row misses although it holds a newer one."""
-    n = state.capacity
-    out = []
-    for lo, hi in row_chunks(n):
-        age = state.minf_age[lo:hi]
-        newest = torch.where(age > 0, state.mr_created[None, :], NEVER).amax(dim=1)
-        out.append(
-            (
-                state.mr_active[None, :]
-                & (age == 0)
-                & (state.mr_created[None, :] < newest[:, None])
-                & state.up[lo:hi, None]
-            ).sum(dim=1)
-        )
-    return torch.cat(out)
-
-
 def state_metrics(state: PviewState, params: PviewParams) -> dict:
     """State-derived health metrics over the table edges."""
     dev = state.device
-    coverage = (state.infected & state.up[:, None]).sum(dim=0).to(torch.float32) / (
-        state.up.sum().clamp(min=1).to(torch.float32)
-    )
-    newest_u = torch.where(state.infected, state.rumor_created[None, :], NEVER).amax(dim=1)
-    seg_u = (
-        state.rumor_active[None, :]
-        & ~state.infected
-        & (state.rumor_created[None, :] < newest_u[:, None])
-        & state.up[:, None]
-    ).sum(dim=1)
-    seg_m = None
-    if state.tick % params.sweep_every == 0:
-        (mr_any,) = host_flags(state.mr_active.any())
-        if mr_any:
-            seg_m = _seg_m(state)
-    seg = seg_u if seg_m is None else seg_u + seg_m
-    metrics = {
-        "n_up": _i32(state.up),
-        "mr_active_count": _i32(state.mr_active),
-        "rumor_coverage": coverage,
-        "gossip_segmentation": seg.max().to(torch.int32),
-    }
+    metrics = rumor_metrics(state, params, _i32(state.up))
     if params.full_metrics:
         keys = _keys_i32(state)
         sid = state.nbr_id
@@ -1345,36 +1221,12 @@ def pview_tick_fused(state: PviewState, fd_r, round_r: SparseRoundRandoms, param
 
 def run_pview_ticks_fused(state: PviewState, draws, n_ticks: int, params: PviewParams,
                           watch_rows=None):
-    """Run ``n_ticks`` fused ticks.
-
-    ``draws`` is either a ``torch.Generator`` on the state's device (the
-    main path: each tick draws its round uniforms, and its FD uniforms on FD
-    ticks) or a sequence of ``n_ticks`` ``(fd, round)`` draw pairs (moved to
-    the state's device). Returns ``(state, metrics stacked to [n_ticks],
+    """Run ``n_ticks`` fused ticks (:func:`._tick.run_window`: ``draws`` is
+    a ``torch.Generator`` on the state's device or ``n_ticks`` ``(fd,
+    round)`` draw pairs). Returns ``(state, metrics stacked to [n_ticks],
     watched)``; ``watched`` is the [n_ticks, W, N] synthesized key rows of
     ``watch_rows`` after each tick, or None."""
-    n = state.capacity
-    gen = draws if isinstance(draws, torch.Generator) else None
-    if gen is not None and gen.device.type != state.device.type:
-        raise ValueError(f"generator on {gen.device}, state on {state.device}")
-    if gen is None and len(draws) != n_ticks:
-        raise ValueError(f"{len(draws)} per-tick draws for a {n_ticks}-tick window")
-    per_tick, watched = [], []
-    for t in range(n_ticks):
-        if gen is not None:
-            fd_due = (state.tick + 1) % params.fd_every == 0
-            fd = draw_sparse_fd(gen, n, params.ping_req_k, params.sample_tries) if fd_due else None
-            rd = draw_sparse_round(gen, n, params.fanout, params.sample_tries)
-        else:
-            fd, rd = draws[t]
-            fd = None if fd is None else fd.to(state.device)
-            rd = rd.to(state.device)
-        state, m = pview_tick_fused(state, fd, rd, params)
-        per_tick.append(m)
-        if watch_rows is not None:
-            watched.append(view_rows(state, watch_rows))
-    ms = {k: torch.stack([m[k] for m in per_tick]) for k in per_tick[0]} if per_tick else {}
-    return state, ms, (torch.stack(watched) if watch_rows is not None else None)
+    return run_window(pview_tick_fused, view_rows, state, draws, n_ticks, params, watch_rows)
 
 
 def make_pview_fused_run(params: PviewParams, n_ticks: int):

@@ -1,10 +1,11 @@
 """SimDriver: the host loop around the device-resident SWIM simulation.
 
-A port of the JAX package's ``sim/driver.py`` over the partial-view engine
-on one device. The driver owns:
+A port of the JAX package's ``sim/driver.py`` over the partial-view and
+sparse engines on one device (the params type picks the engine,
+:func:`..ops.engine_api.resolve`). The driver owns:
 
-* the engine's window (:func:`..ops.pview.make_pview_run`) and its
-  randomness: a ``torch.Generator`` on the driver's device,
+* the engine's window (:func:`..ops.pview.make_pview_run`,
+  :func:`..ops.sparse.make_sparse_run`) and its randomness: a ``torch.Generator`` on the driver's device,
   seeded with ``seed``, that each window draws its per-tick uniforms from
   (the JAX driver's key chain plays this part there);
 * the id↔row mapping (``Member`` handles with ``sim://row`` addresses);
@@ -44,7 +45,7 @@ import torch
 from ..models.events import MembershipEvent
 from ..models.member import Member, MemberStatus
 from ..ops import engine_api
-from ..ops.lattice import ALIVE, DEAD, LEAVING, SUSPECT, UNKNOWN, key_dtype, layout_for
+from ..ops.lattice import ALIVE, DEAD, LEAVING, SUSPECT, UNKNOWN, layout_for
 from ..utils.streams import EventStream
 
 
@@ -130,7 +131,8 @@ class SimDriver:
         if dense_links is None:
             dense_links = self._eng.dense_links_default
         self.state = self._eng.init_state(params, n_initial, warm, dense_links, self.device)
-        self._lay = layout_for(self._eng.key_plane(self.state).dtype)
+        self._key_dtype = self._eng.key_plane(self.state).dtype
+        self._lay = layout_for(self._key_dtype)
         self.seed = int(seed)
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self._draws = draws
@@ -513,7 +515,7 @@ class SimDriver:
     def rumor_payload(self, slot: int) -> object:
         return self._rumor_payloads.get(slot)
 
-    # -- links (group partitions; the pview engine has no per-link plane) ---
+    # -- links (pview: group partitions; sparse: the scalar or [N, N] plane) --
     def set_link_loss(self, src, dst, loss: float) -> None:
         with self._lock:
             self.state = self._ops.set_link_loss(self.state, src, dst, loss)
@@ -531,10 +533,11 @@ class SimDriver:
             self.state = self._ops.heal_partition(self.state, group_a, group_b)
 
     def link_loss(self, src: int, dst: int) -> float:
-        """The uniform loss (the engine's scalar layout has no per-link
-        matrix)."""
+        """Loss on the link src -> dst: the uniform scalar where the engine
+        keeps no per-link plane (pview; sparse without ``dense_links``)."""
         with self._lock:
-            return float(self.state.loss)
+            loss = self.state.loss
+            return float(loss) if loss.dim() == 0 else float(loss[src, dst])
 
     # -- views --------------------------------------------------------------
     def view_of(self, row: int) -> tuple[np.ndarray, np.ndarray]:
@@ -751,12 +754,11 @@ class SimDriver:
             state = self._ops.restore(data, device=self.device)
         except TypeError as exc:  # missing/extra planes: foreign or truncated
             raise CheckpointError(f"checkpoint {path!r} state planes do not match this engine: {exc}") from exc
-        want = key_dtype(self.params.key_dtype)
         have = self._eng.key_plane(state).dtype
-        if have != want:
+        if have != self._key_dtype:
             raise CheckpointError(
                 f"checkpoint {path!r} stores {have} keys but this driver runs "
-                f"key_dtype={self.params.key_dtype!r} — restore into a driver configured for the stored layout"
+                f"{self._key_dtype} keys — restore into a driver configured for the stored layout"
             )
         gen = torch.Generator(device=self.device)
         try:

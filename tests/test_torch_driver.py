@@ -29,6 +29,7 @@ from scalecube_cluster_tpu.sim import SimDriver as JSimDriver
 from scalecube_cluster_tpu_torch import convert
 from scalecube_cluster_tpu_torch.ops import engine_api
 from scalecube_cluster_tpu_torch.ops import pview as TPV
+from scalecube_cluster_tpu_torch.ops import sparse as TSP
 from scalecube_cluster_tpu_torch.sim import CheckpointError, SimCluster, SimDriver
 from scalecube_cluster_tpu_torch.sim import driver as tdriver
 from test_torch_pview_fused import FLOAT_METRICS, _assert_state_equal, _jax_draws, _params
@@ -308,13 +309,13 @@ def test_refused_surfaces_raise_not_implemented():
         "transport": lambda: SimCluster(d).node(1).transport(),
         "mesh": lambda: SimDriver(d.params, 8, mesh=object(), device="cpu"),
         "compile_cache_dir": lambda: SimDriver(d.params, 8, compile_cache_dir="x", device="cpu"),
-        "sparse engine": lambda: engine_api.engine("sparse"),
+        "sparse delay rings": lambda: TSP.SparseParams(capacity=8, delay_slots=2),
         "dense engine": lambda: engine_api.engine("dense"),
     }
     items = {"arm_telemetry": "A10", "arm_trace": "A10", "run_scenario": "A10", "chaos_snapshot": "A10",
              "set_dissemination": "A8", "set_adaptive": "A8", "set_protocol_knobs": "A11",
              "arm_control": "A11", "jit_cache_audit": "A13", "transport": "A13", "mesh": "A12",
-             "compile_cache_dir": "A13", "sparse engine": "A5", "dense engine": "A6"}
+             "compile_cache_dir": "A13", "sparse delay rings": "A2", "dense engine": "A6"}
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match=items[name]):
             call()
