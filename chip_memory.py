@@ -1,6 +1,7 @@
 """Device memory of the port's main paths, phase by phase, on one NVIDIA GPU.
 
-    python3 chip_memory.py [--ticks 12] [--sparse-seconds 2] [--path all|pview|sparse]
+    python3 chip_memory.py [--ticks 12] [--sparse-seconds 2] [--dense-ticks 10]
+                           [--path all|pview|sparse|dense]
 
 The pview path (``--path pview``):
 
@@ -29,6 +30,16 @@ and both churn mutators bracketed the same way. Two variants: the passes
 over the [N, N] view plane and the per-cell [N, M] apply in row chunks of
 at most ``PLANE_CHUNK_CELLS`` cells, as the package runs them, or each in
 one chunk (the whole plane at once).
+
+The dense path (``--path dense``): chip_smoke's two dense configurations
+from its seeds — config4's partition at 10,000 members (partitioned, 30
+ticks in, when the suspicion sweep and the gossip of suspicions are busy)
+and config3's delay regime at 8,192 (loss 0.05 and a mean delay of 1.5
+ticks on every link, 5 ticks in) — each ``--dense-ticks`` ticks with every
+phase of the tick and the host mutators that set them up bracketed, with
+the passes over the [N, N] planes (the sweep, the gossip accept and its
+fetch hash, the cluster sizes, the health metrics) in row chunks, as the
+package runs them, or in one chunk.
 """
 
 from __future__ import annotations
@@ -62,41 +73,19 @@ def run_variant(device, ticks: int, chunked: bool, sync_debug: bool) -> None:
     st, _, _ = PV.run_pview_ticks_fused(st, gen, 5, params)
     torch.cuda.synchronize()
     start_live = torch.cuda.memory_allocated()
-
-    rise = {}  # phase -> (largest rise above its start, tick)
-    top = {"peak": 0, "phase": None, "tick": None}
     evict_ticks = []
-
-    def bracket(name, fn):
-        def run(state, *args, **kwargs):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            out = fn(state, *args, **kwargs)
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
-            if peak - base > rise.get(name, (-1, None))[0]:
-                rise[name] = (peak - base, state.tick)
-            if peak > top["peak"]:
-                top.update(peak=peak, phase=name, tick=state.tick)
-            return out
-        return run
-
     cover = pool._need_and_cover if chunked else whole_plane_need_and_cover
 
     def counted_cover(state):
         evict_ticks.append(state.tick)
         return cover(state)
 
-    saved = {name: getattr(PV, name) for name in CS.PHASES}
     saved_cover = pool._need_and_cover
     caught = []
     t0 = time.perf_counter()
     try:
-        for name, fn in saved.items():
-            setattr(PV, name, bracket(name, fn))
         pool._need_and_cover = counted_cover
-        with warnings.catch_warnings(record=True) as caught:
+        with PhasePeaks(PV, CS.PHASES) as peaks, warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             if sync_debug:
                 torch.cuda.set_sync_debug_mode("warn")
@@ -105,8 +94,6 @@ def run_variant(device, ticks: int, chunked: bool, sync_debug: bool) -> None:
             finally:
                 torch.cuda.set_sync_debug_mode("default")
     finally:
-        for name, fn in saved.items():
-            setattr(PV, name, fn)
         pool._need_and_cover = saved_cover
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -114,15 +101,56 @@ def run_variant(device, ticks: int, chunked: bool, sync_debug: bool) -> None:
 
     label = (f"{'row-chunked' if chunked else 'whole-plane'} need/cover count, "
              f"{'sync-debug warn' if sync_debug else 'default'} mode")
+    top = peaks.top
     print(f"[memory] {label}: ticks {st.tick - ticks + 1}-{st.tick}, live at start "
           f"{start_live / GIB:.2f} GiB, window peak {top['peak'] / GIB:.2f} GiB in {top['phase']} at tick "
           f"{top['tick']}; eviction branch on ticks {evict_ticks}; {waits} operations waited for the "
           f"device; {wall / ticks * 1e3:.2f} ms/tick with every phase synchronized", flush=True)
     print(f"[memory]   mr_active_count {ms['mr_active_count'].tolist()}, announced "
           f"{ms['announced'].tolist()}, pool_evicted {ms['pool_evicted'].tolist()}", flush=True)
-    for name in sorted(rise, key=lambda k: -rise[k][0]):
-        print(f"[memory]   {name}: largest rise {rise[name][0] / GIB:.2f} GiB above its start "
-              f"(tick {rise[name][1]})", flush=True)
+    peaks.report()
+
+
+class PhasePeaks:
+    """Brackets named functions of a module: the allocator's peak is reset
+    when one begins and read when it ends. Records each one's largest rise
+    above the memory live at its start, and the phase and tick that set the
+    overall peak."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.rise = {}
+        self.top = {"peak": 0, "phase": None, "tick": None}
+
+    def _bracket(self, name, fn):
+        def run(state, *args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = fn(state, *args, **kwargs)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            if peak - base > self.rise.get(name, (-1, None))[0]:
+                self.rise[name] = (peak - base, state.tick)
+            if peak > self.top["peak"]:
+                self.top.update(peak=peak, phase=name, tick=state.tick)
+            return out
+        return run
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.module, name) for name in self.names}
+        for name, fn in self.saved.items():
+            setattr(self.module, name, self._bracket(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+    def report(self) -> None:
+        for name in sorted(self.rise, key=lambda k: -self.rise[k][0]):
+            print(f"[memory]   {name}: largest rise {self.rise[name][0] / GIB:.2f} GiB above its start "
+                  f"(tick {self.rise[name][1]})", flush=True)
 
 
 def run_sparse_variant(device, seconds: int, chunked: bool) -> None:
@@ -138,49 +166,76 @@ def run_sparse_variant(device, seconds: int, chunked: bool) -> None:
         st, _ = CS.churn_second(st, params, crash[sec], join[sec], gen)
     torch.cuda.synchronize()
     start_live = torch.cuda.memory_allocated()
-    rise = {}
-    top = {"peak": 0, "phase": None, "tick": None}
-
-    def bracket(name, fn):
-        def run(state, *args, **kwargs):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            out = fn(state, *args, **kwargs)
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
-            if peak - base > rise.get(name, (-1, None))[0]:
-                rise[name] = (peak - base, state.tick)
-            if peak > top["peak"]:
-                top.update(peak=peak, phase=name, tick=state.tick)
-            return out
-        return run
-
-    names = CS.SPARSE_PHASES + ("join_rows", "crash_rows")
-    saved = {name: getattr(SP, name) for name in names}
     saved_cells = _tensor.PLANE_CHUNK_CELLS
     t0 = time.perf_counter()
     try:
-        for name, fn in saved.items():
-            setattr(SP, name, bracket(name, fn))
-        if not chunked:
-            _tensor.PLANE_CHUNK_CELLS = n * n
-        for sec in range(2, 2 + seconds):
-            st, ms = CS.churn_second(st, params, crash[sec], join[sec], gen)
+        with PhasePeaks(SP, CS.SPARSE_PHASES + ("join_rows", "crash_rows")) as peaks:
+            if not chunked:
+                _tensor.PLANE_CHUNK_CELLS = n * n
+            for sec in range(2, 2 + seconds):
+                st, ms = CS.churn_second(st, params, crash[sec], join[sec], gen)
     finally:
-        for name, fn in saved.items():
-            setattr(SP, name, fn)
         _tensor.PLANE_CHUNK_CELLS = saved_cells
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ticks = seconds * CS.TICKS_PER_SECOND
     label = "row-chunked" if chunked else "whole-plane"
+    top = peaks.top
     print(f"[memory] sparse N={n}, {label} view-plane and apply passes: ticks {st.tick - ticks + 1}-{st.tick}, "
           f"live at start {start_live / GIB:.2f} GiB, window peak {top['peak'] / GIB:.2f} GiB in {top['phase']} "
           f"at tick {top['tick']}; {wall / ticks * 1e3:.2f} ms/tick with every phase synchronized", flush=True)
-    for name in sorted(rise, key=lambda k: -rise[k][0]):
-        print(f"[memory]   {name}: largest rise {rise[name][0] / GIB:.2f} GiB above its start "
-              f"(tick {rise[name][1]})", flush=True)
+    peaks.report()
+    del st
+    torch.cuda.empty_cache()
+
+
+def run_dense_variant(device, config: str, ticks: int, chunked: bool) -> None:
+    """One dense configuration (``partition`` or ``delay``), its set-up
+    mutators and ``ticks`` ticks bracketed, the [N, N] passes row-chunked
+    or in one chunk."""
+    from scalecube_cluster_tpu_torch.ops import _tensor
+    from scalecube_cluster_tpu_torch.ops import kernel as K
+    from scalecube_cluster_tpu_torch.ops import state as S
+
+    saved_cells = _tensor.PLANE_CHUNK_CELLS
+    gen = torch.Generator(device=device).manual_seed(0)
+    try:
+        with PhasePeaks(S, ("block_partition", "set_uniform_loss", "set_link_delay")) as setup:
+            if config == "partition":
+                n = CS.N_DENSE
+                params = CS.config4_params(n)
+                if not chunked:
+                    _tensor.PLANE_CHUNK_CELLS = n * n
+                st = S.init_state(params, n, warm=True, dense_links=True, device=device)
+                st = S.block_partition(st, list(range(n // 10)), list(range(n // 10, n)))
+                warm = 30
+            else:
+                n = CS.N_DELAY
+                params = CS.config4_params(n, **CS.CONFIG3_KNOBS)
+                if not chunked:
+                    _tensor.PLANE_CHUNK_CELLS = n * n
+                st = S.init_state(params, n, warm=True, dense_links=True, device=device)
+                st = S.set_link_delay(S.set_uniform_loss(st, CS.CONFIG3_LOSS), range(n), range(n),
+                                      CS.CONFIG3_DELAY_MEAN)
+                warm = 5
+        st, _, _ = K.run_ticks(st, gen, warm, params)
+        torch.cuda.synchronize()
+        start_live = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with PhasePeaks(K, CS.DENSE_PHASES) as peaks:
+            st, _, _ = K.run_ticks(st, gen, ticks, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        _tensor.PLANE_CHUNK_CELLS = saved_cells
+    label = "row-chunked" if chunked else "whole-plane"
+    top = peaks.top
+    print(f"[memory] dense {config} N={n}, {label} [N, N] passes: set-up peak {setup.top['peak'] / GIB:.2f} GiB in "
+          f"{setup.top['phase']}; ticks {st.tick - ticks + 1}-{st.tick}, live at start {start_live / GIB:.2f} GiB, "
+          f"window peak {top['peak'] / GIB:.2f} GiB in {top['phase']} at tick {top['tick']}; "
+          f"{wall / ticks * 1e3:.2f} ms/tick with every phase synchronized", flush=True)
+    setup.report()
+    peaks.report()
     del st
     torch.cuda.empty_cache()
 
@@ -189,7 +244,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=12)
     ap.add_argument("--sparse-seconds", type=int, default=2)
-    ap.add_argument("--path", choices=("all", "pview", "sparse"), default="all")
+    ap.add_argument("--dense-ticks", type=int, default=10)
+    ap.add_argument("--path", choices=("all", "pview", "sparse", "dense"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_memory: no CUDA device", file=sys.stderr)
@@ -204,6 +260,10 @@ def main() -> int:
     if args.path in ("all", "sparse"):
         for chunked in (True, False):
             run_sparse_variant(device, args.sparse_seconds, chunked)
+    if args.path in ("all", "dense"):
+        for config in ("partition", "delay"):
+            for chunked in (True, False):
+                run_dense_variant(device, config, args.dense_ticks, chunked)
     return 0
 
 

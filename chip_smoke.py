@@ -3,9 +3,11 @@
     python3 chip_smoke.py
 
 Drives the port's main paths — the partial-view engine's tick window and
-``SimDriver`` over it, both at 1,048,576 members, and the sparse engine's
-window and ``SimDriver`` over it at 49,152 members — on the card, and fails
-(non-zero exit, no result line) unless every phase passes:
+``SimDriver`` over it, both at 1,048,576 members, the sparse engine's
+window and ``SimDriver`` over it at 49,152 members, and the dense engine's
+window and ``SimDriver`` over it at 10,000 members and its delay regime at
+8,192 — on the card, and fails (non-zero exit, no result line) unless
+every phase passes:
 
 1. device   — a CUDA device is present; prints its name and power limit;
 2. build    — builds the port's CUDA kernel with nvcc; prints ptxas's
@@ -54,9 +56,34 @@ window and ``SimDriver`` over it at 49,152 members — on the card, and fails
 14. sparse-driver — ``SimDriver`` on the card at 49,152 (config5's widths;
    2 rumors through ``spread_rumor``, a crash wave of 491 rows through
    ``crash``, 8 joins, two watched rows): a 5-tick warm-up, then three
-   timed ``step(10)`` windows, launch counts zeroed before and read after.
+   timed ``step(10)`` windows, launch counts zeroed before and read after;
+15. dense-window — a 4,096-member, 40-tick dense window at config9's i16
+   widths with dense links (a crash wave, rumors, a ``join_rows`` batch
+   with rejoins, a partition and its heal) on the CPU and on the card from
+   the same draws: equal state and metrics;
+16. dense-delay-window — a 2,048-member, 40-tick dense window in config3's
+   delay regime (loss 0.05, mean delay 1.5 ticks, six ring slots, a group
+   of slower links through ``set_link_delay``): CPU = card;
+17. dense-main — config4's partition at 10,000 members
+   (``benchmarks/config4_partition.py``) through 25-tick ``make_run``
+   windows watching the majority observer: detection, bulk and full
+   recovery ticks beside the JAX package's, ms/tick partitioned and
+   healed, peak memory, flag reads per tick, device waits; config4's
+   ``ok`` or the phase fails;
+18. dense-profile — 5 partitioned ticks (an FD tick among them) under the
+   profiler with the quiet gates on, then 5 with them off; the same in
+   the healed steady state;
+19. dense-driver-window — phase 7's driver script on config9's dense
+   params: CPU = card;
+20. dense-driver — ``SimDriver`` on the card at 10,000: the partition, two
+   watched rows, three timed ``step(10)``, the heal and a timed
+   ``step(10)``;
+21. dense-delay — ``SimDriver(auto_params(8192, link_delay=True, ...))``
+   in config3's delay regime, 200 FD rounds: the raw FD failure rate
+   against config3's analytic rate (fails beyond 5σ).
 
-The line before the last is a JSON object with one entry per kernel; the
+The dense paths launch no hand-written kernel; their launch counts (0)
+stand in the kernels line. The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -426,7 +453,7 @@ def profile_phases(run, phases, ticks: int = 3, label: str = "profile", module=N
     if device_us == 0:
         phase(label, f"{ticks} ticks: {wall_us / ticks / 1e3:.2f} ms/tick wall; device time "
                      "not measured (the profiler recorded no device activity)")
-        return
+        return None
     phase(label, f"{ticks} ticks: {wall_us / ticks / 1e3:.2f} ms/tick wall, device busy "
                  f"{device_us / ticks / 1e3:.2f} ms/tick, idle share {1 - device_us / wall_us:.3f}")
     for name in sorted(host, key=lambda k: -host[k]):
@@ -440,6 +467,10 @@ def profile_phases(run, phases, ticks: int = 3, label: str = "profile", module=N
     ours = [(us, count) for us, key, count in kernels if "delivery_combine_kernel" in key]
     phase(label, f"delivery_combine_kernel: {sum(u for u, _ in ours) / ticks / 1e3:.4f} "
                  f"ms/tick device time ({sum(c for _, c in ours)} launches in {ticks} ticks)")
+    return {"wall_ms": wall_us / ticks / 1e3, "busy_ms": device_us / ticks / 1e3,
+            "idle": 1 - device_us / wall_us,
+            "host_ms": {k: v / ticks / 1e3 for k, v in host.items()},
+            "span_ms": {k: v / ticks / 1e3 for k, v in span.items()}}
 
 
 def state_differences(a, b) -> list:
@@ -464,12 +495,15 @@ class DrawList:
 
 
 def cpu_draws(params, ticks: int, seed: int) -> list:
+    """``ticks`` per-tick (fd, round) draw pairs from a CPU generator, by
+    the params' engine (the dense samplers' rank draws, or rejection
+    tries)."""
     from scalecube_cluster_tpu_torch.ops import rand as PR
+    from scalecube_cluster_tpu_torch.ops.state import SimParams
 
+    draw = PR.draw_dense_tick if isinstance(params, SimParams) else PR.draw_sparse_tick
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    return [(PR.draw_sparse_fd(gen, params.capacity, params.ping_req_k, params.sample_tries),
-             PR.draw_sparse_round(gen, params.capacity, params.fanout, params.sample_tries))
-            for _ in range(ticks)]
+    return [draw(gen, params, True) for _ in range(ticks)]
 
 
 def driver_script(d, n: int) -> None:
@@ -534,11 +568,10 @@ def check_driver_window(device, n: int = 4096, params=None, label: str = "driver
     if bad:
         raise AssertionError(f"CPU and card drivers differ in: {sorted(set(bad))}")
     hist = a.metrics_history
+    sums = {k: sum(int(m[k]) for m in hist)
+            for k in ("mr_accepts", "sync_roundtrips", "rumor_deliveries", "fd_new_suspects") if k in hist[0]}
     phase(label, f"N={n}, {ticks} ticks through SimDriver: every state leaf, per-tick metric "
-                           f"and event log equal on CPU and {device}; events per watched row {events}, "
-                           f"mr_accepts {sum(int(m['mr_accepts']) for m in hist)}, sync_roundtrips "
-                           f"{sum(int(m['sync_roundtrips']) for m in hist)}, rumor_deliveries "
-                           f"{sum(int(m['rumor_deliveries']) for m in hist)}")
+                 f"and event log equal on CPU and {device}; events per watched row {events}, {sums}")
 
 
 def main_path_driver(device):
@@ -727,6 +760,25 @@ def sparse_invariants(st) -> None:
         raise AssertionError("two active pool slots carry one subject")
 
 
+def run_cpu_and_card(run, device, what: str) -> dict:
+    """``run(dev)`` -> (state, stacked metrics on the host) on the CPU and on
+    ``device``: every state leaf equal, every metric equal (the f32 ones
+    within 2 ulp). Returns the CPU run's metrics."""
+    cpu_st, cpu_ms = run("cpu")
+    dev_st, dev_ms = run(device)
+    bad = state_differences(cpu_st, dev_st)
+    for k, va in cpu_ms.items():
+        va, vb = va.numpy(), dev_ms[k].numpy()
+        if va.dtype == np.float32:
+            if np.abs(va.view(np.int32).astype(np.int64) - vb.view(np.int32).astype(np.int64)).max() > 2:
+                bad.append(f"metric {k}")
+        elif not np.array_equal(va, vb):
+            bad.append(f"metric {k}")
+    if bad:
+        raise AssertionError(f"CPU and card {what} differ in: {bad}")
+    return cpu_ms
+
+
 def check_sparse_window(device, n: int = 4096) -> None:
     """40 sparse ticks at N = 4,096 with dense links on the CPU and on the
     card from the same draws: config5's widths, with a 2-tick FD period, a
@@ -751,18 +803,7 @@ def check_sparse_window(device, n: int = 4096) -> None:
         st, ms_c, _ = SP.run_sparse_ticks(st, draws[25:], 15, params)
         return st, {k: torch.cat([ms_a[k], ms_b[k], ms_c[k]]).cpu() for k in ms_a}
 
-    cpu_st, cpu_ms = run("cpu")
-    dev_st, dev_ms = run(device)
-    bad = state_differences(cpu_st, dev_st)
-    for k, va in cpu_ms.items():
-        va, vb = va.numpy(), dev_ms[k].numpy()
-        if va.dtype == np.float32:
-            if np.abs(va.view(np.int32).astype(np.int64) - vb.view(np.int32).astype(np.int64)).max() > 2:
-                bad.append(f"metric {k}")
-        elif not np.array_equal(va, vb):
-            bad.append(f"metric {k}")
-    if bad:
-        raise AssertionError(f"CPU and card sparse windows differ in: {bad}")
+    cpu_ms = run_cpu_and_card(run, device, "sparse windows")
     sums = {k: int(cpu_ms[k].sum()) for k in ("mr_accepts", "sync_roundtrips", "fd_new_suspects",
                                                "rumor_deliveries", "announced", "pool_evicted")}
     phase("sparse-window", f"N={n}, {ticks} ticks, dense links: every state leaf and metric equal on "
@@ -916,6 +957,406 @@ def run_sparse_driver_path(device) -> dict:
     return {"launches": launches}
 
 
+# -- the dense engine --------------------------------------------------------------
+
+N_DENSE = 10_000  # config4's cluster
+N_DELAY = 8192  # auto_params' dense_threshold: the policy's delay regime
+DENSE_PHASES = ("_fd_phase", "_gate_flags", "_suspicion_phase", "_gossip_phase", "_sync_phase",
+                "_refute_phase", "_rumor_sweep", "state_metrics")
+# benchmarks/config3_fd_loss.py:delay_main's SparseParams knobs, less the
+# sparse-only pool sizes (mr_slots, announce_slots)
+CONFIG3_KNOBS = dict(fanout=3, repeat_mult=3, ping_req_k=3, fd_every=1, sync_every=300, suspicion_mult=5,
+                     rumor_slots=2, seed_rows=(0,), delay_slots=6, fd_direct_timeout_ticks=2,
+                     fd_leg_timeout_ticks=1)
+CONFIG3_LOSS, CONFIG3_DELAY_MEAN, CONFIG3_ROUNDS = 0.05, 1.5, 200
+
+
+def config4_params(n: int = N_DENSE, **over):
+    """config4's partition configuration (benchmarks/config4_partition.py:30-99)."""
+    from scalecube_cluster_tpu_torch.ops.state import SimParams
+
+    knobs = dict(fanout=3, repeat_mult=3, ping_req_k=3, fd_every=5, sync_every=150, suspicion_mult=5,
+                 rumor_slots=2, seed_rows=(0, 1))
+    return SimParams(capacity=n, **{**knobs, **over})
+
+
+def config9_dense_params(n: int, key_dtype: str = "i16"):
+    """config9's dense params (benchmarks/config9_bitplane.py:60-64), with the
+    full health metrics on."""
+    from scalecube_cluster_tpu_torch.ops.state import SimParams
+
+    return SimParams(capacity=n, fanout=3, repeat_mult=3, ping_req_k=3, fd_every=5, sync_every=150,
+                     suspicion_mult=5, rumor_slots=8, seed_rows=(0,), full_metrics=True, key_dtype=key_dtype)
+
+
+def dense_launch_count() -> int:
+    """delivery_combine launches so far (the dense paths must add none)."""
+    from scalecube_cluster_tpu_torch.ops import delivery
+
+    return delivery.delivery_combine.launches
+
+
+def check_dense_window(device, n: int = 4096) -> None:
+    """40 dense ticks at N = 4,096 with config9's i16 widths and dense links
+    on the CPU and on the card from the same draws: a crash wave, a rumor,
+    a ``join_rows`` batch with two rejoins, a partition and its heal."""
+    from scalecube_cluster_tpu_torch.ops import kernel as K
+    from scalecube_cluster_tpu_torch.ops import state as S
+
+    ticks = 40
+    params = config9_dense_params(n)
+    draws = cpu_draws(params, ticks, seed=19)
+    halves = (list(range(n // 2)), list(range(n // 2, n)))
+    crashed = list(range(n // 2, n // 2 + 16))
+
+    def run(dev):
+        st = S.init_state(params, n - 8, dense_links=True, device=dev)
+        st = S.crash_rows(S.spread_rumor(st, 0, 5), crashed)
+        st, ms_a, _ = K.run_ticks(st, draws[:10], 10, params)
+        st = S.join_rows(st, [n - 8, n - 7] + crashed[:2], params.seed_rows)
+        st = S.block_partition(S.spread_rumor(st, 1, 77), *halves)
+        st, ms_b, _ = K.run_ticks(st, draws[10:25], 15, params)
+        st = S.heal_partition(st, *halves)
+        st, ms_c, _ = K.run_ticks(st, draws[25:], 15, params)
+        return st, {k: torch.cat([ms_a[k], ms_b[k], ms_c[k]]).cpu() for k in ms_a}
+
+    cpu_ms = run_cpu_and_card(run, device, "dense windows")
+    sums = {k: int(cpu_ms[k].sum()) for k in ("fd_new_suspects", "gossip_msgs", "sync_roundtrips",
+                                               "rumor_deliveries")}
+    phase("dense-window", f"N={n}, {ticks} ticks, i16 keys, dense links: every state leaf and metric "
+                          f"equal on CPU and {device}; {sums}")
+
+
+def check_dense_delay_window(device, n: int = 2048) -> None:
+    """40 dense ticks at N = 2,048 with config3's delay configuration (i32,
+    loss 0.05, mean delay 1.5 ticks, 6 ring slots) and a slower group of
+    links through ``set_link_delay``, on the CPU and on the card."""
+    from scalecube_cluster_tpu_torch.ops import kernel as K
+    from scalecube_cluster_tpu_torch.ops import state as S
+
+    ticks = 40
+    params = config4_params(n, **CONFIG3_KNOBS)
+    draws = cpu_draws(params, ticks, seed=23)
+
+    def run(dev):
+        st = S.init_state(params, n - 2, uniform_loss=CONFIG3_LOSS, uniform_delay=CONFIG3_DELAY_MEAN,
+                          device=dev)
+        st = S.set_link_delay(S.spread_rumor(st, 0, 9), list(range(8)), list(range(n)), 4.0)
+        st = S.crash_rows(st, [40, 41])
+        st, ms, _ = K.run_ticks(st, draws, ticks, params)
+        return st, {k: v.cpu() for k, v in ms.items()}
+
+    cpu_ms = run_cpu_and_card(run, device, "dense delay windows")
+    sums = {k: int(cpu_ms[k].sum()) for k in ("fd_probes", "fd_failed_probes", "gossip_msgs",
+                                               "rumor_deliveries")}
+    phase("dense-delay-window", f"N={n}, {ticks} ticks, delay rings (D = 6, mean 1.5 ticks, rows 0-7 at 4.0): "
+                                f"every state leaf and metric equal on CPU and {device}; {sums}")
+
+
+def copy_state(st, device):
+    """A deep copy of a dense state on ``device`` (the tick consumes the one
+    it is given)."""
+    import dataclasses as dc
+
+    return dc.replace(st, **{f.name: getattr(st, f.name).to(device, copy=True)
+                             for f in dc.fields(st) if f.name != "tick"})
+
+
+def minority_detected(watched, split: int) -> torch.Tensor:
+    """[T] bool: the watched majority observer holds every minority row at
+    status >= 3 (DEAD, or no record: both read rank 3) after each tick."""
+    return ((watched[:, 0, :split] & 3) == 3).all(dim=1)
+
+
+def profile_dense(st, gen, params, ticks: int, label: str, watch=None):
+    """``ticks`` dense ticks under the profiler with quiet_gates on (the
+    flag reads), then as many with every gate open (quiet_gates off, the
+    same values): per-phase host and device time for each. Returns (state,
+    watched rows of the two runs, the gated run's numbers, the ungated
+    run's)."""
+    import dataclasses as dc
+
+    from scalecube_cluster_tpu_torch.ops import kernel as K
+
+    out, watched = {}, []
+    for gated in (True, False):
+        p = params if gated else dc.replace(params, quiet_gates=False)
+        box = {}
+
+        def run(p=p, box=box, st=st):
+            box["r"] = K.run_ticks(st, gen, ticks, p, watch_rows=watch)
+
+        phase(label, f"ticks {st.tick + 1}-{st.tick + ticks}, quiet_gates={gated}")
+        out[gated] = profile_phases(run, DENSE_PHASES, ticks=ticks, label=label, module=K)
+        st, _, w = box["r"]
+        watched.append(w)
+    return st, watched, out[True], out[False]
+
+
+def report_gates(label: str, gated, ungated) -> None:
+    """The gate choice's evidence: wall and per-phase time, flag reads vs
+    ungated work."""
+    if gated is None or ungated is None:
+        phase(label, "gate comparison not measured (no device time recorded)")
+        return
+    phase(label, f"quiet_gates on / off: wall {gated['wall_ms']:.3f} / {ungated['wall_ms']:.3f} ms/tick, "
+                 f"device busy {gated['busy_ms']:.3f} / {ungated['busy_ms']:.3f}, idle share "
+                 f"{gated['idle']:.3f} / {ungated['idle']:.3f}")
+    for name in ("gate_flags", "suspicion_phase", "gossip_phase", "refute_phase"):
+        phase(label, f"{name}: host {gated['host_ms'].get(name, 0):.3f} / {ungated['host_ms'].get(name, 0):.3f}, "
+                     f"device span {gated['span_ms'].get(name, 0):.3f} / {ungated['span_ms'].get(name, 0):.3f} "
+                     "ms/tick (gated / ungated)")
+
+
+def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int = 200, settle: int = 60) -> dict:
+    """The dense main path: config4's partition run at ``n`` members through
+    ``make_run`` windows of ``window`` ticks watching the majority observer
+    (row n - 1). A window in which the minority is detected is run again
+    from a copy of its start, up to the detection tick, so the heal lands
+    on that tick, as config4's loop heals (the copy is kept on the host).
+    ``profile_at`` partitioned ticks
+    in, 5 ticks run under the profiler with the gates on and 5 with them
+    off (in the trajectory, out of the timing); after the recovery, 2
+    ticks count the operations that wait for the device, and ``settle``
+    ticks later (the forwarding windows of the last changes closed) 5 + 5
+    more are profiled."""
+    from scalecube_cluster_tpu_torch.ops import _tensor
+    from scalecube_cluster_tpu_torch.ops import kernel as K
+    from scalecube_cluster_tpu_torch.ops import state as S
+
+    params = config4_params(n)
+    split = n // 10
+    minority, majority = list(range(split)), list(range(split, n))
+    math_ticks = params.suspicion_mult * n.bit_length() * params.fd_every
+    detect_budget, recover_budget = int(math_ticks * 2.5), params.sync_every * 8
+    t0 = time.perf_counter()
+    st = S.block_partition(S.init_state(params, n, warm=True, dense_links=True, device=device),
+                           minority, majority)
+    torch.cuda.synchronize()
+    phase("dense-main", f"N={n} state built and partitioned {split}/{n - split} in "
+                        f"{time.perf_counter() - t0:.2f} s: view_key {tuple(st.view_key.shape)} "
+                        f"{st.view_key.dtype}, {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated; "
+                        f"detection budget {detect_budget} ticks (2.5 x the suspicion math {math_ticks}), "
+                        f"recovery budget {recover_budget}")
+    gen = torch.Generator(device=device).manual_seed(0)
+    watch = torch.tensor([n - 1], device=device)
+    launches0 = dense_launch_count()
+    torch.cuda.reset_peak_memory_stats()
+    _tensor.HOST_SYNCS.count = 0
+    timed = {"part": [0, 0.0], "heal": [0, 0.0]}  # ticks, seconds (the first window is warm-up)
+    flags_timed = 0
+    detected = None
+    done = 0
+    prof_part = None
+    while detected is None and done < detect_budget:
+        if done == profile_at:
+            st, ws, g, u = profile_dense(st, gen, params, 5, "dense-profile", watch=watch)
+            prof_part = (g, u)
+            det = minority_detected(torch.cat(ws), split)
+            if bool(det.any()):
+                raise AssertionError("the minority was detected inside the profiled ticks")
+            done += 10
+            continue
+        w = min(window, detect_budget - done, profile_at - done if done < profile_at else window)
+        # the window's start, kept on the host so the card's peak is the tick's
+        saved = (copy_state(st, "cpu"), gen.get_state())
+        syncs = _tensor.HOST_SYNCS.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _, watched = K.make_run(params, w)(st, gen, watch_rows=watch)
+        det = minority_detected(watched, split)
+        hit = bool(det.any())  # the one read per window (it waits for the window)
+        wall = time.perf_counter() - t0
+        if done:
+            timed["part"][0] += w
+            timed["part"][1] += wall
+            flags_timed += _tensor.HOST_SYNCS.count - syncs
+        if hit:
+            k = int(torch.nonzero(det)[0])
+            detected = done + k + 1
+            if k + 1 < w:
+                # back to the window's start, then up to the detection tick
+                st, g_state = copy_state(saved[0], device), saved[1]
+                gen.set_state(g_state)
+                st, _, _ = K.make_run(params, k + 1)(st, gen)
+        done += w
+        del saved
+    if detected is None:
+        raise AssertionError(f"the majority observer did not detect the minority within {detect_budget} ticks")
+    part_ticks = detected
+    st = S.heal_partition(st, minority, majority)
+    bulk = full = None
+    done = 0
+    last_frac = None
+    while full is None and done < recover_budget:
+        w = min(window, recover_budget - done)
+        syncs = _tensor.HOST_SYNCS.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, ms, _ = K.make_run(params, w)(st, gen)
+        frac = ms["alive_view_fraction"].cpu()
+        wall = time.perf_counter() - t0
+        timed["heal"][0] += w
+        timed["heal"][1] += wall
+        flags_timed += _tensor.HOST_SYNCS.count - syncs
+        for i, f in enumerate(frac.tolist()):
+            if bulk is None and f >= 0.99:
+                bulk = done + i + 1
+            if full is None and f >= 0.9999:
+                full = done + i + 1
+        last_frac = float(frac[-1])
+        done += w
+    peak = torch.cuda.max_memory_allocated()
+    launches = dense_launch_count() - launches0
+    ok = detected is not None and bulk is not None
+    ticks_t = timed["part"][0] + timed["heal"][0]
+    ms_all = (timed["part"][1] + timed["heal"][1]) / ticks_t * 1e3
+    ms_part = timed["part"][1] / max(timed["part"][0], 1) * 1e3
+    ms_heal = timed["heal"][1] / max(timed["heal"][0], 1) * 1e3
+    phase("dense-main", f"N={n}: detected at tick {detected}, bulk (0.99) recovery {bulk}, full (0.9999) "
+                        f"recovery {full} ticks after the heal (final alive_view_fraction {last_frac}); the JAX "
+                        f"package recorded 392 / 329 / 444 (BENCH_RESULTS_r05.json, config 4); config4 ok {ok}")
+    phase("dense-main", f"ms/tick {ms_all:.2f} over {ticks_t} timed ticks (partitioned {ms_part:.2f} over "
+                        f"{timed['part'][0]}, healed {ms_heal:.2f} over {timed['heal'][0]}; the first window, the "
+                        f"rerun of the detection window and the profiled ticks untimed), peak allocated "
+                        f"{peak / 2 ** 30:.2f} GiB, branch-flag reads {flags_timed} "
+                        f"({flags_timed / ticks_t:.2f}/tick), delivery_combine launches {launches}")
+    if launches:
+        raise AssertionError(f"the dense main path launched delivery_combine {launches} times")
+    if not ok:
+        raise AssertionError(f"config4's ok failed: detected {detected}, bulk recovery {bulk}")
+    # two more ticks in the mode where every operation that waits for the
+    # device warns (kept out of the timed run, which it perturbs)
+    _tensor.HOST_SYNCS.count = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            st, _, _ = K.run_ticks(st, gen, 2, params)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = sum("synchroniz" in str(w.message) for w in caught)
+    phase("dense-main", f"2 more ticks: {_tensor.HOST_SYNCS.count} branch-flag reads, {waits} operations "
+                        "waited for the device")
+    st, ms, _ = K.run_ticks(st, gen, settle, params)
+    quiet = int((ms["gossip_msgs"] == 0).sum())
+    phase("dense-main", f"{settle} settling ticks: {quiet} with no gossip message sent")
+    st, _, g, u = profile_dense(st, gen, params, 5, "dense-profile-healed")
+    if prof_part is not None:
+        report_gates("dense-profile", *prof_part)
+    report_gates("dense-profile-healed", g, u)
+    return {"launches": launches, "ms_part": ms_part, "peak": peak, "part_ticks": part_ticks}
+
+
+def run_dense_driver(device, n: int = N_DENSE) -> dict:
+    """SimDriver on the card at ``n`` over config4's params: the partition,
+    two watched rows, a 5-tick warm-up, three timed ``step(10)``, then the
+    heal and one timed ``step(10)``."""
+    from scalecube_cluster_tpu_torch.ops import _tensor
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    params = config4_params(n)
+    split = n // 10
+    minority, majority = list(range(split)), list(range(split, n))
+    d = SimDriver(params, n, warm=True, seed=0, device=device)
+    d.block_partition(minority, majority)
+    watched = (0, n - 1)
+    for row in watched:
+        d.watch(row)
+    d.step(5)
+    d.sync()
+    launches0 = dense_launch_count()
+    readbacks = d.dispatch_stats["readbacks"]
+    torch.cuda.reset_peak_memory_stats()
+    _tensor.HOST_SYNCS.count = 0
+    t0 = time.perf_counter()
+    for _ in range(3):
+        last = d.step(10)
+    d.sync()
+    wall = time.perf_counter() - t0
+    flags = _tensor.HOST_SYNCS.count
+    d.heal_partition(minority, majority)
+    t1 = time.perf_counter()
+    d.step(10)
+    d.sync()
+    wall_heal = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    readbacks = d.dispatch_stats["readbacks"] - readbacks
+    launches = dense_launch_count() - launches0
+    if launches:
+        raise AssertionError(f"the dense driver launched delivery_combine {launches} times")
+    if int(last["n_up"]) != n:
+        raise AssertionError(f"n_up {int(last['n_up'])} != {n}")
+    events = {row: len(d.events_of(row)) for row in watched}
+    snap = d.health_snapshot()
+    if "pool" in snap:
+        raise AssertionError("the dense engine's health snapshot has a pool block")
+    ms_tick = wall / 30 * 1e3
+    phase("dense-driver", f"N={n}, partitioned, 3 x step(10): {ms_tick:.2f} ms/tick; healed step(10): "
+                          f"{wall_heal / 10 * 1e3:.2f} ms/tick; peak allocated {peak / 2 ** 30:.2f} GiB, "
+                          f"branch-flag reads {flags} ({flags / 30:.2f}/tick), driver readbacks {readbacks}, "
+                          f"delivery_combine launches {launches}; events per watched row {events}; "
+                          f"health_snapshot tick {snap['tick']}, stale subjects {snap['staleness']['stale_subjects']}")
+    return {"launches": launches, "ms_tick": ms_tick}
+
+
+def timely(q: float, t: int) -> float:
+    """Host mirror (f64) of the kernel's P(two geometric(q) legs <= t)
+    (benchmarks/config3_fd_loss.py:_timely)."""
+    h, acc, qp = 1.0, 1.0, 1.0
+    for _ in range(t):
+        qp *= q
+        h = q * h + qp
+        acc += h
+    return (1.0 - q) * (1.0 - q) * acc
+
+
+def run_dense_delay(device, n: int = N_DELAY, rounds: int = CONFIG3_ROUNDS, window: int = 50) -> dict:
+    """The policy's delay regime: ``SimDriver(auto_params(n, link_delay=True,
+    **config3's knobs), n)``, loss 0.05 on every link (``set_uniform_loss``)
+    and a mean delay of 1.5 ticks on every link (``set_link_delay``), 200
+    FD rounds in windows of 50. The raw FD failure rate against config3's
+    analytic rate with its timeliness factors."""
+    from scalecube_cluster_tpu_torch.ops import state as S
+    from scalecube_cluster_tpu_torch.sim.driver import SimDriver, auto_params
+
+    params = auto_params(n, link_delay=True, **CONFIG3_KNOBS)
+    if not isinstance(params, S.SimParams):
+        raise AssertionError(f"auto_params({n}, link_delay=True) chose {type(params).__name__}")
+    d = SimDriver(params, n, warm=True, seed=0, record_metrics=True, device=device)
+    d.state = S.set_uniform_loss(d.state, CONFIG3_LOSS)
+    d.set_link_delay(range(n), range(n), CONFIG3_DELAY_MEAN)
+    launches0 = dense_launch_count()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(rounds // window):
+        d.step(window)
+    d.sync()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dense_launch_count() - launches0
+    hist = d.metrics_history
+    probes = sum(int(m["fd_probes"]) for m in hist)
+    failed = sum(int(m["fd_failed_probes"]) for m in hist)
+    q = S.delay_mean_to_q(CONFIG3_DELAY_MEAN)
+    p_direct = (1 - CONFIG3_LOSS) ** 2 * timely(q, params.fd_direct_timeout_ticks)
+    p_relay = (1 - CONFIG3_LOSS) ** 4 * timely(q, params.fd_leg_timeout_ticks) ** 2
+    analytic = (1 - p_direct) * (1 - p_relay) ** params.ping_req_k
+    observed = failed / max(probes, 1)
+    sigma = (analytic * (1 - analytic) / max(probes, 1)) ** 0.5
+    z = (observed - analytic) / sigma
+    phase("dense-delay", f"N={n}, {rounds} FD rounds: raw FD failure rate {observed:.6f} against analytic "
+                         f"{analytic:.6f} (sigma {sigma:.6f} over {probes} probes, z = {z:.2f}); config3's 3-sigma "
+                         f"within_tolerance {abs(z) < 3}; {wall / rounds * 1e3:.2f} ms/tick, peak allocated "
+                         f"{peak / 2 ** 30:.2f} GiB, delivery_combine launches {launches}")
+    if launches:
+        raise AssertionError(f"the dense delay path launched delivery_combine {launches} times")
+    if abs(z) > 5:
+        raise AssertionError(f"the FD failure rate is {z:.2f} sigma from config3's analytic rate")
+    return {"launches": launches, "z": z}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -957,11 +1398,28 @@ def main() -> int:
     check_driver_window(device, params=config5_params(4096, fd_every=2, suspicion_mult=1, sync_every=20),
                         label="sparse-driver-window", dense_links=True)
     sparse_driver_run = run_sparse_driver_path(device)
+    torch.cuda.empty_cache()
+
+    check_dense_window(device)
+    check_dense_delay_window(device)
+    dense_run = run_dense_main(device)
+    torch.cuda.empty_cache()
+    check_driver_window(device, params=config9_dense_params(4096), label="dense-driver-window",
+                        dense_links=True)
+    dense_driver_run = run_dense_driver(device)
+    phase("dense-driver", f"driver {dense_driver_run['ms_tick']:.2f} ms/tick against the window's "
+                          f"partitioned {dense_run['ms_part']:.2f} ({dense_driver_run['ms_tick'] / dense_run['ms_part'] - 1:+.1%})")
+    torch.cuda.empty_cache()
+    dense_delay_run = run_dense_delay(device)
+    phase("dense", "the dense paths run plain PyTorch tensor ops only: the JAX dense engine reaches no "
+                   "pl.pallas_call, and delivery_combine's fold is not their delivery")
 
     k1m = kern[(N_MAIN, 3, 8, 64, 0)]
     ksp = kern[SPARSE_CASE]
     launches = {"window": main_run["launches"], "driver": driver_run["launches"],
-                "sparse-window": sparse_run["launches"], "sparse-driver": sparse_driver_run["launches"]}
+                "sparse-window": sparse_run["launches"], "sparse-driver": sparse_driver_run["launches"],
+                "dense-main": dense_run["launches"], "dense-driver": dense_driver_run["launches"],
+                "dense-delay": dense_delay_run["launches"]}
     print(json.dumps({"kernels": [{
         "name": "delivery_combine",
         "route": "cuda",

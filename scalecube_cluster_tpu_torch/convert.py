@@ -1,10 +1,13 @@
 """Carry parameters and state across from the JAX package.
 
 The converters take plain Python/numpy values — ``dataclasses.asdict`` of
-the JAX ``PviewParams`` or ``SparseParams``, and the dict its engine's
-``snapshot(state)`` returns — so this module imports nothing of JAX. The
-engine is told by the fields: a pview params dict has ``view_slots``, a
-pview state ``nbr_key``; a sparse state has ``view_key``.
+the JAX ``SimParams``, ``SparseParams`` or ``PviewParams``, and the dict its
+engine's ``snapshot(state)`` returns — so this module imports nothing of
+JAX. The engine is told by the fields: a pview params dict has
+``view_slots``, a sparse one ``mr_slots``, a dense one neither; a dense
+state has ``changed_at``, a sparse one ``n_live``, a pview one ``nbr_key``.
+The dense engine's packed infection words are uint32 in JAX and int32 in
+the port (same bits); :func:`state_to_numpy` gives them back as uint32.
 """
 
 from __future__ import annotations
@@ -16,16 +19,17 @@ import torch
 
 from .ops.pview import PviewParams, PviewState
 from .ops.sparse import SparseParams, SparseState
+from .ops.state import SimParams, SimState
 
 
 def params_from_dict(d: dict):
-    """Port params (``PviewParams`` or ``SparseParams``) from
-    ``dataclasses.asdict(jax_params)``.
+    """Port params (``SimParams``, ``SparseParams`` or ``PviewParams``)
+    from ``dataclasses.asdict(jax_params)``.
 
     Refuses what the port does not run (a non-default dissemination spec,
-    an enabled adaptive spec, ``delay_slots > 0``), naming its ROADMAP
-    item. A pview ``delivery_kernel`` is dropped: its two values compute
-    the same function."""
+    an enabled adaptive spec, ``delay_slots > 0`` on the pview and sparse
+    engines), naming its ROADMAP item. A pview ``delivery_kernel`` is
+    dropped: its two values compute the same function."""
     d = dict(d)
     dissem = d.pop("dissem", None) or {}
     if (dissem.get("strategy", "push"), dissem.get("topology", "full")) != ("push", "full"):
@@ -36,14 +40,21 @@ def params_from_dict(d: dict):
     adaptive = d.pop("adaptive", None) or {}
     if adaptive.get("enabled", False):
         raise ValueError("an enabled adaptive failure-detection spec is not ported yet (ROADMAP A8)")
-    if d.get("delay_slots", 0):
-        raise ValueError("delay_slots > 0 (the pending delivery rings) is not ported yet (ROADMAP A2)")
     d.pop("delivery_kernel", None)
     d["seed_rows"] = tuple(int(s) for s in d.get("seed_rows", ()))
+    if "mr_slots" not in d:
+        return SimParams(**d)
+    if d.get("delay_slots", 0):
+        raise ValueError(
+            "delay_slots > 0 on the pview and sparse engines (their pending delivery rings) "
+            "is not ported yet (ROADMAP A2)"
+        )
     return PviewParams(**d) if "view_slots" in d else SparseParams(**d)
 
 
 def _state_class(arrays):
+    if "changed_at" in arrays:
+        return SimState
     return SparseState if "view_key" in arrays else PviewState
 
 
@@ -63,9 +74,15 @@ def state_from_numpy(arrays: dict, device="cuda"):
 
 
 def state_to_numpy(state) -> dict:
-    """The inverse of :func:`state_from_numpy`, for comparisons."""
+    """The inverse of :func:`state_from_numpy`: the JAX package's snapshot
+    layout, for comparisons and checkpoints."""
     out = {}
+    u32 = getattr(state, "U32_LEAVES", ())
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)
-        out[f.name] = np.int32(v) if f.name == "tick" else v.detach().cpu().numpy()
+        if f.name == "tick":
+            out[f.name] = np.int32(v)
+            continue
+        a = v.detach().cpu().numpy()
+        out[f.name] = a.view(np.uint32) if f.name in u32 else a
     return out

@@ -15,7 +15,6 @@ import torch
 
 from ._tensor import host_flags, row_chunks
 from .pool import allocate
-from .rand import draw_sparse_fd, draw_sparse_round
 from .state import NEVER
 
 
@@ -174,16 +173,16 @@ def rumor_metrics(state, params, n_up) -> dict:
 # -- the window loop -------------------------------------------------------------
 
 
-def run_window(tick, view_rows, state, draws, n_ticks: int, params, watch_rows=None):
+def run_window(tick, view_rows, draw, state, draws, n_ticks: int, params, watch_rows=None):
     """Run ``n_ticks`` of ``tick(state, fd, round, params)``.
 
     ``draws`` is either a ``torch.Generator`` on the state's device (the
-    main path: each tick draws its round uniforms, and its FD uniforms on FD
+    main path: each tick draws its uniforms with the engine's ``draw(gen,
+    params, fd_due)`` — its round uniforms, and its FD uniforms on FD
     ticks) or a sequence of ``n_ticks`` ``(fd, round)`` draw pairs (moved to
     the state's device). Returns ``(state, metrics stacked to [n_ticks],
     watched)``; ``watched`` is ``view_rows(state, watch_rows)`` after each
     tick, stacked, or None."""
-    n = state.capacity
     gen = draws if isinstance(draws, torch.Generator) else None
     if gen is not None and gen.device.type != state.device.type:
         raise ValueError(f"generator on {gen.device}, state on {state.device}")
@@ -192,9 +191,7 @@ def run_window(tick, view_rows, state, draws, n_ticks: int, params, watch_rows=N
     per_tick, watched = [], []
     for t in range(n_ticks):
         if gen is not None:
-            fd_due = (state.tick + 1) % params.fd_every == 0
-            fd = draw_sparse_fd(gen, n, params.ping_req_k, params.sample_tries) if fd_due else None
-            rd = draw_sparse_round(gen, n, params.fanout, params.sample_tries)
+            fd, rd = draw(gen, params, (state.tick + 1) % params.fd_every == 0)
         else:
             fd, rd = draws[t]
             fd = None if fd is None else fd.to(state.device)

@@ -82,3 +82,94 @@ def or_rows(p: torch.Tensor) -> torch.Tensor:
         folded = x[:h] | x[h : 2 * h]
         x = folded if x.shape[0] % 2 == 0 else torch.cat([folded, x[2 * h :]])
     return x[0]
+
+
+def tail_mask(length: int, device=None) -> torch.Tensor:
+    """int32 [W] mask of the valid bits of each word: all ones but the tail
+    word, whose bits past ``length % 32`` are zero (a packed plane always
+    equals itself AND this mask)."""
+    w = words_for(length)
+    full = torch.full((w,), -1, dtype=torch.int32, device=device)
+    rem = int(length) % WORD
+    if rem:
+        full[-1] = (1 << rem) - 1
+    return full
+
+
+def word_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a & b
+
+
+def word_or(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a | b
+
+
+def word_andnot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a & ~b (e.g. a live-view plane minus its self bits)."""
+    return a & ~b
+
+
+def popcount_rows(p: torch.Tensor) -> torch.Tensor:
+    """int32 [..., W] words -> int32 [...]: the set bits along the packed
+    axis (a bool plane's row sum, never widened to int64)."""
+    return popcount(p).sum(dim=-1, dtype=torch.int32)
+
+
+def popcount_total(p: torch.Tensor) -> torch.Tensor:
+    """The whole plane's set-bit count as an int32 scalar."""
+    return popcount(p).sum(dtype=torch.int32)
+
+
+def row_gather(p: torch.Tensor, idx) -> torch.Tensor:
+    """Packed rows ``p[idx]``: W words per row instead of L bools."""
+    return p[idx]
+
+
+def diag_words(n: int, device=None) -> torch.Tensor:
+    """int32 [N, W]: row i holds the single bit of column i (the packed
+    identity, for clearing self bits of an [N, N] mask)."""
+    rows = torch.arange(n, device=device)
+    out = torch.zeros((n, words_for(n)), dtype=torch.int32, device=device)
+    out[rows, rows // WORD] = to_i32(torch.ones((), dtype=torch.int64, device=device) << (rows % WORD))
+    return out
+
+
+def select_bit(word: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Index of the ``r``-th (1-indexed) set bit of each int32 ``word`` (its
+    uint32 bits), by a 32-step sweep; ranks below 1 or above the word's
+    popcount give 0 (the callers mask those slots)."""
+    r = r.to(torch.int32)
+    cnt = torch.zeros(word.shape, dtype=torch.int32, device=word.device)
+    out = torch.zeros(word.shape, dtype=torch.int32, device=word.device)
+    for b in range(WORD):
+        bit = ((word >> b) & 1).to(torch.int32)
+        cnt += bit
+        out = torch.where((bit == 1) & (cnt == r), b, out)
+    return out
+
+
+def _word_value(v: int) -> int:
+    """A uint32 value as the int32 of the same bits."""
+    return v - (1 << 32) if v >= (1 << 31) else v
+
+
+def set_bit(p: torch.Tensor, row: int, col: int) -> torch.Tensor:
+    """Copy of the packed plane with bit ``col`` of row ``row`` set."""
+    w, b = int(col) // WORD, int(col) % WORD
+    out = p.clone()
+    out[row, w] |= _word_value(1 << b)
+    return out
+
+
+def clear_col(p: torch.Tensor, col: int) -> torch.Tensor:
+    """Copy of a packed [N, W] plane with bit ``col`` cleared in every row."""
+    w, b = int(col) // WORD, int(col) % WORD
+    out = p.clone()
+    out[:, w] &= _word_value(~(1 << b) & MASK32)
+    return out
+
+
+def col_bits(p: torch.Tensor, col: int) -> torch.Tensor:
+    """bool [...]: bit ``col`` of every packed row (one word per row)."""
+    w, b = int(col) // WORD, int(col) % WORD
+    return ((p[..., w] >> b) & 1) == 1

@@ -2,15 +2,18 @@
 
 A port of the JAX package's ``ops/engine_api.py``, cut to the fields the
 driver reads: an engine is one :class:`EngineOps` descriptor, and
-:func:`resolve` picks it by the params type. The partial-view ("pview") and
-sparse engines are ported; the dense engine is refused by name until its
-slice lands (ROADMAP A6).
+:func:`resolve` picks it by the params type. All three engines are ported:
+dense (``SimParams``), sparse (``SparseParams``) and partial-view
+(``PviewParams``). The seams over the one [N, N] view plane that dense and
+sparse share (``plane_*``) are written once here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,8 +28,78 @@ class EngineOps:
     remembered_rows: Callable  # state -> [N] bool
     staleness: Callable  # state -> (stale [N] int32, up count)
     key_plane: Callable  # state -> the packed-key plane (its dtype is the layout)
-    pool_slots: Callable  # params -> bounded pool size
+    pool_slots: Callable  # params -> bounded pool size, or None (no pool)
     dense_links_default: bool
+
+    @property
+    def has_pool(self) -> bool:
+        """Whether the engine carries a membership-rumor pool."""
+        return self.pool_slots is not None
+
+
+# -- the seams of the two engines that hold the full [N, N] view plane (dense
+# -- and sparse keep the same view_key / up leaves) ----------------------------
+
+
+def plane_view_rows(state, rows) -> torch.Tensor:
+    """[W, N] view rows of ``rows``, in the plane's key dtype."""
+    from ._tick import row_index
+
+    return state.view_key[row_index(rows, state.device)]
+
+
+def plane_view_row(state, row: int) -> torch.Tensor:
+    """[N] int32 view row of ``row``."""
+    return state.view_key[row].to(torch.int32)
+
+
+def plane_remembered_rows(state) -> torch.Tensor:
+    """[N] bool — rows some up member still holds a record about (row
+    chunks)."""
+    from ._tensor import plane_chunks
+
+    n = state.capacity
+    held = torch.zeros((n,), dtype=torch.bool, device=state.device)
+    for lo, hi in plane_chunks(n, n):
+        held |= ((state.view_key[lo:hi] >= 0) & state.up[lo:hi, None]).any(dim=0)
+    return held
+
+
+def plane_staleness(state):
+    """Per-subject count of up observers holding a stale record (identity/
+    incarnation below the subject's own diagonal; unknown counts stale),
+    over row chunks in int32. Returns (int32 [N], the up count)."""
+    from ._tensor import plane_chunks
+
+    n = state.capacity
+    up = state.up
+    own = state.view_key.diagonal() >> 2
+    stale = torch.zeros((n,), dtype=torch.int32, device=state.device)
+    for lo, hi in plane_chunks(n, n):
+        blk = (up[lo:hi, None] & up[None, :]) & ((state.view_key[lo:hi] >> 2) < own[None, :])
+        stale += blk.sum(dim=0, dtype=torch.int32)
+    return stale, up.sum()
+
+
+def _dense_engine() -> EngineOps:
+    from . import kernel as K
+    from . import state as S
+
+    def _init(p, n, warm, dense_links, device):
+        return S.init_state(p, n, warm=warm, dense_links=dense_links, device=device)
+
+    return EngineOps(
+        name="dense",
+        ops=S,
+        init_state=_init,
+        make_run=K.make_run,
+        view_row=plane_view_row,
+        remembered_rows=plane_remembered_rows,
+        staleness=plane_staleness,
+        key_plane=lambda state: state.view_key,
+        pool_slots=None,
+        dense_links_default=True,
+    )
 
 
 def _pview_engine() -> EngineOps:
@@ -65,42 +138,37 @@ def _sparse_engine() -> EngineOps:
         ops=SP,
         init_state=_init,
         make_run=SP.make_sparse_run,
-        view_row=lambda state, row: state.view_key[row],
-        remembered_rows=SP.remembered_rows,
-        staleness=SP.staleness,
+        view_row=plane_view_row,
+        remembered_rows=plane_remembered_rows,
+        staleness=plane_staleness,
         key_plane=lambda state: state.view_key,
         pool_slots=lambda params: params.mr_slots,
         dense_links_default=False,
     )
 
 
-_PORTED = {"pview": _pview_engine, "sparse": _sparse_engine}
-_NOT_PORTED = {"dense": "A6"}
+_ENGINES = {"dense": _dense_engine, "pview": _pview_engine, "sparse": _sparse_engine}
 
 
 def engine(name: str) -> EngineOps:
     """The :class:`EngineOps` of the engine ``name``."""
-    if name in _PORTED:
-        return _PORTED[name]()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {name} engine is not ported yet (ROADMAP {_NOT_PORTED[name]})"
-        )
-    raise ValueError(f"unknown engine {name!r}; one of ['dense', 'pview', 'sparse']")
+    if name not in _ENGINES:
+        raise ValueError(f"unknown engine {name!r}; one of {sorted(_ENGINES)}")
+    return _ENGINES[name]()
 
 
 def resolve(params) -> EngineOps:
-    """The engine a params object selects, by type (``PviewParams`` →
-    pview, ``SparseParams`` → sparse)."""
+    """The engine a params object selects, by type (``SimParams`` → dense,
+    ``SparseParams`` → sparse, ``PviewParams`` → pview)."""
     from .pview import PviewParams
     from .sparse import SparseParams
+    from .state import SimParams
 
-    if isinstance(params, PviewParams):
-        return engine("pview")
-    if isinstance(params, SparseParams):
-        return engine("sparse")
+    for cls, name in ((SimParams, "dense"), (SparseParams, "sparse"), (PviewParams, "pview")):
+        if isinstance(params, cls):
+            return engine(name)
     raise TypeError(
-        f"params {type(params).__name__} selects no ported engine (expected PviewParams or "
-        "SparseParams; the dense engine is ROADMAP A6)"
+        f"params {type(params).__name__} selects no engine (expected SimParams, SparseParams "
+        "or PviewParams)"
     )
 

@@ -106,3 +106,25 @@ def bump_inc(key: torch.Tensor, rank) -> torch.Tensor:
     epoch_bits = (key >> lay.epoch_shift) << lay.epoch_shift
     rank = torch.as_tensor(rank, device=key.device).to(key.dtype)
     return (epoch_bits | (inc << 2) | rank).to(key.dtype)
+
+
+def no_candidate(dtype) -> int:
+    """Scatter-max identity of a key dtype (its most negative value)."""
+    return int(torch.iinfo(dtype).min)
+
+
+# status by rank: 0 -> ALIVE, 1 -> LEAVING, 2 -> SUSPECT, 3 -> DEAD
+_RANK_TO_STATUS = (ALIVE, LEAVING, SUSPECT, DEAD)
+
+
+def key_status(key: torch.Tensor) -> torch.Tensor:
+    """int8 status code of each packed key; UNKNOWN where no record."""
+    lut = torch.tensor(_RANK_TO_STATUS, dtype=torch.int8, device=key.device)
+    return torch.where(key < 0, UNKNOWN, lut[(key & 3).long()]).to(torch.int8)
+
+
+def key_inc(key: torch.Tensor) -> torch.Tensor:
+    """int32 incarnation of each packed key (its dtype's layout); 0 where
+    no record."""
+    lay = layout_for(key.dtype)
+    return torch.where(key < 0, 0, (key >> 2) & lay.inc_mask).to(torch.int32)

@@ -70,6 +70,7 @@ from .rand import (
     SALT_SYNC_REQ,
     SparseFdRandoms,
     SparseRoundRandoms,
+    draw_sparse_tick,
     fetch_uniform,
 )
 from .state import NEVER, NO_CANDIDATE_I32, delay_mean_to_q
@@ -119,6 +120,21 @@ class PviewParams:
     early_free: bool = True
     full_metrics: bool = False
     key_dtype: str = "i32"
+
+    @staticmethod
+    def from_config(config, capacity: int | None = None, initial_size: int | None = None,
+                    seed_rows: tuple = (0,), mr_slots: int | None = None,
+                    view_slots: int | None = None) -> "PviewParams":
+        """Pview params from a ``ClusterConfig``: the shared tick mapping
+        (:func:`..config.tick_units`) plus the table sizing."""
+        from ..config import tick_units
+
+        sim = config.sim
+        return PviewParams(
+            view_slots=view_slots or sim.view_slots, active_slots=sim.active_slots,
+            mr_slots=mr_slots or 0, key_dtype=sim.plane_dtype,
+            **tick_units(config, capacity, initial_size, seed_rows),
+        )
 
     def __post_init__(self):
         if not (0 < self.active_slots < self.view_slots):
@@ -1226,7 +1242,7 @@ def run_pview_ticks_fused(state: PviewState, draws, n_ticks: int, params: PviewP
     round)`` draw pairs). Returns ``(state, metrics stacked to [n_ticks],
     watched)``; ``watched`` is the [n_ticks, W, N] synthesized key rows of
     ``watch_rows`` after each tick, or None."""
-    return run_window(pview_tick_fused, view_rows, state, draws, n_ticks, params, watch_rows)
+    return run_window(pview_tick_fused, view_rows, draw_sparse_tick, state, draws, n_ticks, params, watch_rows)
 
 
 def make_pview_fused_run(params: PviewParams, n_ticks: int):

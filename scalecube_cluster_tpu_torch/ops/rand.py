@@ -6,10 +6,13 @@ Two kinds of randomness enter a tick:
   metadata-fetch gate. It is a pure function of (tick, salt, i, j), so the
   port computes it bit for bit as the JAX package does (uint32 arithmetic,
   carried here in int64 masked to 32 bits).
-* the per-tick uniform draws (:class:`SparseFdRandoms`,
-  :class:`SparseRoundRandoms`) — same names, shapes and dtype (float32 in
-  [0, 1)) as the JAX package's. The tick takes them as an INPUT: the main
-  path draws them from a ``torch.Generator`` (:func:`draw_sparse_fd`,
+* the per-tick uniform draws — same names, shapes and dtype (float32 in
+  [0, 1)) as the JAX package's: the rank draws of the dense engine's
+  samplers (:class:`FdRandoms`, :class:`RoundRandoms`) and the rejection
+  tries of the pview and sparse engines (:class:`SparseFdRandoms`,
+  :class:`SparseRoundRandoms`). The tick takes them as an INPUT: the main
+  path draws them from a ``torch.Generator`` (:func:`draw_fd_randoms`,
+  :func:`draw_round_randoms`, :func:`draw_sparse_fd`,
   :func:`draw_sparse_round`); the parity tests hand the port the JAX
   package's own draws, so the two engines consume identical numbers.
 """
@@ -51,6 +54,33 @@ def fetch_uniform(tick: int, salt: int, i, j) -> torch.Tensor:
 
 
 @dataclasses.dataclass
+class FdRandoms:
+    """Dense-engine FD draws of one tick: the probe target's and the
+    relays' rank draws, the direct and the per-relay delivery draws."""
+
+    fd_sel: torch.Tensor  # [N, 1+k]
+    fd_direct: torch.Tensor  # [N]
+    fd_relay: torch.Tensor  # [N, k]
+
+    def to(self, device) -> "FdRandoms":
+        return FdRandoms(*(getattr(self, f.name).to(device) for f in dataclasses.fields(self)))
+
+
+@dataclasses.dataclass
+class RoundRandoms:
+    """Dense-engine gossip and SYNC draws of one tick."""
+
+    gossip_sel: torch.Tensor  # [N, f]
+    gossip_edge: torch.Tensor  # [N, f]
+    gossip_delay: torch.Tensor  # [N, f]
+    sync_sel: torch.Tensor  # [N]
+    sync_edge: torch.Tensor  # [N]
+
+    def to(self, device) -> "RoundRandoms":
+        return RoundRandoms(*(getattr(self, f.name).to(device) for f in dataclasses.fields(self)))
+
+
+@dataclasses.dataclass
 class SparseFdRandoms:
     """FD draws of one tick: rejection-sampling tries + delivery draws."""
 
@@ -81,6 +111,26 @@ def _uniform(gen: torch.Generator, shape) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
 
 
+def draw_fd_randoms(gen: torch.Generator, n: int, ping_req_k: int) -> FdRandoms:
+    """One dense tick's FD draws from ``gen``, on the generator's device."""
+    return FdRandoms(
+        fd_sel=_uniform(gen, (n, 1 + ping_req_k)),
+        fd_direct=_uniform(gen, (n,)),
+        fd_relay=_uniform(gen, (n, ping_req_k)),
+    )
+
+
+def draw_round_randoms(gen: torch.Generator, n: int, fanout: int) -> RoundRandoms:
+    """One dense tick's gossip/SYNC draws from ``gen``, on its device."""
+    return RoundRandoms(
+        gossip_sel=_uniform(gen, (n, fanout)),
+        gossip_edge=_uniform(gen, (n, fanout)),
+        gossip_delay=_uniform(gen, (n, fanout)),
+        sync_sel=_uniform(gen, (n,)),
+        sync_edge=_uniform(gen, (n,)),
+    )
+
+
 def draw_sparse_fd(gen: torch.Generator, n: int, ping_req_k: int, tries: int) -> SparseFdRandoms:
     """One tick's FD draws from ``gen``, on the generator's device."""
     return SparseFdRandoms(
@@ -100,3 +150,18 @@ def draw_sparse_round(gen: torch.Generator, n: int, fanout: int, tries: int) -> 
         sync_fb=_uniform(gen, (n,)),
         sync_edge=_uniform(gen, (n,)),
     )
+
+
+def draw_dense_tick(gen: torch.Generator, params, fd_due: bool):
+    """A dense tick's ``(fd, round)`` draws (``fd`` None off FD ticks)."""
+    n = params.capacity
+    fd = draw_fd_randoms(gen, n, params.ping_req_k) if fd_due else None
+    return fd, draw_round_randoms(gen, n, params.fanout)
+
+
+def draw_sparse_tick(gen: torch.Generator, params, fd_due: bool):
+    """A pview or sparse tick's ``(fd, round)`` draws (``fd`` None off FD
+    ticks)."""
+    n, t = params.capacity, params.sample_tries
+    fd = draw_sparse_fd(gen, n, params.ping_req_k, t) if fd_due else None
+    return fd, draw_sparse_round(gen, n, params.fanout, t)

@@ -20,7 +20,8 @@ What differs from the JAX spelling, and why:
   donated windows and mutators consume theirs. A second copy of the plane
   is 9.66 GB at 49,152 members.
 * Passes over the view plane (the suspicion sweep, ``full_metrics``, the
-  driver's remembered-rows and staleness seams) run over row chunks of at
+  driver's remembered-rows and staleness seams, which live in
+  :mod:`.engine_api` for dense and sparse alike) run over row chunks of at
   most :data:`._tensor.PLANE_CHUNK_CELLS` cells, counting in int32: a whole
   [N, N] temporary, or a bool sum widened to int64, would not fit beside
   the plane at that size. The sweep's announcer election (the lowest
@@ -50,8 +51,7 @@ What differs from the JAX spelling, and why:
 Not ported yet, and refused: ``delay_slots > 0`` and ``uniform_delay > 0``
 (the pending rings, ROADMAP A2), an enabled adaptive spec and non-default
 dissemination (A8, refused where params are carried across), trace capture
-(A10), meshes (A12). ``SparseParams.from_config`` comes with a copy of
-``config.py`` and ``auto_params``, after the dense engine (A6).
+(A10), meshes (A12).
 """
 
 from __future__ import annotations
@@ -72,6 +72,8 @@ from ._tick import rows_of as _rows
 from ._tick import seed_rows_tensor as _seed_rows_tensor
 from ._tick import set_at as _set
 from .bitplane import pack_bits, unpack_bits, words_for
+from .engine_api import plane_view_rows as view_rows
+from .kernel import ceil_log2
 from .lattice import ALIVE, RANK_ALIVE, RANK_DEAD, RANK_LEAVING, RANK_SUSPECT, UNKNOWN_KEY, precedence_key
 from .pool import alloc_phase, allocate
 from .rand import (
@@ -80,6 +82,7 @@ from .rand import (
     SALT_SYNC_REQ,
     SparseFdRandoms,
     SparseRoundRandoms,
+    draw_sparse_tick,
     fetch_uniform,
 )
 from .state import ALIVE0_KEY, NEVER, NO_CANDIDATE_I32, build_namespace_tables, delay_mean_to_q
@@ -91,11 +94,11 @@ NO_CANDIDATE = NO_CANDIDATE_I32
 class SparseParams:
     """Static parameters of the sparse tick — the JAX package's
     ``SparseParams`` without ``dissem``/``adaptive`` (this port runs the
-    default dissemination and no adaptive plane) and without
-    ``from_config``. ``mr_slots`` (M) sizes the membership-rumor pool,
-    ``announce_slots`` (E) the new rumors per tick, ``sample_tries`` (T)
-    the rejection draws per pick, ``sweep_every`` (B) the suspicion expiry
-    period, ``sync_announce`` (P) the re-gossip cap per SYNC participant."""
+    default dissemination and no adaptive plane). ``mr_slots`` (M) sizes
+    the membership-rumor pool, ``announce_slots`` (E) the new rumors per
+    tick, ``sample_tries`` (T) the rejection draws per pick,
+    ``sweep_every`` (B) the suspicion expiry period, ``sync_announce`` (P)
+    the re-gossip cap per SYNC participant."""
 
     capacity: int
     fanout: int = 3
@@ -123,6 +126,17 @@ class SparseParams:
     early_free: bool = True
     full_metrics: bool = False
     namespace_gate: bool = False
+
+    @staticmethod
+    def from_config(config, capacity: int | None = None, initial_size: int | None = None,
+                    seed_rows: tuple = (0,), mr_slots: int | None = None) -> "SparseParams":
+        """Sparse params from a ``ClusterConfig``: the shared tick mapping
+        (:func:`..config.tick_units`) plus the pool, ``capacity // 16``
+        slots (256 at least) unless ``mr_slots`` is given."""
+        from ..config import tick_units
+
+        units = tick_units(config, capacity, initial_size, seed_rows)
+        return SparseParams(mr_slots=mr_slots or max(256, units["capacity"] // 16), **units)
 
     def __post_init__(self):
         if self.delay_slots:
@@ -434,50 +448,9 @@ def restore(arrays: dict, device="cuda") -> SparseState:
     return convert.state_from_numpy(arrays, device=device)
 
 
-# -- the driver's seams over the view plane -----------------------------------
-
-
-def view_rows(state: SparseState, rows) -> torch.Tensor:
-    """[W, N] int32 view rows of ``rows``."""
-    return state.view_key[_row_index(rows, state.device)]
-
-
-def remembered_rows(state: SparseState) -> torch.Tensor:
-    """[N] bool — rows some up member still holds a record about."""
-    n = state.capacity
-    held = torch.zeros((n,), dtype=torch.bool, device=state.device)
-    for lo, hi in plane_chunks(n, n):
-        held |= ((state.view_key[lo:hi] >= 0) & state.up[lo:hi, None]).any(dim=0)
-    return held
-
-
-def staleness(state: SparseState):
-    """Per-subject count of up observers holding a stale record (identity/
-    incarnation below the subject's own diagonal; unknown counts stale).
-    Returns (int32 [N], the up count)."""
-    n = state.capacity
-    up = state.up
-    own = state.view_key.diagonal() >> 2
-    stale = torch.zeros((n,), dtype=torch.int32, device=state.device)
-    for lo, hi in plane_chunks(n, n):
-        blk = (up[lo:hi, None] & up[None, :]) & ((state.view_key[lo:hi] >> 2) < own[None, :])
-        stale += blk.sum(dim=0, dtype=torch.int32)
-    return stale, up.sum()
-
-
 # ---------------------------------------------------------------------------
 # in-tick helpers
 # ---------------------------------------------------------------------------
-
-
-def ceil_log2(n: torch.Tensor) -> torch.Tensor:
-    """Reference ``ClusterMath.ceilLog2 = 32 - numberOfLeadingZeros(n)``,
-    exactly, by integer compare-and-count (int32)."""
-    n = n.to(torch.int32)
-    powers = torch.ones((), dtype=torch.int32, device=n.device) << torch.arange(
-        31, dtype=torch.int32, device=n.device
-    )
-    return (n[..., None] >= powers).sum(dim=-1, dtype=torch.int32)
 
 
 def _loss_at(state: SparseState, i, j) -> torch.Tensor:
@@ -1033,7 +1006,7 @@ def run_sparse_ticks_fused(state: SparseState, draws, n_ticks: int, params: Spar
     state's device or ``n_ticks`` ``(fd, round)`` draw pairs). Returns
     ``(state, metrics stacked to [n_ticks], watched)``; ``watched`` is the
     [n_ticks, W, N] view rows of ``watch_rows`` after each tick, or None."""
-    return run_window(sparse_tick_fused, view_rows, state, draws, n_ticks, params, watch_rows)
+    return run_window(sparse_tick_fused, view_rows, draw_sparse_tick, state, draws, n_ticks, params, watch_rows)
 
 
 def make_sparse_fused_run(params: SparseParams, n_ticks: int):

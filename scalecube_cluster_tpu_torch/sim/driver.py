@@ -1,11 +1,13 @@
 """SimDriver: the host loop around the device-resident SWIM simulation.
 
-A port of the JAX package's ``sim/driver.py`` over the partial-view and
-sparse engines on one device (the params type picks the engine,
-:func:`..ops.engine_api.resolve`). The driver owns:
+A port of the JAX package's ``sim/driver.py`` over the dense, sparse and
+partial-view engines on one device (the params type picks the engine,
+:func:`..ops.engine_api.resolve`; :func:`auto_params` picks the params by
+the JAX package's engine policy). The driver owns:
 
-* the engine's window (:func:`..ops.pview.make_pview_run`,
-  :func:`..ops.sparse.make_sparse_run`) and its randomness: a ``torch.Generator`` on the driver's device,
+* the engine's window (:func:`..ops.kernel.make_run`,
+  :func:`..ops.sparse.make_sparse_run`, :func:`..ops.pview.make_pview_run`)
+  and its randomness: a ``torch.Generator`` on the driver's device,
   seeded with ``seed``, that each window draws its per-tick uniforms from
   (the JAX driver's key chain plays this part there);
 * the id↔row mapping (``Member`` handles with ``sim://row`` addresses);
@@ -75,6 +77,54 @@ def _status_of_key(k: int) -> int:
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def auto_params(
+    capacity: int,
+    *,
+    per_link_fidelity: bool = False,
+    link_delay: bool = False,
+    dense_threshold: int = 8192,
+    config=None,
+    **overrides,
+):
+    """The JAX package's engine policy: the dense engine where per-link
+    fidelity or link delay is asked for up to ``dense_threshold`` members,
+    and for every cluster of at most 512 members; the sparse engine past
+    that; the partial-view engine with ``force_pview=True``
+    (``force_sparse=True`` overrides the dense choice).
+
+    Returns a ``SimParams``, ``SparseParams`` or ``PviewParams``, which
+    :class:`SimDriver` resolves to its engine. ``config`` (a
+    :class:`..config.ClusterConfig`) goes through the class's
+    ``from_config`` with the overrides it takes; the remaining overrides
+    replace fields of the result. A configured ``compile_cache_dir``
+    raises (ROADMAP A13), as the driver's argument does."""
+    import dataclasses
+    import inspect
+
+    from ..ops.pview import PviewParams
+    from ..ops.sparse import SparseParams
+    from ..ops.state import SimParams
+
+    if config is not None and config.sim.compile_cache_dir:
+        _not_ported("the compile-cache directory", "A13")
+    force_sparse = overrides.pop("force_sparse", False)
+    force_pview = overrides.pop("force_pview", False)
+    use_dense = ((per_link_fidelity or link_delay) and capacity <= dense_threshold) or capacity <= 512
+    if force_sparse:
+        use_dense = False
+    if force_pview:
+        cls = PviewParams
+    else:
+        cls = SimParams if use_dense else SparseParams
+    if config is not None:
+        names = set(inspect.signature(cls.from_config).parameters)
+        fc_kw = {k: v for k, v in overrides.items() if k in names}
+        rest = {k: v for k, v in overrides.items() if k not in names}
+        params = cls.from_config(config, capacity=capacity, **fc_kw)
+        return dataclasses.replace(params, **rest) if rest else params
+    return cls(capacity=capacity, **overrides)
 
 
 @dataclass
@@ -439,7 +489,7 @@ class SimDriver:
         # the joiner's self-announce can drop when the pool has no victim;
         # probed only for a registered health consumer, as a device scalar
         # read at the next flush()
-        if self._health_interest:
+        if self._eng.has_pool and self._health_interest:
             in_pool = ((self.state.mr_subject == row) & self.state.mr_active).any()
             miss = (~in_pool).to(torch.int32)
             self._join_probe = miss if self._join_probe is None else self._join_probe + miss
@@ -504,7 +554,9 @@ class SimDriver:
             self._flush_locked()
             if self._rumor_cov_host is None or self._rumor_cov_dirty:
                 up = self.state.up
-                cov = (self.state.infected & up[:, None]).sum(dim=0).to(torch.float32) / (
+                # the dense engine stores the infection bits packed
+                infected = getattr(self.state, "infected_bool", self.state.infected)
+                cov = (infected & up[:, None]).sum(dim=0).to(torch.float32) / (
                     up.sum().clamp(min=1).to(torch.float32)
                 )
                 self._rumor_cov_host = cov.cpu().numpy()
@@ -515,12 +567,15 @@ class SimDriver:
     def rumor_payload(self, slot: int) -> object:
         return self._rumor_payloads.get(slot)
 
-    # -- links (pview: group partitions; sparse: the scalar or [N, N] plane) --
+    # -- links (pview: group partitions; dense, sparse: the scalar or [N, N]
+    # -- plane; link delay needs the dense engine's rings) ---------------------
     def set_link_loss(self, src, dst, loss: float) -> None:
         with self._lock:
             self.state = self._ops.set_link_loss(self.state, src, dst, loss)
 
     def set_link_delay(self, src, dst, mean_delay_ticks: float) -> None:
+        """Outbound mean delay in ticks on the links src -> dst (the dense
+        engine with ``params.delay_slots > 0``)."""
         with self._lock:
             self.state = self._ops.set_link_delay(self.state, src, dst, mean_delay_ticks)
 
@@ -560,7 +615,8 @@ class SimDriver:
     # -- engine health ------------------------------------------------------
     def health_snapshot(self) -> dict:
         """Protocol health: rumor-pool backpressure (occupancy, high-water,
-        per-source announce drops, evictions), identity-dissemination
+        per-source announce drops, evictions; the ``pool`` block only on
+        the engines with a pool), identity-dissemination
         staleness (per-subject counts of up observers holding a stale
         record, and lag cohorts of recent joins), per-slot rumor coverage.
         A sync point: it flushes every staged reduction, and registers
@@ -585,7 +641,7 @@ class SimDriver:
             if bool(self.state.up[r])
         ]
         cov = self._rumor_cov_host
-        return {
+        out = {
             "engine": self.engine,
             "tick": tick,
             "n_up": n_up,
@@ -605,12 +661,14 @@ class SimDriver:
                 ),
                 "stale": bool(self._rumor_cov_dirty),
             },
-            "pool": {
+        }
+        if self._eng.has_pool:
+            out["pool"] = {
                 "mr_slots": self._eng.pool_slots(self.params),
                 "active_now": int(self.state.mr_active.sum()),
                 "high_water": self._pool_high_water,
-            },
-        }
+            }
+        return out
 
     def enable_health_probes(self) -> None:
         """Register health interest without taking a snapshot: turns on the

@@ -310,12 +310,11 @@ def test_refused_surfaces_raise_not_implemented():
         "mesh": lambda: SimDriver(d.params, 8, mesh=object(), device="cpu"),
         "compile_cache_dir": lambda: SimDriver(d.params, 8, compile_cache_dir="x", device="cpu"),
         "sparse delay rings": lambda: TSP.SparseParams(capacity=8, delay_slots=2),
-        "dense engine": lambda: engine_api.engine("dense"),
     }
     items = {"arm_telemetry": "A10", "arm_trace": "A10", "run_scenario": "A10", "chaos_snapshot": "A10",
              "set_dissemination": "A8", "set_adaptive": "A8", "set_protocol_knobs": "A11",
              "arm_control": "A11", "jit_cache_audit": "A13", "transport": "A13", "mesh": "A12",
-             "compile_cache_dir": "A13", "sparse delay rings": "A2", "dense engine": "A6"}
+             "compile_cache_dir": "A13", "sparse delay rings": "A2"}
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match=items[name]):
             call()
@@ -323,8 +322,9 @@ def test_refused_surfaces_raise_not_implemented():
         SimDriver(d.params, 8, dense_links=True, device="cpu")
     with pytest.raises(ValueError, match="per-link delay"):
         d.set_link_delay([0], [1], 2.0)
-    with pytest.raises(TypeError, match="selects no ported engine"):
+    with pytest.raises(TypeError, match="selects no engine"):
         SimDriver(object(), 8, device="cpu")
+    assert engine_api.engine("dense").name == "dense"
 
 
 def test_default_device_is_the_card():
