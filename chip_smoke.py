@@ -4,17 +4,20 @@
 
 Drives the port's main paths — the partial-view engine's tick window and
 ``SimDriver`` over it, both at 1,048,576 members, the sparse engine's
-window and ``SimDriver`` over it at 49,152 members, and the dense engine's
+window and ``SimDriver`` over it at 49,152 members, the dense engine's
 window and ``SimDriver`` over it at 10,000 members and its delay regime at
-8,192 — on the card, and fails (non-zero exit, no result line) unless
-every phase passes:
+8,192, and each engine's window again under a dissemination strategy, with
+the strategies' certification matrix — on the card, and fails (non-zero
+exit, no result line) unless every phase passes:
 
 1. device   — a CUDA device is present; prints its name and power limit;
 2. build    — builds the port's CUDA kernel with nvcc; prints ptxas's
    registers, stack and spills for each compiled variant;
 3. kernels  — each kernel against its plain PyTorch version on random
    inputs at the main path's shapes, and at shapes that reach its other
-   compiled variants: bit-equal outputs, timed beside the byte bound;
+   compiled variants, and on the ``inv`` that ``accelerated/expander``
+   peers build at 1M (every receiver one sender per slot): bit-equal
+   outputs, timed beside the byte bound;
 4. window   — a 4,096-member, 40-tick fused window on the CPU (plain
    versions) and on the card (kernels) from the same draws: equal state
    and metrics;
@@ -80,7 +83,30 @@ every phase passes:
    ``step(10)``;
 21. dense-delay — ``SimDriver(auto_params(8192, link_delay=True, ...))``
    in config3's delay regime, 200 FD rounds: the raw FD failure rate
-   against config3's analytic rate (fails beyond 5σ).
+   against config3's analytic rate (fails beyond 5σ);
+22. dissem-windows — armed windows on the CPU and on the card from the
+   same draws: pview at 4,096 under ``push_pull/expander`` (phase 4's
+   scenario), sparse at 4,096 under ``pipelined/ring`` (budget 2, phase
+   10's), dense at 2,048 under ``push_pull/full`` with the delay rings at
+   D = 3 (phase 16's), and phase 7's driver script on config9's dense
+   params with ``set_dissemination(strategy="accelerated",
+   topology="ring")`` in the middle: equal state, metrics and events;
+23. dissem-certify — ``spread_certifier`` over config12's matrix
+   (``dissemination/certify.py: DEFAULT_MATRIX``, 15 dense and 2 pview
+   entries, N = 256, seeds 0-4, fanout 3, 8 rumor slots, geo WAN delay 2,
+   pipeline budget 2, the entries spread over four worker processes on
+   the card) and the pipelined steady state: every entry certified, each
+   entry's spread ticks printed beside its bound; then
+   config12's default-spec control (dense N = 4,096, 8 rumor slots, one
+   80-tick sweep window) beside two armed spellings of it;
+24. dissem-main — one armed spec on each engine at its main path's full
+   width: pview at 1M under ``push_pull/expander`` (phase 5's scenario, 10
+   timed ticks, one launch per tick, then three ticks profiled as in
+   phase 6), sparse at 49,152 under ``pipelined/expander`` (phase 11's
+   churn run), dense at 10,000 under ``push_pull/full`` (phase 17's
+   partition with phase 18's profiles): ms/tick, peak, launches and each
+   engine's invariants, beside that engine's unarmed ms/tick from the
+   same call.
 
 The dense paths launch no hand-written kernel; their launch counts (0)
 stand in the kernels line. The line before the last is a JSON object with one entry per kernel; the
@@ -130,6 +156,22 @@ def nvidia_smi() -> str:
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
+
+
+def dissem_label(params) -> str:
+    """The text ' under strategy/topology' for params armed with a
+    dissemination spec, '' for the default (push over the full topology)."""
+    spec = params.dissem
+    return "" if spec.is_default else f" under {spec.strategy}/{spec.topology}"
+
+
+def armed(params, **spec):
+    """``params`` with the dissemination spec ``spec``."""
+    import dataclasses as dc
+
+    from scalecube_cluster_tpu_torch.dissemination import DissemSpec
+
+    return dc.replace(params, dissem=DissemSpec(**spec))
 
 
 def time_cuda(fn, reps: int, warmup: int = 3) -> float:
@@ -297,14 +339,15 @@ def check_kernels(device) -> dict:
     return rows
 
 
-def check_cross_device(device) -> None:
-    """40 ticks at N = 4,096 on the CPU and on the card from the same draws."""
+def check_cross_device(device, params=None, label: str = "window") -> None:
+    """40 ticks at N = 4,096 on the CPU and on the card from the same draws
+    (``params``: config16's widths by default)."""
     from scalecube_cluster_tpu_torch import convert
     from scalecube_cluster_tpu_torch.ops import pview as PV
     from scalecube_cluster_tpu_torch.ops import rand as PR
 
     n, ticks = 4096, 40
-    params = config16_params(n)
+    params = params or config16_params(n)
     gen = torch.Generator(device="cpu").manual_seed(7)
     draws = [
         (PR.draw_sparse_fd(gen, n, params.ping_req_k, params.sample_tries),
@@ -325,27 +368,30 @@ def check_cross_device(device) -> None:
             bad.append(f"metric {k}")
     if bad:
         raise AssertionError(f"CPU and card windows differ in: {bad}")
-    phase("window", f"N={n}, {ticks} ticks: every state leaf and metric equal on CPU and {device}; "
+    phase(label, f"N={n}, {ticks} ticks{dissem_label(params)}: every state leaf and metric equal on CPU and {device}; "
                     f"mr_accepts {int(cpu_ms['mr_accepts'].sum())}, sync_roundtrips "
                     f"{int(cpu_ms['sync_roundtrips'].sum())}, rumor_deliveries {int(cpu_ms['rumor_deliveries'].sum())}")
 
 
-def run_main_path(device) -> dict:
+def run_main_path(device, params=None, label: str = "main") -> dict:
+    """The pview main path at N_MAIN (``params``: config16's widths by
+    default): a warm-up window, a timed 10-tick window with the launch
+    counts zeroed just before and read just after, its invariants."""
     from scalecube_cluster_tpu_torch.ops import _tensor, delivery
     from scalecube_cluster_tpu_torch.ops import pview as PV
 
     n = N_MAIN
-    params = config16_params(n)
+    params = params or config16_params(n)
     t0 = time.perf_counter()
     st = busy_state(params, n, device)
     torch.cuda.synchronize()
-    phase("main", f"N={n} state built in {time.perf_counter() - t0:.2f} s "
+    phase(label, f"N={n} state built in {time.perf_counter() - t0:.2f} s "
                   f"(minf_age {tuple(st.minf_age.shape)} {st.minf_age.dtype})")
     gen = torch.Generator(device=device).manual_seed(11)
     t0 = time.perf_counter()
     st, _, _ = PV.run_pview_ticks_fused(st, gen, 5, params)
     torch.cuda.synchronize()
-    phase("main", f"warm-up window of 5 ticks: {time.perf_counter() - t0:.2f} s")
+    phase(label, f"warm-up window of 5 ticks: {time.perf_counter() - t0:.2f} s")
 
     ticks = 10
     torch.cuda.reset_peak_memory_stats()
@@ -392,12 +438,13 @@ def run_main_path(device) -> dict:
     for k, v in ms.items():
         if v.shape[0] != ticks:
             raise AssertionError(f"metric {k} has {v.shape[0]} ticks, expected {ticks}")
-    phase("main", f"N={n}, {ticks} ticks: {wall / ticks * 1e3:.2f} ms/tick, peak allocated "
+    phase(label, f"N={n}, {ticks} ticks{dissem_label(params)}: {wall / ticks * 1e3:.2f} ms/tick, peak allocated "
                   f"{peak / 2 ** 30:.2f} GiB, delivery_combine launches {launches}, host syncs {syncs} "
                   f"({syncs / ticks:.1f}/tick), final coverage {cov[-1].cpu().tolist()}")
-    phase("main", f"2 more ticks: {flag_reads} branch-flag reads, {device_waits} operations "
+    phase(label, f"2 more ticks: {flag_reads} branch-flag reads, {device_waits} operations "
                   "waited for the device")
-    return {"launches": launches, "state": st, "gen": gen, "params": params}
+    return {"launches": launches, "state": st, "gen": gen, "params": params, "ms_tick": wall / ticks * 1e3,
+            "peak": peak, "flags": syncs / ticks}
 
 
 PHASES = ("_fd_phase", "_maintenance_sweep", "_gossip_phase_fused", "_sync_phase",
@@ -506,9 +553,11 @@ def cpu_draws(params, ticks: int, seed: int) -> list:
     return [draw(gen, params, True) for _ in range(ticks)]
 
 
-def driver_script(d, n: int) -> None:
+def driver_script(d, n: int, swap=None) -> None:
     """The driver-window script: two watched rows, spreads, a crash, a
-    join, a leave, metadata bumps, a partition and its heal (40 ticks)."""
+    join, a leave, metadata bumps, a partition and its heal (40 ticks);
+    ``swap`` (``set_dissemination``'s keywords) arms a strategy in the
+    middle, before the partition."""
     for row in (0, n // 3):
         d.watch(row)
     for s in range(d.params.rumor_slots):
@@ -521,6 +570,8 @@ def driver_script(d, n: int) -> None:
     d.update_metadata(11)
     d.update_metadata_batch([11, 12, 13])
     d.step(13)
+    if swap:
+        d.set_dissemination(**swap)
     halves = (list(range(n // 2)), list(range(n // 2, n)))
     d.block_partition(*halves)
     d.step(10)
@@ -529,7 +580,7 @@ def driver_script(d, n: int) -> None:
 
 
 def check_driver_window(device, n: int = 4096, params=None, label: str = "driver-window",
-                        dense_links=None) -> None:
+                        dense_links=None, swap=None) -> None:
     """The ``n``-member driver script on the CPU and on the card from the
     same draws (``params``: the pview 1M configuration's widths by
     default)."""
@@ -542,7 +593,7 @@ def check_driver_window(device, n: int = 4096, params=None, label: str = "driver
     for dev in ("cpu", device):
         d = SimDriver(params, n, seed=0, record_metrics=True, device=dev, draws=DrawList(draws),
                       dense_links=dense_links)
-        driver_script(d, n)
+        driver_script(d, n, swap)
         drivers.append(d)
     a, b = drivers
     bad = state_differences(a.state, b.state)
@@ -570,7 +621,8 @@ def check_driver_window(device, n: int = 4096, params=None, label: str = "driver
     hist = a.metrics_history
     sums = {k: sum(int(m[k]) for m in hist)
             for k in ("mr_accepts", "sync_roundtrips", "rumor_deliveries", "fd_new_suspects") if k in hist[0]}
-    phase(label, f"N={n}, {ticks} ticks through SimDriver: every state leaf, per-tick metric "
+    swapped = f", set_dissemination({swap}) after tick 23" if swap else ""
+    phase(label, f"N={n}, {ticks} ticks through SimDriver{swapped}: every state leaf, per-tick metric "
                  f"and event log equal on CPU and {device}; events per watched row {events}, {sums}")
 
 
@@ -779,15 +831,15 @@ def run_cpu_and_card(run, device, what: str) -> dict:
     return cpu_ms
 
 
-def check_sparse_window(device, n: int = 4096) -> None:
+def check_sparse_window(device, n: int = 4096, params=None, label: str = "sparse-window") -> None:
     """40 sparse ticks at N = 4,096 with dense links on the CPU and on the
     card from the same draws: config5's widths, with a 2-tick FD period, a
     one-period suspicion timeout and a 20-tick SYNC period so that expiry
-    and anti-entropy happen inside the window."""
+    and anti-entropy happen inside the window (``params`` replaces them)."""
     from scalecube_cluster_tpu_torch.ops import sparse as SP
 
     ticks = 40
-    params = config5_params(n, fd_every=2, suspicion_mult=1, sync_every=20)
+    params = params or config5_params(n, fd_every=2, suspicion_mult=1, sync_every=20)
     draws = cpu_draws(params, ticks, seed=17)
     halves = (list(range(n // 2)), list(range(n // 2, n)))
     crashed = list(range(n // 2, n // 2 + 16))
@@ -806,23 +858,24 @@ def check_sparse_window(device, n: int = 4096) -> None:
     cpu_ms = run_cpu_and_card(run, device, "sparse windows")
     sums = {k: int(cpu_ms[k].sum()) for k in ("mr_accepts", "sync_roundtrips", "fd_new_suspects",
                                                "rumor_deliveries", "announced", "pool_evicted")}
-    phase("sparse-window", f"N={n}, {ticks} ticks, dense links: every state leaf and metric equal on "
-                           f"CPU and {device}; {sums}")
+    phase(label, f"N={n}, {ticks} ticks, dense links{dissem_label(params)}: every state leaf and metric "
+                 f"equal on CPU and {device}; {sums}")
 
 
-def run_sparse_main_path(device) -> dict:
-    """The sparse main path: config5's churn run at N_SPARSE."""
+def run_sparse_main_path(device, params=None, label: str = "sparse-main") -> dict:
+    """The sparse main path: config5's churn run at N_SPARSE (``params``:
+    config5's by default)."""
     from scalecube_cluster_tpu_torch.ops import _tensor, delivery
     from scalecube_cluster_tpu_torch.ops import sparse as SP
 
     n = N_SPARSE
-    params = config5_params(n)
+    params = params or config5_params(n)
     warm_s, timed_s = 2, 6
     churn, crash, join = churn_schedule(n, warm_s + timed_s, params.seed_rows)
     t0 = time.perf_counter()
     st = SP.init_sparse_state(params, n - churn, warm=True, device=device)
     torch.cuda.synchronize()
-    phase("sparse-main", f"N={n} state built in {time.perf_counter() - t0:.2f} s: view_key "
+    phase(label, f"N={n} state built in {time.perf_counter() - t0:.2f} s: view_key "
                          f"{tuple(st.view_key.shape)} {st.view_key.dtype}, minf_age {tuple(st.minf_age.shape)}, "
                          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated; churn {churn} "
                          f"crashes and {churn} joins per simulated second")
@@ -831,7 +884,7 @@ def run_sparse_main_path(device) -> dict:
     for sec in range(warm_s):
         st, _ = churn_second(st, params, crash[sec], join[sec], gen)
     torch.cuda.synchronize()
-    phase("sparse-main", f"warm-up, {warm_s} simulated seconds ({warm_s * TICKS_PER_SECOND} ticks): "
+    phase(label, f"warm-up, {warm_s} simulated seconds ({warm_s * TICKS_PER_SECOND} ticks): "
                          f"{time.perf_counter() - t0:.2f} s")
 
     ticks = timed_s * TICKS_PER_SECOND
@@ -859,17 +912,17 @@ def run_sparse_main_path(device) -> dict:
             raise AssertionError(f"the churn window never ran {k}")
     sparse_invariants(st)
     ms_tick = wall / ticks * 1e3
-    phase("sparse-main", f"N={n}, {timed_s} simulated seconds ({ticks} ticks, churn included): "
+    phase(label, f"N={n}, {timed_s} simulated seconds ({ticks} ticks, churn included){dissem_label(params)}: "
                          f"{ms_tick:.2f} ms/tick, realtime factor {1000 / (TICKS_PER_SECOND * ms_tick):.3f}, "
                          f"peak allocated {peak / 2 ** 30:.2f} GiB, delivery_combine launches {launches}, "
                          f"branch-flag reads {flags} ({flags / ticks:.1f}/tick); invariants held")
-    phase("sparse-main", f"pool high-water {int(ms['mr_active_count'].max())} of {params.mr_slots}, announced "
+    phase(label, f"pool high-water {int(ms['mr_active_count'].max())} of {params.mr_slots}, announced "
                          f"{int(ms['announced'].sum())}, dropped {int(ms['announce_dropped'].sum())} (fd "
                          f"{int(ms['announce_dropped_fd'].sum())}, expiry {int(ms['announce_dropped_expiry'].sum())}, "
                          f"refute {int(ms['announce_dropped_refute'].sum())}, sync "
                          f"{int(ms['announce_dropped_sync'].sum())}), evicted {int(ms['pool_evicted'].sum())}, "
                          f"new suspects {int(ms['fd_new_suspects'].sum())}, mr_accepts {int(ms['mr_accepts'].sum())}")
-    return {"launches": launches, "state": st, "gen": gen, "params": params}
+    return {"launches": launches, "state": st, "gen": gen, "params": params, "ms_tick": ms_tick, "peak": peak}
 
 
 SPARSE_PHASES = ("_fd_phase", "_suspicion_sweep", "_gossip_phase_fused", "_mr_apply", "_sync_phase",
@@ -1027,15 +1080,16 @@ def check_dense_window(device, n: int = 4096) -> None:
                           f"equal on CPU and {device}; {sums}")
 
 
-def check_dense_delay_window(device, n: int = 2048) -> None:
+def check_dense_delay_window(device, n: int = 2048, params=None, label: str = "dense-delay-window") -> None:
     """40 dense ticks at N = 2,048 with config3's delay configuration (i32,
-    loss 0.05, mean delay 1.5 ticks, 6 ring slots) and a slower group of
-    links through ``set_link_delay``, on the CPU and on the card."""
+    loss 0.05, mean delay 1.5 ticks, 6 ring slots; ``params`` replaces it)
+    and a slower group of links through ``set_link_delay``, on the CPU and
+    on the card."""
     from scalecube_cluster_tpu_torch.ops import kernel as K
     from scalecube_cluster_tpu_torch.ops import state as S
 
     ticks = 40
-    params = config4_params(n, **CONFIG3_KNOBS)
+    params = params or config4_params(n, **CONFIG3_KNOBS)
     draws = cpu_draws(params, ticks, seed=23)
 
     def run(dev):
@@ -1049,8 +1103,8 @@ def check_dense_delay_window(device, n: int = 2048) -> None:
     cpu_ms = run_cpu_and_card(run, device, "dense delay windows")
     sums = {k: int(cpu_ms[k].sum()) for k in ("fd_probes", "fd_failed_probes", "gossip_msgs",
                                                "rumor_deliveries")}
-    phase("dense-delay-window", f"N={n}, {ticks} ticks, delay rings (D = 6, mean 1.5 ticks, rows 0-7 at 4.0): "
-                                f"every state leaf and metric equal on CPU and {device}; {sums}")
+    phase(label, f"N={n}, {ticks} ticks, delay rings (D = {params.delay_slots}, mean 1.5 ticks, rows 0-7 at "
+                 f"4.0){dissem_label(params)}: every state leaf and metric equal on CPU and {device}; {sums}")
 
 
 def copy_state(st, device):
@@ -1108,7 +1162,8 @@ def report_gates(label: str, gated, ungated) -> None:
                      "ms/tick (gated / ungated)")
 
 
-def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int = 200, settle: int = 60) -> dict:
+def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int = 200, settle: int = 60,
+                   params=None, label: str = "dense-main", profile_label: str = "dense-profile") -> dict:
     """The dense main path: config4's partition run at ``n`` members through
     ``make_run`` windows of ``window`` ticks watching the majority observer
     (row n - 1). A window in which the minority is detected is run again
@@ -1119,12 +1174,13 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
     off (in the trajectory, out of the timing); after the recovery, 2
     ticks count the operations that wait for the device, and ``settle``
     ticks later (the forwarding windows of the last changes closed) 5 + 5
-    more are profiled."""
+    more are profiled. ``params`` (config4's by default) and ``label`` name
+    another run of the same script, ``profile_label`` its profiles."""
     from scalecube_cluster_tpu_torch.ops import _tensor
     from scalecube_cluster_tpu_torch.ops import kernel as K
     from scalecube_cluster_tpu_torch.ops import state as S
 
-    params = config4_params(n)
+    params = params or config4_params(n)
     split = n // 10
     minority, majority = list(range(split)), list(range(split, n))
     math_ticks = params.suspicion_mult * n.bit_length() * params.fd_every
@@ -1133,7 +1189,7 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
     st = S.block_partition(S.init_state(params, n, warm=True, dense_links=True, device=device),
                            minority, majority)
     torch.cuda.synchronize()
-    phase("dense-main", f"N={n} state built and partitioned {split}/{n - split} in "
+    phase(label, f"N={n} state built and partitioned {split}/{n - split} in "
                         f"{time.perf_counter() - t0:.2f} s: view_key {tuple(st.view_key.shape)} "
                         f"{st.view_key.dtype}, {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated; "
                         f"detection budget {detect_budget} ticks (2.5 x the suspicion math {math_ticks}), "
@@ -1150,7 +1206,7 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
     prof_part = None
     while detected is None and done < detect_budget:
         if done == profile_at:
-            st, ws, g, u = profile_dense(st, gen, params, 5, "dense-profile", watch=watch)
+            st, ws, g, u = profile_dense(st, gen, params, 5, profile_label, watch=watch)
             prof_part = (g, u)
             det = minority_detected(torch.cat(ws), split)
             if bool(det.any()):
@@ -1213,10 +1269,10 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
     ms_all = (timed["part"][1] + timed["heal"][1]) / ticks_t * 1e3
     ms_part = timed["part"][1] / max(timed["part"][0], 1) * 1e3
     ms_heal = timed["heal"][1] / max(timed["heal"][0], 1) * 1e3
-    phase("dense-main", f"N={n}: detected at tick {detected}, bulk (0.99) recovery {bulk}, full (0.9999) "
+    phase(label, f"N={n}{dissem_label(params)}: detected at tick {detected}, bulk (0.99) recovery {bulk}, full (0.9999) "
                         f"recovery {full} ticks after the heal (final alive_view_fraction {last_frac}); the JAX "
                         f"package recorded 392 / 329 / 444 (BENCH_RESULTS_r05.json, config 4); config4 ok {ok}")
-    phase("dense-main", f"ms/tick {ms_all:.2f} over {ticks_t} timed ticks (partitioned {ms_part:.2f} over "
+    phase(label, f"ms/tick {ms_all:.2f} over {ticks_t} timed ticks (partitioned {ms_part:.2f} over "
                         f"{timed['part'][0]}, healed {ms_heal:.2f} over {timed['heal'][0]}; the first window, the "
                         f"rerun of the detection window and the profiled ticks untimed), peak allocated "
                         f"{peak / 2 ** 30:.2f} GiB, branch-flag reads {flags_timed} "
@@ -1236,16 +1292,17 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
         finally:
             torch.cuda.set_sync_debug_mode("default")
     waits = sum("synchroniz" in str(w.message) for w in caught)
-    phase("dense-main", f"2 more ticks: {_tensor.HOST_SYNCS.count} branch-flag reads, {waits} operations "
+    phase(label, f"2 more ticks: {_tensor.HOST_SYNCS.count} branch-flag reads, {waits} operations "
                         "waited for the device")
     st, ms, _ = K.run_ticks(st, gen, settle, params)
     quiet = int((ms["gossip_msgs"] == 0).sum())
-    phase("dense-main", f"{settle} settling ticks: {quiet} with no gossip message sent")
-    st, _, g, u = profile_dense(st, gen, params, 5, "dense-profile-healed")
+    phase(label, f"{settle} settling ticks: {quiet} with no gossip message sent")
+    st, _, g, u = profile_dense(st, gen, params, 5, f"{profile_label}-healed")
     if prof_part is not None:
-        report_gates("dense-profile", *prof_part)
-    report_gates("dense-profile-healed", g, u)
-    return {"launches": launches, "ms_part": ms_part, "peak": peak, "part_ticks": part_ticks}
+        report_gates(profile_label, *prof_part)
+    report_gates(f"{profile_label}-healed", g, u)
+    return {"launches": launches, "ms_part": ms_part, "ms_heal": ms_heal, "peak": peak, "part_ticks": part_ticks,
+            "detected": detected, "bulk": bulk, "full": full, "budgets": (detect_budget, recover_budget)}
 
 
 def run_dense_driver(device, n: int = N_DENSE) -> dict:
@@ -1357,6 +1414,239 @@ def run_dense_delay(device, n: int = N_DELAY, rounds: int = CONFIG3_ROUNDS, wind
     return {"launches": launches, "z": z}
 
 
+
+# -- the dissemination strategies -----------------------------------------------------
+
+STRUCTURED_SPEC = dict(strategy="accelerated", topology="expander")
+
+
+def check_structured_kernel(device, n: int = N_MAIN, F: int = 3, R: int = 8, Wm: int = 64, tick: int = 7) -> dict:
+    """The kernel on the ``inv`` the gossip phase builds from
+    ``accelerated/expander`` peers at the main path's widths, every sender
+    up with payload: each fanout slot is a circulant permutation, so every
+    receiver has exactly one sender per slot. Bit-equal to the plain
+    version, timed beside the byte bound recomputed for this ``inv`` (one
+    sender row per distinct valid sender)."""
+    from scalecube_cluster_tpu_torch.dissemination import DissemSpec
+    from scalecube_cluster_tpu_torch.dissemination import strategies as dz
+    from scalecube_cluster_tpu_torch.ops import delivery
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    ym_p, yu_p, infected_from, _, origin = delivery_inputs(n, gen, F, R, Wm)
+    u = torch.rand((n, F), generator=gen, device=device)
+    peers, _ = dz.structured_peers(DissemSpec(**STRUCTURED_SPEC), n, tick, u)
+    p_all = peers.T.contiguous().long()
+    rows = torch.arange(n, dtype=torch.int32, device=device)[None, :].expand(F, n)
+    inv = torch.full((F, n), -1, dtype=torch.int32, device=device)
+    inv.scatter_reduce_(1, p_all, rows, "amax", include_self=True)
+    if bool((inv < 0).any()):
+        raise AssertionError("a receiver has no sender on the circulant inv")
+    planes = (ym_p, yu_p, infected_from, inv, origin)
+    got = delivery.delivery_combine(*planes)
+    ref_args = (torch.cat([ym_p, yu_p, infected_from], dim=1), inv, origin, Wm, R)
+    ref = delivery.delivery_combine_ref(*ref_args)
+    torch.cuda.synchronize()
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, ref))
+    if err != 0:
+        raise AssertionError(f"delivery_combine differs from its plain version on the circulant inv: max abs err {err}")
+    ms = kernel_ms(lambda: delivery.delivery_combine(*planes), "delivery_combine_kernel")
+    plain_ms = time_cuda(lambda: delivery.delivery_combine_ref(*ref_args), reps=5, warmup=1)
+    bound = bytes_ms(delivery_bytes(*planes[:4], reuse=True))
+    senders = torch.unique(inv).numel()
+    phase("kernels", f"delivery_combine on the {STRUCTURED_SPEC['strategy']}/{STRUCTURED_SPEC['topology']} inv "
+                     f"(N={n} F={F} R={R} Wm={Wm}, tick {tick}): bit-equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                     f"bound {bound:.4f} ms (roofline share {bound / ms:.3f}), valid slots {int((inv >= 0).sum())} "
+                     f"of {inv.numel()}, distinct senders {senders}")
+    return dict(n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
+
+
+def count_launches(fn):
+    """``fn()``'s result and the delivery_combine launches it made (the
+    count zeroed just before, read just after)."""
+    from scalecube_cluster_tpu_torch.ops import delivery
+
+    saved = delivery.delivery_combine.launches
+    delivery.delivery_combine.launches = 0
+    try:
+        out = fn()
+        return out, delivery.delivery_combine.launches
+    finally:
+        delivery.delivery_combine.launches += saved
+
+
+def check_dissem_windows(device) -> dict:
+    """Armed windows on the CPU and on the card from the same draws: pview
+    at 4,096 under push_pull/expander, sparse at 4,096 under
+    pipelined/ring (budget 2), dense at 2,048 under push_pull/full with the
+    delay rings (D = 3), and the driver script on config9's dense params
+    with a swap to accelerated/ring in the middle. Returns the card's
+    launches per window."""
+    launches = {}
+    _, launches["dissem-pview-window"] = count_launches(lambda: check_cross_device(
+        device, params=armed(config16_params(4096), strategy="push_pull", topology="expander"),
+        label="dissem-windows"))
+    _, launches["dissem-sparse-window"] = count_launches(lambda: check_sparse_window(
+        device, params=armed(config5_params(4096, fd_every=2, suspicion_mult=1, sync_every=20),
+                             strategy="pipelined", topology="ring", pipeline_budget=2),
+        label="dissem-windows"))
+    check_dense_delay_window(device, params=armed(config4_params(2048, **{**CONFIG3_KNOBS, "delay_slots": 3}),
+                                                  strategy="push_pull", topology="full"),
+                             label="dissem-windows")
+    check_driver_window(device, params=config9_dense_params(4096), label="dissem-windows", dense_links=True,
+                        swap=dict(strategy="accelerated", topology="ring"))
+    return launches
+
+
+def config12_control(device, n: int = 4096, spec=None) -> float:
+    """config12's default-spec control (benchmarks/config12_strategies.py:55-88):
+    dense at ``n`` members, 8 rumor slots, one sweep budget of ticks per
+    window; a warm-up window, then one timed window after a fresh spread.
+    ``spec`` arms the same run. Returns ms/tick."""
+    from scalecube_cluster_tpu_torch.ops import kernel as K
+    from scalecube_cluster_tpu_torch.ops import state as S
+    from scalecube_cluster_tpu_torch.ops.state import SimParams
+    from scalecube_cluster_tpu_torch.utils.cluster_math import gossip_periods_to_sweep
+
+    params = SimParams(capacity=n, fanout=3, repeat_mult=3, ping_req_k=3, fd_every=5, sync_every=150,
+                       suspicion_mult=5, rumor_slots=8, seed_rows=(0,), full_metrics=False)
+    if spec:
+        params = armed(params, **spec)
+    budget = gossip_periods_to_sweep(params.repeat_mult, n)
+    step = K.make_run(params, budget)
+    gen = torch.Generator(device=device).manual_seed(0)
+    st = S.spread_rumor(S.init_state(params, n, warm=True, device=device), 0, origin=0)
+    st, _, _ = step(st, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = S.spread_rumor(st, 0, origin=97)
+    st, ms, _ = step(st, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cov = ms["rumor_coverage"][:, 0].cpu()
+    if not bool((cov >= 1.0).any()):
+        raise AssertionError(f"config12 control N={n} {spec}: no full coverage in {budget} ticks")
+    return wall / budget * 1e3
+
+
+CERTIFY_KW = dict(n=256, seeds=(0, 1, 2, 3, 4), fanout=3, rumor_slots=8, geo_wan_delay_ticks=2, pipeline_budget=2)
+CERTIFY_WORKERS = 4
+
+
+def certify_entry(task) -> tuple:
+    """One entry of the certification matrix in a worker process:
+    ``spread_certifier`` over that entry alone (with the pipelined steady
+    state when the entry is pipelined) on ``device``. ``task`` is (entry,
+    device, the certifier's keywords). Returns (record, the worker's
+    delivery_combine launches, its log lines)."""
+    from scalecube_cluster_tpu_torch.dissemination.certify import spread_certifier
+    from scalecube_cluster_tpu_torch.ops import delivery
+
+    entry, device, kw = task
+    lines = []
+    delivery.delivery_combine.launches = 0
+    rec = spread_certifier((entry,), device=device, log=lines.append, **kw)
+    return rec, delivery.delivery_combine.launches, lines
+
+
+def run_dissem_certify(device) -> dict:
+    """config12's certification matrix on the card (DEFAULT_MATRIX at the
+    published N = 256, seeds 0-4, fanout 3, 8 rumor slots, geo WAN delay 2,
+    pipeline budget 2): every entry and the pipelined steady state must be
+    certified. A tick at N = 256 is bound by the host's dispatch of its
+    operations, so the entries run in CERTIFY_WORKERS processes on the one
+    card, the longest first (by their bounds). Then config12's default-spec
+    control at dense N = 4,096 beside two armed spellings of it."""
+    import multiprocessing
+
+    from scalecube_cluster_tpu_torch.dissemination import DissemSpec
+    from scalecube_cluster_tpu_torch.dissemination.certify import DEFAULT_MATRIX, theory_bound
+
+    def cost(entry):
+        strategy, topology, engine = entry
+        spec = DissemSpec(strategy=strategy, topology=topology, pipeline_budget=CERTIFY_KW["pipeline_budget"])
+        return theory_bound(spec, CERTIFY_KW["n"], CERTIFY_KW["fanout"], CERTIFY_KW["rumor_slots"])["bound_ticks"]
+
+    order = sorted(range(len(DEFAULT_MATRIX)), key=lambda i: -cost(DEFAULT_MATRIX[i]))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(CERTIFY_WORKERS) as pool:
+        done = pool.map(certify_entry, [(DEFAULT_MATRIX[i], str(device), CERTIFY_KW) for i in order], chunksize=1)
+    wall = time.perf_counter() - t0
+    results = [None] * len(order)
+    for i, out in zip(order, done):
+        results[i] = out
+    launches = sum(n for _, n, _ in results)
+    # each pipelined entry's worker measured the (same) steady state too
+    logged = [line for _, _, lines in results for line in lines]
+    for line in [x for x in logged if not x.startswith("pipelined steady-state")] + \
+            [x for x in logged if x.startswith("pipelined steady-state")][:1]:
+        phase("dissem-certify", line)
+    entries = [rec["entries"][0] for rec, _, _ in results]
+    steady = [rec["pipeline_steady_state"] for rec, _, _ in results if rec["pipeline_steady_state"]]
+    if any(s != steady[0] for s in steady):
+        raise AssertionError("the pipelined steady state differs between workers")
+    n_ok = sum(e["certified"] for e in entries)
+    phase("dissem-certify", f"{n_ok} of {len(entries)} entries certified ({sum(e['engine'] == 'dense' for e in entries)} "
+                            f"dense, {sum(e['engine'] == 'pview' for e in entries)} pview), pipelined steady state "
+                            f"{steady[0]['certified']} (overhead {steady[0]['pipelining_overhead_ticks']} ticks); "
+                            f"{wall:.1f} s in {CERTIFY_WORKERS} worker processes, delivery_combine launches {launches} "
+                            "(the pview entries)")
+    if n_ok != len(entries) or not steady[0]["certified"]:
+        bad = [(e["engine"], e["strategy"], e["topology"], e["spread_ticks"], e["bound_ticks"])
+               for e in entries if not e["certified"]]
+        raise AssertionError(f"certification failed: {bad}, steady state {steady[0]}")
+    control = {"default": config12_control(device)}
+    for spec in (dict(STRUCTURED_SPEC), dict(strategy="push_pull", topology="full")):
+        control[f"{spec['strategy']}/{spec['topology']}"] = config12_control(device, spec=spec)
+    phase("dissem-certify", "config12 control, dense N=4096, 8 rumor slots, one 80-tick sweep window: "
+                            + ", ".join(f"{k} {v:.2f} ms/tick" for k, v in control.items()))
+    return {"launches": launches, "control": control}
+
+
+def run_dissem_main(device, unarmed: dict) -> dict:
+    """One armed spec on each engine at the full width of its main path:
+    pview at 1M under push_pull/expander (phase 5's scenario), sparse at
+    49,152 under pipelined/expander (config5's churn), dense at 10,000 under
+    push_pull/full (config4's partition, its detection and recovery against
+    config4's budgets), each beside the engine's unarmed ms/tick from this
+    call. Returns the launches of each path."""
+    from scalecube_cluster_tpu_torch.ops import pview as PV
+
+    out = {}
+    run = run_main_path(device, params=armed(config16_params(N_MAIN), strategy="push_pull", topology="expander"),
+                        label="dissem-main")
+    st, gen, params = run.pop("state"), run["gen"], run["params"]
+    profile_phases(lambda: PV.run_pview_ticks_fused(st, gen, 3, params), PHASES, label="dissem-profile")
+    del st
+    torch.cuda.empty_cache()
+    if run["launches"] != 10:
+        raise AssertionError(f"the armed pview window launched delivery_combine {run['launches']} times in 10 ticks")
+    out["dissem-main-pview"] = run["launches"]
+    phase("dissem-main", f"pview push_pull/expander {run['ms_tick']:.2f} ms/tick against the unarmed window's "
+                         f"{unarmed['pview']:.2f} ({run['ms_tick'] / unarmed['pview'] - 1:+.1%}), peak "
+                         f"{run['peak'] / 2 ** 30:.2f} GiB, {run['flags']:.1f} flag reads/tick")
+    run = run_sparse_main_path(device, params=armed(config5_params(N_SPARSE), strategy="pipelined",
+                                                    topology="expander"), label="dissem-main")
+    run.pop("state")
+    torch.cuda.empty_cache()
+    out["dissem-main-sparse"] = run["launches"]
+    phase("dissem-main", f"sparse pipelined/expander {run['ms_tick']:.2f} ms/tick against the unarmed churn run's "
+                         f"{unarmed['sparse']:.2f} ({run['ms_tick'] / unarmed['sparse'] - 1:+.1%}), realtime factor "
+                         f"{1000 / (TICKS_PER_SECOND * run['ms_tick']):.3f}, peak {run['peak'] / 2 ** 30:.2f} GiB")
+    run = run_dense_main(device, n=N_DENSE, params=armed(config4_params(N_DENSE), strategy="push_pull", topology="full"),
+                         label="dissem-main", profile_label="dissem-profile-dense")
+    torch.cuda.empty_cache()
+    out["dissem-main-dense"] = run["launches"]
+    phase("dissem-main", f"dense push_pull/full partitioned {run['ms_part']:.2f} / healed {run['ms_heal']:.2f} ms/tick "
+                         f"against the unarmed {unarmed['dense_part']:.2f} / {unarmed['dense_heal']:.2f} "
+                         f"({run['ms_part'] / unarmed['dense_part'] - 1:+.1%} / "
+                         f"{run['ms_heal'] / unarmed['dense_heal'] - 1:+.1%}), peak {run['peak'] / 2 ** 30:.2f} GiB; "
+                         f"detected {run['detected']} (budget {run['budgets'][0]}, unarmed {unarmed['dense_ticks'][0]}), "
+                         f"bulk / full recovery {run['bulk']} / {run['full']} (budget {run['budgets'][1]}, unarmed "
+                         f"{unarmed['dense_ticks'][1]} / {unarmed['dense_ticks'][2]})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1364,6 +1654,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     phase("device", f"{name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t_start = time.perf_counter()
+    marks = []
     print(nvidia_smi(), flush=True)
 
     from scalecube_cluster_tpu_torch.ops import _build
@@ -1376,6 +1668,7 @@ def main() -> int:
         phase("build", f"ptxas delivery_combine_kernel {line}")
 
     kern = check_kernels(device)
+    kern_structured = check_structured_kernel(device)
     check_cross_device(device)
     main_run = run_main_path(device)
     st, gen, params = main_run["state"], main_run["gen"], main_run["params"]
@@ -1389,6 +1682,7 @@ def main() -> int:
     del driver_run["driver"]
     torch.cuda.empty_cache()
     check_checkpoint(device)
+    marks.append(("phases 1-9 (build, kernels, pview)", time.perf_counter()))
 
     check_sparse_window(device)
     sparse_run = run_sparse_main_path(device)
@@ -1399,6 +1693,7 @@ def main() -> int:
                         label="sparse-driver-window", dense_links=True)
     sparse_driver_run = run_sparse_driver_path(device)
     torch.cuda.empty_cache()
+    marks.append(("phases 10-14 (sparse)", time.perf_counter()))
 
     check_dense_window(device)
     check_dense_delay_window(device)
@@ -1413,13 +1708,30 @@ def main() -> int:
     dense_delay_run = run_dense_delay(device)
     phase("dense", "the dense paths run plain PyTorch tensor ops only: the JAX dense engine reaches no "
                    "pl.pallas_call, and delivery_combine's fold is not their delivery")
+    torch.cuda.empty_cache()
+    marks.append(("phases 15-21 (dense)", time.perf_counter()))
+
+    dissem_launches = check_dissem_windows(device)
+    marks.append(("phase 22 (dissem-windows)", time.perf_counter()))
+    certify_run = run_dissem_certify(device)
+    marks.append(("phase 23 (dissem-certify)", time.perf_counter()))
+    unarmed = {"pview": main_run["ms_tick"], "sparse": sparse_run["ms_tick"], "dense_part": dense_run["ms_part"],
+               "dense_heal": dense_run["ms_heal"],
+               "dense_ticks": (dense_run["detected"], dense_run["bulk"], dense_run["full"])}
+    dissem_launches.update(run_dissem_main(device, unarmed))
+    dissem_launches["dissem-certify"] = certify_run["launches"]
+    marks.append(("phase 24 (dissem-main)", time.perf_counter()))
+    last = t_start
+    for what, at in marks:
+        phase("time", f"{what}: {at - last:.1f} s")
+        last = at
 
     k1m = kern[(N_MAIN, 3, 8, 64, 0)]
     ksp = kern[SPARSE_CASE]
     launches = {"window": main_run["launches"], "driver": driver_run["launches"],
                 "sparse-window": sparse_run["launches"], "sparse-driver": sparse_driver_run["launches"],
                 "dense-main": dense_run["launches"], "dense-driver": dense_driver_run["launches"],
-                "dense-delay": dense_delay_run["launches"]}
+                "dense-delay": dense_delay_run["launches"], **dissem_launches}
     print(json.dumps({"kernels": [{
         "name": "delivery_combine",
         "route": "cuda",
@@ -1427,7 +1739,7 @@ def main() -> int:
         "replaces": "scalecube_cluster_tpu/ops/pallas_delivery.py:251 and :282",
         "launches": sum(launches.values()),
         "launches_by_path": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
+        "max_abs_err": max([r["max_abs_err"] for r in kern.values()] + [kern_structured["max_abs_err"]]),
         "ms": k1m["ms"],
         "plain_ms": k1m["plain_ms"],
         "bound_ms": k1m["bound_ms"],
@@ -1435,6 +1747,7 @@ def main() -> int:
         "library_ms": None,
         "at_sparse_widths": {"n": N_SPARSE, "ms": ksp["ms"], "plain_ms": ksp["plain_ms"],
                              "bound_ms": ksp["bound_ms"], "max_abs_err": ksp["max_abs_err"]},
+        "at_structured_inv": {"spec": "/".join(STRUCTURED_SPEC.values()), **kern_structured},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": 1,  # the one card the run used

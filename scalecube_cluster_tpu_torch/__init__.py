@@ -13,9 +13,16 @@ partial-view ("pview") engine's (:func:`.ops.pview.run_pview_ticks`) —
 each the JAX package's fused tick, which gives the same state as its
 unfused one — with the sparse and pview gossip delivery combine as a
 hand-written CUDA kernel (``csrc/delivery_combine.cu``, bound in
-:mod:`.ops.delivery`); :class:`.sim.SimDriver` / :class:`.sim.SimCluster`
+:mod:`.ops.delivery`); the dissemination strategies and topologies on all
+three engines, with the spread certifier (:mod:`.dissemination`,
+``params.dissem``); :class:`.sim.SimDriver` / :class:`.sim.SimCluster`
 over any engine; the engine policy :func:`.sim.driver.auto_params` and a
 copy of the JAX package's ``ClusterConfig`` (:mod:`.config`).
 Entry points take ``device=`` and default to ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions on the host.
 """
+
+from .config import ClusterConfig, DisseminationConfig
+from .dissemination import DissemSpec
+
+__all__ = ["ClusterConfig", "DisseminationConfig", "DissemSpec"]

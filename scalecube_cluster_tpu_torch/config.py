@@ -6,11 +6,12 @@ are float seconds.
 :func:`tick_units` is the mapping every engine's ``from_config`` shares: one
 tick is one ``sim.tick_interval``, the FD round fires every
 ``ping_interval / tick_interval`` ticks, SYNC every ``sync_interval /
-tick_interval``. A config with a non-default ``dissemination`` block or an
-enabled ``adaptive`` block raises there: neither plane is ported (ROADMAP
-A8). ``validate`` checks what the JAX one checks except the strategy,
-adaptive and control knobs, whose validation lives in those planes'
-modules (ROADMAP A8, A11).
+tick_interval``. A config with an enabled ``adaptive`` block raises there:
+that plane is not ported (ROADMAP A8.2). ``validate`` checks what the JAX
+one checks except the adaptive and control knobs, whose validation lives
+in those planes' modules (ROADMAP A8.2, A11); the dissemination block is
+validated through :meth:`.dissemination.spec.DissemSpec.from_config`, as
+in JAX.
 """
 
 from __future__ import annotations
@@ -455,6 +456,11 @@ class ClusterConfig:
                 "need 0 < sim.active_slots < sim.view_slots (the pview "
                 "passive reservoir must be non-empty)"
             )
+        # the spec dataclass owns strategy/topology validation (one
+        # spelling for config- and params-level construction)
+        from .dissemination.spec import DissemSpec
+
+        DissemSpec.from_config(self)
         if self.chaos.check_interval_ticks <= 0:
             raise ValueError("chaos.check_interval_ticks must be > 0")
         if not (0.0 <= self.chaos.loss_storm_immunity_pct <= 100.0):
@@ -490,16 +496,10 @@ def tick_units(config: ClusterConfig, capacity: int | None, initial_size: int | 
                seed_rows: tuple) -> dict:
     """The params fields every engine derives alike from ``config``: the
     capacity (``capacity`` > ``config.sim.capacity`` > ``initial_size``),
-    the protocol knobs in tick units, the delay timeouts. Refuses a
-    non-default dissemination block or an enabled adaptive block (ROADMAP
-    A8)."""
-    dc = config.dissemination
-    if (dc.strategy, dc.topology) != ("push", "full"):
-        raise ValueError(
-            f"non-default dissemination {dc.strategy}/{dc.topology} is not ported yet (ROADMAP A8)"
-        )
+    the protocol knobs in tick units, the delay timeouts. Refuses an
+    enabled adaptive block (ROADMAP A8.2)."""
     if config.adaptive.enabled:
-        raise ValueError("an enabled adaptive failure-detection block is not ported yet (ROADMAP A8)")
+        raise ValueError("an enabled adaptive failure-detection block is not ported yet (ROADMAP A8.2)")
     sim = config.sim
     cap = capacity or sim.capacity or (initial_size or 0)
     if cap <= 1:
@@ -523,4 +523,13 @@ def tick_units(config: ClusterConfig, capacity: int | None, initial_size: int | 
         fd_direct_timeout_ticks=max(0, int(fd.ping_timeout / dt)),
         fd_leg_timeout_ticks=max(0, int((fd.ping_interval - fd.ping_timeout) / dt / 2)),
         sync_timeout_ticks=max(0, int(config.membership.sync_timeout / dt)),
+    )
+
+
+def suspicion_timeout_for(config: ClusterConfig, cluster_size: int) -> float:
+    """Suspicion timeout derived from config + cluster size (seconds)."""
+    from .utils.cluster_math import suspicion_timeout
+
+    return suspicion_timeout(
+        config.membership.suspicion_mult, cluster_size, config.failure_detector.ping_interval
     )

@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .dissemination.spec import DissemSpec
 from .ops.pview import PviewParams, PviewState
 from .ops.sparse import SparseParams, SparseState
 from .ops.state import SimParams, SimState
@@ -26,20 +27,16 @@ def params_from_dict(d: dict):
     """Port params (``SimParams``, ``SparseParams`` or ``PviewParams``)
     from ``dataclasses.asdict(jax_params)``.
 
-    Refuses what the port does not run (a non-default dissemination spec,
-    an enabled adaptive spec, ``delay_slots > 0`` on the pview and sparse
-    engines), naming its ROADMAP item. A pview ``delivery_kernel`` is
-    dropped: its two values compute the same function."""
+    The ``dissem`` dict becomes the port's own :class:`DissemSpec`.
+    Refuses what the port does not run (an enabled adaptive spec,
+    ``delay_slots > 0`` on the pview and sparse engines), naming its
+    ROADMAP item. A pview ``delivery_kernel`` is dropped: its two values
+    compute the same function."""
     d = dict(d)
-    dissem = d.pop("dissem", None) or {}
-    if (dissem.get("strategy", "push"), dissem.get("topology", "full")) != ("push", "full"):
-        raise ValueError(
-            f"non-default dissemination {dissem.get('strategy')}/{dissem.get('topology')} "
-            "is not ported yet (ROADMAP A8)"
-        )
+    d["dissem"] = DissemSpec(**(d.pop("dissem", None) or {}))
     adaptive = d.pop("adaptive", None) or {}
     if adaptive.get("enabled", False):
-        raise ValueError("an enabled adaptive failure-detection spec is not ported yet (ROADMAP A8)")
+        raise ValueError("an enabled adaptive failure-detection spec is not ported yet (ROADMAP A8.2)")
     d.pop("delivery_kernel", None)
     d["seed_rows"] = tuple(int(s) for s in d.get("seed_rows", ()))
     if "mr_slots" not in d:

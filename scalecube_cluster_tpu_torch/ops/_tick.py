@@ -3,8 +3,9 @@ leaves under the same names and meanings for everything but the view
 (``tick``, ``up``, ``sus_key``/``sus_since``, the membership-rumor pool
 ``mr_*``/``minf_age``, the user-rumor pool ``rumor_*``/``infected*``), so
 the host mutators of those leaves, the pool's coverage and segmentation
-reductions, the rumor metrics and the window loop are written once here.
-Each engine module re-exports the mutators under the JAX names."""
+reductions, the rumor metrics, the push-pull reply leg and the window loop
+are written once here. Each engine module re-exports the mutators under
+the JAX names."""
 
 from __future__ import annotations
 
@@ -13,8 +14,11 @@ import functools
 import numpy as np
 import torch
 
+from ..dissemination.strategies import pull_salt
 from ._tensor import host_flags, row_chunks
+from .bitplane import unpack_bits
 from .pool import allocate
+from .rand import fetch_uniform
 from .state import NEVER
 
 
@@ -34,6 +38,40 @@ def row_index(rows, device) -> torch.Tensor:
 def count_i32(x) -> torch.Tensor:
     """A bool tensor's count (or an integer tensor) as an int32 scalar."""
     return x.sum().to(torch.int32) if x.dtype == torch.bool else x.to(torch.int32)
+
+
+def pull_replies(state, ok_all, p_all, ym_p, yu_p, loss_at, recv_u, recv_src, recv_m_p):
+    """The push-pull reply leg of the pview and sparse gossip phases
+    (DZ-2): each sender whose undelayed contact in fanout slot s landed
+    (``ok_all[s]``, peer ``p_all[s]``) pulls the peer's payload back over
+    the same round trip, gated on one hashed draw on the reverse link
+    (``loss_at(state, peer, sender)``): the peer's packed forwarding words
+    (``ym_p``), its young user rumors (``yu_p``) less those the sender is
+    known to hold. The peer rows are gathered from the three sender
+    planes in place (plain tensor code; a sender has one target per slot,
+    so no inverse index is needed). ``recv_u``, ``recv_src`` and
+    ``recv_m_p`` are folded in place. Returns (replies sent, rumor replies
+    sent) as int32 scalars."""
+    rows = rows_of(state)
+    R = state.infected_from.shape[1]
+    sent = torch.zeros((), dtype=torch.int32, device=state.device)
+    rumor_sent = torch.zeros((), dtype=torch.int32, device=state.device)
+    for s in range(p_all.shape[0]):
+        p_s = p_all[s].long()
+        rev_u = fetch_uniform(state.tick, pull_salt(s), rows, p_s)
+        rev_ok = ok_all[s] & (rev_u < (1.0 - loss_at(state, p_s, rows)))
+        reply_u = (
+            unpack_bits(yu_p[p_s], R)
+            & rev_ok[:, None]
+            & (state.infected_from[p_s] != rows[:, None])
+            & (state.rumor_origin[None, :] != rows[:, None])
+        )
+        recv_u |= reply_u
+        torch.maximum(recv_src, torch.where(reply_u, p_all[s].to(torch.int32)[:, None], -1), out=recv_src)
+        recv_m_p |= ym_p[p_s].masked_fill_(~rev_ok[:, None], 0)
+        sent += count_i32(rev_ok)
+        rumor_sent += count_i32(reply_u)
+    return sent, rumor_sent
 
 
 def no_props(state):

@@ -50,7 +50,7 @@ What differs from the JAX spelling, and why:
 
 Not ported yet, and refused: trace capture (``tick(trace=...)``, the
 traced window, telemetry and sentinel reductions: ROADMAP A10), the
-adaptive plane (``tick(ad=...)``, ``*_adaptive_run``: A8) and the fleet
+adaptive plane (``tick(ad=...)``, ``*_adaptive_run``: A8.2) and the fleet
 windows (``make_fleet_run``, ``make_fused_fleet_run``: A9).
 """
 
@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import torch
 
+from ..dissemination import strategies as dz
 from . import bitplane as bp
 from ._tensor import first_true, host_flags, nonzero_fixed, plane_chunks, scatter_reduce_1d
 from ._tick import count_i32 as _i32
@@ -334,7 +335,15 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
     pending rings. Receivers fold records in by scatter-max and the
     override, null-record, up and metadata-fetch gates; rumor infections
     are OR-ed in. A tick with nothing to send and nothing arriving
-    (``busy`` False) skips the phase."""
+    (``busy`` False) skips the phase.
+
+    ``params.dissem`` picks the peers (the live-view sampler, or the
+    strategy's circulant chords, :mod:`..dissemination.strategies`), the
+    user rumors a message may carry (the pipelined budget window; the
+    work flag and ``rumor_young`` stay unbudgeted, so a rumor outside the
+    window is still pending work) and, for ``push_pull``, the reply leg:
+    each undelayed contact answers with the peer's young records and
+    rumors, the peer's rows gathered in row chunks."""
     n = state.capacity
     R = params.rumor_slots
     F = params.fanout
@@ -354,11 +363,18 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
     young_any = young.any(dim=1)
     inf_b = bp.unpack_bits(state.infected, R)
     rumor_young = inf_b & state.rumor_active[None, :] & ((state.tick - state.infected_at) < spread[:, None])
+    spec = params.dissem
+    bmask = dz.rumor_budget_mask(spec, R, state.tick, dev)
+    rumor_pay = rumor_young if bmask is None else rumor_young & bmask[None, :]
     if D:
         slot_now = state.tick % D
         arriving_key = state.pending_key[slot_now]
         arriving_inf = bp.unpack_bits(state.pending_inf[slot_now], R)
-    if klw is not None:
+    if not spec.uniform_selection:
+        # the strategy's circulant targets (DZ-1: sends gate on up[src] &
+        # up[dst], not on the sender's view of the neighbor)
+        peers, peer_valid = dz.structured_peers(spec, n, state.tick, r.gossip_sel)
+    elif klw is not None:
         peers, peer_valid = _sample_distinct_words(bp.word_andnot(klw, bp.diag_words(n, dev)), n, r.gossip_sel)
     else:
         peers, peer_valid = _sample_distinct(_live_view_mask(state), r.gossip_sel)
@@ -386,7 +402,7 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
         p = peers[:, s].long()
         # the known-infected filter: not back to the peer that delivered a
         # rumor here, nor to its origin
-        payload_r = rumor_young & (state.infected_from != p[:, None]) & (state.rumor_origin[None, :] != p[:, None])
+        payload_r = rumor_pay & (state.infected_from != p[:, None]) & (state.rumor_origin[None, :] != p[:, None])
         ok = peer_valid[:, s] & (young_any | payload_r.any(dim=1)) & _edge_ok(state, rows, p, r.gossip_edge[:, s])
         sent += _i32(ok)
         send_r = payload_r & ok[:, None]
@@ -415,6 +431,10 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
         buf.index_reduce_(0, now_idx, piggyback, "amax")
         recv_inf.index_reduce_(0, now_idx, send_r.to(torch.uint8), "amax")
         recv_src.index_reduce_(0, now_idx, src_r, "amax")
+        if spec.wants_pull:
+            s_m, r_m = _pull_reply(state, s, p, ok_now, piggyback, rumor_pay, buf, recv_inf, recv_src, NOC)
+            sent += s_m
+            rumor_sent += r_m
     del piggyback
 
     cols = rows[None, :]
@@ -445,6 +465,35 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
         state.pending_src[slot_now] = -1
         state = state.replace(pending_inf=bp.pack_bits(pend_inf.view(D, n, R).bool()))
     return state, {"gossip_msgs": sent, "rumor_sends": rumor_sent, "rumor_deliveries": _i32(newly)}
+
+
+def _pull_reply(state: SimState, s: int, p, ok_now, piggyback, rumor_pay, buf, recv_inf, recv_src, NOC: int):
+    """The push-pull reply of fanout slot ``s`` (DZ-2): each undelayed
+    contact (``ok_now``) answers over the same round trip, gated on one
+    hashed draw on the reverse link, with the peer's young records (its
+    ``piggyback`` row, gathered over row chunks) and its budgeted young
+    rumors less those the sender is known to hold. Folded into ``buf``,
+    ``recv_inf`` and ``recv_src`` in place, as the forward deliveries are
+    (cellwise max and OR, so the order is moot). Returns (replies sent,
+    rumor replies sent)."""
+    n = state.capacity
+    rows = _rows(state)
+    rows32 = rows.to(torch.int32)
+    rev_u = fetch_uniform(state.tick, dz.pull_salt(s), rows, p)
+    rev_ok = ok_now & (rev_u < (1.0 - _loss_at(state, p, rows)))
+    for lo, hi in plane_chunks(n, n):
+        got = piggyback.index_select(0, p[lo:hi]).masked_fill_(~rev_ok[lo:hi, None], NOC)
+        torch.maximum(buf[lo:hi], got, out=buf[lo:hi])
+        del got
+    reply_r = (
+        rumor_pay[p]
+        & (state.infected_from[p] != rows32[:, None])
+        & (state.rumor_origin[None, :] != rows32[:, None])
+        & rev_ok[:, None]
+    )
+    recv_inf[:n] |= reply_r.to(torch.uint8)
+    torch.maximum(recv_src[:n], torch.where(reply_r, p.to(torch.int32)[:, None], -1), out=recv_src[:n])
+    return _i32(rev_ok), _i32(reply_r)
 
 
 def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams):
@@ -613,7 +662,7 @@ def tick(state: SimState, fd_r, round_r: RoundRandoms, params: SimParams, trace=
     if trace is not None:
         raise NotImplementedError("trace capture on the dense tick is not ported yet (ROADMAP A10)")
     if ad is not None:
-        raise NotImplementedError("the adaptive failure-detection plane is not ported yet (ROADMAP A8)")
+        raise NotImplementedError("the adaptive failure-detection plane is not ported yet (ROADMAP A8.2)")
     state = state.replace(tick=state.tick + 1)
     if state.tick % params.fd_every == 0:
         if fd_r is None:

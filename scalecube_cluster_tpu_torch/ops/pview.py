@@ -30,8 +30,8 @@ What differs from the JAX spelling, and why:
   exists at 1M members.
 
 Not ported yet, and refused: ``delay_slots > 0`` (the pending rings,
-ROADMAP A2), an enabled adaptive spec (A8), non-default dissemination (A8),
-mesh/ragged delivery (A12), trace capture (A10) and fleet windows (A9).
+ROADMAP A2), an enabled adaptive spec (A8.2), mesh/ragged delivery (A12),
+trace capture (A10) and fleet windows (A9).
 """
 
 from __future__ import annotations
@@ -41,10 +41,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..dissemination import strategies as dz
+from ..dissemination.spec import DissemSpec
 from . import delivery
 from ._tick import announce, covered_columns, crash_row, crash_rows, rumor_metrics, run_window, spread_rumor  # noqa: F401
 from ._tick import count_i32 as _i32
 from ._tick import no_props as _no_props
+from ._tick import pull_replies
 from ._tick import register_sus as _register_sus
 from ._tick import row_index as _row_index
 from ._tick import rows_of as _rows
@@ -85,9 +88,10 @@ def _ceil_log2_static(n: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class PviewParams:
     """Static parameters of the partial-view tick — the JAX package's
-    ``PviewParams`` without ``dissem``/``adaptive``/``delivery_kernel``
-    (this port runs the default dissemination, no adaptive plane, and the
-    delivery combine through :mod:`.delivery` on any device)."""
+    ``PviewParams`` without ``adaptive``/``delivery_kernel`` (this port
+    runs no adaptive plane yet, and the delivery combine through
+    :mod:`.delivery` on any device); ``dissem`` is the dissemination
+    strategy/topology (:mod:`..dissemination`)."""
 
     capacity: int
     view_slots: int = 24
@@ -120,6 +124,7 @@ class PviewParams:
     early_free: bool = True
     full_metrics: bool = False
     key_dtype: str = "i32"
+    dissem: DissemSpec = DissemSpec()
 
     @staticmethod
     def from_config(config, capacity: int | None = None, initial_size: int | None = None,
@@ -132,7 +137,7 @@ class PviewParams:
         sim = config.sim
         return PviewParams(
             view_slots=view_slots or sim.view_slots, active_slots=sim.active_slots,
-            mr_slots=mr_slots or 0, key_dtype=sim.plane_dtype,
+            mr_slots=mr_slots or 0, key_dtype=sim.plane_dtype, dissem=DissemSpec.from_config(config),
             **tick_units(config, capacity, initial_size, seed_rows),
         )
 
@@ -892,6 +897,9 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
     inverse-sender election, the delivery combine (:mod:`.delivery` — the
     CUDA kernel on the card), the user-rumor infection, and the packed
     A-pass membership apply. Quiescent clusters skip the phase.
+    ``params.dissem`` swaps in the strategy's circulant peers, its user-
+    rumor budget and, for ``push_pull``, the reply leg
+    (:func:`._tick.pull_replies`); the kernel sees only their ``inv``.
 
     Returns ``(state, metrics, fwd_post_p)``."""
     n = state.capacity
@@ -912,6 +920,12 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
         & state.rumor_active[None, :]
         & ((state.tick - state.infected_at) < spread)
     )
+    # the strategy's payload budget (DZ-3; None for every strategy but
+    # pipelined) masks the user rumors before sender_has reads them
+    spec = params.dissem
+    bmask = dz.rumor_budget_mask(spec, young_u.shape[1], state.tick, dev)
+    if bmask is not None:
+        young_u &= bmask[None, :]
     if mr_any:
         # [N, M] u8 planes are 2 GiB each at a million rows: age a fresh
         # copy in place, and pack the forwarding plane once
@@ -927,9 +941,16 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
     else:
         ym_p = zero_p = fwd_p = torch.zeros((n, W), dtype=torch.int32, device=dev)
 
-    _slots, peers, peer_valid = _sample_slots(
-        state, r.gossip_try, F, params.sample_tries, params.active_slots
-    )
+    if spec.uniform_selection:
+        _slots, peers, peer_valid = _sample_slots(
+            state, r.gossip_try, F, params.sample_tries, params.active_slots
+        )
+    else:
+        # circulant targets (DZ-1); the random strategies read the first
+        # try of each pick's rejection block
+        peers, peer_valid = dz.structured_peers(
+            spec, n, state.tick, dz.try_stride_uniforms(r.gossip_try, params.sample_tries)
+        )
     yu_p = pack_bits(young_u)
 
     sender_has = young_u.any(dim=1) | (ym_p != 0).any(dim=1)
@@ -951,6 +972,10 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
     recv_u, recv_src, recv_m_p, rumor_sent = delivery.delivery_combine(
         ym_p, yu_p, state.infected_from, inv, state.rumor_origin.contiguous()
     )
+    if spec.wants_pull:
+        pulled, rumor_pulled = pull_replies(state, ok_all, p_all, ym_p, yu_p, _loss_at, recv_u, recv_src, recv_m_p)
+        sent = sent + pulled
+        rumor_sent = rumor_sent + rumor_pulled
 
     newly_u = recv_u & ~state.infected & state.up[:, None] & state.rumor_active[None, :]
     state = state.replace(
@@ -1263,7 +1288,7 @@ def pview_tick(state: PviewState, fd_r, round_r: SparseRoundRandoms, params: Pvi
     if trace is not None:
         raise NotImplementedError("trace capture on the pview tick is not ported yet (ROADMAP A10)")
     if ad is not None:
-        raise NotImplementedError("the adaptive failure-detection plane is not ported yet (ROADMAP A8)")
+        raise NotImplementedError("the adaptive failure-detection plane is not ported yet (ROADMAP A8.2)")
     return pview_tick_fused(state, fd_r, round_r, params)
 
 

@@ -25,11 +25,23 @@ import torch
 
 from .bitplane import MASK32
 
-# Phase salts of the fetch hash (see the JAX package's ops/rand.py for the
-# spacing rule: salts differ by at least the max row count).
+# Phase salts of the fetch hash (must differ per merge site so a cell's draw
+# is independent across the phases of one tick). The salt enters the mixer
+# additively before the row index, so fetch(s1, i, j) ==
+# fetch(s2, i + (s1 - s2) mod 2^32, j): salts must differ (in either
+# direction mod 2^32) by at least the max row count or one phase's draws are
+# a row-shifted copy of another's. These sit exactly 2^30 / 2^31 apart, so
+# no pair of rows below 2^30 can collide across phases.
 SALT_GOSSIP = 0x40000000
 SALT_SYNC_REQ = 0x80000000
 SALT_SYNC_ACK = 0xC0000000
+# Pull-reply delivery draws (the push-pull strategy): one salt per fanout
+# slot — SALT_PULL + s * SALT_PULL_STRIDE for slot s. The stride (2^25)
+# keeps slots' draws row-independent below 2^25 members per the shift rule
+# above, and the whole family [0x20000000, 0x30000000) stays at least 2^28
+# away from the merge-site salts for any fanout <= 8.
+SALT_PULL = 0x20000000
+SALT_PULL_STRIDE = 0x02000000
 
 
 def fetch_uniform(tick: int, salt: int, i, j) -> torch.Tensor:

@@ -49,9 +49,8 @@ What differs from the JAX spelling, and why:
   ``index_add_``; fixed-size ``nonzero`` is a cumsum compaction.
 
 Not ported yet, and refused: ``delay_slots > 0`` and ``uniform_delay > 0``
-(the pending rings, ROADMAP A2), an enabled adaptive spec and non-default
-dissemination (A8, refused where params are carried across), trace capture
-(A10), meshes (A12).
+(the pending rings, ROADMAP A2), an enabled adaptive spec (A8.2, refused
+where params are carried across), trace capture (A10), meshes (A12).
 """
 
 from __future__ import annotations
@@ -61,11 +60,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..dissemination import strategies as dz
+from ..dissemination.spec import DissemSpec
 from . import delivery
 from ._tensor import first_true, host_flags, nonzero_fixed, plane_chunks, put_drop_, row_chunks, scatter_reduce_1d
 from ._tick import announce, covered_columns, crash_row, crash_rows, rumor_metrics, run_window, spread_rumor  # noqa: F401
 from ._tick import count_i32 as _i32
 from ._tick import no_props as _no_props
+from ._tick import pull_replies
 from ._tick import register_sus as _register_sus
 from ._tick import row_index as _row_index
 from ._tick import rows_of as _rows
@@ -93,8 +95,9 @@ NO_CANDIDATE = NO_CANDIDATE_I32
 @dataclasses.dataclass(frozen=True)
 class SparseParams:
     """Static parameters of the sparse tick — the JAX package's
-    ``SparseParams`` without ``dissem``/``adaptive`` (this port runs the
-    default dissemination and no adaptive plane). ``mr_slots`` (M) sizes
+    ``SparseParams`` without ``adaptive`` (this port runs no adaptive
+    plane yet); ``dissem`` is the dissemination strategy/topology
+    (:mod:`..dissemination`). ``mr_slots`` (M) sizes
     the membership-rumor pool, ``announce_slots`` (E) the new rumors per
     tick, ``sample_tries`` (T) the rejection draws per pick,
     ``sweep_every`` (B) the suspicion expiry period, ``sync_announce`` (P)
@@ -126,6 +129,7 @@ class SparseParams:
     early_free: bool = True
     full_metrics: bool = False
     namespace_gate: bool = False
+    dissem: DissemSpec = DissemSpec()
 
     @staticmethod
     def from_config(config, capacity: int | None = None, initial_size: int | None = None,
@@ -136,7 +140,8 @@ class SparseParams:
         from ..config import tick_units
 
         units = tick_units(config, capacity, initial_size, seed_rows)
-        return SparseParams(mr_slots=mr_slots or max(256, units["capacity"] // 16), **units)
+        return SparseParams(mr_slots=mr_slots or max(256, units["capacity"] // 16),
+                            dissem=DissemSpec.from_config(config), **units)
 
     def __post_init__(self):
         if self.delay_slots:
@@ -668,7 +673,9 @@ def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: Spars
     forwarding plane, rejection-sampled peers, the per-fanout-slot
     inverse-sender election, the delivery combine (:mod:`.delivery` — the
     CUDA kernel on the card), the user-rumor infection, and the membership
-    apply. Quiescent clusters skip the phase.
+    apply. Quiescent clusters skip the phase. ``params.dissem`` swaps in
+    the strategy's circulant peers, its user-rumor budget and, for
+    ``push_pull``, the reply leg (:func:`._tick.pull_replies`).
 
     Returns ``(state, metrics, covered, mr_any)``: the early-free coverage
     of the post-apply pool (the gossip→sweep hand-off) and whether the pool
@@ -692,6 +699,12 @@ def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: Spars
         & state.rumor_active[None, :]
         & ((state.tick - state.infected_at) < spread[:, None])
     )
+    # the strategy's payload budget (DZ-3; None for every strategy but
+    # pipelined) masks the user rumors before sender_has reads them
+    spec = params.dissem
+    bmask = dz.rumor_budget_mask(spec, young_u.shape[1], state.tick, dev)
+    if bmask is not None:
+        young_u &= bmask[None, :]
     if mr_any:
         # age = tick - infection_tick + 1 after this increment (saturating
         # at 255), so the forwarding window age <= spread is one uint8
@@ -705,7 +718,14 @@ def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: Spars
     else:
         ym_p = torch.zeros((n, words_for(m)), dtype=torch.int32, device=dev)
 
-    peers, peer_valid = _sample_rejection(state, rows, r.gossip_try, F, params.sample_tries)
+    if spec.uniform_selection:
+        peers, peer_valid = _sample_rejection(state, rows, r.gossip_try, F, params.sample_tries)
+    else:
+        # circulant targets (DZ-1); the random strategies read the first
+        # try of each pick's rejection block
+        peers, peer_valid = dz.structured_peers(
+            spec, n, state.tick, dz.try_stride_uniforms(r.gossip_try, params.sample_tries)
+        )
     yu_p = pack_bits(young_u)
     sender_has = young_u.any(dim=1) | (ym_p != 0).any(dim=1)
     p_all = peers.T.contiguous()  # [F, N]
@@ -725,6 +745,10 @@ def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: Spars
     recv_u, recv_src, recv_m_p, rumor_sent = delivery.delivery_combine(
         ym_p, yu_p, state.infected_from, inv, state.rumor_origin.contiguous()
     )
+    if spec.wants_pull:
+        pulled, rumor_pulled = pull_replies(state, ok_all, p_all, ym_p, yu_p, _loss_at, recv_u, recv_src, recv_m_p)
+        sent = sent + pulled
+        rumor_sent = rumor_sent + rumor_pulled
 
     newly_u = recv_u & ~state.infected & state.up[:, None] & state.rumor_active[None, :]
     state = state.replace(
@@ -1027,7 +1051,7 @@ def sparse_tick(state: SparseState, fd_r, round_r: SparseRoundRandoms, params: S
     if trace is not None:
         raise NotImplementedError("trace capture on the sparse tick is not ported yet (ROADMAP A10)")
     if ad is not None:
-        raise NotImplementedError("the adaptive failure-detection plane is not ported yet (ROADMAP A8)")
+        raise NotImplementedError("the adaptive failure-detection plane is not ported yet (ROADMAP A8.2)")
     return sparse_tick_fused(state, fd_r, round_r, params)
 
 

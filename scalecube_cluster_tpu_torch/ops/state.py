@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..dissemination.spec import DissemSpec
 from ._tensor import plane_chunks
 from .bitplane import clear_col, set_bit, unpack_bits, words_for
 from .lattice import (
@@ -47,8 +48,10 @@ NO_CANDIDATE_I32 = int(np.iinfo(np.int32).min)  # scatter-max identity
 @dataclasses.dataclass(frozen=True)
 class SimParams:
     """Static parameters of the dense tick — the JAX package's
-    ``SimParams`` without ``dissem``/``adaptive`` (this port runs the
-    default dissemination and no adaptive plane). ``delay_slots`` (D) is
+    ``SimParams`` without ``adaptive`` (this port runs no adaptive plane
+    yet). ``dissem`` is the dissemination strategy/topology
+    (:mod:`..dissemination`; the default is push over the full topology,
+    the engine's own sampler). ``delay_slots`` (D) is
     the pending-delivery ring depth (0: no delay, no rings); the
     ``*_timeout_ticks`` budgets feed the delay model's timeliness factors;
     ``sync_slots`` caps the SYNC callers per tick (0: N / sync_every + 32);
@@ -75,17 +78,18 @@ class SimParams:
     seed_rows: tuple = ()
     key_dtype: str = "i32"
     quiet_gates: bool = True
+    dissem: DissemSpec = DissemSpec()
 
     @staticmethod
     def from_config(config, capacity: int | None = None, initial_size: int | None = None,
                     seed_rows: tuple = (0,)) -> "SimParams":
         """Kernel params from a ``ClusterConfig`` (one tick = one
         ``sim.tick_interval``). Capacity: ``capacity`` > ``config.sim
-        .capacity`` > ``initial_size``. A non-default dissemination or an
-        enabled adaptive block raises (ROADMAP A8)."""
+        .capacity`` > ``initial_size``. An enabled adaptive block raises
+        (ROADMAP A8.2)."""
         from ..config import tick_units
 
-        return SimParams(key_dtype=config.sim.plane_dtype,
+        return SimParams(key_dtype=config.sim.plane_dtype, dissem=DissemSpec.from_config(config),
                          **tick_units(config, capacity, initial_size, seed_rows))
 
 

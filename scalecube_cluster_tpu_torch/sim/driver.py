@@ -27,8 +27,9 @@ one per staged reduction. The tick itself reads one flag to the host per
 data-keyed branch; :data:`..ops._tensor.HOST_SYNCS` counts those.
 
 Not ported yet, and refused by name: meshes (ROADMAP A12), the telemetry,
-trace and chaos planes (A10), dissemination and adaptive knobs (A8),
-protocol knobs and the control plane (A11), the compile-cache audit (A13).
+trace and chaos planes (A10; ``run_scenario`` with its ``strategy=``
+too), adaptive knobs (A8.2), protocol knobs and the control plane (A11),
+the compile-cache audit (A13).
 """
 
 from __future__ import annotations
@@ -685,11 +686,34 @@ class SimDriver:
     def arm_trace(self, config=None, tracer_rows=None, rumor_slots=None):
         _not_ported("the trace plane", "A10")
 
-    def set_dissemination(self, spec=None, *, strategy=None, topology=None, **knobs):
-        _not_ported("a non-default dissemination strategy", "A8")
+    def set_dissemination(self, spec=None, *, strategy=None, topology=None, **spec_kw) -> None:
+        """Swap the dissemination strategy/topology on a live driver.
+
+        Pass a full :class:`..dissemination.DissemSpec`, or field overrides
+        (``strategy=``/``topology=``/any other spec field) applied on top
+        of the current spec. The spec is a static property of the params:
+        the next window runs the new gossip phase (the state itself is
+        spec-independent, so no state migration happens and checkpoints
+        stay compatible). The driver builds its window from ``params`` at
+        every step and caches nothing per params, so replacing them is the
+        whole swap. A no-op when the requested spec equals the armed one."""
+        import dataclasses
+
+        with self._lock:
+            cur = self.params.dissem
+            if spec is None:
+                overrides = {
+                    k: v
+                    for k, v in dict(strategy=strategy, topology=topology, **spec_kw).items()
+                    if v is not None
+                }
+                spec = dataclasses.replace(cur, **overrides) if overrides else cur
+            if spec == cur:
+                return
+            self.params = dataclasses.replace(self.params, dissem=spec)
 
     def set_adaptive(self, spec=None, *, enabled=None, **knobs):
-        _not_ported("adaptive failure detection", "A8")
+        _not_ported("adaptive failure detection", "A8.2")
 
     def set_protocol_knobs(self, **knobs):
         _not_ported("live protocol knobs", "A11")

@@ -15,6 +15,9 @@ a partition, a churn batch with a cold join through the seeds and a
 restart of a crashed row at a new epoch, metadata bumps, refute
 suppression, the heal (DEAD records refuted by their zombies), a partition
 by group assignment with bystanders and its heal to a floor, a loss storm.
+The lifecycle script runs again with the [N, N] passes over row chunks of
+a few rows (``_tensor.PLANE_CHUNK_CELLS`` patched small), once armed with
+``push_pull/expander`` so that the pull leg's row gathers are chunked too.
 Two more scripts cover heavy delay without loss (a delayed rumor
 outliving its sweep window), and namespaces with the namespace gate,
 ``full_metrics`` off, ``quiet_gates=False`` and a 4-caller SYNC cap.
@@ -31,10 +34,12 @@ import numpy as np
 import pytest
 import torch
 
+from scalecube_cluster_tpu.dissemination import DissemSpec
 from scalecube_cluster_tpu.ops import kernel as JK
 from scalecube_cluster_tpu.ops import state as JS
 from scalecube_cluster_tpu.ops.rand import draw_fd_randoms, draw_round_randoms, split_tick_key
 from scalecube_cluster_tpu_torch import convert
+from scalecube_cluster_tpu_torch.ops import _tensor
 from scalecube_cluster_tpu_torch.ops import kernel as TK
 from scalecube_cluster_tpu_torch.ops import rand as TR
 from scalecube_cluster_tpu_torch.ops import state as TS
@@ -222,6 +227,26 @@ def test_lifecycle_window_matches_jax(n, kd):
     # refutations bumped incarnations, the restart bumped an epoch
     assert int((st.view_inc.diagonal() > 0).sum()) > 0
     assert int(st.epoch[6]) == 1
+
+
+@pytest.mark.parametrize("n,kd,cells,dissem", [
+    (33, "i32", 1000, None),
+    (256, "i32", 3000, None),
+    (256, "i16", 777, None),
+    (256, "i32", 3000, ("push_pull", "expander")),
+], ids=["33-i32-1000", "256-i32-3000", "256-i16-777", "256-i32-3000-push_pull-expander"])
+def test_lifecycle_window_over_row_chunks_matches_jax(monkeypatch, n, kd, cells, dissem):
+    """The lifecycle script with every [N, N] pass (the suspicion sweep, the
+    gossip accept and its fetch hash, the cluster sizes, the gate flags,
+    the metrics; the pull leg's peer-row gathers when armed) over row
+    chunks of ``cells`` cells — 30, 11 and 3 rows, the last chunk short —
+    against both JAX windows after every tick."""
+    monkeypatch.setattr(_tensor, "PLANE_CHUNK_CELLS", cells)
+    over = {} if dissem is None else {"dissem": DissemSpec(strategy=dissem[0], topology=dissem[1])}
+    params = _params(n, kd, delay_slots=4, **over)
+    assert len(list(_tensor.plane_chunks(n, n))) >= 2
+    totals, dead_max, _, _ = _run_both(params, _lifecycle_start, _lifecycle_events(n, params.seed_rows))
+    assert totals["rumor_deliveries"] > 0 and totals["sync_roundtrips"] > 0 and dead_max > 0
 
 
 def _heavy_delay_start(mod, params, kw):

@@ -210,9 +210,11 @@ def test_tick_refuses_unported_planes():
     with pytest.raises(ValueError, match="dense links"):
         TS.set_link_loss(lean, [0], [1], 0.5)
     base = dataclasses.asdict(_params(33))
-    with pytest.raises(ValueError, match="A8"):
-        convert.params_from_dict({**base, "dissem": {**base["dissem"], "strategy": "push_pull"}})
-    with pytest.raises(ValueError, match="A8"):
+    # the dissemination spec is carried across (ported); the adaptive one
+    # is refused (A8.2)
+    armed = convert.params_from_dict({**base, "dissem": {**base["dissem"], "strategy": "push_pull"}})
+    assert armed.dissem.strategy == "push_pull" and isinstance(armed, TS.SimParams)
+    with pytest.raises(ValueError, match="A8.2"):
         convert.params_from_dict({**base, "adaptive": {**base["adaptive"], "enabled": True}})
     assert isinstance(convert.params_from_dict({**base, "delay_slots": 4}), TS.SimParams)
     assert engine_api.resolve(params).name == "dense" and not engine_api.engine("dense").has_pool
@@ -267,7 +269,7 @@ def test_config_path_with_overrides():
                      ((300,), dict(force_pview=True, view_slots=16))):
         ref = dataclasses.asdict(jauto_params(*args, config=jcfg, **kw))
         got = dataclasses.asdict(auto_params(*args, config=cfg, **kw))
-        for k in ("dissem", "adaptive", "delivery_kernel"):
+        for k in ("adaptive", "delivery_kernel"):
             ref.pop(k, None)
         assert got == ref, (args, kw)
     with pytest.raises(NotImplementedError, match="A13"):
@@ -289,7 +291,7 @@ def test_from_config_matches_jax(profile):
         for extra in ({}, {"capacity": 500, "seed_rows": (0, 3)}):
             ref = dataclasses.asdict(jcls.from_config(jcfg, **kw, **extra))
             got = dataclasses.asdict(tcls.from_config(tcfg, **kw, **extra))
-            for k in ("dissem", "adaptive", "delivery_kernel"):
+            for k in ("adaptive", "delivery_kernel"):
                 ref.pop(k, None)
             assert got == ref, (profile, tcls.__name__, extra)
     i16 = TS.SimParams.from_config(tcfg.with_sim(lambda s: s.replace(plane_dtype="i16", delay_slots=4)))
@@ -299,9 +301,10 @@ def test_from_config_matches_jax(profile):
 def test_from_config_refuses_unported_planes():
     cfg = TC.ClusterConfig.default_lan().with_sim(lambda s: s.replace(capacity=64))
     for cls in (TS.SimParams, TSP.SparseParams, TPV.PviewParams):
-        with pytest.raises(ValueError, match="A8"):
-            cls.from_config(cfg.with_dissemination(lambda d: d.replace(strategy="push_pull")))
-        with pytest.raises(ValueError, match="A8"):
+        # a dissemination block is ported now: it rides the params
+        armed = cls.from_config(cfg.with_dissemination(lambda d: d.replace(strategy="push_pull")))
+        assert armed.dissem.strategy == "push_pull"
+        with pytest.raises(ValueError, match="A8.2"):
             cls.from_config(cfg.with_adaptive(lambda a: a.replace(enabled=True)))
     with pytest.raises(ValueError, match="capacity must be > 1"):
         TS.SimParams.from_config(TC.ClusterConfig.default_lan())

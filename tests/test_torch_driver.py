@@ -300,7 +300,7 @@ def test_refused_surfaces_raise_not_implemented():
         "jit_cache_audit": lambda: d.jit_cache_audit(),
         "arm_telemetry": lambda: d.arm_telemetry(),
         "arm_trace": lambda: d.arm_trace(),
-        "set_dissemination": lambda: d.set_dissemination(strategy="push_pull"),
+        "run_scenario(strategy=)": lambda: d.run_scenario(None, strategy="push_pull"),
         "set_adaptive": lambda: d.set_adaptive(enabled=True),
         "set_protocol_knobs": lambda: d.set_protocol_knobs(fanout=4),
         "arm_control": lambda: d.arm_control(),
@@ -312,7 +312,7 @@ def test_refused_surfaces_raise_not_implemented():
         "sparse delay rings": lambda: TSP.SparseParams(capacity=8, delay_slots=2),
     }
     items = {"arm_telemetry": "A10", "arm_trace": "A10", "run_scenario": "A10", "chaos_snapshot": "A10",
-             "set_dissemination": "A8", "set_adaptive": "A8", "set_protocol_knobs": "A11",
+             "run_scenario(strategy=)": "A10", "set_adaptive": "A8.2", "set_protocol_knobs": "A11",
              "arm_control": "A11", "jit_cache_audit": "A13", "transport": "A13", "mesh": "A12",
              "compile_cache_dir": "A13", "sparse delay rings": "A2"}
     for name, call in calls.items():

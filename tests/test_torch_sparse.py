@@ -335,9 +335,11 @@ def test_window_split_does_not_change_the_trajectory():
 
 def test_port_refuses_what_it_does_not_run():
     base = dataclasses.asdict(_params(33))
-    with pytest.raises(ValueError, match="A8"):
-        convert.params_from_dict({**base, "dissem": {**base["dissem"], "strategy": "push_pull"}})
-    with pytest.raises(ValueError, match="A8"):
+    # the dissemination spec is carried across (ported); the adaptive one
+    # is refused (A8.2)
+    armed = convert.params_from_dict({**base, "dissem": {**base["dissem"], "strategy": "push_pull"}})
+    assert armed.dissem.strategy == "push_pull" and isinstance(armed, TSP.SparseParams)
+    with pytest.raises(ValueError, match="A8.2"):
         convert.params_from_dict({**base, "adaptive": {**base["adaptive"], "enabled": True}})
     with pytest.raises(ValueError, match="A2"):
         convert.params_from_dict({**base, "delay_slots": 2})
