@@ -6,9 +6,11 @@ Drives the port's main paths — the partial-view engine's tick window and
 ``SimDriver`` over it, both at 1,048,576 members, the sparse engine's
 window and ``SimDriver`` over it at 49,152 members, the dense engine's
 window and ``SimDriver`` over it at 10,000 members and its delay regime at
-8,192, and each engine's window again under a dissemination strategy, with
-the strategies' certification matrix — on the card, and fails (non-zero
-exit, no result line) unless every phase passes:
+8,192, each engine's window again under a dissemination strategy, with
+the strategies' certification matrix, and again armed with the adaptive
+failure-detection plane and through chaos scenarios, with config13's
+certification sweep and config7's armed-idle overhead — on the card, and
+fails (non-zero exit, no result line) unless every phase passes:
 
 1. device   — a CUDA device is present; prints its name and power limit;
 2. build    — builds the port's CUDA kernel with nvcc; prints ptxas's
@@ -106,7 +108,41 @@ exit, no result line) unless every phase passes:
    churn run), dense at 10,000 under ``push_pull/full`` (phase 17's
    partition with phase 18's profiles): ms/tick, peak, launches and each
    engine's invariants, beside that engine's unarmed ms/tick from the
-   same call.
+   same call;
+25. adaptive-windows — adaptive windows (config13's knobs: min_mult 5,
+   max_mult 10, conf_target 4, lh_max 8) on the CPU and on the card from
+   the same draws: pview at 4,096 (phase 4's scenario under a 10% uniform
+   loss floor), sparse at 4,096 with dense links and 32 rows taking 70%
+   inbound loss (phase 10's), dense at 2,048 with the rings at D = 4, a
+   slow group of links and a flaky observer (phase 16's): equal state,
+   adaptive planes and metrics, and both gauges moved;
+26. adaptive-main — each engine's main path armed with config13's knobs at
+   full width: pview at 1M (phase 5's scenario), sparse at 49,152 (phase
+   11's churn), dense at 10,000 (phase 17's partition, no profiles):
+   ms/tick beside the unarmed run of this call, peak, flag reads per
+   tick, launches, the ``adaptive_lh_max`` / ``adaptive_conf_max`` gauges
+   (the phase fails where one stays 0), dense detection and recovery;
+27. chaos-windows — ``SimDriver.run_scenario`` on the CPU and on the card
+   from the same draws at 4,096: pview (a crash and a partition healed),
+   dense at config9's widths, sparse with dense links (a crash wave, a
+   partition healed, restarts); dense at 2,048 with a loss storm over a
+   partition healed inside it: equal reports (but the backend stamp) and
+   state;
+28. chaos-main — one scenario per engine at full width, each ``ok`` with 0
+   violations and no readback while it steps: pview at 1M (its crash wave
+   and a partition healed, 60 ticks), sparse at 49,152 (a crash, a loss
+   storm on scalar links, a restart, 60 ticks), dense at 10,000 (config4's
+   1,000 / 9,000 split healed after detection, to the automatic horizon):
+   ms/tick against the unarmed runs, flag reads, launches;
+29. config13 — ``benchmarks/config13_adaptive.py``'s sweep at its published
+   widths (N = 48, seeds 0-2, loss floors 0/10/20%, both arms: 18 entries,
+   in four worker processes on the card), each entry beside
+   ``ADAPTIVE_BENCH_r14.json``'s; fails unless config13's ``certified``
+   holds;
+30. config7 — the armed-but-idle chaos overhead at dense N = 4,096 (24
+   one-tick windows, plain loop against an armed event-free scenario,
+   interleaved median of 5) beside config7's 2% gate; fails only on a
+   readback while the armed loop steps.
 
 The dense paths launch no hand-written kernel; their launch counts (0)
 stand in the kernels line. The line before the last is a JSON object with one entry per kernel; the
@@ -143,6 +179,7 @@ KERNEL_CASES = tuple((n, 3, 8, 64, 0, ("vector", 3)) for n in KERNEL_SHAPES) + (
     (65_536, 3, 8, 64, 1, ("scalar", 3)),   # ym_p's base off 16 bytes
 )
 TICKS_PER_SECOND = 5  # config5's simulated second
+C13_KNOBS = dict(min_mult=5, max_mult=10, conf_target=4, lh_max=8)  # config13's ADAPTIVE_KNOBS
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 
 
@@ -172,6 +209,78 @@ def armed(params, **spec):
     from scalecube_cluster_tpu_torch.dissemination import DissemSpec
 
     return dc.replace(params, dissem=DissemSpec(**spec))
+
+
+def with_adaptive(params, **knobs):
+    """``params`` with the adaptive plane armed: config13's knobs
+    (``benchmarks/config13_adaptive.py: ADAPTIVE_KNOBS``), ``knobs``
+    replacing them."""
+    import dataclasses as dc
+
+    from scalecube_cluster_tpu_torch.adaptive import AdaptiveSpec
+
+    return dc.replace(params, adaptive=AdaptiveSpec(enabled=True, **{**C13_KNOBS, **knobs}))
+
+
+def adaptive_label(params) -> str:
+    return "" if params.adaptive.is_default else ", adaptive"
+
+
+class Window:
+    """An engine's window runner over ``params``: ``run(state, draws,
+    ticks, params, watch_rows)``, or, when ``params.adaptive`` is enabled,
+    ``run_adaptive`` with the adaptive plane (``.ad``, fresh on
+    ``device``) threaded through. Called as ``(state, draws, ticks,
+    watch_rows=None) -> (state, stacked metrics, watched)``."""
+
+    def __init__(self, run, run_adaptive, params, device):
+        from scalecube_cluster_tpu_torch.adaptive import init_adaptive_state
+
+        self.run, self.run_adaptive, self.params = run, run_adaptive, params
+        self.ad = None if params.adaptive.is_default else init_adaptive_state(params.capacity, device=device)
+
+    def __call__(self, st, draws, ticks: int, watch_rows=None):
+        if self.ad is None:
+            return self.run(st, draws, ticks, self.params, watch_rows)
+        st, self.ad, ms, watched = self.run_adaptive(st, self.ad, draws, ticks, self.params, watch_rows)
+        return st, ms, watched
+
+    def planes(self) -> dict:
+        """The adaptive planes as [1, N] pseudo-metrics (for the CPU-card
+        comparisons), or nothing."""
+        if self.ad is None:
+            return {}
+        return {f"adaptive plane {k}": getattr(self.ad, k)[None].cpu() for k in ("lh", "conf_key", "conf")}
+
+
+def pview_window(params, device) -> Window:
+    from scalecube_cluster_tpu_torch.ops import pview as PV
+
+    return Window(PV.run_pview_ticks_fused, PV.run_pview_ticks_adaptive, params, device)
+
+
+def sparse_window(params, device) -> Window:
+    from scalecube_cluster_tpu_torch.ops import sparse as SP
+
+    return Window(SP.run_sparse_ticks, SP.run_sparse_ticks_adaptive, params, device)
+
+
+def dense_window(params, device) -> Window:
+    from scalecube_cluster_tpu_torch.ops import kernel as K
+
+    return Window(K.run_ticks, K.run_ticks_adaptive, params, device)
+
+
+def gauges_line(ms) -> str:
+    """The adaptive gauges of a window's metrics (``ops/kernel.py:
+    adaptive_gauges``) as text; fails when one stayed 0 (the plane was not
+    exercised)."""
+    from scalecube_cluster_tpu_torch.ops.kernel import adaptive_gauges
+
+    g = {k: float(v) for k, v in adaptive_gauges(ms).items()}
+    if min(g.values()) <= 0:
+        raise AssertionError(f"an adaptive gauge stayed 0: {g}")
+    return ", ".join(f"{k} {v:g}" for k, v in g.items())
 
 
 def time_cuda(fn, reps: int, warmup: int = 3) -> float:
@@ -339,9 +448,10 @@ def check_kernels(device) -> dict:
     return rows
 
 
-def check_cross_device(device, params=None, label: str = "window") -> None:
+def check_cross_device(device, params=None, label: str = "window", floor: float = 0.0) -> dict:
     """40 ticks at N = 4,096 on the CPU and on the card from the same draws
-    (``params``: config16's widths by default)."""
+    (``params``: config16's widths by default; ``floor``: a uniform loss
+    floor over the scenario). Returns the CPU run's metrics."""
     from scalecube_cluster_tpu_torch import convert
     from scalecube_cluster_tpu_torch.ops import pview as PV
     from scalecube_cluster_tpu_torch.ops import rand as PR
@@ -354,8 +464,13 @@ def check_cross_device(device, params=None, label: str = "window") -> None:
          PR.draw_sparse_round(gen, n, params.fanout, params.sample_tries))
         for _ in range(ticks)
     ]
-    cpu_st, cpu_ms, _ = PV.run_pview_ticks_fused(busy_state(params, n, "cpu"), draws, ticks, params)
-    dev_st, dev_ms, _ = PV.run_pview_ticks_fused(busy_state(params, n, device), draws, ticks, params)
+    runs = []
+    for dev in ("cpu", device):
+        win = pview_window(params, dev)
+        st = PV.set_uniform_loss(busy_state(params, n, dev), floor, floor=True)
+        st, ms, _ = win(st, draws, ticks)
+        runs.append((st, {**{k: v.cpu() for k, v in ms.items()}, **win.planes()}))
+    (cpu_st, cpu_ms), (dev_st, dev_ms) = runs
     a, b = convert.state_to_numpy(cpu_st), convert.state_to_numpy(dev_st)
     bad = [k for k in a if not np.array_equal(a[k], b[k])]
     for k, v in cpu_ms.items():
@@ -368,9 +483,11 @@ def check_cross_device(device, params=None, label: str = "window") -> None:
             bad.append(f"metric {k}")
     if bad:
         raise AssertionError(f"CPU and card windows differ in: {bad}")
-    phase(label, f"N={n}, {ticks} ticks{dissem_label(params)}: every state leaf and metric equal on CPU and {device}; "
-                    f"mr_accepts {int(cpu_ms['mr_accepts'].sum())}, sync_roundtrips "
-                    f"{int(cpu_ms['sync_roundtrips'].sum())}, rumor_deliveries {int(cpu_ms['rumor_deliveries'].sum())}")
+    phase(label, f"N={n}, {ticks} ticks{dissem_label(params)}{adaptive_label(params)}"
+                 f"{f', loss floor {floor}' if floor else ''}: every state leaf, metric and adaptive plane equal on "
+                 f"CPU and {device}; mr_accepts {int(cpu_ms['mr_accepts'].sum())}, sync_roundtrips "
+                 f"{int(cpu_ms['sync_roundtrips'].sum())}, rumor_deliveries {int(cpu_ms['rumor_deliveries'].sum())}")
+    return cpu_ms
 
 
 def run_main_path(device, params=None, label: str = "main") -> dict:
@@ -388,8 +505,9 @@ def run_main_path(device, params=None, label: str = "main") -> dict:
     phase(label, f"N={n} state built in {time.perf_counter() - t0:.2f} s "
                   f"(minf_age {tuple(st.minf_age.shape)} {st.minf_age.dtype})")
     gen = torch.Generator(device=device).manual_seed(11)
+    win = pview_window(params, device)
     t0 = time.perf_counter()
-    st, _, _ = PV.run_pview_ticks_fused(st, gen, 5, params)
+    st, _, _ = win(st, gen, 5)
     torch.cuda.synchronize()
     phase(label, f"warm-up window of 5 ticks: {time.perf_counter() - t0:.2f} s")
 
@@ -398,7 +516,7 @@ def run_main_path(device, params=None, label: str = "main") -> dict:
     delivery.delivery_combine.launches = 0
     _tensor.HOST_SYNCS.count = 0
     t0 = time.perf_counter()
-    st, ms, _ = PV.run_pview_ticks_fused(st, gen, ticks, params)
+    st, ms, _ = win(st, gen, ticks)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = delivery.delivery_combine.launches
@@ -413,7 +531,7 @@ def run_main_path(device, params=None, label: str = "main") -> dict:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            st, _, _ = PV.run_pview_ticks_fused(st, gen, 2, params)
+            st, _, _ = win(st, gen, 2)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     device_waits = sum("synchroniz" in str(w.message) for w in caught)
@@ -438,13 +556,13 @@ def run_main_path(device, params=None, label: str = "main") -> dict:
     for k, v in ms.items():
         if v.shape[0] != ticks:
             raise AssertionError(f"metric {k} has {v.shape[0]} ticks, expected {ticks}")
-    phase(label, f"N={n}, {ticks} ticks{dissem_label(params)}: {wall / ticks * 1e3:.2f} ms/tick, peak allocated "
-                  f"{peak / 2 ** 30:.2f} GiB, delivery_combine launches {launches}, host syncs {syncs} "
-                  f"({syncs / ticks:.1f}/tick), final coverage {cov[-1].cpu().tolist()}")
+    phase(label, f"N={n}, {ticks} ticks{dissem_label(params)}{adaptive_label(params)}: {wall / ticks * 1e3:.2f} "
+                  f"ms/tick, peak allocated {peak / 2 ** 30:.2f} GiB, delivery_combine launches {launches}, host "
+                  f"syncs {syncs} ({syncs / ticks:.1f}/tick), final coverage {cov[-1].cpu().tolist()}")
     phase(label, f"2 more ticks: {flag_reads} branch-flag reads, {device_waits} operations "
                   "waited for the device")
     return {"launches": launches, "state": st, "gen": gen, "params": params, "ms_tick": wall / ticks * 1e3,
-            "peak": peak, "flags": syncs / ticks}
+            "peak": peak, "flags": syncs / ticks, "ms": ms}
 
 
 PHASES = ("_fd_phase", "_maintenance_sweep", "_gossip_phase_fused", "_sync_phase",
@@ -786,13 +904,15 @@ def churn_schedule(n: int, seconds: int, seed_rows):
     return churn, crash, join
 
 
-def churn_second(st, params, crash, join, draws):
+def churn_second(st, params, crash, join, draws, win=None):
     """One simulated second of config5: the second's crashes, its joins,
-    then 5 ticks. Returns (state, stacked metrics)."""
+    then 5 ticks (through ``win``, the params' window by default). Returns
+    (state, stacked metrics)."""
     from scalecube_cluster_tpu_torch.ops import sparse as SP
 
     st = SP.join_rows(SP.crash_rows(st, crash), join, params.seed_rows)
-    st, ms, _ = SP.run_sparse_ticks(st, draws, TICKS_PER_SECOND, params)
+    win = win or sparse_window(params, st.device)
+    st, ms, _ = win(st, draws, TICKS_PER_SECOND)
     return st, ms
 
 
@@ -831,11 +951,14 @@ def run_cpu_and_card(run, device, what: str) -> dict:
     return cpu_ms
 
 
-def check_sparse_window(device, n: int = 4096, params=None, label: str = "sparse-window") -> None:
+def check_sparse_window(device, n: int = 4096, params=None, label: str = "sparse-window",
+                        cohort=None) -> dict:
     """40 sparse ticks at N = 4,096 with dense links on the CPU and on the
     card from the same draws: config5's widths, with a 2-tick FD period, a
     one-period suspicion timeout and a 20-tick SYNC period so that expiry
-    and anti-entropy happen inside the window (``params`` replaces them)."""
+    and anti-entropy happen inside the window (``params`` replaces them).
+    ``cohort`` (rows) takes 70% inbound loss from the start. Returns the
+    CPU run's metrics."""
     from scalecube_cluster_tpu_torch.ops import sparse as SP
 
     ticks = 40
@@ -845,21 +968,26 @@ def check_sparse_window(device, n: int = 4096, params=None, label: str = "sparse
     crashed = list(range(n // 2, n // 2 + 16))
 
     def run(dev):
+        win = sparse_window(params, dev)
         st = SP.init_sparse_state(params, n - 8, dense_links=True, device=dev)
+        if cohort:
+            st = SP.set_link_loss(st, list(range(n)), list(cohort), 0.7)
         st = SP.crash_rows(SP.spread_rumor(st, 0, 5), crashed)
-        st, ms_a, _ = SP.run_sparse_ticks(st, draws[:10], 10, params)
+        st, ms_a, _ = win(st, draws[:10], 10)
         st = SP.join_rows(st, [n - 8, n - 7] + crashed[:2], params.seed_rows)  # two rejoins
         st = SP.block_partition(SP.spread_rumor(st, 1, 77), *halves)
-        st, ms_b, _ = SP.run_sparse_ticks(st, draws[10:25], 15, params)
+        st, ms_b, _ = win(st, draws[10:25], 15)
         st = SP.heal_partition(st, *halves)
-        st, ms_c, _ = SP.run_sparse_ticks(st, draws[25:], 15, params)
-        return st, {k: torch.cat([ms_a[k], ms_b[k], ms_c[k]]).cpu() for k in ms_a}
+        st, ms_c, _ = win(st, draws[25:], 15)
+        return st, {**{k: torch.cat([ms_a[k], ms_b[k], ms_c[k]]).cpu() for k in ms_a}, **win.planes()}
 
     cpu_ms = run_cpu_and_card(run, device, "sparse windows")
     sums = {k: int(cpu_ms[k].sum()) for k in ("mr_accepts", "sync_roundtrips", "fd_new_suspects",
                                                "rumor_deliveries", "announced", "pool_evicted")}
-    phase(label, f"N={n}, {ticks} ticks, dense links{dissem_label(params)}: every state leaf and metric "
-                 f"equal on CPU and {device}; {sums}")
+    phase(label, f"N={n}, {ticks} ticks, dense links{dissem_label(params)}{adaptive_label(params)}"
+                 f"{f', 70% inbound loss on {len(cohort)} rows' if cohort else ''}: every state leaf, metric and "
+                 f"adaptive plane equal on CPU and {device}; {sums}")
+    return cpu_ms
 
 
 def run_sparse_main_path(device, params=None, label: str = "sparse-main") -> dict:
@@ -880,9 +1008,10 @@ def run_sparse_main_path(device, params=None, label: str = "sparse-main") -> dic
                          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated; churn {churn} "
                          f"crashes and {churn} joins per simulated second")
     gen = torch.Generator(device=device).manual_seed(11)
+    win = sparse_window(params, device)
     t0 = time.perf_counter()
     for sec in range(warm_s):
-        st, _ = churn_second(st, params, crash[sec], join[sec], gen)
+        st, _ = churn_second(st, params, crash[sec], join[sec], gen, win)
     torch.cuda.synchronize()
     phase(label, f"warm-up, {warm_s} simulated seconds ({warm_s * TICKS_PER_SECOND} ticks): "
                          f"{time.perf_counter() - t0:.2f} s")
@@ -894,7 +1023,7 @@ def run_sparse_main_path(device, params=None, label: str = "sparse-main") -> dic
     t0 = time.perf_counter()
     per_s = []
     for sec in range(warm_s, warm_s + timed_s):
-        st, ms = churn_second(st, params, crash[sec], join[sec], gen)
+        st, ms = churn_second(st, params, crash[sec], join[sec], gen, win)
         per_s.append(ms)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -912,7 +1041,8 @@ def run_sparse_main_path(device, params=None, label: str = "sparse-main") -> dic
             raise AssertionError(f"the churn window never ran {k}")
     sparse_invariants(st)
     ms_tick = wall / ticks * 1e3
-    phase(label, f"N={n}, {timed_s} simulated seconds ({ticks} ticks, churn included){dissem_label(params)}: "
+    phase(label, f"N={n}, {timed_s} simulated seconds ({ticks} ticks, churn included){dissem_label(params)}"
+                         f"{adaptive_label(params)}: "
                          f"{ms_tick:.2f} ms/tick, realtime factor {1000 / (TICKS_PER_SECOND * ms_tick):.3f}, "
                          f"peak allocated {peak / 2 ** 30:.2f} GiB, delivery_combine launches {launches}, "
                          f"branch-flag reads {flags} ({flags / ticks:.1f}/tick); invariants held")
@@ -922,7 +1052,8 @@ def run_sparse_main_path(device, params=None, label: str = "sparse-main") -> dic
                          f"refute {int(ms['announce_dropped_refute'].sum())}, sync "
                          f"{int(ms['announce_dropped_sync'].sum())}), evicted {int(ms['pool_evicted'].sum())}, "
                          f"new suspects {int(ms['fd_new_suspects'].sum())}, mr_accepts {int(ms['mr_accepts'].sum())}")
-    return {"launches": launches, "state": st, "gen": gen, "params": params, "ms_tick": ms_tick, "peak": peak}
+    return {"launches": launches, "state": st, "gen": gen, "params": params, "ms_tick": ms_tick, "peak": peak,
+            "flags": flags / ticks, "ms": ms}
 
 
 SPARSE_PHASES = ("_fd_phase", "_suspicion_sweep", "_gossip_phase_fused", "_mr_apply", "_sync_phase",
@@ -1080,12 +1211,13 @@ def check_dense_window(device, n: int = 4096) -> None:
                           f"equal on CPU and {device}; {sums}")
 
 
-def check_dense_delay_window(device, n: int = 2048, params=None, label: str = "dense-delay-window") -> None:
+def check_dense_delay_window(device, n: int = 2048, params=None, label: str = "dense-delay-window",
+                             flaky=None) -> dict:
     """40 dense ticks at N = 2,048 with config3's delay configuration (i32,
     loss 0.05, mean delay 1.5 ticks, 6 ring slots; ``params`` replaces it)
     and a slower group of links through ``set_link_delay``, on the CPU and
-    on the card."""
-    from scalecube_cluster_tpu_torch.ops import kernel as K
+    on the card. ``flaky`` (a row) becomes an observer whose sends mostly
+    drop. Returns the CPU run's metrics."""
     from scalecube_cluster_tpu_torch.ops import state as S
 
     ticks = 40
@@ -1093,23 +1225,29 @@ def check_dense_delay_window(device, n: int = 2048, params=None, label: str = "d
     draws = cpu_draws(params, ticks, seed=23)
 
     def run(dev):
+        win = dense_window(params, dev)
         st = S.init_state(params, n - 2, uniform_loss=CONFIG3_LOSS, uniform_delay=CONFIG3_DELAY_MEAN,
                           device=dev)
         st = S.set_link_delay(S.spread_rumor(st, 0, 9), list(range(8)), list(range(n)), 4.0)
+        if flaky is not None:
+            st = S.set_link_loss(st, [flaky], list(range(n)), 0.7)
         st = S.crash_rows(st, [40, 41])
-        st, ms, _ = K.run_ticks(st, draws, ticks, params)
-        return st, {k: v.cpu() for k, v in ms.items()}
+        st, ms, _ = win(st, draws, ticks)
+        return st, {**{k: v.cpu() for k, v in ms.items()}, **win.planes()}
 
     cpu_ms = run_cpu_and_card(run, device, "dense delay windows")
     sums = {k: int(cpu_ms[k].sum()) for k in ("fd_probes", "fd_failed_probes", "gossip_msgs",
                                                "rumor_deliveries")}
     phase(label, f"N={n}, {ticks} ticks, delay rings (D = {params.delay_slots}, mean 1.5 ticks, rows 0-7 at "
-                 f"4.0){dissem_label(params)}: every state leaf and metric equal on CPU and {device}; {sums}")
+                 f"4.0){dissem_label(params)}{adaptive_label(params)}"
+                 f"{f', row {flaky} a flaky observer' if flaky is not None else ''}: every state leaf, metric and "
+                 f"adaptive plane equal on CPU and {device}; {sums}")
+    return cpu_ms
 
 
 def copy_state(st, device):
-    """A deep copy of a dense state on ``device`` (the tick consumes the one
-    it is given)."""
+    """A deep copy of a dense state (or of an adaptive plane) on ``device``
+    (the tick consumes the state it is given)."""
     import dataclasses as dc
 
     return dc.replace(st, **{f.name: getattr(st, f.name).to(device, copy=True)
@@ -1163,7 +1301,8 @@ def report_gates(label: str, gated, ungated) -> None:
 
 
 def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int = 200, settle: int = 60,
-                   params=None, label: str = "dense-main", profile_label: str = "dense-profile") -> dict:
+                   params=None, label: str = "dense-main", profile_label: str = "dense-profile",
+                   profile: bool = True) -> dict:
     """The dense main path: config4's partition run at ``n`` members through
     ``make_run`` windows of ``window`` ticks watching the majority observer
     (row n - 1). A window in which the minority is detected is run again
@@ -1175,7 +1314,10 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
     ticks count the operations that wait for the device, and ``settle``
     ticks later (the forwarding windows of the last changes closed) 5 + 5
     more are profiled. ``params`` (config4's by default) and ``label`` name
-    another run of the same script, ``profile_label`` its profiles."""
+    another run of the same script, ``profile_label`` its profiles;
+    ``profile=False`` leaves the profiles out. An adaptive ``params`` runs
+    the adaptive window (the rerun restores its planes too) and returns its
+    gauges."""
     from scalecube_cluster_tpu_torch.ops import _tensor
     from scalecube_cluster_tpu_torch.ops import kernel as K
     from scalecube_cluster_tpu_torch.ops import state as S
@@ -1195,6 +1337,8 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
                         f"detection budget {detect_budget} ticks (2.5 x the suspicion math {math_ticks}), "
                         f"recovery budget {recover_budget}")
     gen = torch.Generator(device=device).manual_seed(0)
+    win = dense_window(params, device)
+    highs = []  # the adaptive gauges' per-tick metrics of every window
     watch = torch.tensor([n - 1], device=device)
     launches0 = dense_launch_count()
     torch.cuda.reset_peak_memory_stats()
@@ -1205,7 +1349,7 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
     done = 0
     prof_part = None
     while detected is None and done < detect_budget:
-        if done == profile_at:
+        if profile and done == profile_at:
             st, ws, g, u = profile_dense(st, gen, params, 5, profile_label, watch=watch)
             prof_part = (g, u)
             det = minority_detected(torch.cat(ws), split)
@@ -1213,13 +1357,15 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
                 raise AssertionError("the minority was detected inside the profiled ticks")
             done += 10
             continue
-        w = min(window, detect_budget - done, profile_at - done if done < profile_at else window)
+        w = min(window, detect_budget - done, profile_at - done if profile and done < profile_at else window)
         # the window's start, kept on the host so the card's peak is the tick's
-        saved = (copy_state(st, "cpu"), gen.get_state())
+        saved = (copy_state(st, "cpu"), gen.get_state(),
+                 copy_state(win.ad, "cpu") if win.ad is not None else None)
         syncs = _tensor.HOST_SYNCS.count
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st, _, watched = K.make_run(params, w)(st, gen, watch_rows=watch)
+        st, ms_w, watched = win(st, gen, w, watch_rows=watch)
+        highs.append(ms_w)
         det = minority_detected(watched, split)
         hit = bool(det.any())  # the one read per window (it waits for the window)
         wall = time.perf_counter() - t0
@@ -1234,7 +1380,9 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
                 # back to the window's start, then up to the detection tick
                 st, g_state = copy_state(saved[0], device), saved[1]
                 gen.set_state(g_state)
-                st, _, _ = K.make_run(params, k + 1)(st, gen)
+                if win.ad is not None:
+                    win.ad = copy_state(saved[2], device)
+                st, _, _ = win(st, gen, k + 1)
         done += w
         del saved
     if detected is None:
@@ -1249,7 +1397,8 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
         syncs = _tensor.HOST_SYNCS.count
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st, ms, _ = K.make_run(params, w)(st, gen)
+        st, ms, _ = win(st, gen, w)
+        highs.append(ms)
         frac = ms["alive_view_fraction"].cpu()
         wall = time.perf_counter() - t0
         timed["heal"][0] += w
@@ -1269,7 +1418,8 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
     ms_all = (timed["part"][1] + timed["heal"][1]) / ticks_t * 1e3
     ms_part = timed["part"][1] / max(timed["part"][0], 1) * 1e3
     ms_heal = timed["heal"][1] / max(timed["heal"][0], 1) * 1e3
-    phase(label, f"N={n}{dissem_label(params)}: detected at tick {detected}, bulk (0.99) recovery {bulk}, full (0.9999) "
+    phase(label, f"N={n}{dissem_label(params)}{adaptive_label(params)}: detected at tick {detected}, bulk (0.99) "
+                        f"recovery {bulk}, full (0.9999) "
                         f"recovery {full} ticks after the heal (final alive_view_fraction {last_frac}); the JAX "
                         f"package recorded 392 / 329 / 444 (BENCH_RESULTS_r05.json, config 4); config4 ok {ok}")
     phase(label, f"ms/tick {ms_all:.2f} over {ticks_t} timed ticks (partitioned {ms_part:.2f} over "
@@ -1288,21 +1438,26 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            st, _, _ = K.run_ticks(st, gen, 2, params)
+            st, _, _ = win(st, gen, 2)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     waits = sum("synchroniz" in str(w.message) for w in caught)
     phase(label, f"2 more ticks: {_tensor.HOST_SYNCS.count} branch-flag reads, {waits} operations "
                         "waited for the device")
-    st, ms, _ = K.run_ticks(st, gen, settle, params)
+    st, ms, _ = win(st, gen, settle)
     quiet = int((ms["gossip_msgs"] == 0).sum())
     phase(label, f"{settle} settling ticks: {quiet} with no gossip message sent")
-    st, _, g, u = profile_dense(st, gen, params, 5, f"{profile_label}-healed")
-    if prof_part is not None:
-        report_gates(profile_label, *prof_part)
-    report_gates(f"{profile_label}-healed", g, u)
-    return {"launches": launches, "ms_part": ms_part, "ms_heal": ms_heal, "peak": peak, "part_ticks": part_ticks,
-            "detected": detected, "bulk": bulk, "full": full, "budgets": (detect_budget, recover_budget)}
+    if profile:
+        st, _, g, u = profile_dense(st, gen, params, 5, f"{profile_label}-healed")
+        if prof_part is not None:
+            report_gates(profile_label, *prof_part)
+        report_gates(f"{profile_label}-healed", g, u)
+    out = {"launches": launches, "ms_part": ms_part, "ms_heal": ms_heal, "peak": peak, "part_ticks": part_ticks,
+           "detected": detected, "bulk": bulk, "full": full, "budgets": (detect_budget, recover_budget),
+           "flags": flags_timed / ticks_t}
+    if win.ad is not None:
+        out["ms"] = {k: torch.cat([m[k] for m in highs]) for k in ("adaptive_lh_high", "adaptive_conf_high")}
+    return out
 
 
 def run_dense_driver(device, n: int = N_DENSE) -> dict:
@@ -1647,28 +1802,434 @@ def run_dissem_main(device, unarmed: dict) -> dict:
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    device = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
-    phase("device", f"{name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t_start = time.perf_counter()
-    marks = []
-    print(nvidia_smi(), flush=True)
+# -- the adaptive plane and the chaos plane (phases 25-30) -----------------------------
 
-    from scalecube_cluster_tpu_torch.ops import _build
+
+C13_N, C13_SEEDS, C13_FLOORS = 48, (0, 1, 2), (0.0, 0.1, 0.2)
+C13_STATIC_MULT = 3  # benchmarks/config13_adaptive.py: STATIC_SUSPICION_MULT
+C13_WORKERS = 4
+
+
+def check_adaptive_windows(device) -> dict:
+    """Adaptive windows (config13's knobs) on the CPU and on the card from the
+    same draws: pview at 4,096 in phase 4's scenario under a 10% uniform
+    loss floor, sparse at 4,096 with dense links and 32 rows taking 70%
+    inbound loss (phase 10's script), dense at 2,048 with the rings at D =
+    4, a slow group of links and a flaky observer (phase 16's). State,
+    adaptive planes and metrics equal; every gauge moved. Returns the
+    card's launches per window."""
+    launches = {}
+    ms, launches["adaptive-pview-window"] = count_launches(lambda: check_cross_device(
+        device, params=with_adaptive(config16_params(4096)), label="adaptive-windows", floor=0.1))
+    phase("adaptive-windows", f"pview gauges: {gauges_line(ms)}")
+    ms, launches["adaptive-sparse-window"] = count_launches(lambda: check_sparse_window(
+        device, params=with_adaptive(config5_params(4096, fd_every=2, suspicion_mult=1, sync_every=20)),
+        label="adaptive-windows", cohort=range(100, 132)))
+    phase("adaptive-windows", f"sparse gauges: {gauges_line(ms)}")
+    ms = check_dense_delay_window(device, params=with_adaptive(config4_params(2048, **{**CONFIG3_KNOBS,
+                                                                                       "delay_slots": 4})),
+                                  label="adaptive-windows", flaky=9)
+    phase("adaptive-windows", f"dense gauges: {gauges_line(ms)}")
+    return launches
+
+
+def beside(ms: float, ref: float) -> str:
+    """``ms`` beside the unarmed ms/tick of this call."""
+    return f"{ms:.2f} ms/tick against the unarmed {ref:.2f} ({ms / ref - 1:+.1%})"
+
+
+def run_adaptive_main(device, unarmed: dict) -> dict:
+    """Each engine's main path at its full width armed with config13's
+    adaptive knobs (min_mult 5, max_mult 10, conf_target 4, lh_max 8):
+    pview at 1M (phase 5's scenario), sparse at 49,152 (config5's churn),
+    dense at 10,000 (config4's partition, no profiles), beside the unarmed
+    runs of this call. Fails where a gauge stays 0. Returns the launches
+    of each path."""
+    out = {}
+    run = run_main_path(device, params=with_adaptive(config16_params(N_MAIN)), label="adaptive-main")
+    run.pop("state")
+    torch.cuda.empty_cache()
+    if run["launches"] != 10:
+        raise AssertionError(f"the adaptive pview window launched delivery_combine {run['launches']} times in 10 ticks")
+    out["adaptive-main-pview"] = run["launches"]
+    phase("adaptive-main", f"pview 1M {beside(run['ms_tick'], unarmed['pview'])}, peak "
+                           f"{run['peak'] / 2 ** 30:.2f} GiB, {run['flags']:.1f} flag reads/tick (unarmed "
+                           f"{unarmed['pview_flags']:.1f}), launches {run['launches']}; "
+                           f"{gauges_line(run['ms'])}")
+    run = run_sparse_main_path(device, params=with_adaptive(config5_params(N_SPARSE)), label="adaptive-main")
+    run.pop("state")
+    torch.cuda.empty_cache()
+    out["adaptive-main-sparse"] = run["launches"]
+    phase("adaptive-main", f"sparse 49,152 {beside(run['ms_tick'], unarmed['sparse'])}, realtime factor "
+                           f"{1000 / (TICKS_PER_SECOND * run['ms_tick']):.3f}, peak {run['peak'] / 2 ** 30:.2f} GiB, "
+                           f"{run['flags']:.1f} flag reads/tick (unarmed {unarmed['sparse_flags']:.1f}), "
+                           f"launches {run['launches']}; {gauges_line(run['ms'])}")
+    run = run_dense_main(device, n=N_DENSE, params=with_adaptive(config4_params(N_DENSE)), label="adaptive-main",
+                         profile=False)
+    torch.cuda.empty_cache()
+    out["adaptive-main-dense"] = run["launches"]
+    ticks = unarmed["dense_ticks"]
+    phase("adaptive-main", f"dense 10,000 partitioned {beside(run['ms_part'], unarmed['dense_part'])}, healed "
+                           f"{beside(run['ms_heal'], unarmed['dense_heal'])}, peak {run['peak'] / 2 ** 30:.2f} GiB, "
+                           f"{run['flags']:.2f} flag reads/tick; detected {run['detected']} (unarmed {ticks[0]}), bulk / "
+                           f"full recovery {run['bulk']} / {run['full']} (unarmed {ticks[1]} / {ticks[2]}); "
+                           f"{gauges_line(run['ms'])}")
+    return out
+
+
+def scenario_cpu_and_card(device, params, n: int, build, label: str, dense_links=None, setup=None) -> dict:
+    """``run_scenario(build())`` on a ``SimDriver`` on the CPU and on the card
+    from the same draws (``setup(driver)`` first): equal reports but the
+    backend stamp, equal state and adaptive planes. Returns the CPU
+    report."""
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    horizon = build().horizon
+    draws = cpu_draws(params, horizon, seed=29)
+    reports, drivers = [], []
+    for dev in ("cpu", device):
+        d = SimDriver(params, n, seed=0, device=dev, draws=DrawList(draws), dense_links=dense_links)
+        if setup:
+            setup(d)
+        rep = d.run_scenario(build())
+        reports.append({k: v for k, v in rep.items() if k != "backend"})
+        drivers.append(d)
+    a, b = drivers
+    bad = state_differences(a.state, b.state)
+    if reports[0] != reports[1]:
+        bad.append("report")
+    if a.adaptive_state is not None:
+        bad += [f"adaptive plane {k}" for k in ("lh", "conf_key", "conf")
+                if not torch.equal(getattr(a.adaptive_state, k), getattr(b.adaptive_state, k).cpu())]
+    if bad:
+        raise AssertionError(f"{label}: CPU and card scenario runs differ in: {bad}")
+    rep = reports[0]
+    if not rep["ok"]:
+        raise AssertionError(f"{label}: the scenario report is not ok: {rep}")
+    s = rep["sentinels"]
+    phase("chaos-windows", f"{label}, N={n}, {rep['ticks_run']} ticks, events {events_text(rep)}: "
+                           f"report, state{' and adaptive planes' if a.adaptive_state is not None else ''} equal on "
+                           f"CPU and {device}; violations {rep['violations']}, detections "
+                           f"{[d['detected_at'] for d in s['detections']]}, convergence "
+                           f"{[c['converged_at'] for c in s['convergence']]}")
+    return rep
+
+
+def check_chaos_windows(device) -> dict:
+    """``run_scenario`` on the CPU and on the card from the same draws at
+    4,096: pview (a crash and a group partition healed), dense at config9's
+    i16 widths (a crash, a partition healed), sparse with dense links (a
+    crash wave, a partition healed, two restarts); and dense at 2,048 with
+    a loss storm over a partition healed inside it. Returns the card's
+    launches."""
+    from scalecube_cluster_tpu_torch.chaos import events as EV
+
+    n = 4096
+    halves = [range(0, n // 2), range(n // 2, n)]
+    launches = {}
+    _, launches["chaos-pview-window"] = count_launches(lambda: scenario_cpu_and_card(
+        device, config16_params(n), n, lambda: EV.Scenario(name="pview-split", events=[
+            EV.Crash(rows=list(range(n // 2, n // 2 + 4)), at=2),
+            EV.Partition(groups=halves, at=5, heal_at=25)], horizon=40, check_interval=8), "pview",
+        setup=lambda d: [d.spread_rumor((s * 997) % n, s) for s in range(d.params.rumor_slots)]))
+    scenario_cpu_and_card(
+        device, config9_dense_params(n), n, lambda: EV.Scenario(name="dense-split", events=[
+            EV.Crash(rows=[40, 41], at=2), EV.Partition(groups=halves, at=5, heal_at=25)],
+            horizon=40, check_interval=8), "dense", dense_links=True)
+    crashed = list(range(n // 2, n // 2 + 16))
+    _, launches["chaos-sparse-window"] = count_launches(lambda: scenario_cpu_and_card(
+        device, config5_params(n, fd_every=2, suspicion_mult=1, sync_every=20), n, lambda: EV.Scenario(
+            name="sparse-split", events=[
+                EV.Crash(rows=crashed, at=2), EV.Partition(groups=halves, at=5, heal_at=20),
+                EV.Restart(rows=crashed[:2], at=30, seed_rows=(0, 1))], horizon=40, check_interval=8),
+        "sparse, dense links", dense_links=True))
+    scenario_cpu_and_card(
+        device, config4_params(n // 2, fd_every=2, sync_every=20), n // 2, lambda: EV.Scenario(name="dense-storm", events=[
+            EV.LossStorm(pct=30.0, at=3, until=20), EV.Crash(rows=[50], at=4),
+            EV.Partition(groups=[range(0, 100), range(100, 200)], at=8, heal_at=15)], horizon=40,
+            check_interval=8), "dense, loss storm", dense_links=True)
+    return launches
+
+
+def events_text(rep) -> list:
+    """The report's applied events, each label cut to 40 characters (a
+    crash wave's label lists every row)."""
+    return [e["event"] if len(e["event"]) <= 40 else e["event"][:37] + "..." for e in rep["events_applied"]]
+
+
+def run_armed(d, scenario, label: str) -> tuple:
+    """Arm ``scenario`` on ``d`` and run it: the report must be ok with no
+    violation, and the only readback between arming and the report is the
+    report's own. Returns (report, ms/tick, launches, the ticks' flag reads
+    per tick, the flag reads of the mutations between windows — a
+    restart's pool allocation reads its own)."""
+    from scalecube_cluster_tpu_torch.chaos.engine import DriverChaosRunner
+    from scalecube_cluster_tpu_torch.ops import _tensor
+
+    in_steps = [0]
+    step = d.step
+
+    def counted_step(n_ticks):
+        before = _tensor.HOST_SYNCS.count
+        out = step(n_ticks)
+        in_steps[0] += _tensor.HOST_SYNCS.count - before
+        return out
+
+    def go():
+        runner = DriverChaosRunner(d, scenario)
+        base = d.dispatch_stats["readbacks"]
+        flags = _tensor.HOST_SYNCS.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = runner.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if d.dispatch_stats["readbacks"] != base + 1:
+            raise AssertionError(f"{label}: {d.dispatch_stats['readbacks'] - base - 1} readbacks while the scenario "
+                                 "stepped")
+        return rep, wall, _tensor.HOST_SYNCS.count - flags
+
+    d.step = counted_step
+    try:
+        (rep, wall, flags), launches = count_launches(go)
+    finally:
+        del d.step
+    if not rep["ok"] or rep["violations"]:
+        raise AssertionError(f"{label}: report not ok: {rep}")
+    return rep, wall / rep["ticks_run"] * 1e3, launches, in_steps[0] / rep["ticks_run"], flags - in_steps[0]
+
+
+def run_chaos_main(device, unarmed: dict) -> dict:
+    """One scenario per engine at its main path's full width, each ``ok``
+    with no violation and no readback while it steps: pview at 1M (phase
+    5's widths and rumors; its 1,024-row crash wave and a partition between
+    two 65,536-row groups, healed), sparse at 49,152 (config5's widths,
+    scalar links: a crash of 491 rows, a 20% loss storm, their restart),
+    both cut to a 60-tick horizon (the automatic one, printed beside it,
+    would take minutes at these widths), and dense at 10,000 (config4's
+    1,000 / 9,000 split as a ``Partition``, healed 5 ticks after the
+    unarmed run's detection, to the automatic horizon). Returns the
+    launches of each path."""
+    from scalecube_cluster_tpu_torch.chaos import events as EV
+    from scalecube_cluster_tpu_torch.chaos.sentinels import build_spec
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    out = {}
+    n = N_MAIN
+    g = min(1 << 16, n // 8)  # the partition's group size
+    d = SimDriver(config16_params(n), n, warm=True, seed=0, device=device)
+    for s in range(d.params.rumor_slots):
+        d.spread_rumor((s * 997) % n, f"rumor {s}")
+    scn = EV.Scenario(name="pview-wave-split", events=[
+        EV.Crash(rows=list(range(n // 2, n // 2 + n // 1024)), at=2),
+        EV.Partition(groups=[range(0, g), range(g, 2 * g)], at=5, heal_at=30)], horizon=60)
+    auto = build_spec(scn.replace(horizon=None), d.params).horizon
+    d.step(2)
+    rep, ms, launches, flags, mut_flags = run_armed(d, scn, "pview")
+    if launches <= 0:
+        raise AssertionError("the pview scenario launched no delivery_combine kernel")
+    out["chaos-main-pview"] = launches
+    phase("chaos-main", f"pview 1M, {rep['ticks_run']} ticks (horizon cut from the automatic {auto} to 60), events "
+                        f"{events_text(rep)}: ok, 0 violations, no readback while stepping; "
+                        f"{beside(ms, unarmed['pview'])}, {flags:.1f} flag reads/tick in the ticks (+{mut_flags} in the "
+                        f"mutations), launches {launches} in "
+                        f"{rep['ticks_run']} ticks")
+    del d
+    torch.cuda.empty_cache()
+
+    n = N_SPARSE
+    params = config5_params(n)
+    churn = n // 100
+    d = SimDriver(params, n, warm=True, seed=0, device=device)
+    rows = list(range(1000, 1000 + churn))
+    scn = EV.Scenario(name="sparse-crash-storm-restart", events=[
+        EV.Crash(rows=rows, at=2), EV.LossStorm(pct=20.0, at=5, until=30),
+        EV.Restart(rows=rows, at=40, seed_rows=params.seed_rows)], horizon=60)
+    auto = build_spec(scn.replace(horizon=None), d.params).horizon
+    d.step(2)
+    rep, ms, launches, flags, mut_flags = run_armed(d, scn, "sparse")
+    if launches <= 0:
+        raise AssertionError("the sparse scenario launched no delivery_combine kernel")
+    out["chaos-main-sparse"] = launches
+    phase("chaos-main", f"sparse 49,152, {rep['ticks_run']} ticks (horizon cut from the automatic {auto} to 60), "
+                        f"events {events_text(rep)}: ok, 0 violations, no readback while stepping; "
+                        f"{beside(ms, unarmed['sparse'])}, {flags:.1f} flag reads/tick in the ticks (+{mut_flags} in the "
+                        f"mutations), launches {launches} in "
+                        f"{rep['ticks_run']} ticks (a quiet tick skips the gossip phase)")
+    del d
+    torch.cuda.empty_cache()
+
+    n = N_DENSE
+    heal = unarmed["dense_ticks"][0] + 5
+    d = SimDriver(config4_params(n), n, warm=True, seed=0, device=device, dense_links=True)
+    scn = EV.Scenario(name="config4-split", events=[
+        EV.Partition(groups=[range(0, n // 10), range(n // 10, n)], at=0, heal_at=heal)])
+    rep, ms, launches, flags, mut_flags = run_armed(d, scn, "dense")
+    out["chaos-main-dense"] = launches
+    conv = rep["sentinels"]["convergence"][0]
+    phase("chaos-main", f"dense 10,000, the automatic horizon {rep['horizon']} ticks, partition at 0, heal at {heal}: "
+                        f"ok, 0 violations, no readback while stepping; converged at {conv['converged_at']} (deadline "
+                        f"{conv['deadline']}); {ms:.2f} ms/tick over the whole run (unarmed partitioned "
+                        f"{unarmed['dense_part']:.2f}), {flags:.2f} flag reads/tick in the ticks (+{mut_flags} in "
+                        f"the mutations), launches {launches}")
+    if launches:
+        raise AssertionError(f"the dense scenario launched delivery_combine {launches} times")
+    return out
+
+
+def config13_scenario(until: int = 220, horizon: int = 260):
+    """``benchmarks/config13_adaptive.py: _scenario``."""
+    from scalecube_cluster_tpu_torch.chaos import events as EV
+
+    return EV.Scenario(name="loss_adversarial_r14", events=(
+        EV.AsymmetricLoss(rows=[5, 6, 7], pct=70.0, at=4, until=until, direction="in"),
+        EV.FlakyObserver(rows=[9], pct=70.0, at=4, until=until),
+        EV.SlowMember(rows=[11], mean_delay_ticks=2.0, at=4, until=until),
+        EV.Crash(rows=[20], at=30),
+    ), horizon=horizon)
+
+
+def config13_entry(task) -> dict:
+    """One config13 entry in a worker process (``benchmarks/config13_adaptive.py:
+    run_entry``): ``task`` is (seed, loss floor, adaptive, device)."""
+    from scalecube_cluster_tpu_torch.adaptive import AdaptiveSpec
+    from scalecube_cluster_tpu_torch.ops.state import SimParams
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    seed, floor, adaptive, device = task
+    spec = AdaptiveSpec(enabled=True, **C13_KNOBS) if adaptive else AdaptiveSpec()
+    params = SimParams(capacity=C13_N, fd_every=1, sync_every=40, suspicion_mult=C13_STATIC_MULT, rumor_slots=8,
+                       seed_rows=(0,), delay_slots=4, adaptive=spec)
+    d = SimDriver(params, C13_N, warm=True, seed=seed, device=device)
+    if floor > 0:
+        d.state = d._ops.set_uniform_loss(d.state, floor, floor=True)
+    scn = config13_scenario()
+    if not adaptive:
+        scn = scn.replace(fp_enforce=False)  # the control arm records, it is not judged
+    t0 = time.perf_counter()
+    rep = d.run_scenario(scn)
+    wall = time.perf_counter() - t0
+    s = rep["sentinels"]
+    det = s["detections"][0]
+    return {
+        "arm": "adaptive" if adaptive else "static", "seed": seed, "loss_floor_pct": round(floor * 100),
+        "false_positive_dead_max": s.get("false_positive_dead_max"),
+        "fp_watch_members": s.get("false_positive_watch_members"), "crash_detected_at": det["detected_at"],
+        "crash_deadline": det["deadline"], "crash_ok": det["ok"], "violations": rep["violations"],
+        "wall_seconds": wall, "ticks": rep["ticks_run"],
+    }
+
+
+def run_config13(device) -> dict:
+    """config13's full sweep at its published widths (N = 48, seeds 0-2,
+    loss floors 0/10/20%, both arms: 18 entries) in C13_WORKERS processes
+    on the card, each entry beside ``ADAPTIVE_BENCH_r14.json``'s (the JAX
+    package's run: protocol outcomes, compared by verdict — the port draws
+    from torch's generator). Fails unless config13's own ``certified``
+    holds."""
+    import multiprocessing
+
+    tasks = [(seed, floor, adaptive, str(device)) for floor in C13_FLOORS for seed in C13_SEEDS
+             for adaptive in (False, True)]
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(C13_WORKERS) as pool:
+        entries = pool.map(config13_entry, tasks, chunksize=1)
+    wall = time.perf_counter() - t0
+    ref_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ADAPTIVE_BENCH_r14.json")
+    ref = {}
+    if os.path.exists(ref_path):
+        with open(ref_path) as fh:
+            for e in json.load(fh)["result"]["entries"]:
+                ref[(e["arm"], e["seed"], e["loss_floor_pct"])] = e
+    for e in entries:
+        r = ref.get((e["arm"], e["seed"], e["loss_floor_pct"]))
+        jax_txt = (f"JAX fp_dead {r['false_positive_dead_max']}, crash@{r['crash_detected_at']}, violations "
+                   f"{r['violations']}") if r else "JAX: no entry"
+        phase("config13", f"loss {e['loss_floor_pct']}% seed {e['seed']} {e['arm']}: fp_dead "
+                          f"{e['false_positive_dead_max']} of {e['fp_watch_members']} watched, crash@"
+                          f"{e['crash_detected_at']} <= {e['crash_deadline']}, violations {e['violations']}, "
+                          f"{e['wall_seconds'] / e['ticks'] * 1e3:.2f} ms/tick | {jax_txt}")
+    ad = [e for e in entries if e["arm"] == "adaptive"]
+    st = [e for e in entries if e["arm"] == "static"]
+    ad_fp = sum(e["false_positive_dead_max"] or 0 for e in ad)
+    st_fp = sum(e["false_positive_dead_max"] or 0 for e in st)
+    certified = (ad_fp == 0 and st_fp > 0 and all(e["crash_ok"] for e in ad) and all(e["violations"] == 0 for e in ad))
+    phase("config13", f"{len(entries)} entries in {wall:.1f} s ({C13_WORKERS} worker processes): adaptive false-DEAD "
+                      f"total {ad_fp}, static {st_fp} (JAX, ADAPTIVE_BENCH_r14.json: 0 and 9); adaptive detections "
+                      f"ok {all(e['crash_ok'] for e in ad)}; certified {certified}")
+    if not certified:
+        raise AssertionError("config13 is not certified")
+    return {"entries": entries, "adaptive_fp": ad_fp, "static_fp": st_fp, "wall": wall}
+
+
+def run_config7(device, n: int = 4096, windows: int = 24, reps: int = 5) -> dict:
+    """config7 (``benchmarks/config7_chaos.py``): the tick-rate overhead of an
+    armed-but-idle chaos runner at dense N = 4,096, ``windows`` one-tick
+    windows per span, the plain driver loop against the same loop with an
+    event-free scenario armed (its timeline consulted every window, the
+    sentinels checked at their cadence), interleaved, median of ``reps``.
+    Fails only on a readback while the armed loop steps."""
+    from scalecube_cluster_tpu_torch.chaos import Scenario
+    from scalecube_cluster_tpu_torch.chaos.engine import DriverChaosRunner
+    from scalecube_cluster_tpu_torch.ops.state import SimParams
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    params = SimParams(capacity=n, fanout=3, repeat_mult=3, ping_req_k=3, fd_every=5, sync_every=150,
+                       suspicion_mult=5, rumor_slots=8, seed_rows=(0,), full_metrics=False)
+    pipe = SimDriver(params, n, warm=True, seed=0, device=device)
+    pipe.step(1)
+    pipe.sync()
+    arm = SimDriver(params, n, warm=True, seed=0, device=device)
+    runner = DriverChaosRunner(arm, Scenario(name="armed-idle", events=[], horizon=1 << 30))
+    check_every = runner.spec.check_interval
+    clock = {"t": 1}
+    arm.step(1)
+    runner._run_check()
+    arm.sync()
+
+    def span_pipe() -> float:
+        t0 = time.perf_counter()
+        for _ in range(windows):
+            pipe.step(1)
+        pipe.sync()
+        return time.perf_counter() - t0
+
+    def span_armed() -> float:
+        base = arm.dispatch_stats["readbacks"]
+        next_check = clock["t"] + check_every
+        t0 = time.perf_counter()
+        for _ in range(windows):
+            arm.state, _labels = runner.timeline.apply_due(arm.state, clock["t"])
+            arm.step(1)
+            clock["t"] += 1
+            if clock["t"] >= next_check:
+                runner._run_check()
+                next_check = clock["t"] + check_every
+        arm.sync()
+        dt = time.perf_counter() - t0
+        if arm.dispatch_stats["readbacks"] != base:
+            raise AssertionError("the armed-idle chaos loop read the device back")
+        return dt
+
+    pipe_s, armed_s = [], []
+    for _ in range(reps):
+        pipe_s.append(span_pipe())
+        armed_s.append(span_armed())
+    p, a = statistics.median(pipe_s), statistics.median(armed_s)
+    overhead = (a / p - 1.0) * 100.0
+    phase("config7", f"dense N={n}, {reps} x {windows} one-tick windows, sentinel check every {check_every} ticks: "
+                     f"pipelined {windows / p:.1f} ticks/s, chaos-armed {windows / a:.1f} ticks/s, idle overhead "
+                     f"{overhead:+.2f}% beside config7's 2% gate (within {overhead <= 2.0}); spans pipelined "
+                     f"{[round(x, 4) for x in pipe_s]} s, armed {[round(x, 4) for x in armed_s]} s; no readback")
+    return {"overhead_pct": overhead, "pipelined_ticks_s": windows / p, "armed_ticks_s": windows / a}
+
+
+def run_phases_4_to_24(device, marks: list) -> dict:
+    """Phases 4-24, as PRs 1-6 left them. Returns the kernel's launches on
+    each of their paths, and under "unarmed" the unarmed main paths'
+    ms/tick, flag reads and dense outcomes for the armed phases after."""
     from scalecube_cluster_tpu_torch.ops import pview as PV
 
-    t0 = time.perf_counter()
-    _build.build("delivery_combine")
-    phase("build", f"delivery_combine built in {time.perf_counter() - t0:.2f} s")
-    for line in ptxas_report(_build.build_log("delivery_combine")):
-        phase("build", f"ptxas delivery_combine_kernel {line}")
-
-    kern = check_kernels(device)
-    kern_structured = check_structured_kernel(device)
     check_cross_device(device)
     main_run = run_main_path(device)
     st, gen, params = main_run["state"], main_run["gen"], main_run["params"]
@@ -1721,6 +2282,51 @@ def main() -> int:
     dissem_launches.update(run_dissem_main(device, unarmed))
     dissem_launches["dissem-certify"] = certify_run["launches"]
     marks.append(("phase 24 (dissem-main)", time.perf_counter()))
+    unarmed["pview_flags"] = main_run["flags"]
+    unarmed["sparse_flags"] = sparse_run["flags"]
+    return {"window": main_run["launches"], "driver": driver_run["launches"],
+            "sparse-window": sparse_run["launches"], "sparse-driver": sparse_driver_run["launches"],
+            "dense-main": dense_run["launches"], "dense-driver": dense_driver_run["launches"],
+            "dense-delay": dense_delay_run["launches"], **dissem_launches, "unarmed": unarmed}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    phase("device", f"{name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t_start = time.perf_counter()
+    marks = []
+    print(nvidia_smi(), flush=True)
+
+    from scalecube_cluster_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.build("delivery_combine")
+    phase("build", f"delivery_combine built in {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_report(_build.build_log("delivery_combine")):
+        phase("build", f"ptxas delivery_combine_kernel {line}")
+
+    kern = check_kernels(device)
+    kern_structured = check_structured_kernel(device)
+    launches = run_phases_4_to_24(device, marks)
+    unarmed = launches.pop("unarmed")
+    new = check_adaptive_windows(device)
+    marks.append(("phase 25 (adaptive-windows)", time.perf_counter()))
+    new.update(run_adaptive_main(device, unarmed))
+    marks.append(("phase 26 (adaptive-main)", time.perf_counter()))
+    new.update(check_chaos_windows(device))
+    marks.append(("phase 27 (chaos-windows)", time.perf_counter()))
+    new.update(run_chaos_main(device, unarmed))
+    marks.append(("phase 28 (chaos-main)", time.perf_counter()))
+    run_config13(device)
+    marks.append(("phase 29 (config13)", time.perf_counter()))
+    run_config7(device)
+    marks.append(("phase 30 (config7)", time.perf_counter()))
+    launches.update(new, config13=0, config7=0)
+
     last = t_start
     for what, at in marks:
         phase("time", f"{what}: {at - last:.1f} s")
@@ -1728,10 +2334,6 @@ def main() -> int:
 
     k1m = kern[(N_MAIN, 3, 8, 64, 0)]
     ksp = kern[SPARSE_CASE]
-    launches = {"window": main_run["launches"], "driver": driver_run["launches"],
-                "sparse-window": sparse_run["launches"], "sparse-driver": sparse_driver_run["launches"],
-                "dense-main": dense_run["launches"], "dense-driver": dense_driver_run["launches"],
-                "dense-delay": dense_delay_run["launches"], **dissem_launches}
     print(json.dumps({"kernels": [{
         "name": "delivery_combine",
         "route": "cuda",

@@ -15,9 +15,13 @@ unfused one — with the sparse and pview gossip delivery combine as a
 hand-written CUDA kernel (``csrc/delivery_combine.cu``, bound in
 :mod:`.ops.delivery`); the dissemination strategies and topologies on all
 three engines, with the spread certifier (:mod:`.dissemination`,
-``params.dissem``); :class:`.sim.SimDriver` / :class:`.sim.SimCluster`
-over any engine; the engine policy :func:`.sim.driver.auto_params` and a
-copy of the JAX package's ``ClusterConfig`` (:mod:`.config`).
+``params.dissem``); the adaptive failure-detection plane on all three
+engines (:mod:`.adaptive`, ``params.adaptive``) and the chaos scenarios
+with their invariant sentinels (:mod:`.chaos`,
+``SimDriver.run_scenario``); :class:`.sim.SimDriver` /
+:class:`.sim.SimCluster` over any engine; the engine policy
+:func:`.sim.driver.auto_params` and a copy of the JAX package's
+``ClusterConfig`` (:mod:`.config`).
 Entry points take ``device=`` and default to ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions on the host.
 """

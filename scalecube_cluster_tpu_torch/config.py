@@ -6,12 +6,11 @@ are float seconds.
 :func:`tick_units` is the mapping every engine's ``from_config`` shares: one
 tick is one ``sim.tick_interval``, the FD round fires every
 ``ping_interval / tick_interval`` ticks, SYNC every ``sync_interval /
-tick_interval``. A config with an enabled ``adaptive`` block raises there:
-that plane is not ported (ROADMAP A8.2). ``validate`` checks what the JAX
-one checks except the adaptive and control knobs, whose validation lives
-in those planes' modules (ROADMAP A8.2, A11); the dissemination block is
-validated through :meth:`.dissemination.spec.DissemSpec.from_config`, as
-in JAX.
+tick_interval``. ``validate`` checks what the JAX one checks except the
+control knobs, whose validation lives in the control plane's module
+(ROADMAP A11); the dissemination and adaptive blocks are validated
+through :meth:`.dissemination.spec.DissemSpec.from_config` and
+:meth:`.adaptive.AdaptiveSpec.from_config`, as in JAX.
 """
 
 from __future__ import annotations
@@ -461,6 +460,10 @@ class ClusterConfig:
         from .dissemination.spec import DissemSpec
 
         DissemSpec.from_config(self)
+        # the adaptive spec dataclass owns its knob validation likewise
+        from .adaptive import AdaptiveSpec
+
+        AdaptiveSpec.from_config(self)
         if self.chaos.check_interval_ticks <= 0:
             raise ValueError("chaos.check_interval_ticks must be > 0")
         if not (0.0 <= self.chaos.loss_storm_immunity_pct <= 100.0):
@@ -496,10 +499,7 @@ def tick_units(config: ClusterConfig, capacity: int | None, initial_size: int | 
                seed_rows: tuple) -> dict:
     """The params fields every engine derives alike from ``config``: the
     capacity (``capacity`` > ``config.sim.capacity`` > ``initial_size``),
-    the protocol knobs in tick units, the delay timeouts. Refuses an
-    enabled adaptive block (ROADMAP A8.2)."""
-    if config.adaptive.enabled:
-        raise ValueError("an enabled adaptive failure-detection block is not ported yet (ROADMAP A8.2)")
+    the protocol knobs in tick units, the delay timeouts."""
     sim = config.sim
     cap = capacity or sim.capacity or (initial_size or 0)
     if cap <= 1:

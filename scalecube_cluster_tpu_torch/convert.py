@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .adaptive import AdaptiveSpec, AdaptiveState
 from .dissemination.spec import DissemSpec
 from .ops.pview import PviewParams, PviewState
 from .ops.sparse import SparseParams, SparseState
@@ -27,16 +28,14 @@ def params_from_dict(d: dict):
     """Port params (``SimParams``, ``SparseParams`` or ``PviewParams``)
     from ``dataclasses.asdict(jax_params)``.
 
-    The ``dissem`` dict becomes the port's own :class:`DissemSpec`.
-    Refuses what the port does not run (an enabled adaptive spec,
-    ``delay_slots > 0`` on the pview and sparse engines), naming its
-    ROADMAP item. A pview ``delivery_kernel`` is dropped: its two values
-    compute the same function."""
+    The ``dissem`` and ``adaptive`` dicts become the port's own
+    :class:`DissemSpec` and :class:`AdaptiveSpec`. Refuses what the port
+    does not run (``delay_slots > 0`` on the pview and sparse engines),
+    naming its ROADMAP item. A pview ``delivery_kernel`` is dropped: its
+    two values compute the same function."""
     d = dict(d)
     d["dissem"] = DissemSpec(**(d.pop("dissem", None) or {}))
-    adaptive = d.pop("adaptive", None) or {}
-    if adaptive.get("enabled", False):
-        raise ValueError("an enabled adaptive failure-detection spec is not ported yet (ROADMAP A8.2)")
+    d["adaptive"] = AdaptiveSpec(**(d.pop("adaptive", None) or {}))
     d.pop("delivery_kernel", None)
     d["seed_rows"] = tuple(int(s) for s in d.get("seed_rows", ()))
     if "mr_slots" not in d:
@@ -47,6 +46,20 @@ def params_from_dict(d: dict):
             "is not ported yet (ROADMAP A2)"
         )
     return PviewParams(**d) if "view_slots" in d else SparseParams(**d)
+
+
+def adaptive_from_numpy(arrays: dict, device="cuda") -> AdaptiveState:
+    """The port's adaptive plane from the JAX ``AdaptiveState``'s leaves as
+    numpy arrays (``{"lh", "conf_key", "conf"}``), copied onto ``device``."""
+    return AdaptiveState(**{
+        k: torch.from_numpy(np.array(arrays[k], dtype=np.int32, copy=True)).to(device)
+        for k in ("lh", "conf_key", "conf")
+    })
+
+
+def adaptive_to_numpy(ad: AdaptiveState) -> dict:
+    """The inverse of :func:`adaptive_from_numpy`."""
+    return {k: getattr(ad, k).detach().cpu().numpy() for k in ("lh", "conf_key", "conf")}
 
 
 def _state_class(arrays):

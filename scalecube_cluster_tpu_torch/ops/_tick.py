@@ -211,7 +211,7 @@ def rumor_metrics(state, params, n_up) -> dict:
 # -- the window loop -------------------------------------------------------------
 
 
-def run_window(tick, view_rows, draw, state, draws, n_ticks: int, params, watch_rows=None):
+def run_window(tick, view_rows, draw, state, draws, n_ticks: int, params, watch_rows=None, ad=None):
     """Run ``n_ticks`` of ``tick(state, fd, round, params)``.
 
     ``draws`` is either a ``torch.Generator`` on the state's device (the
@@ -220,7 +220,9 @@ def run_window(tick, view_rows, draw, state, draws, n_ticks: int, params, watch_
     ticks) or a sequence of ``n_ticks`` ``(fd, round)`` draw pairs (moved to
     the state's device). Returns ``(state, metrics stacked to [n_ticks],
     watched)``; ``watched`` is ``view_rows(state, watch_rows)`` after each
-    tick, stacked, or None."""
+    tick, stacked, or None. With ``ad`` (an adaptive plane) each tick runs
+    as ``tick(..., ad=ad)`` and the return is ``(state, ad, metrics,
+    watched)``."""
     gen = draws if isinstance(draws, torch.Generator) else None
     if gen is not None and gen.device.type != state.device.type:
         raise ValueError(f"generator on {gen.device}, state on {state.device}")
@@ -234,9 +236,13 @@ def run_window(tick, view_rows, draw, state, draws, n_ticks: int, params, watch_
             fd, rd = draws[t]
             fd = None if fd is None else fd.to(state.device)
             rd = rd.to(state.device)
-        state, m = tick(state, fd, rd, params)
+        if ad is None:
+            state, m = tick(state, fd, rd, params)
+        else:
+            state, ad, m = tick(state, fd, rd, params, ad=ad)
         per_tick.append(m)
         if watch_rows is not None:
             watched.append(view_rows(state, watch_rows))
     ms = {k: torch.stack([m[k] for m in per_tick]) for k in per_tick[0]} if per_tick else {}
-    return state, ms, (torch.stack(watched) if watch_rows is not None else None)
+    watched = torch.stack(watched) if watch_rows is not None else None
+    return (state, ms, watched) if ad is None else (state, ad, ms, watched)

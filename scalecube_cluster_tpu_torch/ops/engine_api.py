@@ -1,11 +1,12 @@
 """The engine-interface spelling the driver resolves through.
 
 A port of the JAX package's ``ops/engine_api.py``, cut to the fields the
-driver reads: an engine is one :class:`EngineOps` descriptor, and
-:func:`resolve` picks it by the params type. All three engines are ported:
-dense (``SimParams``), sparse (``SparseParams``) and partial-view
-(``PviewParams``). The seams over the one [N, N] view plane that dense and
-sparse share (``plane_*``) are written once here.
+driver and the chaos runner read: an engine is one :class:`EngineOps`
+descriptor, and :func:`resolve` picks it by the params type. All three
+engines are ported: dense (``SimParams``), sparse (``SparseParams``) and
+partial-view (``PviewParams``). The seams over the one [N, N] view plane
+that dense and sparse share (``plane_*``, the sentinel initialiser) are
+written once here.
 """
 
 from __future__ import annotations
@@ -24,6 +25,11 @@ class EngineOps:
     ops: object  # host-mutator module (join/crash/leave/links/snapshot/...)
     init_state: Callable  # (params, n_initial, warm, dense_links, device) -> state
     make_run: Callable  # (params, n_ticks) -> window run(state, draws, watch_rows=None)
+    # (params, n_ticks) -> adaptive window run(state, ad, draws, watch_rows=None);
+    # refuses a default AdaptiveSpec. The fused name is the same window.
+    make_adaptive_run: Callable
+    sentinel_init: Callable  # (state, SentinelSpec) -> accumulator dict
+    sentinel_reduce: Callable  # (state, sent, spec arrays) -> sent
     view_row: Callable  # (state, row) -> [N] int32 key row
     remembered_rows: Callable  # state -> [N] bool
     staleness: Callable  # state -> (stale [N] int32, up count)
@@ -35,6 +41,11 @@ class EngineOps:
     def has_pool(self) -> bool:
         """Whether the engine carries a membership-rumor pool."""
         return self.pool_slots is not None
+
+    @property
+    def make_fused_adaptive_run(self) -> Callable:
+        """The JAX name of the fused adaptive window: the same window."""
+        return self.make_adaptive_run
 
 
 # -- the seams of the two engines that hold the full [N, N] view plane (dense
@@ -81,6 +92,14 @@ def plane_staleness(state):
     return stale, up.sum()
 
 
+def _plane_sentinel_init(sparse: bool) -> Callable:
+    """The sentinel initialiser of the two view-plane engines (``sparse``
+    adds the ``n_live`` drift counter)."""
+    from ..chaos.sentinels import init_sentinel_state
+
+    return lambda state, spec: init_sentinel_state(state.view_key, spec, sparse=sparse)
+
+
 def _dense_engine() -> EngineOps:
     from . import kernel as K
     from . import state as S
@@ -93,6 +112,9 @@ def _dense_engine() -> EngineOps:
         ops=S,
         init_state=_init,
         make_run=K.make_run,
+        make_adaptive_run=K.make_adaptive_run,
+        sentinel_init=_plane_sentinel_init(sparse=False),
+        sentinel_reduce=K.sentinel_reduce,
         view_row=plane_view_row,
         remembered_rows=plane_remembered_rows,
         staleness=plane_staleness,
@@ -118,6 +140,9 @@ def _pview_engine() -> EngineOps:
         ops=PV,
         init_state=_init,
         make_run=PV.make_pview_run,
+        make_adaptive_run=PV.make_pview_adaptive_run,
+        sentinel_init=PV.sentinel_init,
+        sentinel_reduce=PV.sentinel_reduce,
         view_row=lambda state, row: PV.view_rows(state, [row])[0],
         remembered_rows=PV.remembered_rows,
         staleness=PV.staleness,
@@ -138,6 +163,9 @@ def _sparse_engine() -> EngineOps:
         ops=SP,
         init_state=_init,
         make_run=SP.make_sparse_run,
+        make_adaptive_run=SP.make_sparse_adaptive_run,
+        sentinel_init=_plane_sentinel_init(sparse=True),
+        sentinel_reduce=SP.sentinel_reduce,
         view_row=plane_view_row,
         remembered_rows=plane_remembered_rows,
         staleness=plane_staleness,

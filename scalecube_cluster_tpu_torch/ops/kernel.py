@@ -48,16 +48,24 @@ What differs from the JAX spelling, and why:
   write costs less than a read.
 * Uniform draws are an input of the tick (:mod:`.rand`).
 
+The adaptive plane (``tick(ad=...)``, :func:`make_adaptive_run`) threads
+an :class:`..adaptive.AdaptiveState` through the window: the phases export
+their evidence (own-probe outcomes, accepted SUSPECT records per subject,
+self-refutations) and the tick folds it at its end; with the default spec
+none of it runs. :func:`sentinel_core` is the chaos sentinels' check over
+the [N, N] view plane, in row chunks.
+
 Not ported yet, and refused: trace capture (``tick(trace=...)``, the
-traced window, telemetry and sentinel reductions: ROADMAP A10), the
-adaptive plane (``tick(ad=...)``, ``*_adaptive_run``: A8.2) and the fleet
-windows (``make_fleet_run``, ``make_fused_fleet_run``: A9).
+traced window, telemetry: ROADMAP A10, second half) and the fleet windows
+(``make_fleet_run``, ``make_fused_fleet_run``, ``make_fleet_adaptive_run``:
+A9).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import adaptive as _adp
 from ..dissemination import strategies as dz
 from . import bitplane as bp
 from ._tensor import first_true, host_flags, nonzero_fixed, plane_chunks, scatter_reduce_1d
@@ -66,7 +74,7 @@ from ._tick import seed_rows_tensor as _seed_rows_tensor
 from .engine_api import plane_view_rows as view_rows
 from .lattice import RANK_ALIVE, RANK_DEAD, RANK_LEAVING, RANK_SUSPECT, bump_inc, key_dtype, no_candidate
 from .rand import SALT_GOSSIP, SALT_SYNC_ACK, SALT_SYNC_REQ, FdRandoms, RoundRandoms, draw_dense_tick, fetch_uniform
-from .state import NEVER, SimParams, SimState
+from .state import NEVER, NO_CANDIDATE_I32, SimParams, SimState
 
 
 def ceil_log2(n: torch.Tensor) -> torch.Tensor:
@@ -226,11 +234,13 @@ def _fetch_gate(state: SimState, salt: int, i, j, cand_key, p_fetch) -> torch.Te
 # -- phases ----------------------------------------------------------------------
 
 
-def _fd_phase(state: SimState, r: FdRandoms, params: SimParams):
+def _fd_phase(state: SimState, r: FdRandoms, params: SimParams, ad=None):
     """FD round: each up row probes one target from its live view directly
     and through k relays (each leg's round trip under loss and, with the
     rings, its timeliness); the verdict (ALIVE at the target's own key, or
-    SUSPECT at the known one) is written where it overrides."""
+    SUSPECT at the known one) is written where it overrides. With ``ad``
+    the direct leg's timeout stretches to ``t_base * (1 + lh)`` (AD-4) and
+    the metrics carry the adaptive evidence (``_ad_*``)."""
     n = state.capacity
     rows = _rows(state)
     if _packed(params):
@@ -243,7 +253,12 @@ def _fd_phase(state: SimState, r: FdRandoms, params: SimParams):
     has_tgt = sel_valid[:, 0] & state.up
 
     p_direct = _rt_at(state, rows, tgt)
-    if params.delay_slots:
+    if params.delay_slots and ad is not None:
+        p_direct = p_direct * _adp.scaled_timely_rt(
+            _delay_q_at(state, rows, tgt), _delay_q_at(state, tgt, rows),
+            params.fd_direct_timeout_ticks, ad.lh, params.adaptive.lh_max,
+        )
+    elif params.delay_slots:
         p_direct = p_direct * _timely_rt(_delay_q_at(state, rows, tgt), _delay_q_at(state, tgt, rows),
                                          params.fd_direct_timeout_ticks)
     direct_ok = has_tgt & state.up[tgt] & (r.fd_direct < p_direct)
@@ -275,7 +290,32 @@ def _fd_phase(state: SimState, r: FdRandoms, params: SimParams):
         "fd_failed_probes": _i32(has_tgt & ~ack),
         "fd_new_suspects": _i32(accept & ~ack),
     }
+    if ad is not None:
+        # own-probe outcomes feed lh; new SUSPECT verdicts are the
+        # episode's origin confirmations (AD-1)
+        sus_w = accept & ~ack
+        metrics["_ad_miss"] = has_tgt & ~ack
+        metrics["_ad_succ"] = has_tgt & ack
+        metrics["_ad_cnt"] = torch.zeros((n,), dtype=torch.int32, device=state.device).index_add_(
+            0, tgt, sus_w.to(torch.int32)
+        )
+        metrics["_ad_key"] = scatter_reduce_1d(
+            n, tgt, torch.where(sus_w, cand.to(torch.int32), NO_CANDIDATE_I32), "amax",
+            NO_CANDIDATE_I32, torch.int32,
+        )
     return state, metrics
+
+
+def _no_evidence(n: int, device, probes: bool = False) -> dict:
+    """The adaptive evidence of a phase that accepted nothing (``probes``:
+    and of an FD phase that did not run)."""
+    ev = {
+        "_ad_cnt": torch.zeros((n,), dtype=torch.int32, device=device),
+        "_ad_key": torch.full((n,), NO_CANDIDATE_I32, dtype=torch.int32, device=device),
+    }
+    if probes:
+        ev["_ad_miss"] = ev["_ad_succ"] = torch.zeros((n,), dtype=torch.bool, device=device)
+    return ev
 
 
 def _gate_flags(state: SimState, params: SimParams):
@@ -302,22 +342,37 @@ def _gate_flags(state: SimState, params: SimParams):
     return sus, young
 
 
-def _suspicion_phase(state: SimState, params: SimParams, has_suspect: bool = True) -> SimState:
+def _suspicion_phase(state: SimState, params: SimParams, has_suspect: bool = True, ad=None) -> SimState:
     """SUSPECT cells whose suspicion window (``changed_at`` is its start)
     has expired become DEAD at the same incarnation (key + 1), in place over
     row chunks; skipped when no SUSPECT cell exists (``has_suspect``
-    False)."""
+    False). With ``ad`` the window is ``base_i * mult(conf_j) * (1 + lh_i)
+    // L``: the subject's confirmations shorten it for cells within its
+    episode (AD-1), the observer's local health stretches it (AD-3)."""
     if not has_suspect:
         return state
     vk, ca = state.view_key, state.changed_at
     n = state.capacity
+    if ad is not None:
+        aspec = params.adaptive
+        L = aspec.levels
+        num_conf = _adp.conf_mult_num(aspec, ad.conf)  # [N]
     for lo, hi in plane_chunks(n, n):
         blk = vk[lo:hi]
         rank = blk & 3
         # the row's cluster size before any of its cells expire
         size = (rank != RANK_DEAD).sum(dim=1, dtype=torch.int32)
-        timeout = params.suspicion_mult * ceil_log2(size) * params.fd_every
-        expired = (rank == RANK_SUSPECT) & ((state.tick - ca[lo:hi]) >= timeout[:, None]) & state.up[lo:hi, None]
+        if ad is not None:
+            base = ceil_log2(size) * params.fd_every
+            in_ep = blk.to(torch.int32) <= ad.conf_key[None, :]
+            num = torch.where(in_ep, num_conf[None, :], aspec.max_mult * L)
+            factor = base * (1 + ad.lh[lo:hi])
+            timeout = torch.div(factor[:, None] * num, L, rounding_mode="floor")
+            overdue = (state.tick - ca[lo:hi]) >= timeout
+        else:
+            timeout = params.suspicion_mult * ceil_log2(size) * params.fd_every
+            overdue = (state.tick - ca[lo:hi]) >= timeout[:, None]
+        expired = (rank == RANK_SUSPECT) & overdue & state.up[lo:hi, None]
         blk += expired
         ca[lo:hi].masked_fill_(expired, state.tick)
     return state
@@ -326,7 +381,8 @@ def _suspicion_phase(state: SimState, params: SimParams, has_suspect: bool = Tru
 _GOSSIP_METRICS = ("gossip_msgs", "rumor_sends", "rumor_deliveries")
 
 
-def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: bool = True):
+def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: bool = True,
+                  adaptive: bool = False):
     """Infection-style dissemination: each up row sends ``fanout`` distinct
     live peers one message holding its young records (changed within
     ``repeat_mult * ceil_log2(size)`` ticks) and its young rumors less
@@ -343,7 +399,9 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
     work flag and ``rumor_young`` stay unbudgeted, so a rumor outside the
     window is still pending work) and, for ``push_pull``, the reply leg:
     each undelayed contact answers with the peer's young records and
-    rumors, the peer's rows gathered in row chunks."""
+    rumors, the peer's rows gathered in row chunks. ``adaptive`` adds the
+    confirmation evidence: every accepted SUSPECT record counts one
+    believer of its subject (AD-1, AD-2)."""
     n = state.capacity
     R = params.rumor_slots
     F = params.fanout
@@ -352,7 +410,10 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
     dev = state.device
     if not busy:
         z = torch.zeros((), dtype=torch.int32, device=dev)
-        return state, {k: z for k in _GOSSIP_METRICS}
+        m = {k: z for k in _GOSSIP_METRICS}
+        if adaptive:
+            m.update(_no_evidence(n, dev))
+        return state, m
     rows = _rows(state)
     rows32 = rows.to(torch.int32)
     vk, ca = state.view_key, state.changed_at
@@ -439,6 +500,8 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
 
     cols = rows[None, :]
     dense_rt = state.fetch_rt.dim() != 0
+    if adaptive:
+        ev = _no_evidence(n, dev)
     for lo, hi in plane_chunks(n, n):
         own = vk[lo:hi]
         b = buf[lo:hi]
@@ -447,6 +510,12 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
                               state.fetch_rt[lo:hi] if dense_rt else state.fetch_rt)
         if params.namespace_gate:
             accept &= state.ns_rel[state.ns_id[lo:hi, None].long(), state.ns_id[None, :].long()]
+        if adaptive:
+            sus_acc = accept & ((b & 3) == RANK_SUSPECT)
+            ev["_ad_cnt"] += sus_acc.sum(dim=0, dtype=torch.int32)
+            torch.maximum(ev["_ad_key"], torch.where(sus_acc, b.to(torch.int32), NO_CANDIDATE_I32).amax(dim=0),
+                          out=ev["_ad_key"])
+            del sus_acc
         own.copy_(torch.where(accept, b, own))
         ca[lo:hi].masked_fill_(accept, state.tick)
     del buf
@@ -464,7 +533,10 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
         pend_inf.view(D, n, R)[slot_now] = 0
         state.pending_src[slot_now] = -1
         state = state.replace(pending_inf=bp.pack_bits(pend_inf.view(D, n, R).bool()))
-    return state, {"gossip_msgs": sent, "rumor_sends": rumor_sent, "rumor_deliveries": _i32(newly)}
+    m = {"gossip_msgs": sent, "rumor_sends": rumor_sent, "rumor_deliveries": _i32(newly)}
+    if adaptive:
+        m.update(ev)
+    return state, m
 
 
 def _pull_reply(state: SimState, s: int, p, ok_now, piggyback, rumor_pay, buf, recv_inf, recv_src, NOC: int):
@@ -496,13 +568,15 @@ def _pull_reply(state: SimState, s: int, p, ok_now, piggyback, rumor_pay, buf, r
     return _i32(rev_ok), _i32(reply_r)
 
 
-def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams):
+def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams, adaptive: bool = False):
     """Anti-entropy: the ≤ K due callers (stagger slot or ``force_sync``, in
     ascending row order; the rest wait) each pick one peer from their live
     view plus the seeds; over a surviving (and, with the rings, timely)
     round trip the caller's row is merged into the peer's (callers on one
     peer merge together) and the peer's merged row back into the
-    caller's."""
+    caller's. ``adaptive`` adds the accepted SUSPECT records of both
+    directions as confirmation evidence; slots naming one peer recompute
+    the same row, so the request side counts the first slot per peer."""
     n = state.capacity
     dev = state.device
     NOC = _noc(params)
@@ -553,6 +627,14 @@ def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams):
         acc &= state.ns_rel[state.ns_id[peer][:, None].long(), state.ns_id[None, :].long()]
     vk.index_reduce_(0, peer, torch.where(acc, buf_p, own_p), "amax")
     ca.index_reduce_(0, peer, torch.where(acc, state.tick, NEVER).to(torch.int32), "amax")
+    if adaptive:
+        karange = torch.arange(K, device=dev)
+        peer_eff = torch.where(ok, peer, -1 - karange)
+        first_p = ok & (first_true(peer_eff[:, None] == peer_eff[None, :], 1) == karange)
+        m_req = acc & first_p[:, None] & ((buf_p & 3) == RANK_SUSPECT)
+        req_key = torch.where(m_req, buf_p.to(torch.int32), NO_CANDIDATE_I32).amax(dim=0)
+        ad_cnt = m_req.sum(dim=0, dtype=torch.int32)
+        del m_req
 
     # SYNC_ACK: the peer's merged row back into the caller's
     ack_cand = vk[peer].masked_fill(~ok[:, None], NOC)
@@ -572,14 +654,22 @@ def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams):
     # a joiner's bootstrap SYNC retries every tick until a round trip lands
     ok_full = scatter_reduce_1d(n, caller, ok, "amax", 0, torch.int32) > 0
     state = state.replace(force_sync=state.force_sync & ~ok_full)
-    return state, {"sync_roundtrips": _i32(ok)}
+    metrics = {"sync_roundtrips": _i32(ok)}
+    if adaptive:
+        m_ack = accept & ((ack_cand & 3) == RANK_SUSPECT)
+        metrics["_ad_cnt"] = ad_cnt + m_ack.sum(dim=0, dtype=torch.int32)
+        metrics["_ad_key"] = torch.maximum(
+            req_key, torch.where(m_ack, ack_cand.to(torch.int32), NO_CANDIDATE_I32).amax(dim=0)
+        )
+    return state, metrics
 
 
-def _refute_phase(state: SimState) -> SimState:
+def _refute_phase(state: SimState):
     """An up node that finds itself SUSPECT or DEAD (or whose leave intent
     was overwritten) re-announces ALIVE (LEAVING for a leaver) at the next
     incarnation, saturating in the narrow layout; written on the diagonal
-    in place, re-stamped."""
+    in place, re-stamped. Returns (state, the refuting rows) — the
+    adaptive plane's lh evidence."""
     diag_view = state.view_key.diagonal()
     diag = diag_view.clone()
     rank = diag & 3
@@ -590,7 +680,7 @@ def _refute_phase(state: SimState) -> SimState:
     diag_view.copy_(torch.where(need, bump_inc(diag, announce_rank), diag))
     stamp = state.changed_at.diagonal()
     stamp.copy_(torch.where(need, state.tick, stamp))
-    return state
+    return state, need
 
 
 def _rumor_sweep(state: SimState, params: SimParams, inf_b: torch.Tensor, n_up: torch.Tensor) -> SimState:
@@ -657,33 +747,67 @@ def tick(state: SimState, fd_r, round_r: RoundRandoms, params: SimParams, trace=
     → suspicion sweep → gossip → SYNC → refute → rumor sweep → metrics.
     ``fd_r`` is read only on FD ticks (``tick % fd_every == 0`` after the
     increment) and may be None otherwise. Consumes ``state``; returns
-    ``(state, metrics)``. ``trace`` and ``ad`` are refused until their
-    planes are ported."""
+    ``(state, metrics)``.
+
+    ``ad`` (an :class:`..adaptive.AdaptiveState`, with an enabled
+    ``params.adaptive``) arms the adaptive plane: the phases run their
+    adaptive spellings, the evidence folds into the plane at the end of
+    the tick, the metrics gain the ``adaptive_lh_high`` /
+    ``adaptive_conf_high`` gauges, and the return is ``(state, ad',
+    metrics)``. ``trace`` is refused until the trace plane is ported."""
     if trace is not None:
         raise NotImplementedError("trace capture on the dense tick is not ported yet (ROADMAP A10)")
-    if ad is not None:
-        raise NotImplementedError("the adaptive failure-detection plane is not ported yet (ROADMAP A8.2)")
+    armed = ad is not None
+    if armed and params.adaptive.is_default:
+        raise ValueError(
+            "adaptive tick needs an enabled AdaptiveSpec on params "
+            "(params.adaptive = AdaptiveSpec(enabled=True, ...))"
+        )
     state = state.replace(tick=state.tick + 1)
+    n = state.capacity
     if state.tick % params.fd_every == 0:
         if fd_r is None:
             raise ValueError(f"tick {state.tick} runs the FD round and needs FD draws")
-        state, fd_m = _fd_phase(state, fd_r, params)
+        state, fd_m = _fd_phase(state, fd_r, params, ad=ad)
     else:
         z = torch.zeros((), dtype=torch.int32, device=state.device)
         fd_m = {k: z for k in _FD_METRICS}
+        if armed:
+            fd_m.update(_no_evidence(n, state.device, probes=True))
     if params.quiet_gates:
         has_suspect, busy = host_flags(*_gate_flags(state, params))
         busy = busy or has_suspect
     else:
         has_suspect = busy = True
-    state = _suspicion_phase(state, params, has_suspect)
-    state, g_m = _gossip_phase(state, round_r, params, busy)
-    state, s_m = _sync_phase(state, round_r, params)
-    state = _refute_phase(state)
+    state = _suspicion_phase(state, params, has_suspect, ad=ad)
+    state, g_m = _gossip_phase(state, round_r, params, busy, adaptive=armed)
+    state, s_m = _sync_phase(state, round_r, params, adaptive=armed)
+    state, refuted = _refute_phase(state)
     inf_b = bp.unpack_bits(state.infected, params.rumor_slots)
     n_up = _i32(state.up)
     state = _rumor_sweep(state, params, inf_b, n_up)
-    return state, {**fd_m, **g_m, **s_m, **state_metrics(state, params, inf_b, n_up)}
+    if armed:
+        ad = _fold_evidence(params, ad, fd_m, g_m, s_m, refuted, state.up)
+    metrics = {**fd_m, **g_m, **s_m, **state_metrics(state, params, inf_b, n_up)}
+    if armed:
+        metrics["adaptive_lh_high"] = ad.lh.max()
+        metrics["adaptive_conf_high"] = ad.conf.max()
+        return state, ad, metrics
+    return state, metrics
+
+
+def _fold_evidence(params, ad, fd_m: dict, g_m: dict, s_m: dict, refuted, up):
+    """Pop the phases' ``_ad_*`` evidence out of their metrics and fold it
+    into the adaptive plane (:func:`..adaptive.fold`) — shared by the three
+    engines' ticks."""
+    acc_cnt = fd_m.pop("_ad_cnt") + g_m.pop("_ad_cnt") + s_m.pop("_ad_cnt")
+    acc_key = torch.maximum(torch.maximum(fd_m.pop("_ad_key"), g_m.pop("_ad_key")), s_m.pop("_ad_key"))
+    lh, conf_key, conf = _adp.fold(
+        params.adaptive, ad.lh, ad.conf_key, ad.conf,
+        acc_key=acc_key, acc_cnt=acc_cnt, miss=fd_m.pop("_ad_miss"), succ=fd_m.pop("_ad_succ"),
+        refuted=refuted, up=up,
+    )
+    return _adp.AdaptiveState(lh=lh, conf_key=conf_key, conf=conf)
 
 
 def run_ticks(state: SimState, draws, n_ticks: int, params: SimParams, watch_rows=None):
@@ -707,6 +831,109 @@ def make_run(params: SimParams, n_ticks: int):
     return run
 
 
-# The JAX names of the fused window: the same runners.
+def run_ticks_adaptive(state: SimState, ad, draws, n_ticks: int, params: SimParams, watch_rows=None):
+    """:func:`run_ticks` with the adaptive plane ``ad`` threaded through the
+    window; the same draws. Returns ``(state, ad, metrics, watched)``."""
+    from ._tick import run_window
+
+    return run_window(tick, view_rows, draw_dense_tick, state, draws, n_ticks, params, watch_rows, ad=ad)
+
+
+def make_adaptive_run(params: SimParams, n_ticks: int):
+    """The adaptive window as a callable ``run(state, ad, draws,
+    watch_rows=None)``. Refuses a default spec: :func:`make_run` is that
+    window."""
+    if params.adaptive.is_default:
+        raise ValueError(
+            "make_adaptive_run needs an enabled AdaptiveSpec on params — the default spec's "
+            "window is make_run's"
+        )
+
+    def run(state: SimState, ad, draws, watch_rows=None):
+        return run_ticks_adaptive(state, ad, draws, n_ticks, params, watch_rows)
+
+    return run
+
+
+# The JAX names of the fused windows: the same runners.
 run_ticks_fused = run_ticks
 make_fused_run = make_run
+run_ticks_fused_adaptive = run_ticks_adaptive
+make_fused_adaptive_run = make_adaptive_run
+
+
+#: the adaptive plane's window gauges, under the JAX telemetry series' names
+ADAPTIVE_GAUGES = ("adaptive_lh_max", "adaptive_conf_max")
+
+
+def adaptive_gauges(ms: dict) -> dict:
+    """The worst local-health score and the deepest confirmation count of a
+    window's stacked metrics, as float32 scalars (0 for a static window):
+    the last two columns of the JAX package's telemetry series."""
+    out = {}
+    for name, key in zip(ADAPTIVE_GAUGES, ("adaptive_lh_high", "adaptive_conf_high")):
+        out[name] = ms[key].max().to(torch.float32) if key in ms else torch.zeros((), dtype=torch.float32)
+    return out
+
+
+# -- chaos sentinels -------------------------------------------------------------------
+
+
+def sentinel_core(view_key: torch.Tensor, up: torch.Tensor, tick: int, sent: dict, spec: dict) -> dict:
+    """One chaos-sentinel check over the [N, N] view plane (the dense and
+    sparse engines share it; :mod:`..chaos.sentinels` has the semantics):
+    self-key regressions, the largest count of never-faulted (and of
+    watched degraded) up subjects some up observer holds DEAD, each
+    crashed row's first tick seen DEAD by every up observer, each recovery
+    boundary's first tick with every up pair ALIVE. Tensor reductions over
+    row chunks, no transfer; ``tick`` is the state's host int. Returns the
+    updated accumulators (a new dict)."""
+    n = view_key.shape[0]
+    dev = view_key.device
+    rel = tick - spec["t0"]  # scenario-relative (a host int or a 0-d tensor)
+    diag = view_key.diagonal().clone()
+    sent = dict(sent)
+    sent["key_regressions"] = sent["key_regressions"] + (diag < sent["prev_diag"]).sum(dtype=torch.int32)
+    sent["prev_diag"] = diag
+
+    watch = {"false_dead_max": spec["never_faulted"] & up}
+    if "fp_watch" in spec:
+        watch["fp_dead_max"] = spec["fp_watch"] & up
+    dead_of = {k: torch.zeros((n,), dtype=torch.bool, device=dev) for k in watch}
+    crash_rows = spec["crash_rows"]
+    has_crash = crash_rows.shape[0] > 0
+    has_conv = spec["conv_from"].shape[0] > 0
+    ids = torch.arange(n, device=dev)
+    if has_crash:
+        crash_l = crash_rows.long()
+        detected = torch.ones(crash_rows.shape, dtype=torch.bool, device=dev)
+    if has_conv:
+        converged = torch.ones((), dtype=torch.bool, device=dev)
+    for lo, hi in plane_chunks(n, n):
+        blk = view_key[lo:hi]
+        rank = blk & 3  # UNKNOWN (-1) reads rank 3
+        up_r = up[lo:hi, None]
+        tomb = (blk >= 0) & (rank == RANK_DEAD) & up_r
+        for k, w in watch.items():
+            dead_of[k] |= (tomb & w[None, :]).any(dim=0)
+        del tomb
+        if has_crash:
+            others_up = up_r & (ids[lo:hi, None] != crash_l[None, :])
+            detected &= (~others_up | (rank[:, crash_l] == RANK_DEAD)).all(dim=0)
+        if has_conv:
+            up2 = up_r & up[None, :] & (ids[lo:hi, None] != ids[None, :])
+            converged &= (~up2 | (rank == RANK_ALIVE)).all()
+    for k in watch:
+        sent[k] = torch.maximum(sent[k], dead_of[k].sum(dtype=torch.int32))
+    if has_crash:
+        active = (rel >= spec["crash_at"]) & (rel <= spec["crash_until"]) & (sent["detect_tick"] < 0)
+        sent["detect_tick"] = torch.where(active & detected, rel, sent["detect_tick"]).to(torch.int32)
+    if has_conv:
+        active = (rel >= spec["conv_from"]) & (sent["conv_tick"] < 0)
+        sent["conv_tick"] = torch.where(active & converged, rel, sent["conv_tick"]).to(torch.int32)
+    return sent
+
+
+def sentinel_reduce(state: SimState, sent: dict, spec: dict) -> dict:
+    """Dense-engine chaos sentinel check (see :func:`sentinel_core`)."""
+    return sentinel_core(state.view_key, state.up, state.tick, sent, spec)

@@ -29,9 +29,15 @@ What differs from the JAX spelling, and why:
   segmentation metric) run over row chunks, so no [N, M] int32 temporary
   exists at 1M members.
 
+The adaptive plane (``pview_tick(ad=...)``, :func:`make_pview_adaptive_run`)
+threads an :class:`..adaptive.AdaptiveState` through the window, as on the
+dense engine; :func:`sentinel_init` / :func:`sentinel_reduce` are the chaos
+sentinels' table-edge twins of the dense check.
+
 Not ported yet, and refused: ``delay_slots > 0`` (the pending rings,
-ROADMAP A2), an enabled adaptive spec (A8.2), mesh/ragged delivery (A12),
-trace capture (A10) and fleet windows (A9).
+ROADMAP A2; with them the adaptive direct-probe stretch), mesh/ragged
+delivery (A12), trace capture and telemetry (A10, second half) and fleet
+windows (A9).
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import adaptive as _adp
+from ..adaptive import AdaptiveSpec
 from ..dissemination import strategies as dz
 from ..dissemination.spec import DissemSpec
 from . import delivery
@@ -53,7 +61,8 @@ from ._tick import row_index as _row_index
 from ._tick import rows_of as _rows
 from ._tick import seed_rows_tensor as _seed_rows_tensor
 from ._tick import set_at as _set
-from ._tensor import first_true, host_flags, nonzero_fixed, put_drop_, scatter_reduce_1d
+from ._tensor import first_true, host_flags, nonzero_fixed, put_drop_, row_chunks, scatter_reduce_1d
+from .kernel import _fold_evidence, _no_evidence
 from .bitplane import MASK32, or_rows, pack_bits, popcount, to_i32, to_u32, unpack_bits, words_for
 from .lattice import (
     ALIVE,
@@ -80,6 +89,10 @@ from .state import NEVER, NO_CANDIDATE_I32, delay_mean_to_q
 
 NO_CANDIDATE = NO_CANDIDATE_I32
 
+#: partitions run on the group model (``part_id``/``part_loss``), without
+#: an [N, N] link plane (the chaos timeline reads this)
+GROUP_PARTITIONS = True
+
 
 def _ceil_log2_static(n: int) -> int:
     return int(n).bit_length() if n > 0 else 0
@@ -88,10 +101,10 @@ def _ceil_log2_static(n: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class PviewParams:
     """Static parameters of the partial-view tick — the JAX package's
-    ``PviewParams`` without ``adaptive``/``delivery_kernel`` (this port
-    runs no adaptive plane yet, and the delivery combine through
-    :mod:`.delivery` on any device); ``dissem`` is the dissemination
-    strategy/topology (:mod:`..dissemination`)."""
+    ``PviewParams`` without ``delivery_kernel`` (the port runs the
+    delivery combine through :mod:`.delivery` on any device); ``dissem``
+    is the dissemination strategy/topology (:mod:`..dissemination`),
+    ``adaptive`` the adaptive failure-detection spec (:mod:`..adaptive`)."""
 
     capacity: int
     view_slots: int = 24
@@ -125,6 +138,7 @@ class PviewParams:
     full_metrics: bool = False
     key_dtype: str = "i32"
     dissem: DissemSpec = DissemSpec()
+    adaptive: AdaptiveSpec = AdaptiveSpec()
 
     @staticmethod
     def from_config(config, capacity: int | None = None, initial_size: int | None = None,
@@ -138,6 +152,7 @@ class PviewParams:
         return PviewParams(
             view_slots=view_slots or sim.view_slots, active_slots=sim.active_slots,
             mr_slots=mr_slots or 0, key_dtype=sim.plane_dtype, dissem=DissemSpec.from_config(config),
+            adaptive=AdaptiveSpec.from_config(config),
             **tick_units(config, capacity, initial_size, seed_rows),
         )
 
@@ -680,10 +695,11 @@ def _apply_records(state: PviewState, subj, cand, valid, salt: int, ka: int):
 # ---------------------------------------------------------------------------
 
 
-def _fd_phase(state: PviewState, r: SparseFdRandoms, params: PviewParams):
+def _fd_phase(state: PviewState, r: SparseFdRandoms, params: PviewParams, ad=None):
     """FD round over the active view: slot-space target/relay selection,
     direct + indirect probes, the self-record ACK. Also returns the
-    post-verdict int32 key plane for the maintenance sweep."""
+    post-verdict int32 key plane for the maintenance sweep. With ``ad`` the
+    metrics carry the adaptive evidence (``_ad_*``)."""
     n = state.capacity
     rows = _rows(state)
     ka = params.active_slots
@@ -724,34 +740,53 @@ def _fd_phase(state: PviewState, r: SparseFdRandoms, params: PviewParams):
         "fd_failed_probes": _i32(has_tgt & ~ack),
         "fd_new_suspects": _i32(eff & ~ack),
     }
+    if ad is not None:
+        metrics["_ad_miss"] = has_tgt & ~ack
+        metrics["_ad_succ"] = has_tgt & ack
+        metrics["_ad_cnt"] = torch.zeros((n,), dtype=torch.int32, device=state.device).index_add_(
+            0, tgt.long(), (eff & ~ack).to(torch.int32)
+        )
+        metrics["_ad_key"] = sus_cand
     cand_rt = cand.to(kdt).to(torch.int32)
     keys_after = torch.where(onehot, cand_rt[:, None], keys)
     return st, (tgt, cand, rows, eff), metrics, keys_after
 
 
-def _maintenance_sweep(state: PviewState, params: PviewParams, keys_i32=None):
+def _maintenance_sweep(state: PviewState, params: PviewParams, keys_i32=None, ad=None):
     """Every ``sweep_every`` ticks: suspicion expiry over the tables and
     self records with per-subject announcer election; the tombstone purge
     (P8) every ``purge_sweeps``-th sweep; the active-view promotion.
-    ``keys_i32`` is the FD phase's post-verdict key plane when it ran."""
+    ``keys_i32`` is the FD phase's post-verdict key plane when it ran;
+    ``ad`` scales the static timeout (P2) by the subject's confirmations
+    and the observer's local health."""
     if state.tick % params.sweep_every:
         return state, _no_props(state)
     (has_suspects,) = host_flags((state.sus_since > NEVER).any())
     if has_suspects:
-        st, props = _expire(state, params, keys_i32)
+        st, props = _expire(state, params, keys_i32, ad)
     else:
         st, props = state, _no_props(state)
     return _promote(_purge(st, params), params), props
 
 
-def _expire(st: PviewState, params: PviewParams, keys_i32):
+def _expire(st: PviewState, params: PviewParams, keys_i32, ad=None):
     n = st.capacity
     rows = _rows(st)
     k = st.nbr_id.shape[1]
-    timeout = params.suspicion_timeout_ticks
     keys = _keys_i32(st) if keys_i32 is None else keys_i32
     sid = st.nbr_id
     sidc = sid.clamp(min=0).long()
+    if ad is not None:
+        aspec = params.adaptive
+        L = aspec.levels
+        base0 = params.log2n * params.fd_every
+        num_conf = _adp.conf_mult_num(aspec, ad.conf)  # [N]
+        num = torch.where(keys <= ad.conf_key[sidc], num_conf[sidc], aspec.max_mult * L)
+        timeout = torch.div(base0 * num * (1 + ad.lh)[:, None], L, rounding_mode="floor")  # [N, k]
+        num_s = torch.where(st.self_key <= ad.conf_key, num_conf, aspec.max_mult * L)
+        timeout_s = torch.div(base0 * num_s * (1 + ad.lh), L, rounding_mode="floor")  # [N]
+    else:
+        timeout = timeout_s = params.suspicion_timeout_ticks
     is_sus = (keys & 3) == RANK_SUSPECT
     expired = (
         is_sus
@@ -763,7 +798,7 @@ def _expire(st: PviewState, params: PviewParams, keys_i32):
     self_expired = (
         st.up
         & ((st.self_key & 3) == RANK_SUSPECT)
-        & ((st.tick - st.sus_since) >= timeout)
+        & ((st.tick - st.sus_since) >= timeout_s)
         & (st.self_key <= st.sus_key)
     )
     new_self = torch.where(self_expired, st.self_key + 1, st.self_key)
@@ -832,13 +867,15 @@ def _promote(st: PviewState, params: PviewParams) -> PviewState:
     return st.replace(nbr_id=nbr_id, nbr_key=nbr_key)
 
 
-def _mr_apply_packed(state: PviewState, recv_m_p, zero_p, params: PviewParams):
+def _mr_apply_packed(state: PviewState, recv_m_p, zero_p, params: PviewParams, adaptive: bool = False):
     """A sequential apply passes over the packed eligibility words: per
     pass and row, the lowest still-eligible pool column is the lowest set
     bit of the first non-zero word. ``state.minf_age`` must be the plane the
     gossip phase's aging pass just made (it is updated in place).
 
-    Returns (state, delivered, accepts, packed bits extracted this tick)."""
+    Returns (state, delivered, accepts, packed bits extracted this tick),
+    and with ``adaptive`` the confirmation evidence (accepted SUSPECT
+    records per subject, and their max key)."""
     n = state.capacity
     m = params.mr_pool
     W = recv_m_p.shape[1]
@@ -863,6 +900,7 @@ def _mr_apply_packed(state: PviewState, recv_m_p, zero_p, params: PviewParams):
     minf = state.minf_age
     rem_p = rem0.clone()
     sus_acc = torch.full((n,), NO_CANDIDATE, dtype=torch.int32, device=dev)
+    ad_cnt = torch.zeros((n + 1,), dtype=torch.int32, device=dev) if adaptive else None
     delivered = torch.zeros((), dtype=torch.int32, device=dev)
     accepts = torch.zeros((), dtype=torch.int32, device=dev)
     st = state
@@ -882,16 +920,29 @@ def _mr_apply_packed(state: PviewState, recv_m_p, zero_p, params: PviewParams):
         cand = st.mr_key[col]
         st, acc, sus_cand = _apply_records(st, subj, cand, got, SALT_GOSSIP, ka)
         sus_acc = torch.maximum(sus_acc, sus_cand)
+        if adaptive:
+            _count_confirmations(ad_cnt, acc, subj, cand)
         delivered = delivered + _i32(got)
         accepts = accepts + _i32(acc)
     state = _register_sus(st.replace(minf_age=minf), sus_acc)
+    if adaptive:
+        return state, delivered, accepts, rem0 ^ rem_p, {"_ad_cnt": ad_cnt[:n], "_ad_key": sus_acc}
     return state, delivered, accepts, rem0 ^ rem_p
+
+
+def _count_confirmations(ad_cnt, accept, subj, cand) -> None:
+    """Add one confirmation per accepted SUSPECT record to its subject
+    (AD-1), in place into the [N + 1] ``ad_cnt`` (slot N takes the rest)."""
+    n = ad_cnt.shape[0] - 1
+    acc_sus = accept & ((cand & 3) == RANK_SUSPECT)
+    ad_cnt.index_add_(0, torch.where(acc_sus, subj.clamp(min=0), n).long(), acc_sus.to(torch.int32))
 
 
 _GOSSIP_METRICS = ("gossip_msgs", "rumor_sends", "rumor_deliveries", "mr_deliveries", "mr_accepts")
 
 
-def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewParams):
+def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewParams,
+                        adaptive: bool = False):
     """Infection-style dissemination, fused: aging + packing of the
     membership planes, active-view peer sampling, the per-fanout-slot
     inverse-sender election, the delivery combine (:mod:`.delivery` — the
@@ -900,6 +951,7 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
     ``params.dissem`` swaps in the strategy's circulant peers, its user-
     rumor budget and, for ``push_pull``, the reply leg
     (:func:`._tick.pull_replies`); the kernel sees only their ``inv``.
+    ``adaptive`` adds the membership apply's confirmation evidence.
 
     Returns ``(state, metrics, fwd_post_p)``."""
     n = state.capacity
@@ -913,7 +965,10 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
     u_any, mr_any = host_flags(state.rumor_active.any(), state.mr_active.any())
     if not (u_any or mr_any):
         z = torch.zeros((), dtype=torch.int32, device=dev)
-        return state, {k: z for k in _GOSSIP_METRICS}, torch.zeros((n, W), dtype=torch.int32, device=dev)
+        mets = {k: z for k in _GOSSIP_METRICS}
+        if adaptive:
+            mets.update(_no_evidence(n, dev))
+        return state, mets, torch.zeros((n, W), dtype=torch.int32, device=dev)
 
     young_u = (
         state.infected
@@ -983,10 +1038,13 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
         infected_at=torch.where(newly_u, state.tick, state.infected_at).to(torch.int32),
         infected_from=torch.where(newly_u, recv_src, state.infected_from),
     )
+    ev = _no_evidence(n, dev) if adaptive else {}
     if mr_any:
-        state, n_mr_deliveries, n_mr_accepts, extracted = _mr_apply_packed(
-            state, recv_m_p, zero_p, params
+        state, n_mr_deliveries, n_mr_accepts, extracted, *rest = _mr_apply_packed(
+            state, recv_m_p, zero_p, params, adaptive
         )
+        if adaptive:
+            ev = rest[0]
         fwd_post_p = fwd_p | extracted
     else:
         n_mr_deliveries = n_mr_accepts = torch.zeros((), dtype=torch.int32, device=dev)
@@ -997,15 +1055,18 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
         "rumor_deliveries": _i32(newly_u),
         "mr_deliveries": n_mr_deliveries,
         "mr_accepts": n_mr_accepts,
+        **ev,
     }
     return state, mets, fwd_post_p
 
 
-def _merge_entries_compact(state, src_rows, pre_id, pre_key_i32, pre_self, salt, params, K):
+def _merge_entries_compact(state, src_rows, pre_id, pre_key_i32, pre_self, salt, params, K,
+                           adaptive: bool = False):
     """The k + 1 accept-and-place steps of a SYNC direction, run over the
     ≤ K participating rows (``src_rows >= 0``) only: each merges its
     source's pre-exchange table and self record. Returns (state,
-    accepted-count [N], top-P accepted subjects [N, P], their keys [N, P])."""
+    accepted-count [N], top-P accepted subjects [N, P], their keys [N, P]),
+    and with ``adaptive`` the confirmation evidence."""
     n = state.capacity
     dev = state.device
     kdt = _kdt(state)
@@ -1025,6 +1086,7 @@ def _merge_entries_compact(state, src_rows, pre_id, pre_key_i32, pre_self, salt,
     best_key = torch.full((K, P), NO_CANDIDATE, dtype=torch.int32, device=dev)
     best_subj = torch.zeros((K, P), dtype=torch.int32, device=dev)
     sus_acc = torch.full((n,), NO_CANDIDATE, dtype=torch.int32, device=dev)
+    ad_cnt = torch.zeros((n + 1,), dtype=torch.int32, device=dev) if adaptive else None
     for subj, cand in zip(subj_steps, cand_steps):
         valid = has & (subj >= 0)
         sub_id, sub_self, accept, onehot = _accept_and_place(
@@ -1034,6 +1096,8 @@ def _merge_entries_compact(state, src_rows, pre_id, pre_key_i32, pre_self, salt,
         cand_rt = cand.to(kdt).to(torch.int32)
         sub_key = torch.where(onehot, cand_rt[:, None], sub_key)
         sus_acc = torch.maximum(sus_acc, _sus_election(n, accept, subj, cand))
+        if adaptive:
+            _count_confirmations(ad_cnt, accept, subj, cand)
         acc_cnt = acc_cnt + accept.to(torch.int32)
         ins_k = torch.where(accept, cand, NO_CANDIDATE)
         ins_s = subj
@@ -1059,16 +1123,19 @@ def _merge_entries_compact(state, src_rows, pre_id, pre_key_i32, pre_self, salt,
     acc_full = _scatter_back(torch.zeros((n,), dtype=torch.int32, device=dev), acc_cnt)
     subj_full = _scatter_back(torch.zeros((n, P), dtype=torch.int32, device=dev), best_subj)
     key_full = _scatter_back(torch.full((n, P), NO_CANDIDATE, dtype=torch.int32, device=dev), best_key)
+    if adaptive:
+        return state, acc_full, subj_full, key_full, {"_ad_cnt": ad_cnt[:n], "_ad_key": sus_acc}
     return state, acc_full, subj_full, key_full
 
 
-def _sync_phase(state: PviewState, r: SparseRoundRandoms, params: PviewParams):
+def _sync_phase(state: PviewState, r: SparseRoundRandoms, params: PviewParams, adaptive: bool = False):
     """Anti-entropy + shuffle: each due caller (forced first, then periodic,
     compacted to K) exchanges its table and self record with one peer drawn
     from ``active slots ∪ seeds`` (every ``seed_sync_every``-th periodic
     round deterministically to a seed); both directions merge the other's
     PRE-exchange entries (P4); several callers on one peer collapse to the
-    highest slot (P6)."""
+    highest slot (P6). ``adaptive`` adds both directions' confirmation
+    evidence."""
     n = state.capacity
     dev = state.device
     rows = _rows(state)
@@ -1134,13 +1201,13 @@ def _sync_phase(state: PviewState, r: SparseRoundRandoms, params: PviewParams):
     # REQ direction: the highest-slot caller wins each peer (P6)
     inv_slot = scatter_reduce_1d(n, peer, torch.where(ok, karange, -1), "amax", -1, torch.int32)
     req_src = torch.where(inv_slot >= 0, caller[inv_slot.clamp(min=0)], -1)
-    st, _req_acc, req_subj, req_key = _merge_entries_compact(
-        state, req_src, pre_id, pre_key, pre_self, SALT_SYNC_REQ, params, K
+    st, _req_acc, req_subj, req_key, *req_ev = _merge_entries_compact(
+        state, req_src, pre_id, pre_key, pre_self, SALT_SYNC_REQ, params, K, adaptive
     )
     # ACK direction: distinct callers each merge their peer's pre-entries
     ack_src = scatter_reduce_1d(n, caller, torch.where(ok, peer, -1), "amax", -1, torch.int32)
-    st, _ack_acc, ack_subj, ack_key = _merge_entries_compact(
-        st, ack_src, pre_id, pre_key, pre_self, SALT_SYNC_ACK, params, K
+    st, _ack_acc, ack_subj, ack_key, *ack_ev = _merge_entries_compact(
+        st, ack_src, pre_id, pre_key, pre_self, SALT_SYNC_ACK, params, K, adaptive
     )
     ok_full = scatter_reduce_1d(n, caller, ok, "amax", 0, torch.int32) > 0
     st = st.replace(force_sync=st.force_sync & ~ok_full)
@@ -1159,7 +1226,12 @@ def _sync_phase(state: PviewState, r: SparseRoundRandoms, params: PviewParams):
         torch.cat([a, b])
         for a, b in zip(_props(req_subj, req_key, req_src >= 0), _props(ack_subj, ack_key, ack_src >= 0))
     )
-    return st, props, {"sync_roundtrips": _i32(ok)}
+    metrics = {"sync_roundtrips": _i32(ok)}
+    if adaptive:
+        (req_ev,), (ack_ev,) = req_ev, ack_ev
+        metrics["_ad_cnt"] = req_ev["_ad_cnt"] + ack_ev["_ad_cnt"]
+        metrics["_ad_key"] = torch.maximum(req_ev["_ad_key"], ack_ev["_ad_key"])
+    return st, props, metrics
 
 
 def _refute_phase(state: PviewState, params: PviewParams):
@@ -1237,27 +1309,42 @@ def state_metrics(state: PviewState, params: PviewParams) -> dict:
 _FD_METRICS = ("fd_probes", "fd_failed_probes", "fd_new_suspects")
 
 
-def pview_tick_fused(state: PviewState, fd_r, round_r: SparseRoundRandoms, params: PviewParams):
+def pview_tick_fused(state: PviewState, fd_r, round_r: SparseRoundRandoms, params: PviewParams,
+                     ad=None):
     """One gossip period for all N members (the JAX ``pview_tick_fused``):
     FD → maintenance sweep → gossip → SYNC → refute → rumor sweeps → pool
     allocation → metrics. ``fd_r`` is read only on FD ticks
     (``tick % fd_every == 0`` after the increment) and may be None
-    otherwise. Returns ``(state, metrics)``."""
+    otherwise. Returns ``(state, metrics)``, or with ``ad`` (the adaptive
+    plane, as in the dense ``tick``) ``(state, ad', metrics)``."""
+    armed = ad is not None
+    if armed and params.adaptive.is_default:
+        raise ValueError("adaptive tick needs an enabled AdaptiveSpec on params")
     state = state.replace(tick=state.tick + 1)
+    n = state.capacity
     if state.tick % params.fd_every == 0:
         if fd_r is None:
             raise ValueError(f"tick {state.tick} runs the FD round and needs FD draws")
-        state, props_fd, fd_m, keys_h = _fd_phase(state, fd_r, params)
+        state, props_fd, fd_m, keys_h = _fd_phase(state, fd_r, params, ad=ad)
     else:
         z = torch.zeros((), dtype=torch.int32, device=state.device)
         props_fd, fd_m, keys_h = _no_props(state), {k: z for k in _FD_METRICS}, None
-    state, props_exp = _maintenance_sweep(state, params, keys_h)
-    state, g_m, fwd_post_p = _gossip_phase_fused(state, round_r, params)
-    state, props_sync, s_m = _sync_phase(state, round_r, params)
+        if armed:
+            fd_m.update(_no_evidence(n, state.device, probes=True))
+    state, props_exp = _maintenance_sweep(state, params, keys_h, ad=ad)
+    state, g_m, fwd_post_p = _gossip_phase_fused(state, round_r, params, adaptive=armed)
+    state, props_sync, s_m = _sync_phase(state, round_r, params, adaptive=armed)
     state, props_ref = _refute_phase(state, params)
     state = _rumor_sweeps_fused(state, params, fwd_post_p)
     state, a_m = alloc_phase(state, (props_fd, props_exp, props_ref, props_sync), params)
-    return state, {**fd_m, **g_m, **s_m, **a_m, **state_metrics(state, params)}
+    if armed:
+        ad = _fold_evidence(params, ad, fd_m, g_m, s_m, props_ref[3], state.up)
+    metrics = {**fd_m, **g_m, **s_m, **a_m, **state_metrics(state, params)}
+    if armed:
+        metrics["adaptive_lh_high"] = ad.lh.max()
+        metrics["adaptive_conf_high"] = ad.conf.max()
+        return state, ad, metrics
+    return state, metrics
 
 
 def run_pview_ticks_fused(state: PviewState, draws, n_ticks: int, params: PviewParams,
@@ -1283,15 +1370,119 @@ def make_pview_fused_run(params: PviewParams, n_ticks: int):
 def pview_tick(state: PviewState, fd_r, round_r: SparseRoundRandoms, params: PviewParams,
                trace=None, ad=None):
     """One gossip period (the JAX ``pview_tick``): the fused tick, whose
-    state and metrics are the unfused tick's. ``trace`` and ``ad`` are
-    refused until their planes are ported. Returns ``(state, metrics)``."""
+    state and metrics are the unfused tick's. ``trace`` is refused until
+    the trace plane is ported. Returns ``(state, metrics)``, or ``(state,
+    ad', metrics)`` with ``ad``."""
     if trace is not None:
         raise NotImplementedError("trace capture on the pview tick is not ported yet (ROADMAP A10)")
-    if ad is not None:
-        raise NotImplementedError("the adaptive failure-detection plane is not ported yet (ROADMAP A8.2)")
-    return pview_tick_fused(state, fd_r, round_r, params)
+    return pview_tick_fused(state, fd_r, round_r, params, ad=ad)
+
+
+def run_pview_ticks_adaptive(state: PviewState, ad, draws, n_ticks: int, params: PviewParams,
+                             watch_rows=None):
+    """:func:`run_pview_ticks_fused` with the adaptive plane ``ad`` threaded
+    through the window. Returns ``(state, ad, metrics, watched)``."""
+    return run_window(pview_tick_fused, view_rows, draw_sparse_tick, state, draws, n_ticks, params,
+                      watch_rows, ad=ad)
+
+
+def make_pview_adaptive_run(params: PviewParams, n_ticks: int):
+    """The adaptive window as a callable ``run(state, ad, draws,
+    watch_rows=None)`` — the fused tick, held against both JAX adaptive
+    windows. Refuses a default spec."""
+    if params.adaptive.is_default:
+        raise ValueError(
+            "make_pview_adaptive_run needs an enabled AdaptiveSpec on params — the default "
+            "spec's window is make_pview_run's"
+        )
+
+    def run(state: PviewState, ad, draws, watch_rows=None):
+        return run_pview_ticks_adaptive(state, ad, draws, n_ticks, params, watch_rows)
+
+    return run
+
+
+def sentinel_reduce(state: PviewState, sent: dict, spec: dict) -> dict:
+    """Pview chaos-sentinel check over the [N, k] tables and self records
+    (the table-edge twin of :func:`.kernel.sentinel_core`): self-key
+    regressions; never-faulted (and watched degraded) up subjects some up
+    observer tables DEAD; a crashed row is detected once no up observer
+    tables it non-DEAD; convergence once no up observer tables an up
+    subject non-ALIVE; the view invariant (no duplicate subject and no
+    self entry in a row's table), counted per check. Tensor reductions, no
+    transfer."""
+    n = state.capacity
+    dev = state.device
+    keys = _keys_i32(state)
+    sid = state.nbr_id
+    sidc = sid.clamp(min=0).long()
+    valid = sid >= 0
+    rank = keys & 3
+    rel = state.tick - spec["t0"]
+
+    sent = dict(sent)
+    sent["key_regressions"] = sent["key_regressions"] + (state.self_key < sent["prev_diag"]).sum(dtype=torch.int32)
+    sent["prev_diag"] = state.self_key.clone()
+
+    def subjects_of(edge) -> torch.Tensor:
+        """[N] bool: the subjects of the ``edge`` [N, k] table entries."""
+        return scatter_reduce_1d(n, torch.where(edge, sid, n).reshape(-1), edge.reshape(-1), "amax", 0,
+                                 torch.int32) > 0
+
+    tomb = valid & state.up[:, None] & (rank == RANK_DEAD)
+    nf_up = spec["never_faulted"] & state.up
+    sent["false_dead_max"] = torch.maximum(
+        sent["false_dead_max"], subjects_of(tomb & nf_up[sidc]).sum(dtype=torch.int32)
+    )
+    if "fp_watch" in spec:
+        fp_up = spec["fp_watch"] & state.up
+        sent["fp_dead_max"] = torch.maximum(
+            sent["fp_dead_max"], subjects_of(tomb & fp_up[sidc]).sum(dtype=torch.int32)
+        )
+    crash_rows_ = spec["crash_rows"]
+    if crash_rows_.shape[0]:
+        held = subjects_of(valid & state.up[:, None] & (rank != RANK_DEAD))
+        detected = ~held[crash_rows_.long()]
+        active = (rel >= spec["crash_at"]) & (rel <= spec["crash_until"]) & (sent["detect_tick"] < 0)
+        sent["detect_tick"] = torch.where(active & detected, rel, sent["detect_tick"]).to(torch.int32)
+    if spec["conv_from"].shape[0]:
+        converged = ~(valid & state.up[:, None] & state.up[sidc] & (rank != RANK_ALIVE)).any()
+        active = (rel >= spec["conv_from"]) & (sent["conv_tick"] < 0)
+        sent["conv_tick"] = torch.where(active & converged, rel, sent["conv_tick"]).to(torch.int32)
+
+    k = sid.shape[1]
+    off_diag = ~torch.eye(k, dtype=torch.bool, device=dev)
+    rows = torch.arange(n, device=dev)
+    breaks = torch.zeros((), dtype=torch.int32, device=dev)
+    for lo, hi in row_chunks(n):
+        s, v = sid[lo:hi], valid[lo:hi]
+        dup = (v[:, :, None] & v[:, None, :] & (s[:, :, None] == s[:, None, :]) & off_diag[None]).any(dim=(1, 2))
+        self_entry = (v & (s == rows[lo:hi, None])).any(dim=1)
+        breaks += (dup | self_entry).sum(dtype=torch.int32)
+    sent["view_invariant_breaks"] = sent["view_invariant_breaks"] + breaks
+    return sent
+
+
+def sentinel_init(state: PviewState, spec) -> dict:
+    """Fresh sentinel accumulators on the state's device, baselined on a
+    copy of the current self records."""
+    dev = state.device
+    z = torch.zeros((), dtype=torch.int32, device=dev)
+    sent = {
+        "prev_diag": state.self_key.clone(),
+        "key_regressions": z,
+        "false_dead_max": z,
+        "detect_tick": torch.full((len(spec.crash_rows),), -1, dtype=torch.int32, device=dev),
+        "conv_tick": torch.full((len(spec.conv_from),), -1, dtype=torch.int32, device=dev),
+        "view_invariant_breaks": z,
+    }
+    if spec.fp_watch.size and bool(spec.fp_watch.any()):
+        sent["fp_dead_max"] = z
+    return sent
 
 
 # The JAX names of the driver's window: the same runners as the fused ones.
 run_pview_ticks = run_pview_ticks_fused
 make_pview_run = make_pview_fused_run
+run_pview_ticks_fused_adaptive = run_pview_ticks_adaptive
+make_pview_fused_adaptive_run = make_pview_adaptive_run

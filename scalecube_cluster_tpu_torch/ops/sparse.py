@@ -48,9 +48,15 @@ What differs from the JAX spelling, and why:
   scatters are ``scatter_reduce_`` amax elections or integer
   ``index_add_``; fixed-size ``nonzero`` is a cumsum compaction.
 
+The adaptive plane (``sparse_tick(ad=...)``,
+:func:`make_sparse_adaptive_run`) threads an
+:class:`..adaptive.AdaptiveState` through the window, as on the dense
+engine; :func:`sentinel_reduce` is the chaos sentinels' check.
+
 Not ported yet, and refused: ``delay_slots > 0`` and ``uniform_delay > 0``
-(the pending rings, ROADMAP A2), an enabled adaptive spec (A8.2, refused
-where params are carried across), trace capture (A10), meshes (A12).
+(the pending rings, ROADMAP A2; with them the adaptive direct-probe
+stretch), trace capture and telemetry (A10, second half), the fleet
+windows (A9), meshes (A12).
 """
 
 from __future__ import annotations
@@ -60,6 +66,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import adaptive as _adp
+from ..adaptive import AdaptiveSpec
 from ..dissemination import strategies as dz
 from ..dissemination.spec import DissemSpec
 from . import delivery
@@ -75,7 +83,7 @@ from ._tick import seed_rows_tensor as _seed_rows_tensor
 from ._tick import set_at as _set
 from .bitplane import pack_bits, unpack_bits, words_for
 from .engine_api import plane_view_rows as view_rows
-from .kernel import ceil_log2
+from .kernel import _fold_evidence, _no_evidence, ceil_log2, sentinel_core
 from .lattice import ALIVE, RANK_ALIVE, RANK_DEAD, RANK_LEAVING, RANK_SUSPECT, UNKNOWN_KEY, precedence_key
 from .pool import alloc_phase, allocate
 from .rand import (
@@ -87,7 +95,7 @@ from .rand import (
     draw_sparse_tick,
     fetch_uniform,
 )
-from .state import ALIVE0_KEY, NEVER, NO_CANDIDATE_I32, build_namespace_tables, delay_mean_to_q
+from .state import ALIVE0_KEY, NEVER, NO_CANDIDATE_I32, _loss_scalar, build_namespace_tables, delay_mean_to_q
 
 NO_CANDIDATE = NO_CANDIDATE_I32
 
@@ -95,9 +103,9 @@ NO_CANDIDATE = NO_CANDIDATE_I32
 @dataclasses.dataclass(frozen=True)
 class SparseParams:
     """Static parameters of the sparse tick — the JAX package's
-    ``SparseParams`` without ``adaptive`` (this port runs no adaptive
-    plane yet); ``dissem`` is the dissemination strategy/topology
-    (:mod:`..dissemination`). ``mr_slots`` (M) sizes
+    ``SparseParams``; ``dissem`` is the dissemination strategy/topology
+    (:mod:`..dissemination`), ``adaptive`` the adaptive failure-detection
+    spec (:mod:`..adaptive`). ``mr_slots`` (M) sizes
     the membership-rumor pool, ``announce_slots`` (E) the new rumors per
     tick, ``sample_tries`` (T) the rejection draws per pick,
     ``sweep_every`` (B) the suspicion expiry period, ``sync_announce`` (P)
@@ -130,6 +138,7 @@ class SparseParams:
     full_metrics: bool = False
     namespace_gate: bool = False
     dissem: DissemSpec = DissemSpec()
+    adaptive: AdaptiveSpec = AdaptiveSpec()
 
     @staticmethod
     def from_config(config, capacity: int | None = None, initial_size: int | None = None,
@@ -141,7 +150,8 @@ class SparseParams:
 
         units = tick_units(config, capacity, initial_size, seed_rows)
         return SparseParams(mr_slots=mr_slots or max(256, units["capacity"] // 16),
-                            dissem=DissemSpec.from_config(config), **units)
+                            dissem=DissemSpec.from_config(config),
+                            adaptive=AdaptiveSpec.from_config(config), **units)
 
     def __post_init__(self):
         if self.delay_slots:
@@ -419,10 +429,11 @@ def heal_partition(state: SparseState, group_a, group_b) -> SparseState:
     return set_link_loss(s, group_b, group_a, 0.0)
 
 
-def set_uniform_loss(state: SparseState, loss: float, floor: bool = False) -> SparseState:
+def set_uniform_loss(state: SparseState, loss, floor: bool = False) -> SparseState:
     """Uniform loss on every link; with ``floor`` existing losses only
-    rise (partition blocks survive a storm). ``fetch_rt`` follows."""
-    new = torch.tensor(np.float32(loss), device=state.device)
+    rise (partition blocks survive a storm). ``fetch_rt`` follows. ``loss``
+    may be a 0-d tensor, which is not read to the host."""
+    new = _loss_scalar(loss, state.device)
     if floor:
         new_loss = torch.maximum(state.loss, new)
     else:
@@ -509,11 +520,13 @@ def _sample_rejection(state: SparseState, rows, u, n_picks: int, tries: int, ext
 # ---------------------------------------------------------------------------
 
 
-def _fd_phase(state: SparseState, r: SparseFdRandoms, params: SparseParams):
+def _fd_phase(state: SparseState, r: SparseFdRandoms, params: SparseParams, ad=None):
     """FD round with rejection-sampled target and relays: direct probe,
     indirect probes, the verdict written for the first V accepting rows
     (the rest retry next round), the suspicion-episode registration.
-    Returns (state, proposals, metrics)."""
+    With ``ad`` the metrics carry the adaptive evidence: the probe outcomes
+    unthrottled, the WRITTEN suspect verdicts as confirmations. Returns
+    (state, proposals, metrics)."""
     n = state.capacity
     rows = _rows(state)
     vk = state.view_key
@@ -548,17 +561,26 @@ def _fd_phase(state: SparseState, r: SparseFdRandoms, params: SparseParams):
         "fd_failed_probes": _i32(has_tgt & ~ack),
         "fd_new_suspects": _i32(eff & ~ack),
     }
+    if ad is not None:
+        sus_w = eff & ~ack
+        metrics["_ad_miss"] = has_tgt & ~ack
+        metrics["_ad_succ"] = has_tgt & ack
+        metrics["_ad_cnt"] = torch.zeros((n,), dtype=torch.int32, device=state.device).index_add_(
+            0, tgt.long(), sus_w.to(torch.int32)
+        )
+        metrics["_ad_key"] = sus_cand
     return st, (tgt, cand, rows, eff), metrics
 
 
-def _suspicion_sweep(state: SparseState, params: SparseParams):
+def _suspicion_sweep(state: SparseState, params: SparseParams, ad=None):
     """Every ``sweep_every`` ticks, while an episode is registered: SUSPECT
     cells whose subject's episode stamp is older than the observer's
     suspicion timeout become DEAD at the same incarnation (rank + 1), in
     place over row chunks. Each expiring subject is proposed once, by its
     lowest expiring row (deviation 3); when no up observer holds a
-    SUSPECT cell afterwards, every episode is over. Returns (state,
-    proposals)."""
+    SUSPECT cell afterwards, every episode is over. With ``ad`` the timeout
+    is the dense engine's confirmation- and health-scaled one. Returns
+    (state, proposals)."""
     if state.tick % params.sweep_every:
         return state, _no_props(state)
     (has_suspects,) = host_flags((state.sus_since > NEVER).any())
@@ -568,7 +590,14 @@ def _suspicion_sweep(state: SparseState, params: SparseParams):
     dev = state.device
     rows = _rows(state)
     vk = state.view_key
-    timeout = params.suspicion_mult * ceil_log2(state.n_live) * params.fd_every  # [N]
+    if ad is not None:
+        aspec = params.adaptive
+        L = aspec.levels
+        base = ceil_log2(state.n_live) * params.fd_every  # [N]
+        num_conf = _adp.conf_mult_num(aspec, ad.conf)  # [N]
+        factor = base * (1 + ad.lh)  # [N]: observer scaling (AD-3)
+    else:
+        timeout = params.suspicion_mult * ceil_log2(state.n_live) * params.fd_every  # [N]
     waited = state.tick - state.sus_since  # [N] per subject
     expired_cnt = torch.zeros((n,), dtype=torch.int32, device=dev)
     left = torch.zeros((), dtype=torch.bool, device=dev)
@@ -578,10 +607,16 @@ def _suspicion_sweep(state: SparseState, params: SparseParams):
     key = torch.zeros((n,), dtype=torch.int32, device=dev)
     for lo, hi in plane_chunks(n, n):
         blk = vk[lo:hi]
+        if ad is not None:
+            num = torch.where(blk <= ad.conf_key[None, :], num_conf[None, :], aspec.max_mult * L)
+            overdue = waited[None, :] >= torch.div(factor[lo:hi, None] * num, L, rounding_mode="floor")
+            del num
+        else:
+            overdue = waited[None, :] >= timeout[lo:hi, None]
         expired = (
             ((blk & 3) == RANK_SUSPECT)
             & state.up[lo:hi, None]
-            & (waited[None, :] >= timeout[lo:hi, None])
+            & overdue
             & (blk <= state.sus_key[None, :])
         )
         blk += expired  # in place: SUSPECT rank 2 -> DEAD rank 3
@@ -604,14 +639,16 @@ def _suspicion_sweep(state: SparseState, params: SparseParams):
     return state, (col.to(torch.int32), key, rows, any_exp)
 
 
-def _mr_apply(state: SparseState, recv_m_p, params: SparseParams):
+def _mr_apply(state: SparseState, recv_m_p, params: SparseParams, adaptive: bool = False):
     """Membership-rumor infection and one-shot record application: each
     receiver newly infected with an active slot merges its record
     (subject ``mr_subject``, key ``mr_key``) once, in slot space over row
     chunks, gated as every merge is (higher key; unknown subjects admit
     ALIVE/LEAVING only; ALIVE needs the metadata fetch; the namespace gate).
     ``state.minf_age`` must be the plane the gossip phase's aging pass just
-    made (it is updated in place). Returns (state, deliveries, accepts)."""
+    made (it is updated in place). Returns (state, deliveries, accepts),
+    and with ``adaptive`` the confirmation evidence (accepted SUSPECT
+    records per subject, and their max key)."""
     n = state.capacity
     m = params.mr_slots
     dev = state.device
@@ -633,6 +670,7 @@ def _mr_apply(state: SparseState, recv_m_p, params: SparseParams):
     delta = torch.zeros((n,), dtype=torch.int32, device=dev)
     accepts = torch.zeros((), dtype=torch.int32, device=dev)
     acc_slot = torch.zeros((m,), dtype=torch.bool, device=dev)
+    acc_per_slot = torch.zeros((m,), dtype=torch.int32, device=dev)
     subj_l = subj.long()
     for lo, hi in plane_chunks(n, m):
         idx = subj_l[None, :].expand(hi - lo, m)
@@ -654,19 +692,29 @@ def _mr_apply(state: SparseState, recv_m_p, params: SparseParams):
         ).sum(dim=1, dtype=torch.int32)
         accepts += accept.sum(dtype=torch.int32)
         acc_slot |= accept.any(dim=0)
+        if adaptive:
+            acc_per_slot += accept.sum(dim=0, dtype=torch.int32)
     # episode registration for accepted SUSPECT records, per subject
     sus_slot = state.mr_active & acc_slot & (rank == RANK_SUSPECT)
     sus_cand = scatter_reduce_1d(
         n, torch.where(sus_slot, subj, n), cand, "amax", NO_CANDIDATE, torch.int32
     )
     state = _register_sus(state.replace(minf_age=minf, n_live=state.n_live + delta), sus_cand)
-    return state, newly.sum(dtype=torch.int32), accepts
+    if not adaptive:
+        return state, newly.sum(dtype=torch.int32), accepts
+    # active slots carry distinct subjects; the others accepted nothing
+    sus_cnt = torch.where(rank == RANK_SUSPECT, acc_per_slot, 0)
+    ad_cnt = torch.zeros((n + 1,), dtype=torch.int32, device=dev).index_add_(
+        0, torch.where(state.mr_active, subj_l, n), sus_cnt
+    )[:n]
+    return state, newly.sum(dtype=torch.int32), accepts, {"_ad_cnt": ad_cnt, "_ad_key": sus_cand}
 
 
 _GOSSIP_METRICS = ("gossip_msgs", "rumor_sends", "rumor_deliveries", "mr_deliveries", "mr_accepts")
 
 
-def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: SparseParams):
+def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: SparseParams,
+                        adaptive: bool = False):
     """Infection-style dissemination of the user rumors ([N, R], full
     known-infected filter) and the membership rumors ([N, M], origin filter
     — deviation 2) in one message per edge: aging and packing of the pool's
@@ -676,6 +724,7 @@ def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: Spars
     apply. Quiescent clusters skip the phase. ``params.dissem`` swaps in
     the strategy's circulant peers, its user-rumor budget and, for
     ``push_pull``, the reply leg (:func:`._tick.pull_replies`).
+    ``adaptive`` adds the membership apply's confirmation evidence.
 
     Returns ``(state, metrics, covered, mr_any)``: the early-free coverage
     of the post-apply pool (the gossip→sweep hand-off) and whether the pool
@@ -691,7 +740,10 @@ def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: Spars
     covered = torch.zeros((m,), dtype=torch.bool, device=dev)
     if not (u_any or mr_any):
         z = torch.zeros((), dtype=torch.int32, device=dev)
-        return state, {k: z for k in _GOSSIP_METRICS}, covered, False
+        mets = {k: z for k in _GOSSIP_METRICS}
+        if adaptive:
+            mets.update(_no_evidence(n, dev))
+        return state, mets, covered, False
 
     spread = params.repeat_mult * ceil_log2(state.n_live)  # [N]
     young_u = (
@@ -756,8 +808,11 @@ def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: Spars
         infected_at=torch.where(newly_u, state.tick, state.infected_at).to(torch.int32),
         infected_from=torch.where(newly_u, recv_src, state.infected_from),
     )
+    ev = _no_evidence(n, dev) if adaptive else {}
     if mr_any:
-        state, n_mr_deliveries, n_mr_accepts = _mr_apply(state, recv_m_p, params)
+        state, n_mr_deliveries, n_mr_accepts, *rest = _mr_apply(state, recv_m_p, params, adaptive)
+        if adaptive:
+            ev = rest[0]
         if params.early_free:
             covered = covered_columns(state)
     else:
@@ -768,6 +823,7 @@ def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: Spars
         "rumor_deliveries": _i32(newly_u),
         "mr_deliveries": n_mr_deliveries,
         "mr_accepts": n_mr_accepts,
+        **ev,
     }
     return state, mets, covered, mr_any
 
@@ -788,13 +844,15 @@ def _top_props(acc_mask, cand_vals, owner_rows, owner_valid, P: int):
     return tuple(torch.cat(x) for x in (subs, keys, origs, vals))
 
 
-def _sync_phase(state: SparseState, r: SparseRoundRandoms, params: SparseParams):
+def _sync_phase(state: SparseState, r: SparseRoundRandoms, params: SparseParams, adaptive: bool = False):
     """Anti-entropy full-table exchange over ≤ K compacted callers (forced
     first, then periodic): each caller's row goes to one peer drawn from
     its live view (seeds admitted; a seed fallback when the view is too
     sparse), the peer merges it (callers on one peer merge together),
     and the peer's post-merge row comes back. Liveness deltas, episode
-    registration and capped re-gossip proposals (deviation 3)."""
+    registration and capped re-gossip proposals (deviation 3). ``adaptive``
+    adds the accepted SUSPECT records of both directions as confirmation
+    evidence (the first slot per peer on the request side)."""
     n = state.capacity
     dev = state.device
     rows = _rows(state)
@@ -894,14 +952,21 @@ def _sync_phase(state: SparseState, r: SparseRoundRandoms, params: SparseParams)
     vk.scatter_reduce_(0, caller[:, None].expand(K, n), new_c, "amax", include_self=True)
     n_live.index_add_(0, caller, delta_c.to(torch.int32))
     sus_ack = torch.where(accept & ((ack_cand & 3) == RANK_SUSPECT), ack_cand, NO_CANDIDATE).amax(dim=0)
-    st = _register_sus(state.replace(n_live=n_live), torch.maximum(sus_req, sus_ack))
+    sus_cand = torch.maximum(sus_req, sus_ack)
+    st = _register_sus(state.replace(n_live=n_live), sus_cand)
     ok_full = scatter_reduce_1d(n, caller, ok, "amax", 0, torch.int32) > 0
     st = st.replace(force_sync=st.force_sync & ~ok_full)
 
     props_p = _top_props(acc & first_p[:, None], buf_p, peer, ok & first_p, P)
     props_c = _top_props(accept, ack_cand, caller, ok, P)
     proposals = tuple(torch.cat([a, b]) for a, b in zip(props_p, props_c))
-    return st, proposals, {"sync_roundtrips": _i32(ok)}
+    metrics = {"sync_roundtrips": _i32(ok)}
+    if adaptive:
+        m_req = acc & first_p[:, None] & ((buf_p & 3) == RANK_SUSPECT)
+        m_ack = accept & ((ack_cand & 3) == RANK_SUSPECT)
+        metrics["_ad_cnt"] = m_req.sum(dim=0, dtype=torch.int32) + m_ack.sum(dim=0, dtype=torch.int32)
+        metrics["_ad_key"] = sus_cand
+    return st, proposals, metrics
 
 
 def _refute_phase(state: SparseState, params: SparseParams):
@@ -997,30 +1062,46 @@ def state_metrics(state: SparseState, params: SparseParams, n_up) -> dict:
 _FD_METRICS = ("fd_probes", "fd_failed_probes", "fd_new_suspects")
 
 
-def sparse_tick_fused(state: SparseState, fd_r, round_r: SparseRoundRandoms, params: SparseParams):
+def sparse_tick_fused(state: SparseState, fd_r, round_r: SparseRoundRandoms, params: SparseParams,
+                      ad=None):
     """One gossip period for all N members (the JAX ``sparse_tick(...,
     fused=True)``): FD → suspicion sweep → gossip → SYNC → refute → rumor
     sweeps → pool allocation → metrics. ``fd_r`` is read only on FD ticks
     (``tick % fd_every == 0`` after the increment) and may be None
-    otherwise. Consumes ``state``; returns ``(state, metrics)``."""
+    otherwise. Consumes ``state``; returns ``(state, metrics)``, or with
+    ``ad`` (the adaptive plane, as in the dense ``tick``) ``(state, ad',
+    metrics)``."""
+    armed = ad is not None
+    if armed and params.adaptive.is_default:
+        raise ValueError("adaptive tick needs an enabled AdaptiveSpec on params")
     state = state.replace(tick=state.tick + 1)
+    n = state.capacity
     if state.tick % params.fd_every == 0:
         if fd_r is None:
             raise ValueError(f"tick {state.tick} runs the FD round and needs FD draws")
-        state, props_fd, fd_m = _fd_phase(state, fd_r, params)
+        state, props_fd, fd_m = _fd_phase(state, fd_r, params, ad=ad)
     else:
         z = torch.zeros((), dtype=torch.int32, device=state.device)
         props_fd, fd_m = _no_props(state), {k: z for k in _FD_METRICS}
-    state, props_exp = _suspicion_sweep(state, params)
-    state, g_m, covered, mr_any = _gossip_phase_fused(state, round_r, params)
-    state, props_sync, s_m = _sync_phase(state, round_r, params)
+        if armed:
+            fd_m.update(_no_evidence(n, state.device, probes=True))
+    state, props_exp = _suspicion_sweep(state, params, ad=ad)
+    state, g_m, covered, mr_any = _gossip_phase_fused(state, round_r, params, adaptive=armed)
+    state, props_sync, s_m = _sync_phase(state, round_r, params, adaptive=armed)
     state, props_ref = _refute_phase(state, params)
     n_up = _i32(state.up)
     state = _rumor_sweeps_fused(state, params, covered, mr_any, n_up)
     # the allocation takes the first E valid proposals in this order:
     # refutations rank before the sync re-gossip flood
     state, a_m = alloc_phase(state, (props_fd, props_exp, props_ref, props_sync), params)
-    return state, {**fd_m, **g_m, **s_m, **a_m, **state_metrics(state, params, n_up)}
+    if armed:
+        ad = _fold_evidence(params, ad, fd_m, g_m, s_m, props_ref[3], state.up)
+    metrics = {**fd_m, **g_m, **s_m, **a_m, **state_metrics(state, params, n_up)}
+    if armed:
+        metrics["adaptive_lh_high"] = ad.lh.max()
+        metrics["adaptive_conf_high"] = ad.conf.max()
+        return state, ad, metrics
+    return state, metrics
 
 
 def run_sparse_ticks_fused(state: SparseState, draws, n_ticks: int, params: SparseParams,
@@ -1046,15 +1127,53 @@ def make_sparse_fused_run(params: SparseParams, n_ticks: int):
 def sparse_tick(state: SparseState, fd_r, round_r: SparseRoundRandoms, params: SparseParams,
                 trace=None, ad=None):
     """One gossip period (the JAX ``sparse_tick``): the fused tick, whose
-    state and metrics are the unfused tick's. ``trace`` and ``ad`` are
-    refused until their planes are ported. Returns ``(state, metrics)``."""
+    state and metrics are the unfused tick's. ``trace`` is refused until
+    the trace plane is ported. Returns ``(state, metrics)``, or ``(state,
+    ad', metrics)`` with ``ad``."""
     if trace is not None:
         raise NotImplementedError("trace capture on the sparse tick is not ported yet (ROADMAP A10)")
-    if ad is not None:
-        raise NotImplementedError("the adaptive failure-detection plane is not ported yet (ROADMAP A8.2)")
-    return sparse_tick_fused(state, fd_r, round_r, params)
+    return sparse_tick_fused(state, fd_r, round_r, params, ad=ad)
+
+
+def run_sparse_ticks_adaptive(state: SparseState, ad, draws, n_ticks: int, params: SparseParams,
+                              watch_rows=None):
+    """:func:`run_sparse_ticks_fused` with the adaptive plane ``ad`` threaded
+    through the window. Returns ``(state, ad, metrics, watched)``."""
+    return run_window(sparse_tick_fused, view_rows, draw_sparse_tick, state, draws, n_ticks, params,
+                      watch_rows, ad=ad)
+
+
+def make_sparse_adaptive_run(params: SparseParams, n_ticks: int):
+    """The adaptive window as a callable ``run(state, ad, draws,
+    watch_rows=None)``. Refuses a default spec."""
+    if params.adaptive.is_default:
+        raise ValueError(
+            "make_sparse_adaptive_run needs an enabled AdaptiveSpec on params — the default "
+            "spec's window is make_sparse_run's"
+        )
+
+    def run(state: SparseState, ad, draws, watch_rows=None):
+        return run_sparse_ticks_adaptive(state, ad, draws, n_ticks, params, watch_rows)
+
+    return run
+
+
+def sentinel_reduce(state: SparseState, sent: dict, spec: dict) -> dict:
+    """Sparse-engine chaos sentinel check: the shared view-plane core
+    (:func:`.kernel.sentinel_core`) plus ``n_live_drift``, the up rows whose
+    incrementally kept live count differs from a recount (row chunks)."""
+    sent = sentinel_core(state.view_key, state.up, state.tick, sent, spec)
+    n = state.capacity
+    drift = torch.zeros((), dtype=torch.int32, device=state.device)
+    for lo, hi in plane_chunks(n, n):
+        recount = ((state.view_key[lo:hi] & 3) != RANK_DEAD).sum(dim=1, dtype=torch.int32)
+        drift += (state.up[lo:hi] & (recount != state.n_live[lo:hi])).sum(dtype=torch.int32)
+    sent["n_live_drift"] = sent["n_live_drift"] + drift
+    return sent
 
 
 # The JAX names of the driver's window: the same runners as the fused ones.
 run_sparse_ticks = run_sparse_ticks_fused
 make_sparse_run = make_sparse_fused_run
+run_sparse_ticks_fused_adaptive = run_sparse_ticks_adaptive
+make_sparse_fused_adaptive_run = make_sparse_adaptive_run

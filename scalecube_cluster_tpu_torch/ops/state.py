@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..adaptive import AdaptiveSpec
 from ..dissemination.spec import DissemSpec
 from ._tensor import plane_chunks
 from .bitplane import clear_col, set_bit, unpack_bits, words_for
@@ -48,10 +49,10 @@ NO_CANDIDATE_I32 = int(np.iinfo(np.int32).min)  # scatter-max identity
 @dataclasses.dataclass(frozen=True)
 class SimParams:
     """Static parameters of the dense tick — the JAX package's
-    ``SimParams`` without ``adaptive`` (this port runs no adaptive plane
-    yet). ``dissem`` is the dissemination strategy/topology
+    ``SimParams``. ``dissem`` is the dissemination strategy/topology
     (:mod:`..dissemination`; the default is push over the full topology,
-    the engine's own sampler). ``delay_slots`` (D) is
+    the engine's own sampler); ``adaptive`` the adaptive failure-detection
+    spec (:mod:`..adaptive`; the default is the static program). ``delay_slots`` (D) is
     the pending-delivery ring depth (0: no delay, no rings); the
     ``*_timeout_ticks`` budgets feed the delay model's timeliness factors;
     ``sync_slots`` caps the SYNC callers per tick (0: N / sync_every + 32);
@@ -79,17 +80,18 @@ class SimParams:
     key_dtype: str = "i32"
     quiet_gates: bool = True
     dissem: DissemSpec = DissemSpec()
+    adaptive: AdaptiveSpec = AdaptiveSpec()
 
     @staticmethod
     def from_config(config, capacity: int | None = None, initial_size: int | None = None,
                     seed_rows: tuple = (0,)) -> "SimParams":
         """Kernel params from a ``ClusterConfig`` (one tick = one
         ``sim.tick_interval``). Capacity: ``capacity`` > ``config.sim
-        .capacity`` > ``initial_size``. An enabled adaptive block raises
-        (ROADMAP A8.2)."""
+        .capacity`` > ``initial_size``."""
         from ..config import tick_units
 
         return SimParams(key_dtype=config.sim.plane_dtype, dissem=DissemSpec.from_config(config),
+                         adaptive=AdaptiveSpec.from_config(config),
                          **tick_units(config, capacity, initial_size, seed_rows))
 
 
@@ -419,21 +421,29 @@ def _put_delay_q(state: SimState, src, dst, q: float) -> SimState:
     return state
 
 
-def set_uniform_loss(state: SimState, loss: float, floor: bool = False) -> SimState:
+def set_uniform_loss(state: SimState, loss, floor: bool = False) -> SimState:
     """Uniform loss on every link; with ``floor`` existing losses only rise
     (partition blocks survive a storm). ``fetch_rt`` is re-derived.
-    Consumes ``state``."""
-    x = float(np.float32(loss))
+    ``loss`` may be a 0-d tensor, which is not read to the host. Consumes
+    ``state``."""
+    new = _loss_scalar(loss, state.device)
     if state.loss.dim() == 0:
-        new = torch.tensor(x, dtype=torch.float32, device=state.device)
         new_loss = torch.maximum(state.loss, new) if floor else new
         return state.replace(loss=new_loss, fetch_rt=_roundtrip(new_loss))
     if floor:
-        state.loss.clamp_(min=x)
+        torch.maximum(state.loss, new, out=state.loss)
     else:
-        state.loss.fill_(x)
+        state.loss.copy_(new.expand_as(state.loss))
     _roundtrip(state.loss, out=state.fetch_rt)
     return state
+
+
+def _loss_scalar(loss, device) -> torch.Tensor:
+    """A loss probability as a 0-d float32 tensor on ``device``: a Python
+    number rounds to float32 first, a tensor is moved as it is."""
+    if isinstance(loss, torch.Tensor):
+        return loss.to(device=device, dtype=torch.float32).reshape(())
+    return torch.tensor(float(np.float32(loss)), dtype=torch.float32, device=device)
 
 
 def crash_row(state: SimState, row: int) -> SimState:

@@ -19,17 +19,24 @@ the JAX package's engine policy). The driver owns:
   read to the host only at a sync point: :meth:`flush`,
   :meth:`health_snapshot`, :meth:`checkpoint`, or the ``health_counters`` /
   ``pool_high_water`` / ``segmentation_warnings`` properties;
-* checkpoint/resume of the full state, the generator included.
+* checkpoint/resume of the full state, the generator included;
+* the adaptive failure-detection plane (:mod:`..adaptive`): an enabled
+  ``params.adaptive`` arms it, :meth:`SimDriver.set_adaptive` swaps it, and
+  the driver threads the :class:`..adaptive.AdaptiveState` through the
+  engine's adaptive window (``adaptive_state``; None when static);
+* chaos scenarios (:meth:`SimDriver.run_scenario`, :mod:`..chaos`), whose
+  runner applies the fault timeline between windows and checks the
+  sentinels on the device; :meth:`SimDriver.chaos_snapshot` and the
+  ``chaos`` section of :meth:`SimDriver.health_snapshot` read them.
 
 ``dispatch_stats`` counts the driver's own device→host readbacks as the
 JAX driver does: a watch or ``record_metrics`` adds one per window, a flush
 one per staged reduction. The tick itself reads one flag to the host per
 data-keyed branch; :data:`..ops._tensor.HOST_SYNCS` counts those.
 
-Not ported yet, and refused by name: meshes (ROADMAP A12), the telemetry,
-trace and chaos planes (A10; ``run_scenario`` with its ``strategy=``
-too), adaptive knobs (A8.2), protocol knobs and the control plane (A11),
-the compile-cache audit (A13).
+Not ported yet, and refused by name: meshes (ROADMAP A12), the telemetry
+and trace planes (A10, second half; ``run_scenario(trace=True)`` too),
+protocol knobs and the control plane (A11), the compile-cache audit (A13).
 """
 
 from __future__ import annotations
@@ -182,6 +189,15 @@ class SimDriver:
         if dense_links is None:
             dense_links = self._eng.dense_links_default
         self.state = self._eng.init_state(params, n_initial, warm, dense_links, self.device)
+        self._dense_links = self.state.loss.dim() != 0
+        # an enabled AdaptiveSpec on params arms the adaptive plane; the
+        # driver owns its state and threads it through the adaptive window
+        self._ad = None
+        if not params.adaptive.is_default:
+            from ..adaptive import init_adaptive_state
+
+            self._ad = init_adaptive_state(params.capacity, device=self.device)
+        self._chaos = None  # the armed DriverChaosRunner, if any
         self._key_dtype = self._eng.key_plane(self.state).dtype
         self._lay = layout_for(self._key_dtype)
         self.seed = int(seed)
@@ -261,9 +277,13 @@ class SimDriver:
     def _step_locked(self, n_ticks: int) -> dict:
         rows = sorted(self._watches)
         watch_arr = torch.tensor(rows, dtype=torch.int64, device=self.device) if rows else None
-        step = self._eng.make_run(self.params, n_ticks)
         source = self._gen if self._draws is None else self._draws(n_ticks)
-        self.state, ms, watched = step(self.state, source, watch_rows=watch_arr)
+        if self._ad is not None:
+            step = self._eng.make_adaptive_run(self.params, n_ticks)
+            self.state, self._ad, ms, watched = step(self.state, self._ad, source, watch_rows=watch_arr)
+        else:
+            step = self._eng.make_run(self.params, n_ticks)
+            self.state, ms, watched = step(self.state, source, watch_rows=watch_arr)
         ds = self.dispatch_stats
         ds["windows_dispatched"] += 1
         ds["ticks_dispatched"] += n_ticks
@@ -669,6 +689,8 @@ class SimDriver:
                 "active_now": int(self.state.mr_active.sum()),
                 "high_water": self._pool_high_water,
             }
+        if self._chaos is not None:
+            out["chaos"] = self._chaos.snapshot()
         return out
 
     def enable_health_probes(self) -> None:
@@ -712,8 +734,35 @@ class SimDriver:
                 return
             self.params = dataclasses.replace(self.params, dissem=spec)
 
-    def set_adaptive(self, spec=None, *, enabled=None, **knobs):
-        _not_ported("adaptive failure detection", "A8.2")
+    def set_adaptive(self, spec=None, *, enabled: bool | None = None, **spec_kw) -> None:
+        """Swap the adaptive-FD spec on a live driver.
+
+        Pass a full :class:`..adaptive.AdaptiveSpec`, or ``None`` plus field
+        overrides applied to the current spec; ``set_adaptive(None)`` with
+        no overrides disarms. Like :meth:`set_dissemination` the spec is a
+        static property of the params; arming or disarming also creates or
+        drops the adaptive planes, and a changed spec starts them fresh
+        (scores are evidence about the current conditions; a knob change
+        is a new experiment). A no-op when the spec and the armed state
+        already agree."""
+        import dataclasses
+
+        from ..adaptive import AdaptiveSpec, init_adaptive_state
+
+        with self._lock:
+            cur = self.params.adaptive
+            if spec is None:
+                overrides = {k: v for k, v in dict(enabled=enabled, **spec_kw).items() if v is not None}
+                spec = dataclasses.replace(cur, **overrides) if overrides else AdaptiveSpec()
+            if spec == cur and (self._ad is not None) == (not spec.is_default):
+                return
+            self.params = dataclasses.replace(self.params, adaptive=spec)
+            self._ad = None if spec.is_default else init_adaptive_state(self.params.capacity, device=self.device)
+
+    @property
+    def adaptive_state(self):
+        """The armed :class:`..adaptive.AdaptiveState`, or None (static FD)."""
+        return self._ad
 
     def set_protocol_knobs(self, **knobs):
         _not_ported("live protocol knobs", "A11")
@@ -721,11 +770,45 @@ class SimDriver:
     def arm_control(self, spec=None, config=None):
         _not_ported("the control plane", "A11")
 
-    def run_scenario(self, scenario, *args, **kwargs):
-        _not_ported("chaos scenarios", "A10")
+    def run_scenario(
+        self,
+        scenario,
+        *,
+        config=None,
+        sentinels: bool = True,
+        max_window: int = 32,
+        trace: bool = False,
+        strategy: str | None = None,
+        topology: str | None = None,
+        dissem=None,
+        adaptive=None,
+    ) -> dict:
+        """Run a :class:`..chaos.Scenario` against this driver: its fault
+        events applied between windows, the SWIM invariant sentinels
+        checked on the device, windows of at most ``max_window`` ticks.
+        Stepping reads nothing back; the returned report is the one sync
+        point. ``strategy=`` / ``topology=`` / ``dissem=`` arm a
+        dissemination spec (:meth:`set_dissemination`) and ``adaptive=`` an
+        adaptive spec (:meth:`set_adaptive`) first. ``trace=True`` is
+        refused until the trace plane is ported (ROADMAP A10)."""
+        from ..chaos.engine import run_driver_scenario
+
+        if dissem is not None or strategy is not None or topology is not None:
+            self.set_dissemination(dissem, strategy=strategy, topology=topology)
+        if adaptive is not None:
+            self.set_adaptive(adaptive)
+        return run_driver_scenario(
+            self, scenario, config=config, sentinels=sentinels, max_window=max_window, trace=trace,
+        )
 
     def chaos_snapshot(self) -> dict:
-        _not_ported("chaos scenarios", "A10")
+        """The armed scenario's progress and sentinel report, or ``{"armed":
+        False}`` when none was ever armed. A sync point, like every other
+        snapshot."""
+        runner = self._chaos
+        if runner is None:
+            return {"armed": False}
+        return runner.snapshot()
 
     # -- checkpoint/resume ---------------------------------------------------
     def checkpoint(self, path: str) -> None:
@@ -771,7 +854,7 @@ class SimDriver:
             ),
         }
         host_bytes = pickle.dumps(host)
-        return dict(
+        payload = dict(
             self._ops.snapshot(self.state),
             _gen=self._gen.get_state().numpy(),
             _host=np.frombuffer(host_bytes, dtype=np.uint8),
@@ -780,6 +863,13 @@ class SimDriver:
             _engine=np.bytes_(self.engine.encode()),
             _framework=np.bytes_(FRAMEWORK.encode()),
         )
+        if self._ad is not None:
+            # the adaptive planes follow the timeline (optional members; a
+            # static driver's restore ignores them)
+            from ..adaptive import adaptive_state_arrays
+
+            payload.update(adaptive_state_arrays(self._ad))
+        return payload
 
     def restore(self, path: str) -> None:
         """Load a :meth:`checkpoint` archive. Every check runs before the
@@ -832,6 +922,8 @@ class SimDriver:
             host = pickle.loads(host_bytes)
         except Exception as exc:
             raise CheckpointError(f"checkpoint {path!r} host section does not unpickle: {exc}") from exc
+        # the adaptive planes are optional members, not engine state planes
+        ad_arrays = {k: data.pop(k) for k in ("_ad_lh", "_ad_conf_key", "_ad_conf") if k in data}
         try:
             state = self._ops.restore(data, device=self.device)
         except TypeError as exc:  # missing/extra planes: foreign or truncated
@@ -850,6 +942,15 @@ class SimDriver:
 
         self.state = state
         self._gen = gen
+        if self._ad is not None:
+            # an adaptive driver restoring a static checkpoint starts fresh
+            from ..adaptive import init_adaptive_state, restore_adaptive_state
+
+            self._ad = (
+                restore_adaptive_state(ad_arrays, device=self.device)
+                if len(ad_arrays) == 3
+                else init_adaptive_state(self.params.capacity, device=self.device)
+            )
         self.members = host["members"]
         self._rumor_payloads = host["rumor_payloads"]
         self._next_member_ordinal = host["next_member_ordinal"]

@@ -213,8 +213,9 @@ def test_refusals_name_their_items():
     d = SimDriver(params, 33, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         d.arm_trace()
-    with pytest.raises(NotImplementedError, match="A8"):
-        d.set_adaptive(enabled=True)
+    # the adaptive plane is ported: set_adaptive arms it
+    d.set_adaptive(enabled=True)
+    assert d.adaptive_state is not None and d.params.adaptive.enabled
     with pytest.raises(ValueError, match="delay_slots > 0"):
         d.set_link_delay([0], [1], 2.0)
     lean = SimDriver(params, 33, dense_links=False, device="cpu")

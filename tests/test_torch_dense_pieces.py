@@ -198,7 +198,8 @@ def test_tick_refuses_unported_planes():
     st = TS.init_state(params, 33, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         TK.tick(st, None, None, params, trace=object())
-    with pytest.raises(NotImplementedError, match="A8"):
+    # the adaptive plane is ported: it needs an enabled spec on the params
+    with pytest.raises(ValueError, match="enabled AdaptiveSpec"):
         TK.tick(st, None, None, params, ad=object())
     with pytest.raises(ValueError, match="delay_slots > 0"):
         TS.init_state(params, 33, uniform_delay=1.0, device="cpu")
@@ -210,12 +211,11 @@ def test_tick_refuses_unported_planes():
     with pytest.raises(ValueError, match="dense links"):
         TS.set_link_loss(lean, [0], [1], 0.5)
     base = dataclasses.asdict(_params(33))
-    # the dissemination spec is carried across (ported); the adaptive one
-    # is refused (A8.2)
+    # the dissemination and adaptive specs are carried across (ported)
     armed = convert.params_from_dict({**base, "dissem": {**base["dissem"], "strategy": "push_pull"}})
     assert armed.dissem.strategy == "push_pull" and isinstance(armed, TS.SimParams)
-    with pytest.raises(ValueError, match="A8.2"):
-        convert.params_from_dict({**base, "adaptive": {**base["adaptive"], "enabled": True}})
+    adaptive = convert.params_from_dict({**base, "adaptive": {**base["adaptive"], "enabled": True}})
+    assert adaptive.adaptive.enabled and not adaptive.adaptive.is_default
     assert isinstance(convert.params_from_dict({**base, "delay_slots": 4}), TS.SimParams)
     assert engine_api.resolve(params).name == "dense" and not engine_api.engine("dense").has_pool
 
@@ -269,8 +269,7 @@ def test_config_path_with_overrides():
                      ((300,), dict(force_pview=True, view_slots=16))):
         ref = dataclasses.asdict(jauto_params(*args, config=jcfg, **kw))
         got = dataclasses.asdict(auto_params(*args, config=cfg, **kw))
-        for k in ("adaptive", "delivery_kernel"):
-            ref.pop(k, None)
+        ref.pop("delivery_kernel", None)  # the adaptive spec rides the params and is compared
         assert got == ref, (args, kw)
     with pytest.raises(NotImplementedError, match="A13"):
         auto_params(64, config=cfg.with_sim(lambda s: s.replace(compile_cache_dir="x")))
@@ -291,8 +290,7 @@ def test_from_config_matches_jax(profile):
         for extra in ({}, {"capacity": 500, "seed_rows": (0, 3)}):
             ref = dataclasses.asdict(jcls.from_config(jcfg, **kw, **extra))
             got = dataclasses.asdict(tcls.from_config(tcfg, **kw, **extra))
-            for k in ("adaptive", "delivery_kernel"):
-                ref.pop(k, None)
+            ref.pop("delivery_kernel", None)  # the adaptive spec rides the params and is compared
             assert got == ref, (profile, tcls.__name__, extra)
     i16 = TS.SimParams.from_config(tcfg.with_sim(lambda s: s.replace(plane_dtype="i16", delay_slots=4)))
     assert i16.key_dtype == "i16" and i16.delay_slots == 4
@@ -304,8 +302,9 @@ def test_from_config_refuses_unported_planes():
         # a dissemination block is ported now: it rides the params
         armed = cls.from_config(cfg.with_dissemination(lambda d: d.replace(strategy="push_pull")))
         assert armed.dissem.strategy == "push_pull"
-        with pytest.raises(ValueError, match="A8.2"):
-            cls.from_config(cfg.with_adaptive(lambda a: a.replace(enabled=True)))
+        # so is the adaptive block
+        on = cls.from_config(cfg.with_adaptive(lambda a: a.replace(enabled=True, lh_max=5)))
+        assert on.adaptive.enabled and on.adaptive.lh_max == 5
     with pytest.raises(ValueError, match="capacity must be > 1"):
         TS.SimParams.from_config(TC.ClusterConfig.default_lan())
     with pytest.raises(ValueError, match="namespace"):

@@ -25,6 +25,7 @@ import scalecube_cluster_tpu.dissemination.certify as JCert
 from scalecube_cluster_tpu.dissemination import DissemSpec as JSpec
 from scalecube_cluster_tpu.sim import SimDriver as JSimDriver
 from scalecube_cluster_tpu_torch import convert
+from scalecube_cluster_tpu_torch.chaos import Scenario
 from scalecube_cluster_tpu_torch.dissemination import DissemSpec as TSpec
 from scalecube_cluster_tpu_torch.dissemination import certify as TCert
 from scalecube_cluster_tpu_torch.ops import pview as TPV
@@ -71,7 +72,7 @@ def test_set_dissemination_swaps_and_noops_as_jax():
         d.set_dissemination(strategy="flood")
     assert d.params is armed
     with pytest.raises(NotImplementedError, match="A10"):
-        d.run_scenario(None, strategy="push_pull")
+        d.run_scenario(Scenario(name="idle", events=(), horizon=4), strategy="push_pull", trace=True)
 
 
 def _swap_script(jd, td, chain, specs):

@@ -27,6 +27,7 @@ import scalecube_cluster_tpu.ops.pview as JPV
 from scalecube_cluster_tpu.sim import SimCluster as JSimCluster
 from scalecube_cluster_tpu.sim import SimDriver as JSimDriver
 from scalecube_cluster_tpu_torch import convert
+from scalecube_cluster_tpu_torch.chaos import EmulatorChaosRunner, Scenario
 from scalecube_cluster_tpu_torch.ops import engine_api
 from scalecube_cluster_tpu_torch.ops import pview as TPV
 from scalecube_cluster_tpu_torch.ops import sparse as TSP
@@ -294,25 +295,27 @@ def test_checkpoint_refuses_a_caller_draws_source(tmp_path):
         td.checkpoint(str(tmp_path / "x.npz"))
 
 
+def _idle_scenario():
+    return Scenario(name="idle", events=(), horizon=4)
+
+
 def test_refused_surfaces_raise_not_implemented():
     d = _generator_driver()
     calls = {
         "jit_cache_audit": lambda: d.jit_cache_audit(),
         "arm_telemetry": lambda: d.arm_telemetry(),
         "arm_trace": lambda: d.arm_trace(),
-        "run_scenario(strategy=)": lambda: d.run_scenario(None, strategy="push_pull"),
-        "set_adaptive": lambda: d.set_adaptive(enabled=True),
+        "run_scenario(trace=True)": lambda: d.run_scenario(_idle_scenario(), trace=True),
+        "EmulatorChaosRunner": lambda: EmulatorChaosRunner(_idle_scenario(), [], []),
         "set_protocol_knobs": lambda: d.set_protocol_knobs(fanout=4),
         "arm_control": lambda: d.arm_control(),
-        "run_scenario": lambda: d.run_scenario(None),
-        "chaos_snapshot": lambda: d.chaos_snapshot(),
         "transport": lambda: SimCluster(d).node(1).transport(),
         "mesh": lambda: SimDriver(d.params, 8, mesh=object(), device="cpu"),
         "compile_cache_dir": lambda: SimDriver(d.params, 8, compile_cache_dir="x", device="cpu"),
         "sparse delay rings": lambda: TSP.SparseParams(capacity=8, delay_slots=2),
     }
-    items = {"arm_telemetry": "A10", "arm_trace": "A10", "run_scenario": "A10", "chaos_snapshot": "A10",
-             "run_scenario(strategy=)": "A10", "set_adaptive": "A8.2", "set_protocol_knobs": "A11",
+    items = {"arm_telemetry": "A10", "arm_trace": "A10", "run_scenario(trace=True)": "A10",
+             "EmulatorChaosRunner": "A13", "set_protocol_knobs": "A11",
              "arm_control": "A11", "jit_cache_audit": "A13", "transport": "A13", "mesh": "A12",
              "compile_cache_dir": "A13", "sparse delay rings": "A2"}
     for name, call in calls.items():

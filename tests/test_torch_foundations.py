@@ -134,7 +134,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for module in ("ops/pview.py", "ops/sparse.py", "ops/kernel.py", "ops/state.py", "ops/engine_api.py",
                    "sim/driver.py", "convert.py", "config.py", "dissemination/__init__.py",
                    "dissemination/spec.py", "dissemination/topology.py", "dissemination/strategies.py",
-                   "dissemination/certify.py", "utils/cluster_math.py"):
+                   "dissemination/certify.py", "utils/cluster_math.py", "adaptive.py",
+                   "chaos/__init__.py", "chaos/events.py", "chaos/shifting.py", "chaos/sentinels.py",
+                   "chaos/engine.py"):
         assert f"scalecube_cluster_tpu_torch/{module}" in walked, module
     bad = [
         f"{p.relative_to(REPO)}:{line}: import {name}"

@@ -217,12 +217,11 @@ def test_host_mutators_match_jax(name, kd):
 
 def test_port_refuses_what_it_does_not_run():
     base = dataclasses.asdict(_params(33, "i32"))
-    # the dissemination spec is carried across (ported); the adaptive one
-    # is refused
+    # the dissemination and adaptive specs are carried across (ported)
     armed = convert.params_from_dict({**base, "dissem": {**base["dissem"], "strategy": "push_pull"}})
     assert armed.dissem.strategy == "push_pull" and isinstance(armed, TPV.PviewParams)
-    with pytest.raises(ValueError, match="adaptive"):
-        convert.params_from_dict({**base, "adaptive": {**base["adaptive"], "enabled": True}})
+    adaptive = convert.params_from_dict({**base, "adaptive": {**base["adaptive"], "enabled": True}})
+    assert adaptive.adaptive.enabled and isinstance(adaptive, TPV.PviewParams)
     with pytest.raises(ValueError, match="delay_slots"):
         convert.params_from_dict({**base, "delay_slots": 2})
     with pytest.raises(NotImplementedError):

@@ -206,7 +206,8 @@ def test_unfused_tick_refuses_what_it_does_not_run():
     st = TPV.init_pview_state(params, 33, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         TPV.pview_tick(st, None, None, params, trace=object())
-    with pytest.raises(NotImplementedError, match="A8"):
+    # the adaptive plane is ported: it needs an enabled spec on the params
+    with pytest.raises(ValueError, match="enabled AdaptiveSpec"):
         TPV.pview_tick(st, None, None, params, ad=object())
     with pytest.raises(NotImplementedError, match="A2"):
         TPV.PviewParams(capacity=33, delay_slots=2)

@@ -335,12 +335,11 @@ def test_window_split_does_not_change_the_trajectory():
 
 def test_port_refuses_what_it_does_not_run():
     base = dataclasses.asdict(_params(33))
-    # the dissemination spec is carried across (ported); the adaptive one
-    # is refused (A8.2)
+    # the dissemination and adaptive specs are carried across (ported)
     armed = convert.params_from_dict({**base, "dissem": {**base["dissem"], "strategy": "push_pull"}})
     assert armed.dissem.strategy == "push_pull" and isinstance(armed, TSP.SparseParams)
-    with pytest.raises(ValueError, match="A8.2"):
-        convert.params_from_dict({**base, "adaptive": {**base["adaptive"], "enabled": True}})
+    adaptive = convert.params_from_dict({**base, "adaptive": {**base["adaptive"], "enabled": True}})
+    assert adaptive.adaptive.enabled and isinstance(adaptive, TSP.SparseParams)
     with pytest.raises(ValueError, match="A2"):
         convert.params_from_dict({**base, "delay_slots": 2})
     with pytest.raises(NotImplementedError, match="A2"):
@@ -352,7 +351,8 @@ def test_port_refuses_what_it_does_not_run():
     rd = None
     with pytest.raises(NotImplementedError, match="A10"):
         TSP.sparse_tick(st, None, rd, params, trace=object())
-    with pytest.raises(NotImplementedError, match="A8"):
+    # the adaptive plane is ported: it needs an enabled spec on the params
+    with pytest.raises(ValueError, match="enabled AdaptiveSpec"):
         TSP.sparse_tick(st, None, rd, params, ad=object())
     with pytest.raises(ValueError, match="dense links"):
         TSP.set_link_loss(st, [0], [1], 0.5)
