@@ -9,8 +9,10 @@ window and ``SimDriver`` over it at 10,000 members and its delay regime at
 8,192, each engine's window again under a dissemination strategy, with
 the strategies' certification matrix, and again armed with the adaptive
 failure-detection plane and through chaos scenarios, with config13's
-certification sweep and config7's armed-idle overhead — on the card, and
-fails (non-zero exit, no result line) unless every phase passes:
+certification sweep and config7's armed-idle overhead, and the fleet engine
+(S clusters per window: its kernel, its windows, config14's Monte Carlo
+workload and its full-width path) — on the card, and fails (non-zero
+exit, no result line) unless every phase passes:
 
 1. device   — a CUDA device is present; prints its name and power limit;
 2. build    — builds the port's CUDA kernel with nvcc; prints ptxas's
@@ -31,16 +33,16 @@ fails (non-zero exit, no result line) unless every phase passes:
 6. profile  — three more fused ticks under ``torch.profiler``: the
    device's busy share, each phase's device and host time, and the
    kernel's own device time per tick;
-7. driver-window — a 4,096-member ``SimDriver`` script (spreads, a crash,
-   a join, a leave, metadata bumps, a partition and its heal, two watched
-   rows) on the CPU and on the card from the same draws: equal state,
-   per-tick metrics and event logs;
+7. driver-window — a 4,096-member, 20-tick (40 through PR 7) ``SimDriver``
+   script (spreads, a crash, a join, a leave, metadata bumps, a partition
+   and its heal, two watched rows) on the CPU and on the card from the same
+   draws: equal state, per-tick metrics and event logs;
 8. driver   — the driver main path: ``SimDriver`` on the card at 1M (the
    config11 widths; warm start, 8 rumors through ``spread_rumor``, a crash
    wave of 1,024 rows through ``crash``, a ``join``, a ``leave``, two
-   watched rows), a 5-tick warm-up, then three timed ``step(10)`` windows
-   and ``sync()``, with the launch counts zeroed just before and read just
-   after; then three ticks profiled by phase, as in phase 6;
+   watched rows), a 5-tick warm-up, then a timed ``step(10)`` window (three
+   through PR 7) and ``sync()``, with the launch counts zeroed just before
+   and read just after; then three ticks profiled by phase, as in phase 6;
 9. checkpoint — a 65,536-member driver: ``step(5)``, ``checkpoint``,
    ``step(10)``, ``restore``, ``step(10)``: both trajectories bit-equal;
 10. sparse-window — a 4,096-member, 40-tick sparse window with dense links
@@ -60,9 +62,10 @@ fails (non-zero exit, no result line) unless every phase passes:
    dense links, on the CPU and on the card: equal;
 14. sparse-driver — ``SimDriver`` on the card at 49,152 (config5's widths;
    2 rumors through ``spread_rumor``, a crash wave of 491 rows through
-   ``crash``, 8 joins, two watched rows): a 5-tick warm-up, then three
-   timed ``step(10)`` windows, launch counts zeroed before and read after;
-15. dense-window — a 4,096-member, 40-tick dense window at config9's i16
+   ``crash``, 8 joins, two watched rows): a 5-tick warm-up, then a timed
+   ``step(10)`` window (three through PR 7), launch counts zeroed before
+   and read after;
+15. dense-window — a 4,096-member, 20-tick (40 through PR 7) dense window at config9's i16
    widths with dense links (a crash wave, rumors, a ``join_rows`` batch
    with rejoins, a partition and its heal) on the CPU and on the card from
    the same draws: equal state and metrics;
@@ -124,7 +127,7 @@ fails (non-zero exit, no result line) unless every phase passes:
    (the phase fails where one stays 0), dense detection and recovery;
 27. chaos-windows — ``SimDriver.run_scenario`` on the CPU and on the card
    from the same draws at 4,096: pview (a crash and a partition healed),
-   dense at config9's widths, sparse with dense links (a crash wave, a
+   dense at config9's widths (20 ticks, 40 through PR 7), sparse with dense links (a crash wave, a
    partition healed, restarts); dense at 2,048 with a loss storm over a
    partition healed inside it: equal reports (but the backend stamp) and
    state;
@@ -132,7 +135,8 @@ fails (non-zero exit, no result line) unless every phase passes:
    violations and no readback while it steps: pview at 1M (its crash wave
    and a partition healed, 60 ticks), sparse at 49,152 (a crash, a loss
    storm on scalar links, a restart, 60 ticks), dense at 10,000 (config4's
-   1,000 / 9,000 split healed after detection, to the automatic horizon):
+   1,000 / 9,000 split healed after detection, 800 ticks past the heal; the
+   automatic horizon through PR 7):
    ms/tick against the unarmed runs, flag reads, launches;
 29. config13 — ``benchmarks/config13_adaptive.py``'s sweep at its published
    widths (N = 48, seeds 0-2, loss floors 0/10/20%, both arms: 18 entries,
@@ -143,6 +147,37 @@ fails (non-zero exit, no result line) unless every phase passes:
    one-tick windows, plain loop against an armed event-free scenario,
    interleaved median of 5) beside config7's 2% gate; fails only on a
    readback while the armed loop steps.
+
+31. fleet-kernel — the scenario-axis variant of the delivery kernel (one
+   launch for S clusters) bit-equal to its plain version at MC widths
+   (S = 1,024, N = 64, F = 3, R = 8; the vector and the scalar path), at a
+   full-width batch (S = 256 x N = 4,096, pview widths) and at S = 65,600
+   (past the 65,535 grid limit of a y axis), timed (20 launches, the
+   profiler) beside its byte bound, its plain version and S serial launches
+   of the serial kernel on the same inputs;
+32. fleet-windows — one fleet window per engine (S = 8, 16 ticks; dense N
+   = 256 i32 and i16, sparse N = 1,024, pview N = 4,096 at config16's
+   widths; every third scenario with crashes of its own) and the adaptive
+   dense fleet (config13's knobs, rings at D = 4, a degraded cohort) on the
+   CPU and on the card from the same draws: equal; each card row equal to
+   the serial window fed that row's draws;
+33. config14 — ``benchmarks/config14_fleet.py`` at its published widths:
+   batched against serial at S = 256 x N = 64 and S = 64 x N = 256 (32-tick
+   windows, interleaved median of 5, aggregate member-ticks/s; the serial
+   arm loops over 16 of the S clusters; readbacks in each timed span
+   counted under sync-debug; fails below 3x or on a readback at S = 256 x N
+   = 64); ``mc_spread_certifier``'s matrix (12 cells at n = 64, 1,024 seeds
+   each; every cell certified, the pview and sparse cells at most one
+   kernel launch per fleet tick); ``fp_rate_mc`` static and adaptive (N =
+   48, 512 seeds, 10% floor; config14's rule); ``adaptive_knob_sweep`` at
+   its defaults; the one-window ladder (S doubled at N = 64 and 256 until
+   an 8-tick window's peak passes 16 GiB);
+34. fleet-main — the fleet's full-width path: the dense fleet at S = 4,096
+   x N = 256 (1,048,576 member rows) and the pview fleet at S = 256 x N =
+   4,096 (config11's widths), 8 rumors and a crash wave each, a warm-up and
+   a timed 16-tick window: ms per window, member-ticks/s, peak (< 80 GB),
+   flag reads per fleet tick, kernel launches (one per pview fleet tick;
+   counts zeroed just before the timed window, read just after).
 
 The dense paths launch no hand-written kernel; their launch counts (0)
 stand in the kernels line. The line before the last is a JSON object with one entry per kernel; the
@@ -179,6 +214,11 @@ KERNEL_CASES = tuple((n, 3, 8, 64, 0, ("vector", 3)) for n in KERNEL_SHAPES) + (
     (65_536, 3, 8, 64, 1, ("scalar", 3)),   # ym_p's base off 16 bytes
 )
 TICKS_PER_SECOND = 5  # config5's simulated second
+# Depth cut for the fleet phases' time (each listed in PERF.md section 4):
+DRIVER_WINDOWS = 1  # timed step(10) windows of the 1M and the sparse driver (3 through PR 7)
+DRIVER_SCRIPT_STEPS = (5, 7, 5, 3)  # the CPU-vs-card driver script's steps (10, 13, 10, 7 through PR 7)
+DENSE_WINDOW_STEPS = (5, 8, 7)  # the CPU-vs-card dense window's (10, 15, 15 through PR 7)
+CHAOS_DENSE_AFTER_HEAL = 800  # the full-width dense scenario's horizon past its heal (automatic through PR 7)
 C13_KNOBS = dict(min_mult=5, max_mult=10, conf_target=4, lh_max=8)  # config13's ADAPTIVE_KNOBS
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 
@@ -191,8 +231,12 @@ def nvidia_smi() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    """One report line, stamped with the seconds since the script started."""
+    print(f"[{name}] {msg} (+{time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def dissem_label(params) -> str:
@@ -310,15 +354,18 @@ def kernel_ms(fn, kernel: str, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    if len(times) != reps:
-        raise AssertionError(f"profiler saw {len(times)} launches of {kernel}, expected {reps}")
-    return statistics.median(times) / 1e3
+    for _attempt in range(3):
+        # a session after earlier ones in the process can miss a launch;
+        # such a session is taken again, never read short
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if len(times) == reps:
+            return statistics.median(times) / 1e3
+    raise AssertionError(f"profiler saw {len(times)} launches of {kernel}, expected {reps}")
 
 
 def config16_params(n: int, key_dtype: str = "i16"):
@@ -673,28 +720,29 @@ def cpu_draws(params, ticks: int, seed: int) -> list:
 
 def driver_script(d, n: int, swap=None) -> None:
     """The driver-window script: two watched rows, spreads, a crash, a
-    join, a leave, metadata bumps, a partition and its heal (40 ticks);
-    ``swap`` (``set_dissemination``'s keywords) arms a strategy in the
-    middle, before the partition."""
+    join, a leave, metadata bumps, a partition and its heal
+    (``DRIVER_SCRIPT_STEPS``, 20 ticks); ``swap`` (``set_dissemination``'s
+    keywords) arms a strategy in the middle, before the partition."""
+    first, second, parted, healed = DRIVER_SCRIPT_STEPS
     for row in (0, n // 3):
         d.watch(row)
     for s in range(d.params.rumor_slots):
         d.spread_rumor((s * 997) % n, f"rumor {s}")
     for r in range(n // 2, n // 2 + max(2, n // 1024)):
         d.crash(r)
-    d.step(10)
+    d.step(first)
     d.join()
     d.leave(7)
     d.update_metadata(11)
     d.update_metadata_batch([11, 12, 13])
-    d.step(13)
+    d.step(second)
     if swap:
         d.set_dissemination(**swap)
     halves = (list(range(n // 2)), list(range(n // 2, n)))
     d.block_partition(*halves)
-    d.step(10)
+    d.step(parted)
     d.heal_partition(*halves)
-    d.step(7)
+    d.step(healed)
 
 
 def check_driver_window(device, n: int = 4096, params=None, label: str = "driver-window",
@@ -704,7 +752,7 @@ def check_driver_window(device, n: int = 4096, params=None, label: str = "driver
     default)."""
     from scalecube_cluster_tpu_torch.sim import SimDriver
 
-    ticks = 40
+    ticks = sum(DRIVER_SCRIPT_STEPS)
     params = params or config16_params(n)
     draws = cpu_draws(params, ticks, seed=13)
     drivers = []
@@ -739,7 +787,7 @@ def check_driver_window(device, n: int = 4096, params=None, label: str = "driver
     hist = a.metrics_history
     sums = {k: sum(int(m[k]) for m in hist)
             for k in ("mr_accepts", "sync_roundtrips", "rumor_deliveries", "fd_new_suspects") if k in hist[0]}
-    swapped = f", set_dissemination({swap}) after tick 23" if swap else ""
+    swapped = f", set_dissemination({swap}) after tick {sum(DRIVER_SCRIPT_STEPS[:2])}" if swap else ""
     phase(label, f"N={n}, {ticks} ticks through SimDriver{swapped}: every state leaf, per-tick metric "
                  f"and event log equal on CPU and {device}; events per watched row {events}, {sums}")
 
@@ -782,7 +830,7 @@ def run_driver_path(device) -> dict:
     d.sync()
     phase("driver", f"warm-up step(5): {time.perf_counter() - t0:.2f} s")
 
-    windows, per = 3, 10
+    windows, per = DRIVER_WINDOWS, 10
     ticks = windows * per
     readbacks = d.dispatch_stats["readbacks"]
     torch.cuda.reset_peak_memory_stats()
@@ -1099,7 +1147,7 @@ def run_sparse_driver_path(device) -> dict:
     d.sync()
     phase("sparse-driver", f"warm-up step(5): {time.perf_counter() - t0:.2f} s")
 
-    windows, per = 3, 10
+    windows, per = DRIVER_WINDOWS, 10
     ticks = windows * per
     readbacks = d.dispatch_stats["readbacks"]
     torch.cuda.reset_peak_memory_stats()
@@ -1181,13 +1229,14 @@ def dense_launch_count() -> int:
 
 
 def check_dense_window(device, n: int = 4096) -> None:
-    """40 dense ticks at N = 4,096 with config9's i16 widths and dense links
+    """20 dense ticks at N = 4,096 with config9's i16 widths and dense links
     on the CPU and on the card from the same draws: a crash wave, a rumor,
     a ``join_rows`` batch with two rejoins, a partition and its heal."""
     from scalecube_cluster_tpu_torch.ops import kernel as K
     from scalecube_cluster_tpu_torch.ops import state as S
 
-    ticks = 40
+    a, b, c = DENSE_WINDOW_STEPS
+    ticks = a + b + c
     params = config9_dense_params(n)
     draws = cpu_draws(params, ticks, seed=19)
     halves = (list(range(n // 2)), list(range(n // 2, n)))
@@ -1196,12 +1245,12 @@ def check_dense_window(device, n: int = 4096) -> None:
     def run(dev):
         st = S.init_state(params, n - 8, dense_links=True, device=dev)
         st = S.crash_rows(S.spread_rumor(st, 0, 5), crashed)
-        st, ms_a, _ = K.run_ticks(st, draws[:10], 10, params)
+        st, ms_a, _ = K.run_ticks(st, draws[:a], a, params)
         st = S.join_rows(st, [n - 8, n - 7] + crashed[:2], params.seed_rows)
         st = S.block_partition(S.spread_rumor(st, 1, 77), *halves)
-        st, ms_b, _ = K.run_ticks(st, draws[10:25], 15, params)
+        st, ms_b, _ = K.run_ticks(st, draws[a:a + b], b, params)
         st = S.heal_partition(st, *halves)
-        st, ms_c, _ = K.run_ticks(st, draws[25:], 15, params)
+        st, ms_c, _ = K.run_ticks(st, draws[a + b:], c, params)
         return st, {k: torch.cat([ms_a[k], ms_b[k], ms_c[k]]).cpu() for k in ms_a}
 
     cpu_ms = run_cpu_and_card(run, device, "dense windows")
@@ -1252,6 +1301,36 @@ def copy_state(st, device):
 
     return dc.replace(st, **{f.name: getattr(st, f.name).to(device, copy=True)
                              for f in dc.fields(st) if f.name != "tick"})
+
+
+class WindowStart:
+    """The start of a dense window kept on the host for a rerun, so the
+    card's peak is the tick's: the leaves the tick writes, copied into
+    pinned host buffers reused from window to window; the link planes
+    (``loss``, ``fetch_rt``, ``delay_q``), which a tick only reads, kept
+    by reference."""
+
+    READ_ONLY = ("loss", "fetch_rt", "delay_q")
+
+    def __init__(self):
+        self.buf, self.kept = {}, None
+
+    def save(self, st) -> None:
+        import dataclasses as dc
+
+        for f in dc.fields(st):
+            if f.name == "tick" or f.name in self.READ_ONLY:
+                continue
+            src = getattr(st, f.name)
+            b = self.buf.get(f.name)
+            if b is None or b.shape != src.shape or b.dtype != src.dtype:
+                b = self.buf[f.name] = torch.empty(src.shape, dtype=src.dtype,
+                                                 pin_memory=torch.cuda.is_available())
+            b.copy_(src, non_blocking=True)  # ordered before the window's ticks on the stream
+        self.kept = st.replace(**{k: None for k in self.buf})
+
+    def restore(self, device):
+        return self.kept.replace(**{k: b.to(device, copy=True) for k, b in self.buf.items()})
 
 
 def minority_detected(watched, split: int) -> torch.Tensor:
@@ -1348,6 +1427,7 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
     detected = None
     done = 0
     prof_part = None
+    start = WindowStart()
     while detected is None and done < detect_budget:
         if profile and done == profile_at:
             st, ws, g, u = profile_dense(st, gen, params, 5, profile_label, watch=watch)
@@ -1359,8 +1439,8 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
             continue
         w = min(window, detect_budget - done, profile_at - done if profile and done < profile_at else window)
         # the window's start, kept on the host so the card's peak is the tick's
-        saved = (copy_state(st, "cpu"), gen.get_state(),
-                 copy_state(win.ad, "cpu") if win.ad is not None else None)
+        start.save(st)
+        saved = (gen.get_state(), copy_state(win.ad, "cpu") if win.ad is not None else None)
         syncs = _tensor.HOST_SYNCS.count
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1378,10 +1458,10 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
             detected = done + k + 1
             if k + 1 < w:
                 # back to the window's start, then up to the detection tick
-                st, g_state = copy_state(saved[0], device), saved[1]
-                gen.set_state(g_state)
+                st = start.restore(device)
+                gen.set_state(saved[0])
                 if win.ad is not None:
-                    win.ad = copy_state(saved[2], device)
+                    win.ad = copy_state(saved[1], device)
                 st, _, _ = win(st, gen, k + 1)
         done += w
         del saved
@@ -1684,7 +1764,7 @@ def config12_control(device, n: int = 4096, spec=None) -> float:
 
 
 CERTIFY_KW = dict(n=256, seeds=(0, 1, 2, 3, 4), fanout=3, rumor_slots=8, geo_wan_delay_ticks=2, pipeline_budget=2)
-CERTIFY_WORKERS = 4
+CERTIFY_WORKERS = 6
 
 
 def certify_entry(task) -> tuple:
@@ -1807,7 +1887,7 @@ def run_dissem_main(device, unarmed: dict) -> dict:
 
 C13_N, C13_SEEDS, C13_FLOORS = 48, (0, 1, 2), (0.0, 0.1, 0.2)
 C13_STATIC_MULT = 3  # benchmarks/config13_adaptive.py: STATIC_SUSPICION_MULT
-C13_WORKERS = 4
+C13_WORKERS = 6
 
 
 def check_adaptive_windows(device) -> dict:
@@ -1934,8 +2014,8 @@ def check_chaos_windows(device) -> dict:
         setup=lambda d: [d.spread_rumor((s * 997) % n, s) for s in range(d.params.rumor_slots)]))
     scenario_cpu_and_card(
         device, config9_dense_params(n), n, lambda: EV.Scenario(name="dense-split", events=[
-            EV.Crash(rows=[40, 41], at=2), EV.Partition(groups=halves, at=5, heal_at=25)],
-            horizon=40, check_interval=8), "dense", dense_links=True)
+            EV.Crash(rows=[40, 41], at=2), EV.Partition(groups=halves, at=5, heal_at=12)],
+            horizon=20, check_interval=8), "dense", dense_links=True)
     crashed = list(range(n // 2, n // 2 + 16))
     _, launches["chaos-sparse-window"] = count_launches(lambda: scenario_cpu_and_card(
         device, config5_params(n, fd_every=2, suspicion_mult=1, sync_every=20), n, lambda: EV.Scenario(
@@ -2008,7 +2088,8 @@ def run_chaos_main(device, unarmed: dict) -> dict:
     both cut to a 60-tick horizon (the automatic one, printed beside it,
     would take minutes at these widths), and dense at 10,000 (config4's
     1,000 / 9,000 split as a ``Partition``, healed 5 ticks after the
-    unarmed run's detection, to the automatic horizon). Returns the
+    unarmed run's detection, ``CHAOS_DENSE_AFTER_HEAL`` ticks past the
+    heal). Returns the
     launches of each path."""
     from scalecube_cluster_tpu_torch.chaos import events as EV
     from scalecube_cluster_tpu_torch.chaos.sentinels import build_spec
@@ -2063,11 +2144,14 @@ def run_chaos_main(device, unarmed: dict) -> dict:
     heal = unarmed["dense_ticks"][0] + 5
     d = SimDriver(config4_params(n), n, warm=True, seed=0, device=device, dense_links=True)
     scn = EV.Scenario(name="config4-split", events=[
-        EV.Partition(groups=[range(0, n // 10), range(n // 10, n)], at=0, heal_at=heal)])
+        EV.Partition(groups=[range(0, n // 10), range(n // 10, n)], at=0, heal_at=heal)],
+        horizon=heal + CHAOS_DENSE_AFTER_HEAL)
+    auto = build_spec(scn.replace(horizon=None), d.params).horizon
     rep, ms, launches, flags, mut_flags = run_armed(d, scn, "dense")
     out["chaos-main-dense"] = launches
     conv = rep["sentinels"]["convergence"][0]
-    phase("chaos-main", f"dense 10,000, the automatic horizon {rep['horizon']} ticks, partition at 0, heal at {heal}: "
+    phase("chaos-main", f"dense 10,000, {rep['horizon']} ticks (horizon cut from the automatic {auto}), "
+                        f"partition at 0, heal at {heal}: "
                         f"ok, 0 violations, no readback while stepping; converged at {conv['converged_at']} (deadline "
                         f"{conv['deadline']}); {ms:.2f} ms/tick over the whole run (unarmed partitioned "
                         f"{unarmed['dense_part']:.2f}), {flags:.2f} flag reads/tick in the ticks (+{mut_flags} in "
@@ -2224,6 +2308,533 @@ def run_config7(device, n: int = 4096, windows: int = 24, reps: int = 5) -> dict
     return {"overhead_pct": overhead, "pipelined_ticks_s": windows / p, "armed_ticks_s": windows / a}
 
 
+# -- the fleet engine (phases 31-34) ----------------------------------------------
+
+FLEET_KERNEL_CASES = (  # (label, S, N, F, R, Wm, ym_offset, path)
+    ("MC widths", 1024, 64, 3, 8, 4, 0, "vector"),
+    ("MC widths, scalar path", 1024, 64, 3, 8, 5, 0, "scalar"),
+    ("full width (pview 4,096)", 256, 4096, 3, 8, 64, 0, "vector"),
+    ("S past 65,535", 65_600, 64, 3, 8, 4, 0, "vector"),
+)
+C14_CELLS = ((256, 64), (64, 256))  # config14's THROUGHPUT_CELLS; the first is the 3x gate
+C14_WINDOW = 32  # config14's WINDOW_TICKS
+C14_SERIAL_SAMPLE = 16  # scenarios the serial arm loops over (its rate per member-tick does not depend on S)
+C14_LADDER_GIB = 16  # config14's LADDER_BUDGET_GIB
+C14_LADDER_START = {64: 8192, 256: 1024}  # config14's ladder starts
+FLEET_MAIN = ((4096, 256), (256, 4096))  # dense S x N, pview S x N
+
+
+def c14_params(n: int, **over):
+    """config14's dense widths (``benchmarks/config14_fleet.py: _params``),
+    the fleet profile (quiet gates off) unless ``over`` says otherwise."""
+    from scalecube_cluster_tpu_torch.ops.state import SimParams
+
+    return SimParams(**{**dict(capacity=n, fanout=3, repeat_mult=3, ping_req_k=2, fd_every=5, sync_every=64,
+                               suspicion_mult=5, rumor_slots=8, seed_rows=(0,), full_metrics=False,
+                               quiet_gates=False), **over})
+
+
+def fleet_kernel_inputs(s: int, n: int, gen, F: int, R: int, Wm: int, ym_offset: int = 0):
+    """Random [S, ...] sender planes and inv (-1s, duplicate senders), each
+    scenario's indices inside its own N rows."""
+    dev = gen.device
+    Wu = -(-R // 32)
+
+    def words(*shape):
+        return torch.randint(-(1 << 31), 1 << 31, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    ym_p = words(s, n, Wm + ym_offset)[:, :, ym_offset:]
+    yu_p = words(s, n, Wu)
+    infected_from = torch.randint(-1, n, (s, n, R), generator=gen, device=dev, dtype=torch.int32)
+    inv = torch.randint(-1, n, (s, F, n), generator=gen, device=dev, dtype=torch.int32)
+    inv[:, :, : n // 4] = -1
+    inv[:, :, n // 4 : n // 2] = torch.randint(0, 3, (s, F, n // 2 - n // 4), generator=gen, device=dev,
+                                               dtype=torch.int32)
+    origin = torch.randint(-1, n, (s, R), generator=gen, device=dev, dtype=torch.int32)
+    return ym_p, yu_p, infected_from, inv, origin
+
+
+def fleet_kernel_bytes(ym_p, yu_p, infected_from, inv) -> int:
+    """The serial byte bound summed over scenarios: inv and the origins read
+    once, a sender row per distinct valid sender of each scenario, the
+    outputs and the counts written once."""
+    s, F, n = inv.shape
+    Wm, R = ym_p.shape[-1], infected_from.shape[-1]
+    Wt = Wm + yu_p.shape[-1] + R
+    scen = torch.arange(s, device=inv.device, dtype=torch.int64)[:, None, None].expand(s, F, n)
+    ok = inv >= 0
+    senders = torch.unique(scen[ok] * n + inv[ok].to(torch.int64)).numel()
+    return s * (4 * F * n + 4 * R + n * (R + 4 * R + 4 * Wm) + 4) + 4 * Wt * senders
+
+
+def check_fleet_kernel(device) -> dict:
+    """Phase 31: the scenario-axis kernel bit-equal to its plain version at
+    MC widths (vector and scalar path), at a full-width batch and at an S
+    past 65,535; its median device time over 20 launches beside its byte
+    bound, its plain version, and S serial launches of the serial kernel on
+    the same inputs."""
+    from scalecube_cluster_tpu_torch.ops import delivery
+
+    gen = torch.Generator(device=device).manual_seed(31)
+    rows = {}
+    for label, s, n, F, R, Wm, off, want in FLEET_KERNEL_CASES:
+        planes = fleet_kernel_inputs(s, n, gen, F, R, Wm, off)
+        path = delivery.instantiation(Wm, F, planes[0].data_ptr(), planes[0].stride(1))[0]
+        if path != want:
+            raise AssertionError(f"[fleet-kernel] {label}: {path} path, expected {want}")
+        before = delivery.delivery_combine_fleet.launches
+        got = delivery.delivery_combine_fleet(*planes)
+        ref = delivery.delivery_combine_fleet_ref(*planes)
+        torch.cuda.synchronize()
+        if delivery.delivery_combine_fleet.launches != before + 1:
+            raise AssertionError("[fleet-kernel] one call did not make exactly one launch")
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, ref))
+        if err != 0:
+            raise AssertionError(f"[fleet-kernel] {label}: differs from its plain version, max abs err {err}")
+        ms = kernel_ms(lambda: delivery.delivery_combine_fleet(*planes), "delivery_combine_kernel")
+        plain_ms = time_cuda(lambda: delivery.delivery_combine_fleet_ref(*planes), reps=5, warmup=1)
+        bound = bytes_ms(fleet_kernel_bytes(*planes[:4]))
+        per_s = [tuple(t[i] for t in planes) for i in range(s)]
+
+        def serial_loop():
+            for args in per_s:
+                delivery.delivery_combine(*args)
+
+        reps, warm = (3, 1) if s <= 4096 else (1, 0)
+        serial_ms = time_cuda(serial_loop, reps=reps, warmup=warm)
+        delivery.delivery_combine.launches -= (reps + warm) * s
+        delivery.delivery_combine_fleet.launches = before
+        rows[label] = dict(s=s, n=n, F=F, R=R, Wm=Wm, path=path, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound, serial_launches_ms=serial_ms)
+        phase("fleet-kernel", f"{label}: S={s} N={n} F={F} R={R} Wm={Wm}, {path} path: bit-equal, kernel "
+                              f"{ms:.4f} ms (one launch), bound {bound:.4f} ms (roofline share "
+                              f"{bound / ms:.3f}), plain {plain_ms:.4f} ms, {s} serial launches {serial_ms:.4f} "
+                              f"ms ({serial_ms / ms:.1f}x the one launch)")
+        del planes, per_s, got, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fleet_start(mod, init, s: int, n: int, crash: bool = True):
+    """A fleet of ``s`` scenarios from ``init()``: scenario i spreads rumor 0
+    from its own row, and every third scenario has a crash of its own (so
+    the quiet-tick gates open in some scenarios only)."""
+    from scalecube_cluster_tpu_torch.ops import fleet as FL
+
+    rows = []
+    for i in range(s):
+        st = mod.spread_rumor(init(), 0, (i * 37 + 1) % n)
+        if crash and i % 3 == 1:
+            st = mod.crash_rows(st, [(i * 13 + 5) % n, (i * 7 + 9) % n])
+        rows.append(st)
+    return FL.fleet_stack(rows)
+
+
+def fleet_cpu_draws(params, draw, s: int, ticks: int, tick0: int, seed: int) -> list:
+    gen = torch.Generator().manual_seed(seed)
+    out, tick = [], tick0
+    for _ in range(ticks):
+        out.append(draw(gen, params, (tick + 1) % params.fd_every == 0, lead=(s,)))
+        tick += 1
+    return out
+
+
+def row_draws(draws, i: int) -> list:
+    import dataclasses as dc
+
+    def row(x):
+        return None if x is None else type(x)(*(getattr(x, f.name)[i] for f in dc.fields(x)))
+
+    return [(row(fd), row(rd)) for fd, rd in draws]
+
+
+def check_fleet_window(device, label: str, mod, init, make_fleet, make_serial, params, draw, s: int = 8,
+                       ticks: int = 16, adaptive: bool = False) -> dict:
+    """One fleet window on the CPU and on the card from the same draws (every
+    leaf, every metric), then each row on the card against the serial
+    window fed that row's draws. Returns the card's launch counts."""
+    import dataclasses as dc
+
+    from scalecube_cluster_tpu_torch.adaptive import init_adaptive_state
+    from scalecube_cluster_tpu_torch.ops import delivery
+    from scalecube_cluster_tpu_torch.ops import fleet as FL
+
+    n = params.capacity
+
+    def start(dev):
+        return fleet_start(mod, lambda: init(dev), s, n)
+
+    draws = fleet_cpu_draws(params, draw, s, ticks, start("cpu").tick, 14)
+
+    def run(dev):
+        fs = start(dev)
+        dd = [(None if fd is None else fd.to(dev), rd.to(dev)) for fd, rd in draws]
+        if adaptive:
+            ad = FL.fleet_broadcast(init_adaptive_state(n, device=dev), s)
+            fs, ad, ms, _ = make_fleet(params, ticks)(fs, ad, dd)
+            ms = {**ms, **{f"adaptive plane {k}": getattr(ad, k) for k in ("lh", "conf_key", "conf")}}
+        else:
+            fs, ms, _ = make_fleet(params, ticks)(fs, dd)
+        return fs, {k: v.cpu() for k, v in ms.items()}
+
+    delivery.delivery_combine_fleet.launches = 0
+    cpu_fs, cpu_ms = run("cpu")
+    dev_fs, dev_ms = run(device)
+    fleet_launches = delivery.delivery_combine_fleet.launches
+    bad = state_differences(cpu_fs, dev_fs)
+    for k, va in cpu_ms.items():
+        va, vb = va.numpy(), dev_ms[k].numpy()
+        if va.dtype == np.float32:
+            if np.abs(va.view(np.int32).astype(np.int64) - vb.view(np.int32).astype(np.int64)).max() > 2:
+                bad.append(f"metric {k}")
+        elif not np.array_equal(va, vb):
+            bad.append(f"metric {k}")
+    if bad:
+        raise AssertionError(f"[fleet-windows] {label}: CPU and card fleets differ in {bad}")
+    serial_launches = delivery.delivery_combine.launches
+    for i in range(s):
+        st = FL.fleet_row(start(device), i)
+        dd = [(None if fd is None else fd.to(device), rd.to(device)) for fd, rd in row_draws(draws, i)]
+        if adaptive:
+            st, ad, ms, _ = make_serial(params, ticks)(st, init_adaptive_state(n, device=device), dd)
+            ms = {**ms, **{f"adaptive plane {k}": getattr(ad, k) for k in ("lh", "conf_key", "conf")}}
+        else:
+            st, ms, _ = make_serial(params, ticks)(st, dd)
+        row = FL.fleet_row(dev_fs, i)
+        diff = state_differences(row, st) + [k for k, v in ms.items() if not torch.equal(v.cpu(), dev_ms[k][i])]
+        if diff:
+            raise AssertionError(f"[fleet-windows] {label}: card fleet row {i} differs from the serial window "
+                                 f"in {diff}")
+    serial_launches = delivery.delivery_combine.launches - serial_launches
+    delivery.delivery_combine.launches -= serial_launches
+    phase("fleet-windows", f"{label}: S={s} N={n}, {ticks} ticks: CPU = card (every leaf, every metric"
+                           f"{', the adaptive planes' if adaptive else ''}); every card row = the serial window "
+                           f"fed its draws; fleet kernel launches on the card {fleet_launches} in {ticks} ticks "
+                           f"(the {s} serial rows: {serial_launches})")
+    return {"launches": fleet_launches, "ms": {k: v for k, v in dev_ms.items()}}
+
+
+def check_fleet_windows(device) -> dict:
+    """Phase 32: a fleet window per engine (S = 8, 16 ticks; dense N = 256
+    i32 and i16, sparse N = 1,024, pview N = 4,096) and the adaptive dense
+    fleet (config13's knobs, rings at D = 4, a degraded cohort), CPU = card
+    and each card row = the serial window. Returns launches per window."""
+    import dataclasses as dc
+
+    from scalecube_cluster_tpu_torch.ops import kernel as K
+    from scalecube_cluster_tpu_torch.ops import pview as PV
+    from scalecube_cluster_tpu_torch.ops import rand as PR
+    from scalecube_cluster_tpu_torch.ops import sparse as SP
+    from scalecube_cluster_tpu_torch.ops import state as S
+
+    out = {}
+    for kd in ("i32", "i16"):
+        p = c14_params(256, key_dtype=kd, quiet_gates=True)
+        out[f"fleet-dense-{kd}"] = check_fleet_window(
+            device, f"dense {kd}", S, lambda d, p=p: S.init_state(p, 256, warm=True, uniform_loss=0.1, device=d),
+            K.make_fleet_run, K.make_run, p, PR.draw_dense_tick)["launches"]
+    sp = config5_params(1024, fd_every=2, suspicion_mult=1, sync_every=20)
+    out["fleet-sparse"] = check_fleet_window(
+        device, "sparse", SP, lambda d: SP.init_sparse_state(sp, 1024, warm=True, device=d),
+        SP.make_sparse_fleet_run, SP.make_sparse_run, sp, PR.draw_sparse_tick)["launches"]
+    pp = config16_params(4096)
+    out["fleet-pview"] = check_fleet_window(
+        device, "pview", PV, lambda d: PV.init_pview_state(pp, 4096, warm=True, device=d),
+        PV.make_pview_fleet_run, PV.make_pview_run, pp, PR.draw_sparse_tick)["launches"]
+    ap = with_adaptive(c14_params(256, fd_every=1, delay_slots=4, quiet_gates=True))
+
+    def adaptive_init(d):
+        st = S.init_state(ap, 256, warm=True, uniform_loss=0.05, uniform_delay=0.5, device=d)
+        everyone = list(range(256))
+        st = S.set_link_loss(st, everyone, [5, 6, 7], 0.7)
+        st = S.set_link_loss(st, [9], everyone, 0.7)
+        return S.set_link_delay(st, everyone, [11], 2.0)
+
+    rec = check_fleet_window(device, "dense adaptive (config13's knobs, D = 4)", S, adaptive_init,
+                             K.make_fleet_adaptive_run, K.make_adaptive_run, ap, PR.draw_dense_tick, adaptive=True)
+    phase("fleet-windows", f"adaptive fleet gauges: {gauges_line(rec['ms'])}")
+    out["fleet-dense-adaptive"] = rec["launches"]
+    return out
+
+
+def c14_throughput_cell(device, s: int, n: int, reps: int = 5, window: int = C14_WINDOW) -> dict:
+    """config14's batched-vs-serial cell: the fleet of ``s`` clusters against
+    a loop of serial windows over a fixed sample of ``C14_SERIAL_SAMPLE`` of
+    them (the same params, the same tick), interleaved median of ``reps``,
+    aggregate member-ticks/s; a fresh rumor into every cluster before each
+    rep; readbacks in each timed span counted under sync-debug."""
+    from scalecube_cluster_tpu_torch.ops import _tensor
+    from scalecube_cluster_tpu_torch.ops import fleet as FL
+    from scalecube_cluster_tpu_torch.ops import kernel as K
+    from scalecube_cluster_tpu_torch.ops import state as S
+
+    params = c14_params(n)
+    fleet_step, serial_step = K.make_fleet_run(params, window), K.make_run(params, window)
+    origins = np.arange(s) * 37 % n
+    st0 = S.init_state(params, n, warm=True, device=device)
+    fs = FL.fleet_inject_rumor(S, FL.fleet_broadcast(st0, s), 0, origins)
+    k = min(s, C14_SERIAL_SAMPLE)
+    serial = [FL.fleet_row(fs, i) for i in range(k)]
+    fgen = FL.fleet_generator(0, device)
+    sgens = [torch.Generator(device=device).manual_seed(i) for i in range(k)]
+    fs, _ms, _ = fleet_step(fs, fgen)
+    serial[0], _m, _ = serial_step(serial[0], sgens[0])
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        _tensor.HOST_SYNCS.count = 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        # the mode's own notice on first use is not a wait
+        waits = [w for w in caught if "called a synchronizing" in str(w.message)]
+        for w in waits:
+            where.add(f"{w.filename}:{w.lineno}: {str(w.message)[:120]}")
+        return dt, len(waits) + _tensor.HOST_SYNCS.count
+
+    bt, st_, waits, where = [], [], {"batched": 0, "serial": 0}, set()
+    for rep in range(reps):
+        slot = (rep + 1) % params.rumor_slots
+        fs = FL.fleet_inject_rumor(S, fs, slot, (origins + rep) % n)
+        serial = [S.spread_rumor(x, slot, int((origins[i] + rep) % n)) for i, x in enumerate(serial)]
+        torch.cuda.synchronize()
+        box = {}
+
+        def batched():
+            box["fs"] = fleet_step(fs, fgen)[0]
+
+        def loop():
+            for i in range(k):
+                serial[i] = serial_step(serial[i], sgens[i])[0]
+
+        dt, w = timed(batched)
+        fs = box["fs"]
+        bt.append(dt)
+        waits["batched"] += w
+        dt, w = timed(loop)
+        st_.append(dt)
+        waits["serial"] += w
+    b, sr = statistics.median(bt), statistics.median(st_)
+    b_rate, s_rate = s * n * window / b, k * n * window / sr
+    rec = dict(s=s, n=n, serial_sample=k, window=window, batched_s=bt, serial_s=st_, batched_rate=b_rate,
+               serial_rate=s_rate, speedup=b_rate / s_rate, readbacks=waits)
+    for w in sorted(where):
+        phase("config14", f"S={s} N={n}: a wait for the device in a timed span: {w}")
+    phase("config14", f"S={s} N={n}, {window}-tick windows, median of {reps} interleaved: batched {b * 1e3:.1f} "
+                      f"ms/window, {b_rate:,.0f} member-ticks/s; serial (a loop over {k} of the {s} clusters) "
+                      f"{sr * 1e3:.1f} ms, {s_rate:,.0f} member-ticks/s; speedup {b_rate / s_rate:.2f}x; readbacks "
+                      f"in the timed spans {waits}; spans batched {[round(x, 4) for x in bt]} s, serial "
+                      f"{[round(x, 4) for x in st_]} s")
+    return rec
+
+
+def c14_ladder(device, n: int, start_s: int, ticks: int = 8, budget_gib: float = C14_LADDER_GIB) -> dict:
+    """config14's one-window ladder, measured: double S from ``start_s`` at
+    N = ``n`` until an 8-tick fleet window's peak allocation passes the
+    budget; the largest S under it."""
+    from scalecube_cluster_tpu_torch.ops import fleet as FL
+    from scalecube_cluster_tpu_torch.ops import kernel as K
+    from scalecube_cluster_tpu_torch.ops import state as S
+
+    params = c14_params(n)
+    st0 = S.init_state(params, n, warm=True, device=device)
+    fit, steps, s = None, [], start_s
+    while True:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fs = FL.fleet_inject_rumor(S, FL.fleet_broadcast(st0, s), 0, np.arange(s) * 37 % n)
+        t0 = time.perf_counter()
+        fs, _ms, _ = K.make_fleet_run(params, ticks)(fs, FL.fleet_generator(s, device))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps.append((s, peak, wall))
+        phase("config14", f"ladder N={n} S={s}: peak {peak:.2f} GiB, {ticks}-tick window {wall:.2f} s")
+        del fs
+        if peak > budget_gib:
+            break
+        fit, s = s, 2 * s
+    torch.cuda.empty_cache()
+    return {"n": n, "max_s": fit, "steps": steps}
+
+
+def run_config14(device, mc_seeds: int = 1024, fp_seeds: int = 512, sweep_seeds: int = 171,
+                 ladder_start=C14_LADDER_START, throughput_reps: int = 5, cells=C14_CELLS, mc_n: int = 64,
+                 fp_n: int = 48, ladder_gib: float = C14_LADDER_GIB) -> dict:
+    """Phase 33: config14 (``benchmarks/config14_fleet.py``) at its published
+    widths: the batched-vs-serial cells, ``mc_spread_certifier`` over
+    ``DEFAULT_MC_MATRIX`` (n = 64, 1,024 seeds, every cell certified; the
+    pview and sparse cells launch the kernel at most once per tick),
+    ``fp_rate_mc`` both arms (config14's rule), ``adaptive_knob_sweep``
+    and the one-window ladder."""
+    from scalecube_cluster_tpu_torch.dissemination import certify as C
+    from scalecube_cluster_tpu_torch.dissemination.spec import DissemSpec
+    from scalecube_cluster_tpu_torch.ops import delivery
+
+    out = {"throughput": [c14_throughput_cell(device, s, n, reps=throughput_reps) for s, n in cells]}
+    failures = []  # each check is judged when the whole phase has run and printed
+    gate = out["throughput"][0]
+    if gate["speedup"] < 3.0 or gate["readbacks"]["batched"] or gate["readbacks"]["serial"]:
+        failures.append(f"S={gate['s']} N={gate['n']}: speedup {gate['speedup']:.2f}x (gate 3x), readbacks "
+                        f"{gate['readbacks']}")
+
+    t0 = time.perf_counter()
+    entries, launches = [], {}
+    for strat, topol, engine in C.DEFAULT_MC_MATRIX:
+        before = delivery.delivery_combine_fleet.launches
+        spec = DissemSpec(strategy=strat, topology=topol, pipeline_budget=2)
+        c0 = time.perf_counter()
+        rec = C.certify_spread_mc(spec, n=mc_n, n_seeds=mc_seeds, engine=engine, device=device)
+        lc = delivery.delivery_combine_fleet.launches - before
+        ticks = rec["windows_dispatched"] * rec["window_ticks"]
+        if engine != "dense":
+            launches[f"mc-{engine}-{strat}-{topol}"] = lc
+            if not 0 < lc <= ticks:
+                failures.append(f"MC {engine}/{strat}/{topol}: {lc} fleet kernel launches in {ticks} fleet ticks")
+        elif lc:
+            failures.append(f"MC dense cell launched the kernel {lc} times")
+        phase("config14", f"MC {engine}/{strat}/{topol}: {rec['finished']}/{mc_seeds} finished, median "
+                          f"{rec['spread_ticks_median']} p99 {rec['spread_ticks_p99']} (CI {rec['p99_ci']}) <= bound "
+                          f"{rec['bound_ticks']}; wilson {rec['wilson']}; {rec['windows_dispatched']} windows, "
+                          f"fleet kernel launches {lc} in {ticks} ticks; {time.perf_counter() - c0:.1f} s; "
+                          f"{'certified' if rec['certified'] else 'NOT CERTIFIED'}")
+        entries.append(rec)
+    n_ok = sum(e["certified"] for e in entries)
+    phase("config14", f"MC matrix: {n_ok}/{len(entries)} cells certified, {mc_seeds} seeds each, "
+                      f"{time.perf_counter() - t0:.1f} s (JAX, FLEET_BENCH_r15.json: 8 of 8 at 1,024 seeds)")
+    if n_ok != len(entries):
+        failures.append("a Monte Carlo cell is not certified")
+    out["mc"], out["launches"] = entries, launches
+
+    t0 = time.perf_counter()
+    fp = {arm: C.fp_rate_mc(n=fp_n, n_seeds=fp_seeds, loss_floor=0.10, adaptive=arm == "adaptive", device=device)
+          for arm in ("static", "adaptive")}
+    st, ad = fp["static"], fp["adaptive"]
+    fp_ok = (ad["fp_rate_wilson"][1] <= 0.02 and ad["fp_rate_wilson"][1] < st["fp_rate_wilson"][0]
+             and ad["detections_ok"])
+    for arm, rec in fp.items():
+        phase("config14", f"fp_rate_mc {arm}: false-DEAD {rec['false_dead_scenarios']}/{fp_seeds}, wilson "
+                          f"{rec['fp_rate_wilson']}, crash detected {rec['crash_detected']}/{fp_seeds}, max "
+                          f"{rec['crash_detect_max']} <= deadline {rec['crash_detect_deadline']}, detections_ok "
+                          f"{rec['detections_ok']}")
+    phase("config14", f"fp_rate_mc: adaptive upper bound {ad['fp_rate_wilson'][1]} <= 0.02 and below the static "
+                      f"lower bound {st['fp_rate_wilson'][0]}, detections ok: certified {fp_ok} (JAX, "
+                      f"FLEET_BENCH_r15.json: 409/512 static, 1/512 adaptive, upper bound 0.011); "
+                      f"{time.perf_counter() - t0:.1f} s")
+    if not fp_ok:
+        failures.append("fp_rate_mc does not meet config14's rule")
+    out["fp"] = fp
+
+    t0 = time.perf_counter()
+    sweep = C.adaptive_knob_sweep(n=fp_n, n_seeds_per_floor=sweep_seeds, device=device,
+                                  log=lambda m: phase("config14", m))
+    phase("config14", f"adaptive_knob_sweep ({sweep_seeds} seeds per floor): recommended "
+                      f"{ {k: (v and {x: v[x] for x in ('min_mult', 'conf_target', 'fp_rate')}) for k, v in sweep['recommended'].items()} }; "
+                      f"{time.perf_counter() - t0:.1f} s")
+    out["sweep"] = sweep["recommended"]
+
+    out["ladder"] = {}
+    for n, s0 in ladder_start.items():
+        rec = c14_ladder(device, n, s0, budget_gib=ladder_gib)
+        out["ladder"][n] = rec
+        phase("config14", f"ladder N={n}: largest S under {ladder_gib} GiB {rec['max_s']} "
+                          f"({(rec['max_s'] or 0) * n:,} members in one window; JAX's compiled ladder: "
+                          f"{ {64: 65536, 256: 4096}.get(n) })")
+    if failures:
+        raise AssertionError("[config14] " + "; ".join(failures))
+    return out
+
+
+def run_fleet_main(device, ticks: int = 16, cells=FLEET_MAIN) -> dict:
+    """Phase 34: the fleet's full-width path, one warm-up window and one
+    timed ``ticks``-tick window each: the dense fleet at config14's N = 256
+    (S = 4,096: 1,048,576 member rows) and the pview fleet at config11's
+    widths (S = 256 x N = 4,096): ms/window, member-ticks/s, peak, flag
+    reads per fleet tick, kernel launches (one per pview gossip tick)."""
+    from scalecube_cluster_tpu_torch.ops import _tensor
+    from scalecube_cluster_tpu_torch.ops import delivery
+    from scalecube_cluster_tpu_torch.ops import fleet as FL
+    from scalecube_cluster_tpu_torch.ops import kernel as K
+    from scalecube_cluster_tpu_torch.ops import pview as PV
+    from scalecube_cluster_tpu_torch.ops import state as S
+
+    out = {}
+    (sd, nd), (sp, npv) = cells
+    for label, s, n, make_state, step in (
+        ("dense", sd, nd, lambda p: S.init_state(p, nd, warm=True, device=device), K.make_fleet_run),
+        ("pview", sp, npv, lambda p: PV.init_pview_state(p, npv, warm=True, device=device),
+         PV.make_pview_fleet_run),
+    ):
+        params = c14_params(n) if label == "dense" else config16_params(n)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fs = FL.fleet_broadcast(make_state(params), s)
+        for slot in range(params.rumor_slots):
+            fs = FL.fleet_inject_rumor(S if label == "dense" else PV, fs, slot, (np.arange(s) * 37 + slot * 997) % n)
+        fs = FL.FleetOps(S if label == "dense" else PV).crash_rows(fs, list(range(n // 2, n // 2 + max(2, n // 128))))
+        run = step(params, ticks)
+        gen = FL.fleet_generator(34, device)
+        fs, _ms, _ = run(fs, gen)
+        torch.cuda.synchronize()
+        delivery.delivery_combine_fleet.launches = 0
+        _tensor.HOST_SYNCS.count = 0
+        t0 = time.perf_counter()
+        fs, ms, _ = run(fs, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = delivery.delivery_combine_fleet.launches
+        flags = _tensor.HOST_SYNCS.count
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_up = ms["n_up"]
+        if not bool((n_up == n - max(2, n // 128)).all()):
+            raise AssertionError(f"[fleet-main] {label}: n_up {n_up.unique().tolist()}")
+        if label == "pview" and launches != ticks:
+            raise AssertionError(f"[fleet-main] pview: {launches} fleet kernel launches in {ticks} ticks")
+        if peak >= 80:
+            raise AssertionError(f"[fleet-main] {label}: peak {peak:.2f} GiB")
+        rate = s * n * ticks / wall
+        out[label] = dict(s=s, n=n, ms_window=wall * 1e3, rate=rate, peak=peak, flags=flags / ticks,
+                          launches=launches)
+        phase("fleet-main", f"{label} fleet S={s} x N={n} ({s * n:,} member rows), {ticks}-tick window: "
+                            f"{wall * 1e3:.1f} ms ({wall * 1e3 / ticks:.2f} ms per fleet tick), {rate:,.0f} "
+                            f"member-ticks/s, peak allocated {peak:.2f} GiB, {flags / ticks:.2f} flag reads per "
+                            f"fleet tick, fleet kernel launches {launches} in {ticks} ticks")
+        del fs, ms, run
+        torch.cuda.empty_cache()
+    return out
+
+
+def fleet_kernel_entry(rows: dict, launches: dict) -> dict:
+    """The kernels line's entry of the scenario-axis variant: its numbers at
+    the full-width batch, the other shapes beside them; ``launches`` from
+    the fleet paths of this run (the pview fleet main path's among them)."""
+    full = rows["full width (pview 4,096)"]
+    return {
+        "name": "delivery_combine_fleet",
+        "route": "cuda",
+        "source": "scalecube_cluster_tpu_torch/csrc/delivery_combine.cu",
+        "replaces": "scalecube_cluster_tpu/ops/pallas_delivery.py:251 (under the fleet's vmap: a leading [S])",
+        "launches": launches.get("fleet-main-pview", 0),
+        "launches_by_path": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "ms": full["ms"],
+        "plain_ms": full["plain_ms"],
+        "bound_ms": full["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "serial_launches_ms": full["serial_launches_ms"],
+        "at_shapes": rows,
+    }
+
+
 def run_phases_4_to_24(device, marks: list) -> dict:
     """Phases 4-24, as PRs 1-6 left them. Returns the kernel's launches on
     each of their paths, and under "unarmed" the unarmed main paths'
@@ -2326,11 +2937,22 @@ def main() -> int:
     run_config7(device)
     marks.append(("phase 30 (config7)", time.perf_counter()))
     launches.update(new, config13=0, config7=0)
+    fleet_kern = check_fleet_kernel(device)
+    marks.append(("phase 31 (fleet-kernel)", time.perf_counter()))
+    fleet_launches = check_fleet_windows(device)
+    marks.append(("phase 32 (fleet-windows)", time.perf_counter()))
+    c14 = run_config14(device)
+    fleet_launches.update(c14["launches"])
+    marks.append(("phase 33 (config14)", time.perf_counter()))
+    fleet_main = run_fleet_main(device)
+    fleet_launches.update({f"fleet-main-{k}": v["launches"] for k, v in fleet_main.items()})
+    marks.append(("phase 34 (fleet-main)", time.perf_counter()))
 
     last = t_start
     for what, at in marks:
         phase("time", f"{what}: {at - last:.1f} s")
         last = at
+    phase("time", f"command time in all: {time.perf_counter() - t_start:.1f} s")
 
     k1m = kern[(N_MAIN, 3, 8, 64, 0)]
     ksp = kern[SPARSE_CASE]
@@ -2350,7 +2972,7 @@ def main() -> int:
         "at_sparse_widths": {"n": N_SPARSE, "ms": ksp["ms"], "plain_ms": ksp["plain_ms"],
                              "bound_ms": ksp["bound_ms"], "max_abs_err": ksp["max_abs_err"]},
         "at_structured_inv": {"spec": "/".join(STRUCTURED_SPEC.values()), **kern_structured},
-    }]}), flush=True)
+    }, fleet_kernel_entry(fleet_kern, fleet_launches)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": 1,  # the one card the run used
     }}), flush=True)

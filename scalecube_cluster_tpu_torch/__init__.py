@@ -18,7 +18,9 @@ three engines, with the spread certifier (:mod:`.dissemination`,
 ``params.dissem``); the adaptive failure-detection plane on all three
 engines (:mod:`.adaptive`, ``params.adaptive``) and the chaos scenarios
 with their invariant sentinels (:mod:`.chaos`,
-``SimDriver.run_scenario``); :class:`.sim.SimDriver` /
+``SimDriver.run_scenario``); the fleet engine, S clusters advanced by
+one window on every engine with the batched chaos timeline and the Monte
+Carlo certifier over it (:mod:`.ops.fleet`); :class:`.sim.SimDriver` /
 :class:`.sim.SimCluster` over any engine; the engine policy
 :func:`.sim.driver.auto_params` and a copy of the JAX package's
 ``ClusterConfig`` (:mod:`.config`).

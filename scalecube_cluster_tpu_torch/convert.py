@@ -96,3 +96,21 @@ def state_to_numpy(state) -> dict:
         a = v.detach().cpu().numpy()
         out[f.name] = a.view(np.uint32) if f.name in u32 else a
     return out
+
+
+def fleet_from_numpy(arrays: dict, device="cuda"):
+    """Port fleet state (:mod:`.ops.fleet`) from a JAX fleet state's leaves
+    as numpy arrays, each stacked to [S, ...]; the [S] ticks must agree (a
+    port fleet shares one host tick)."""
+    ticks = np.unique(np.asarray(arrays["tick"]).reshape(-1))
+    if ticks.size != 1:
+        raise ValueError(f"a fleet shares one tick; these rows are at ticks {ticks.tolist()}")
+    return state_from_numpy({**arrays, "tick": ticks[0]}, device)
+
+
+def fleet_to_numpy(fleet_state) -> dict:
+    """The inverse of :func:`fleet_from_numpy`: the JAX fleet layout, the
+    shared tick repeated to [S] int32."""
+    out = state_to_numpy(fleet_state)
+    out["tick"] = np.full((fleet_state.up.shape[0],), fleet_state.tick, np.int32)
+    return out

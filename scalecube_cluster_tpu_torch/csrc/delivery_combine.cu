@@ -59,6 +59,17 @@
 // Nothing is carried between blocks beyond the count's atomic, and nothing
 // is allocated here: the wrapper allocates the outputs.
 //
+// The scenario axis (the fleet engine, ops/fleet.py): S independent
+// clusters folded by ONE launch. Every operand gains a leading [S] — the
+// sender planes through a per-scenario base stride each, inv [S, F, n],
+// origin [S, R], the outputs [S, n, ...], cnt [S] — and the grid holds
+// `bps` = ceil(n / rows-per-block) blocks per scenario, all in x (gridDim.y
+// stops at 65,535 and a fleet reaches S = 65,536), so a block never spans
+// two scenarios: its count goes to cnt[s] and a sender index j stays inside
+// scenario s's own planes. At N = 64 a scenario is 4 blocks of the vector
+// path, so a fleet of 1,024 is 4,096 blocks over the 132 SMs. The serial
+// launch is the same kernel with S = 1 and zero scenario strides.
+//
 // Plain C interface, bound from Python with ctypes (ops/delivery.py), which
 // also picks the instantiation (vector or scalar path, F template or
 // runtime F); the launcher refuses a pick the inputs do not allow.
@@ -92,22 +103,34 @@ template <> struct Chunk<false> {
 // for a runtime F folded kRuntimeBatch slots at a time.
 template <int G, bool kVec, int kF>
 __global__ void __launch_bounds__(kThreads) delivery_combine_kernel(
-    const int* __restrict__ ym, long long ym_stride,      // [n, Wm] words
-    const int* __restrict__ yu, long long yu_stride,      // [n, Wu] words
-    const int* __restrict__ from, long long from_stride,  // [n, R]
-    const int* __restrict__ inv,                          // [F, n]
-    const int* __restrict__ origin,                       // [R]
-    unsigned char* __restrict__ u_or,                     // [n, R]
-    int* __restrict__ src_max,                            // [n, R]
-    int* __restrict__ m_or,                               // [n, Wm]
-    int* __restrict__ cnt,                                // scalar, zeroed
-    int n, int F, int Wm, int R) {
+    const int* __restrict__ ym, long long ym_stride,      // [S, n, Wm] words
+    const int* __restrict__ yu, long long yu_stride,      // [S, n, Wu] words
+    const int* __restrict__ from, long long from_stride,  // [S, n, R]
+    long long ym_sstride, long long yu_sstride, long long from_sstride,
+    const int* __restrict__ inv,                          // [S, F, n]
+    const int* __restrict__ origin,                       // [S, R]
+    unsigned char* __restrict__ u_or,                     // [S, n, R]
+    int* __restrict__ src_max,                            // [S, n, R]
+    int* __restrict__ m_or,                               // [S, n, Wm]
+    int* __restrict__ cnt,                                // [S], zeroed
+    int n, int F, int Wm, int R, int bps) {
   using C = Chunk<kVec>;
   using V = typename C::T;
   constexpr int K = kF > 0 ? kF : kRuntimeBatch;
   static_assert(K <= G, "a group's lanes load its slots' inv entries");
   const int g = threadIdx.x % G;
-  const int row = blockIdx.x * (kThreads / G) + threadIdx.x / G;
+  // this block's scenario, and its row block within the scenario
+  const int sc = blockIdx.x / bps;
+  const int row = (blockIdx.x - sc * bps) * (kThreads / G) + threadIdx.x / G;
+  ym += sc * ym_sstride;
+  yu += sc * yu_sstride;
+  from += sc * from_sstride;
+  inv += (size_t)sc * F * n;
+  origin += (size_t)sc * R;
+  u_or += (size_t)sc * n * R;
+  src_max += (size_t)sc * n * R;
+  m_or += (size_t)sc * n * Wm;
+  cnt += sc;
   const bool live = row < n;  // dead lanes still take part in the shuffles
   const int chunks = Wm / C::kWords;
   const int slots = kF > 0 ? kF : F;
@@ -174,22 +197,28 @@ __global__ void __launch_bounds__(kThreads) delivery_combine_kernel(
 
 template <int G, bool kVec, int kF>
 cudaError_t launch(const int* ym, long long yms, const int* yu, long long yus,
-                   const int* from, long long frs, const int* inv, const int* origin,
+                   const int* from, long long frs, long long ymss, long long yuss,
+                   long long frss, const int* inv, const int* origin,
                    unsigned char* u_or, int* src_max, int* m_or, int* cnt,
-                   int n, int F, int Wm, int R, cudaStream_t stream) {
+                   int S, int n, int F, int Wm, int R, cudaStream_t stream) {
   constexpr int rows_per_block = kThreads / G;
-  const int blocks = (n + rows_per_block - 1) / rows_per_block;
-  delivery_combine_kernel<G, kVec, kF><<<blocks, kThreads, 0, stream>>>(
-      ym, yms, yu, yus, from, frs, inv, origin, u_or, src_max, m_or, cnt, n, F, Wm, R);
+  const int bps = (n + rows_per_block - 1) / rows_per_block;
+  const long long blocks = (long long)S * bps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  delivery_combine_kernel<G, kVec, kF><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      ym, yms, yu, yus, from, frs, ymss, yuss, frss, inv, origin, u_or, src_max, m_or, cnt,
+      n, F, Wm, R, bps);
   return cudaGetLastError();
 }
 
 template <int G, bool kVec>
 cudaError_t launch_f(int f_template, const int* ym, long long yms, const int* yu, long long yus,
-                     const int* from, long long frs, const int* inv, const int* origin,
+                     const int* from, long long frs, long long ymss, long long yuss,
+                     long long frss, const int* inv, const int* origin,
                      unsigned char* u_or, int* src_max, int* m_or, int* cnt,
-                     int n, int F, int Wm, int R, cudaStream_t stream) {
-#define DC_ARGS ym, yms, yu, yus, from, frs, inv, origin, u_or, src_max, m_or, cnt, n, F, Wm, R, stream
+                     int S, int n, int F, int Wm, int R, cudaStream_t stream) {
+#define DC_ARGS ym, yms, yu, yus, from, frs, ymss, yuss, frss, inv, origin, u_or, src_max, m_or, \
+                cnt, S, n, F, Wm, R, stream
   switch (f_template) {
     case 0: return launch<G, kVec, 0>(DC_ARGS);
     case 1: return launch<G, kVec, 1>(DC_ARGS);
@@ -201,24 +230,18 @@ cudaError_t launch_f(int f_template, const int* ym, long long yms, const int* yu
 #undef DC_ARGS
 }
 
-}  // namespace
-
-// vec: 1 for the vector path, 0 for the scalar path. f_template: F itself
-// (1..4) or 0 for the runtime-F instantiation. Row strides are in words.
-// Returns a cudaError_t: cudaErrorInvalidValue for a pick the inputs do
-// not allow, else the launch's own status.
-extern "C" int delivery_combine_launch(
-    const void* ym, long long ym_stride, const void* yu, long long yu_stride,
-    const void* from, long long from_stride, const void* inv, const void* origin,
-    void* u_or, void* src_max, void* m_or, void* cnt,
-    int n, int F, int Wm, int R, int vec, int f_template, void* stream) {
-  if (n <= 0) return 0;
+cudaError_t launch_any(const void* ym, long long ym_stride, const void* yu, long long yu_stride,
+                       const void* from, long long from_stride, long long ym_sstride,
+                       long long yu_sstride, long long from_sstride, const void* inv,
+                       const void* origin, void* u_or, void* src_max, void* m_or, void* cnt,
+                       int S, int n, int F, int Wm, int R, int vec, int f_template, void* stream) {
+  if (n <= 0 || S <= 0) return cudaSuccess;
   if (f_template < 0 || f_template > kMaxFTemplate || (f_template != 0 && f_template != F)) {
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   }
   if (vec && (Wm % 4 != 0 || (uintptr_t)ym % 16 != 0 || ym_stride % 4 != 0 ||
-              (uintptr_t)m_or % 16 != 0)) {
-    return (int)cudaErrorInvalidValue;
+              ym_sstride % 4 != 0 || (uintptr_t)m_or % 16 != 0)) {
+    return cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
   const int* a_ym = (const int*)ym;
@@ -230,10 +253,30 @@ extern "C" int delivery_combine_launch(
   int* o_src = (int*)src_max;
   int* o_m = (int*)m_or;
   int* o_cnt = (int*)cnt;
-  const cudaError_t err =
-      vec ? launch_f<16, true>(f_template, a_ym, ym_stride, a_yu, yu_stride, a_from, from_stride,
-                               a_inv, a_org, o_u, o_src, o_m, o_cnt, n, F, Wm, R, s)
-          : launch_f<32, false>(f_template, a_ym, ym_stride, a_yu, yu_stride, a_from, from_stride,
-                                a_inv, a_org, o_u, o_src, o_m, o_cnt, n, F, Wm, R, s);
-  return (int)err;
+  return vec ? launch_f<16, true>(f_template, a_ym, ym_stride, a_yu, yu_stride, a_from, from_stride,
+                                  ym_sstride, yu_sstride, from_sstride, a_inv, a_org, o_u, o_src,
+                                  o_m, o_cnt, S, n, F, Wm, R, s)
+             : launch_f<32, false>(f_template, a_ym, ym_stride, a_yu, yu_stride, a_from, from_stride,
+                                   ym_sstride, yu_sstride, from_sstride, a_inv, a_org, o_u, o_src,
+                                   o_m, o_cnt, S, n, F, Wm, R, s);
+}
+
+}  // namespace
+
+// One launch over S clusters (S = 1 for the serial call). *_stride: each
+// sender plane's row stride, *_sstride: its stride between scenarios, both
+// in words; inv, origin and the outputs are contiguous [S, ...]; cnt holds S
+// zeroed counts. vec: 1 for the vector path, 0 for the scalar path.
+// f_template: F itself (1..4) or 0 for the runtime-F instantiation.
+// Returns a cudaError_t: cudaErrorInvalidValue for a pick the inputs do
+// not allow, else the launch's own status.
+extern "C" int delivery_combine_launch(
+    const void* ym, long long ym_stride, const void* yu, long long yu_stride,
+    const void* from, long long from_stride, long long ym_sstride, long long yu_sstride,
+    long long from_sstride, const void* inv, const void* origin,
+    void* u_or, void* src_max, void* m_or, void* cnt,
+    int S, int n, int F, int Wm, int R, int vec, int f_template, void* stream) {
+  return (int)launch_any(ym, ym_stride, yu, yu_stride, from, from_stride, ym_sstride, yu_sstride,
+                         from_sstride, inv, origin, u_or, src_max, m_or, cnt, S, n, F, Wm, R, vec,
+                         f_template, stream);
 }

@@ -5,8 +5,9 @@ port of the JAX package's ``dissemination/``.
 See :mod:`.spec` for the strategy/topology catalog, :mod:`.strategies`
 for the engine seam, :mod:`.topology` for the chord generators, and
 :mod:`.certify` for the theory-vs-measured certification harness
-(``spread_certifier``; its Monte Carlo half is not ported yet, ROADMAP
-A9)."""
+(``spread_certifier``, and its Monte Carlo half over the fleet engine:
+``certify_spread_mc``, ``mc_spread_certifier``, ``fp_rate_mc``,
+``adaptive_knob_sweep``)."""
 
 from . import strategies, topology  # noqa: F401
 from .spec import DEFAULT, STRATEGIES, TOPOLOGIES, DissemSpec  # noqa: F401
@@ -17,7 +18,7 @@ def __getattr__(name):
     # params modules that only need the spec
     if name in ("certify", "spread_certifier", "measure_spread", "theory_bound",
                 "certify_spread_mc", "fp_rate_mc", "mc_spread_certifier",
-                "MC_MIN_SAMPLES"):
+                "adaptive_knob_sweep", "DEFAULT_MC_MATRIX", "MC_MIN_SAMPLES"):
         import importlib
 
         # an import of the submodule by name: ``from . import certify``

@@ -41,9 +41,15 @@ uniforms from a CUDA generator seeded per seed (the JAX harness's key
 chain plays this part there); ``draws=`` replaces that source, which is
 how the parity tests feed the port the JAX key chain. ``bus=`` (the
 telemetry bus) is refused until the telemetry plane is ported (ROADMAP
-A10); the Monte Carlo half (``certify_spread_mc``, ``mc_spread_certifier``,
-``fp_rate_mc``, ``adaptive_knob_sweep``) needs the fleet windows (A9).
-``wilson_interval`` and ``quantile_ci`` are ported.
+A10).
+
+The Monte Carlo half (``certify_spread_mc``, ``mc_spread_certifier``,
+``fp_rate_mc``, ``adaptive_knob_sweep``) runs S seeds as one fleet
+(:mod:`..ops.fleet`): folds on device, one [S] readback per cell. Its
+draw source is one generator drawing every scenario's block per site
+(``draws=`` replaces it with an ``n_ticks -> [(fd, round), ...]``
+callable of [S, ...] draws, which is how the parity tests feed the JAX
+fleet's per-row key chains).
 """
 
 from __future__ import annotations
@@ -577,21 +583,432 @@ def quantile_ci(sorted_samples, q: float, conf: float = 0.95) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# the Monte Carlo half: refused until the fleet windows are ported
+# the Monte Carlo half: fleet windows, on-device folds, one readback
 # ---------------------------------------------------------------------------
 
 
-def certify_spread_mc(*args, **kwargs):
-    _not_ported("Monte Carlo spread certification (certify_spread_mc, the fleet windows)", "A9")
+def _fleet_source(draws, seed: int, device):
+    """A fleet's draw source: ``draws`` itself (a generator, or an
+    ``n_ticks -> [(fd, round), ...]`` callable with [S, ...] leaves) when
+    given, else one generator on ``device`` seeded ``seed``
+    (:func:`..ops.fleet.fleet_generator`)."""
+    if draws is not None:
+        return draws
+    from ..ops.fleet import fleet_generator
+
+    return fleet_generator(seed, device)
 
 
-def mc_spread_certifier(*args, **kwargs):
-    _not_ported("the Monte Carlo certification matrix (mc_spread_certifier, the fleet windows)", "A9")
+def certify_spread_mc(
+    spec: DissemSpec,
+    n: int = 64,
+    n_seeds: int = MC_MIN_SAMPLES,
+    engine: str = "dense",
+    fanout: int = 3,
+    rumor_slots: int = 8,
+    window: int = 32,
+    base_seed: int = 0,
+    max_ticks: Optional[int] = None,
+    conf: float = 0.95,
+    device="cuda",
+    draws=None,
+) -> dict:
+    """Monte Carlo spread-time certification of one (strategy, topology)
+    cell: ``n_seeds`` clusters advance together in fleet windows
+    (:mod:`..ops.fleet`), the per-scenario ticks-to-full-coverage fold stays
+    on device across windows (one scalar read per window says whether every
+    scenario finished), and ONE [S] readback at the end feeds the interval
+    statistics. Scenario ``s`` starts its rumor at row ``(seed * 37 + 1) %
+    n`` with ``seed = base_seed + s``. ``draws`` is the fleet's draw source
+    (a generator on ``device``, or an ``n_ticks -> [(fd, round), ...]``
+    callable with [S, ...] draws); by default one generator on ``device``
+    seeded ``1000 + base_seed`` draws every scenario's block. The record
+    also carries ``per_seed_ticks`` (-1: never covered)."""
+    import dataclasses as _dc
+
+    from ..ops import fleet as FL
+
+    bound = theory_bound(spec, n, fanout, rumor_slots)
+    if max_ticks is None:
+        max_ticks = 4 * bound["bound_ticks"] + 4 * window
+    params, base, ops_mod = _SETUPS[engine](spec, n, fanout, rumor_slots, device)
+    if hasattr(params, "quiet_gates"):
+        # the fleet profile: the dense gates are value-identical no-ops
+        # when closed, so the fleet runs them open
+        params = _dc.replace(params, quiet_gates=False)
+    step = FL.make_fleet_run(params, window)
+    seeds = np.arange(n_seeds) + base_seed
+    origins = (seeds * 37 + 1) % n
+    fs = FL.fleet_inject_rumor(ops_mod, FL.fleet_broadcast(base(), n_seeds), 0, origins)
+    source = _fleet_source(draws, 1000 + base_seed, device)
+    hit = torch.full((n_seeds,), -1, dtype=torch.int32, device=device)
+    windows = 0
+    for w0 in range(0, max_ticks, window):
+        fs, ms, _w = step(fs, _window_source(source, window))
+        hit = FL.fold_first_full_coverage(hit, ms["rumor_coverage"][:, :, 0], w0)
+        windows += 1
+        # one scalar read per window (bounded by windows, never by seeds)
+        if bool((hit >= 0).all()):
+            break
+    ticks = hit.cpu().numpy()  # THE per-cell [S] readback
+    finished = int((ticks >= 0).sum())
+    good = np.sort(ticks[ticks >= 0])
+    within = int(((ticks >= 0) & (ticks <= bound["bound_ticks"])).sum())
+    wil = wilson_interval(within, n_seeds, conf)
+    med, med_ci = quantile_ci(good, 0.5, conf)
+    p99, p99_ci = quantile_ci(good, 0.99, conf)
+    p01, p01_ci = quantile_ci(good, 0.01, conf)
+    certified = (
+        finished == n_seeds
+        and p99_ci[1] is not None
+        and p99_ci[1] <= bound["bound_ticks"]
+        and wil[0] >= 0.99
+    )
+    if bound["lower_bound_ticks"]:
+        # the ring's linear class: even the fast tail must exceed the
+        # linear lower bound
+        certified = certified and (p01_ci[0] is not None and p01_ci[0] >= bound["lower_bound_ticks"])
+    hist = {}
+    if good.size:
+        vals, counts = np.unique(good, return_counts=True)
+        hist = {int(v): int(c) for v, c in zip(vals, counts)}
+    return {
+        "strategy": spec.strategy,
+        "topology": spec.topology,
+        "engine": engine,
+        "n": n,
+        "fanout": fanout,
+        "rumor_slots": rumor_slots,
+        "n_seeds": n_seeds,
+        "sample_size": n_seeds,
+        "base_seed": base_seed,
+        "verdict_kind": "monte-carlo" if n_seeds >= MC_MIN_SAMPLES else "spot-check",
+        "interval_method": (
+            f"Wilson {conf:.0%} on P(spread<=bound); distribution-free "
+            f"order-statistic {conf:.0%} CIs on quantiles (binomial rank "
+            "bracket, normal-approx ranks)"
+        ),
+        "confidence": conf,
+        "finished": finished,
+        "spread_ticks_min": int(good[0]) if good.size else None,
+        "spread_ticks_median": med,
+        "median_ci": list(med_ci),
+        "spread_ticks_p99": p99,
+        "p99_ci": list(p99_ci),
+        "p01_ci": list(p01_ci),
+        "spread_ticks_max": int(good[-1]) if good.size else None,
+        "within_bound": within,
+        "p_within_bound": round(within / n_seeds, 6),
+        "wilson": [round(wil[0], 6), round(wil[1], 6)],
+        "spread_histogram": hist,
+        "windows_dispatched": windows,
+        "window_ticks": window,
+        "fleet_devices": 1,
+        "per_seed_ticks": [int(t) for t in ticks],
+        **bound,
+        "certified": bool(certified),
+    }
 
 
-def fp_rate_mc(*args, **kwargs):
-    _not_ported("the Monte Carlo false-positive rate (fp_rate_mc, the fleet windows)", "A9")
+#: the default MC matrix: 12 (strategy x topology x engine) cells, the
+#: pview and sparse engines with cells of their own
+DEFAULT_MC_MATRIX = (
+    ("push", "full", "dense"),
+    ("push", "expander", "dense"),
+    ("push_pull", "full", "dense"),
+    ("push_pull", "expander", "dense"),
+    ("accelerated", "expander", "dense"),
+    ("accelerated", "ring", "dense"),
+    ("tuneable", "expander", "dense"),
+    ("pipelined", "expander", "dense"),
+    ("push", "expander", "pview"),
+    ("accelerated", "expander", "pview"),
+    ("push", "full", "sparse"),
+    ("push", "expander", "sparse"),
+)
 
 
-def adaptive_knob_sweep(*args, **kwargs):
-    _not_ported("the adaptive knob sweep (adaptive_knob_sweep, the fleet windows)", "A9")
+def mc_spread_certifier(
+    matrix=None,
+    n: int = 64,
+    n_seeds: int = MC_MIN_SAMPLES,
+    fanout: int = 3,
+    rumor_slots: int = 8,
+    window: int = 32,
+    pipeline_budget: int = 2,
+    geo_wan_delay_ticks: int = 2,
+    base_seed: int = 0,
+    bus=None,
+    log=None,
+    device="cuda",
+    draws: Optional[Callable] = None,
+) -> dict:
+    """Run the Monte Carlo certification matrix: one fleet per cell,
+    ``n_seeds`` scenarios each, Wilson and order-statistic intervals
+    recorded per entry. ``draws(strategy, topology, engine)``, when given,
+    returns a cell's draw source. ``bus`` is refused until the telemetry
+    plane is ported (ROADMAP A10)."""
+    if bus is not None:
+        _not_ported("publishing certification events on a telemetry bus (bus=)", "A10")
+    entries = []
+    for strat, topol, engine in tuple(matrix or DEFAULT_MC_MATRIX):
+        spec = DissemSpec(
+            strategy=strat,
+            topology=topol,
+            geo_wan_delay_ticks=geo_wan_delay_ticks if topol == "geo" else 0,
+            pipeline_budget=pipeline_budget,
+        )
+        rec = certify_spread_mc(
+            spec, n=n, n_seeds=n_seeds, engine=engine, fanout=fanout,
+            rumor_slots=rumor_slots, window=window, base_seed=base_seed, device=device,
+            draws=None if draws is None else draws(strat, topol, engine),
+        )
+        entries.append(rec)
+        if log:
+            log(
+                f"MC {engine}/{strat}/{topol}: {rec['finished']}/{n_seeds} "
+                f"finished, median {rec['spread_ticks_median']} "
+                f"p99 {rec['spread_ticks_p99']} "
+                f"(CI {rec['p99_ci']}) <= bound {rec['bound_ticks']}; "
+                f"P(within) wilson {rec['wilson']} "
+                f"{'OK' if rec['certified'] else 'VIOLATION'}"
+            )
+    return {
+        "n": n,
+        "n_seeds": n_seeds,
+        "fanout": fanout,
+        "rumor_slots": rumor_slots,
+        "window_ticks": window,
+        "entries": entries,
+        "certified_strategies": sorted({e["strategy"] for e in entries if e["certified"]}),
+        "certified_topologies": sorted({e["topology"] for e in entries if e["certified"]}),
+        "n_certified": sum(1 for e in entries if e["certified"]),
+        "n_entries": len(entries),
+        "total_trajectories": n_seeds * len(entries),
+        "ok": all(e["certified"] for e in entries),
+    }
+
+
+# -- Monte Carlo false-positive certification (the chaos sentinel, S-wide) ---
+
+#: the loss-adversarial cohort layout fp_rate_mc drives (config13's
+#: scenario without the delay-ring SlowMember)
+FP_MC_COHORT = dict(asym_rows=(5, 6, 7), flaky_rows=(9,), crash_row=20)
+
+
+def fp_rate_mc(
+    n: int = 48,
+    n_seeds: int = 512,
+    loss_floor=0.10,
+    adaptive: bool = False,
+    window: int = 16,
+    until: int = 200,
+    horizon: int = 240,
+    crash_at: int = 30,
+    base_seed: int = 0,
+    static_suspicion_mult: int = 3,
+    adaptive_knobs: Optional[dict] = None,
+    conf: float = 0.95,
+    device="cuda",
+    draws=None,
+) -> dict:
+    """Monte Carlo false-positive certification (the chaos sentinel's
+    check, S-wide): ``n_seeds`` clusters run the loss-adversarial scenario
+    (an AsymmetricLoss cohort, a FlakyObserver, one true Crash) over an
+    ambient uniform-loss floor through the batched timeline
+    (:func:`..ops.fleet.fleet_timeline`); per-scenario false-DEAD maxima
+    and crash-detection ticks latch on device at window boundaries and are
+    read back ONCE. Reports the Wilson interval on P(any false-DEAD) and
+    the detection latencies against the static detection budget.
+
+    ``loss_floor``: a scalar runs every scenario at one floor; an array
+    splits the fleet over a condition grid (scenario ``s`` at
+    ``loss_floor[s % len]``) and adds a ``per_floor`` breakdown. ``draws``
+    is the fleet's draw source (a generator on ``device``, or an ``n_ticks
+    -> [(fd, round), ...]`` callable with [S, ...] draws, consumed window
+    after window); by default one generator on ``device`` seeded
+    ``base_seed``. The record also carries ``per_seed_fp_max`` and
+    ``per_seed_det_tick``."""
+    from ..adaptive import AdaptiveSpec, init_adaptive_state
+    from ..chaos import events as ev
+    from ..chaos.sentinels import default_detect_budget
+    from ..ops import fleet as FL
+    from ..ops import state as S
+
+    knobs = adaptive_knobs or dict(min_mult=5, max_mult=10, conf_target=4, lh_max=8)
+    spec = AdaptiveSpec(enabled=True, **knobs) if adaptive else AdaptiveSpec()
+    params = S.SimParams(
+        capacity=n, fd_every=1, sync_every=40,
+        suspicion_mult=static_suspicion_mult, rumor_slots=8, seed_rows=(0,),
+        full_metrics=False, adaptive=spec,
+        quiet_gates=False,  # the fleet profile (see certify_spread_mc)
+    )
+    cohort = FP_MC_COHORT
+    watch_rows = tuple(cohort["asym_rows"]) + tuple(cohort["flaky_rows"])
+    crash_row = cohort["crash_row"]
+    scen = ev.Scenario(
+        name="loss_adversarial_mc_r15",
+        events=(
+            ev.AsymmetricLoss(rows=list(cohort["asym_rows"]), pct=70.0, at=4, until=until, direction="in"),
+            ev.FlakyObserver(rows=list(cohort["flaky_rows"]), pct=70.0, at=4, until=until),
+            ev.Crash(rows=[crash_row], at=crash_at),
+        ),
+        horizon=horizon,
+    )
+    floor_is_grid = np.ndim(loss_floor) > 0
+    floor_grid = np.atleast_1d(np.asarray(loss_floor, np.float32))
+    floors_s = floor_grid[np.arange(n_seeds) % floor_grid.size]
+    fs = FL.fleet_broadcast(S.init_state(params, n, warm=True, device=device), n_seeds)
+    if floor_grid.max() > 0:
+        fs = FL.fleet_uniform_loss(S, fs, floors_s)
+    source = _fleet_source(draws, base_seed, device)
+    ad = FL.fleet_broadcast(init_adaptive_state(n, device=device), n_seeds) if adaptive else None
+    tl = FL.fleet_timeline(scen, S, dense_links=True, horizon=horizon)
+    watch_mask = torch.zeros((n,), dtype=torch.bool, device=device)
+    watch_mask[list(watch_rows)] = True
+
+    steps: dict = {}  # window length -> fleet window
+
+    def _step(k: int):
+        if k not in steps:
+            steps[k] = FL.make_fleet_adaptive_run(params, k) if adaptive else FL.make_fleet_run(params, k)
+        return steps[k]
+
+    fp_max = torch.zeros((n_seeds,), dtype=torch.int32, device=device)
+    det_tick = torch.full((n_seeds,), -1, dtype=torch.int32, device=device)
+    boundaries = set(tl.boundaries())
+    t = 0
+    while t < horizon:
+        fs, _labels = tl.apply_due(fs, t)
+        stops = [horizon, t + window] + [b for b in boundaries if b > t]
+        stop = min(x for x in stops if x > t)
+        src = _window_source(source, stop - t)
+        if adaptive:
+            fs, ad, _ms, _w = _step(stop - t)(fs, ad, src)
+        else:
+            fs, _ms, _w = _step(stop - t)(fs, src)
+        t = stop
+        fp_max = torch.maximum(fp_max, FL.fleet_false_dead(fs, watch_mask))
+        if t > crash_at:
+            det = FL.fleet_crash_detected(fs, crash_row)
+            det_tick = torch.where((det_tick < 0) & det, t, det_tick).to(torch.int32)
+    fs, _labels = tl.apply_due(fs, horizon)
+    fp_np = fp_max.cpu().numpy()  # the one [S] readback pair
+    det_np = det_tick.cpu().numpy()
+    k_fp = int((fp_np > 0).sum())
+    wil = wilson_interval(k_fp, n_seeds, conf)
+    deadline = crash_at + default_detect_budget(params)
+    detected = det_np[det_np >= 0]
+    _p99d, p99d_ci = quantile_ci(np.sort(detected), 0.99, conf)
+    det_ok = int((det_np >= 0).sum()) == n_seeds and int(det_np.max()) <= deadline
+    per_floor = None
+    if floor_is_grid:
+        per_floor = []
+        for f in floor_grid:
+            m = floors_s == f
+            kf, nf = int((fp_np[m] > 0).sum()), int(m.sum())
+            wf = wilson_interval(kf, nf, conf)
+            df = det_np[m]
+            per_floor.append({
+                "loss_floor_pct": round(float(f) * 100, 2),
+                "n_seeds": nf,
+                "false_dead_scenarios": kf,
+                "fp_rate": round(kf / max(nf, 1), 6),
+                "fp_rate_wilson": [round(wf[0], 6), round(wf[1], 6)],
+                "crash_detected": int((df >= 0).sum()),
+                "crash_detect_max": int(df.max()) if (df >= 0).any() else None,
+            })
+    return {
+        "arm": "adaptive" if adaptive else "static",
+        "n": n,
+        "n_seeds": n_seeds,
+        "sample_size": n_seeds,
+        "verdict_kind": "monte-carlo" if n_seeds >= MC_MIN_SAMPLES else "spot-check",
+        "loss_floor_pct": (
+            [round(float(f) * 100, 2) for f in floor_grid] if floor_is_grid
+            else round(float(floor_grid[0]) * 100, 2)
+        ),
+        "per_floor": per_floor,
+        "scenario": scen.name,
+        "fp_watch_rows": list(watch_rows),
+        "false_dead_scenarios": k_fp,
+        "fp_rate": round(k_fp / n_seeds, 6),
+        "fp_rate_wilson": [round(wil[0], 6), round(wil[1], 6)],
+        "interval_method": f"Wilson {conf:.0%} on P(false-DEAD > 0)",
+        "crash_detected": int((det_np >= 0).sum()),
+        "crash_detect_deadline": int(deadline),
+        "crash_detect_max": int(det_np.max()) if detected.size else None,
+        "crash_detect_p99_ci": list(p99d_ci),
+        "crash_detect_window_ticks": window,
+        "detections_ok": bool(det_ok),
+        "static_suspicion_mult": static_suspicion_mult,
+        "adaptive_knobs": knobs if adaptive else None,
+        "per_seed_fp_max": [int(x) for x in fp_np],
+        "per_seed_det_tick": [int(x) for x in det_np],
+    }
+
+
+def adaptive_knob_sweep(
+    min_mults: Sequence[int] = (3, 5, 8),
+    conf_targets: Sequence[int] = (2, 4),
+    loss_floors: Sequence[float] = (0.0, 0.10, 0.20),
+    n: int = 48,
+    n_seeds_per_floor: int = 171,
+    window: int = 16,
+    horizon: int = 240,
+    base_seed: int = 0,
+    fp_budget: float = 0.03,
+    conf: float = 0.95,
+    log=None,
+    device="cuda",
+    draws: Optional[Callable] = None,
+) -> dict:
+    """The offline adaptive-knob map: :func:`fp_rate_mc` over a (min_mult x
+    conf_target x loss-floor) grid, one fleet per knob pair sweeping every
+    floor (``n_seeds_per_floor`` scenarios each; ``max_mult`` is ``2 *
+    min_mult``). Per floor, ``recommended`` is the fastest knob (lowest
+    ``min_mult``) whose false-DEAD Wilson upper bound stays within
+    ``fp_budget``. ``draws(knobs)``, when given, returns a cell's draw
+    source."""
+    floors = [float(f) for f in loss_floors]
+    n_seeds = n_seeds_per_floor * len(floors)
+    cells = []
+    for mm in min_mults:
+        for ct in conf_targets:
+            knobs = dict(min_mult=int(mm), max_mult=int(2 * mm), conf_target=int(ct), lh_max=8)
+            rec = fp_rate_mc(
+                n=n, n_seeds=n_seeds, loss_floor=np.asarray(floors),
+                adaptive=True, window=window, horizon=horizon,
+                base_seed=base_seed, adaptive_knobs=knobs, conf=conf, device=device,
+                draws=None if draws is None else draws(knobs),
+            )
+            cells.append(rec)
+            if log:
+                log(
+                    f"knob map min_mult={mm} conf_target={ct}: fp/floor "
+                    + " ".join(f"{p['loss_floor_pct']}%:{p['fp_rate']:.3f}" for p in rec["per_floor"])
+                    + f" detect_max={rec['crash_detect_max']}"
+                )
+    recommended = {}
+    for i, f in enumerate(floors):
+        best = None
+        for rec in cells:
+            p = rec["per_floor"][i]
+            if p["fp_rate_wilson"][1] <= fp_budget:
+                k = rec["adaptive_knobs"]
+                if best is None or k["min_mult"] < best["min_mult"]:
+                    best = dict(k, fp_rate=p["fp_rate"], fp_rate_wilson=p["fp_rate_wilson"],
+                                crash_detect_max=p["crash_detect_max"])
+        recommended[str(round(f * 100, 2))] = best
+    return {
+        "n": n,
+        "n_seeds_per_floor": n_seeds_per_floor,
+        "min_mults": [int(m) for m in min_mults],
+        "conf_targets": [int(c) for c in conf_targets],
+        "loss_floor_pcts": [round(f * 100, 2) for f in floors],
+        "fp_budget": fp_budget,
+        "sample_size": n_seeds,
+        "verdict_kind": "monte-carlo" if n_seeds >= MC_MIN_SAMPLES else "spot-check",
+        "cells": cells,
+        "recommended": recommended,
+    }

@@ -17,4 +17,7 @@
   one [N, N] view plane.
 * :mod:`engine_api` — the engine descriptor the driver resolves through,
   and the view-plane seams dense and sparse share.
+* :mod:`fleet`      — the fleet engine: S clusters per window (each engine's
+  tick under ``torch.func.vmap``), the batched chaos timeline and the Monte
+  Carlo folds.
 """

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from ._tensor import in_fleet
+
 WORD = 32
 MASK32 = 0xFFFFFFFF
 
@@ -45,17 +47,27 @@ def pack_bits(x: torch.Tensor) -> torch.Tensor:
     pad = w * WORD - L
     if pad:
         x = torch.cat([x, x.new_zeros((*lead, pad))], dim=-1)
-    bits = x.reshape(*lead, w, 4, 8).view(torch.uint8)  # a bool is one byte, 0 or 1
+    x = x.reshape(*lead, w, 4, 8)
+    # a bool is one byte, 0 or 1 (a fleet tick converts: vmap batches no
+    # dtype view, :mod:`._tensor`)
+    bits = x.to(torch.uint8) if in_fleet() else x.view(torch.uint8)
     byte = bits[..., 0].clone()
     for b in range(1, 8):
         byte |= bits[..., b] << b
+    if in_fleet():
+        v = byte.to(torch.int64)
+        return to_i32(v[..., 0] | (v[..., 1] << 8) | (v[..., 2] << 16) | (v[..., 3] << 24))
     return byte.contiguous().view(torch.int32).reshape(*lead, w)
 
 
 def unpack_bits(p: torch.Tensor, length: int) -> torch.Tensor:
     """int32 [..., W] words -> bool [..., length]."""
     *lead, w = p.shape
-    byte = p.contiguous().view(torch.uint8).reshape(*lead, w * 4)
+    if in_fleet():
+        byte = torch.stack([(p >> (8 * k)) & 0xFF for k in range(4)], dim=-1).to(torch.uint8)
+        byte = byte.reshape(*lead, w * 4)
+    else:
+        byte = p.contiguous().view(torch.uint8).reshape(*lead, w * 4)
     bits = torch.stack([(byte >> b) & 1 for b in range(8)], dim=-1)
     return bits.reshape(*lead, w * WORD)[..., :length].to(torch.bool)
 
@@ -139,8 +151,8 @@ def select_bit(word: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     uint32 bits), by a 32-step sweep; ranks below 1 or above the word's
     popcount give 0 (the callers mask those slots)."""
     r = r.to(torch.int32)
-    cnt = torch.zeros(word.shape, dtype=torch.int32, device=word.device)
-    out = torch.zeros(word.shape, dtype=torch.int32, device=word.device)
+    cnt = torch.zeros_like(word, dtype=torch.int32)
+    out = torch.zeros_like(word, dtype=torch.int32)
     for b in range(WORD):
         bit = ((word >> b) & 1).to(torch.int32)
         cnt += bit

@@ -13,6 +13,16 @@ per-fanout-slot inverse-elected senders into its rumor accumulators.
   the card. A CPU tensor goes to the plain version (the one place the
   planes are concatenated); a CUDA tensor goes to the kernel, or the call
   raises. ``delivery_combine.launches`` counts kernel launches.
+* :func:`delivery_combine_fleet` — the scenario axis: S clusters' planes
+  ``[S, ...]`` folded by ONE launch of the same kernel, counts ``[S]``; on
+  CPU tensors :func:`delivery_combine_fleet_ref`, the plain version over
+  the scenario axis. ``delivery_combine_fleet.launches`` counts its
+  launches. Both wrappers launch through the kernel's one entry
+  (``delivery_combine_launch``); the serial call is the launch with S = 1.
+* :func:`delivery_combine` is a ``torch.library.custom_op``: under
+  ``torch.func.vmap`` (the fleet tick, :mod:`.fleet`) its vmap rule calls
+  :func:`delivery_combine_fleet`, so a fleet gossip tick launches the kernel
+  once, not once per scenario.
 * :func:`instantiation` — which compiled variant of the kernel a call
   takes.
 """
@@ -24,6 +34,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._tensor import fleet_scope
 from .bitplane import unpack_bits, words_for
 
 VECTOR_ALIGN = 16  # bytes of one vector load of a membership chunk
@@ -79,14 +90,13 @@ def instantiation(Wm: int, F: int, ym_ptr: int, ym_row_stride: int) -> tuple[str
 
 
 _ARGTYPES = (
-    [ctypes.c_void_p, ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    [ctypes.c_void_p, ctypes.c_longlong] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 )
 
 
 def _kernel():
-    lib = _build.library("delivery_combine")
-    fn = lib.delivery_combine_launch
+    fn = _build.library("delivery_combine").delivery_combine_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
@@ -131,29 +141,140 @@ def delivery_combine(ym_p, yu_p, infected_from, inv, rumor_origin):
         ("rumor_origin", rumor_origin, (R,), False),
     ):
         _check(name, t, torch.int32, shape, dev, rows_only)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"delivery_combine: unsupported device {dev}")
+    return _delivery_op(ym_p, yu_p, infected_from, inv, rumor_origin)
+
+
+@torch.library.custom_op("scalecube_port::delivery_combine", mutates_args=())
+def _delivery_op(ym_p: torch.Tensor, yu_p: torch.Tensor, infected_from: torch.Tensor,
+                 inv: torch.Tensor, rumor_origin: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The combine on checked planes: the plain version on CPU, the kernel
+    on CUDA. An operator, so that ``torch.func.vmap`` takes its vmap rule."""
+    dev = ym_p.device
+    F, n = inv.shape
+    Wm, R = ym_p.shape[1], infected_from.shape[1]
     if dev.type == "cpu":
         payload = torch.cat([ym_p, yu_p, infected_from], dim=1)
         return delivery_combine_ref(payload, inv, rumor_origin, Wm, R)
     if dev.type != "cuda":
         raise ValueError(f"delivery_combine: unsupported device {dev}")
-    path, f_template = instantiation(Wm, F, ym_p.data_ptr(), ym_p.stride(0))
-    u_or = torch.empty((n, R), dtype=torch.uint8, device=dev)
-    src_max = torch.empty((n, R), dtype=torch.int32, device=dev)
-    m_or = torch.empty((n, Wm), dtype=torch.int32, device=dev)
-    cnt = torch.zeros((), dtype=torch.int32, device=dev)
+    u_or, src_max, m_or, cnt = _launch(ym_p[None], yu_p[None], infected_from[None],
+                                       inv[None], rumor_origin[None])
+    delivery_combine.launches += 1
+    return u_or[0], src_max[0], m_or[0], cnt[0]
+
+
+def delivery_combine_fleet_ref(ym_p, yu_p, infected_from, inv, rumor_origin):
+    """The plain version over a scenario axis, :func:`delivery_combine_ref`'s
+    spelling with a leading [S] on every operand (each scenario's senders
+    gathered from its own planes): ``(u_or [S, N, R], src_max [S, N, R],
+    m_or [S, N, Wm], cnt [S])``."""
+    S, F, n = inv.shape
+    Wm, R = ym_p.shape[-1], infected_from.shape[-1]
+    payload = torch.cat([ym_p, yu_p, infected_from], dim=2)  # [S, N, Wt]
+    Wt = payload.shape[2]
+    Wu = Wt - Wm - R
+    rows = torch.arange(n, device=inv.device, dtype=torch.int32)
+    j_all = inv.clamp(min=0)
+    has_all = (inv >= 0)[..., None]
+    idx = j_all.long().reshape(S, F * n, 1).expand(S, F * n, Wt)
+    pl_all = payload.gather(1, idx).view(S, F, n, Wt)
+    yu_all = unpack_bits(pl_all[..., Wm : Wm + Wu], R)
+    from_all = pl_all[..., Wm + Wu :]
+    deliver = (
+        yu_all
+        & has_all
+        & (from_all != rows[None, None, :, None])
+        & (rumor_origin[:, None, None, :] != rows[None, None, :, None])
+    )
+    u_or = deliver.any(dim=1)
+    src_max = torch.where(deliver, j_all[..., None], -1).amax(dim=1).to(torch.int32)
+    m_or = torch.zeros((S, n, Wm), dtype=torch.int32, device=payload.device)
+    for f in range(F):
+        m_or |= torch.where(has_all[:, f], pl_all[:, f, :, :Wm], 0)
+    cnt = deliver.sum(dim=(1, 2, 3)).to(torch.int32)
+    return u_or, src_max, m_or, cnt
+
+
+def delivery_combine_fleet(ym_p, yu_p, infected_from, inv, rumor_origin):
+    """:func:`delivery_combine` over a leading scenario axis, in ONE launch:
+    ``ym_p`` [S, N, Wm], ``yu_p`` [S, N, ceil(R / 32)], ``infected_from``
+    [S, N, R] (each with its words adjacent within a row, any row and
+    scenario strides), ``inv`` [S, F, N], ``rumor_origin`` [S, R] (int32).
+    Returns ``(u_or [S, N, R], src_max [S, N, R], m_or [S, N, Wm], cnt
+    [S])``. CPU tensors take :func:`delivery_combine_fleet_ref`."""
+    dev = ym_p.device
+    S, F, n = inv.shape
+    Wm = ym_p.shape[-1] if ym_p.dim() == 3 else -1
+    R = infected_from.shape[-1] if infected_from.dim() == 3 else -1
+    inv = inv.contiguous()
+    rumor_origin = rumor_origin.contiguous()
+    for name, t, shape in (
+        ("ym_p", ym_p, (S, n, Wm)),
+        ("yu_p", yu_p, (S, n, words_for(R))),
+        ("infected_from", infected_from, (S, n, R)),
+        ("inv", inv, (S, F, n)),
+        ("rumor_origin", rumor_origin, (S, R)),
+    ):
+        if t.device != dev or t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"delivery_combine_fleet: {name} {t.dtype}{tuple(t.shape)} on {t.device}, "
+                             f"expected int32{shape} on {dev}")
+    planes = []
+    for t in (ym_p, yu_p, infected_from):
+        planes.append(t if t.shape[-1] <= 1 or t.stride(-1) == 1 else t.contiguous())
+    ym_p, yu_p, infected_from = planes
+    if dev.type == "cpu":
+        return delivery_combine_fleet_ref(ym_p, yu_p, infected_from, inv, rumor_origin)
+    if dev.type != "cuda":
+        raise ValueError(f"delivery_combine_fleet: unsupported device {dev}")
+    out = _launch(ym_p, yu_p, infected_from, inv, rumor_origin)
+    delivery_combine_fleet.launches += 1
+    return out
+
+
+def _launch(ym_p, yu_p, infected_from, inv, rumor_origin):
+    """One launch of the kernel on checked CUDA planes with a leading [S]
+    (S = 1 for the serial wrapper; a lone scenario's strides are 0)."""
+    dev = ym_p.device
+    S, F, n = inv.shape
+    Wm, R = ym_p.shape[-1], infected_from.shape[-1]
+    sstrides = [0 if S == 1 else t.stride(0) for t in (ym_p, yu_p, infected_from)]
+    path, f_template = instantiation(Wm, F, ym_p.data_ptr(), ym_p.stride(1))
+    if sstrides[0] % 4:
+        path = "scalar"
+    u_or = torch.empty((S, n, R), dtype=torch.uint8, device=dev)
+    src_max = torch.empty((S, n, R), dtype=torch.int32, device=dev)
+    m_or = torch.empty((S, n, Wm), dtype=torch.int32, device=dev)
+    cnt = torch.zeros((S,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _kernel()(
-            ym_p.data_ptr(), ym_p.stride(0), yu_p.data_ptr(), yu_p.stride(0),
-            infected_from.data_ptr(), infected_from.stride(0),
+            ym_p.data_ptr(), ym_p.stride(1), yu_p.data_ptr(), yu_p.stride(1),
+            infected_from.data_ptr(), infected_from.stride(1), *sstrides,
             inv.data_ptr(), rumor_origin.data_ptr(),
             u_or.data_ptr(), src_max.data_ptr(), m_or.data_ptr(), cnt.data_ptr(),
-            n, F, Wm, R, int(path == "vector"), f_template, stream,
+            S, n, F, Wm, R, int(path == "vector"), f_template, stream,
         )
     if err != 0:
         raise RuntimeError(f"delivery_combine kernel launch failed: cudaError {err}")
-    delivery_combine.launches += 1
     return u_or.view(torch.bool), src_max, m_or, cnt
 
 
+@_delivery_op.register_vmap
+def _delivery_combine_vmap(info, in_dims, ym_p, yu_p, infected_from, inv, rumor_origin):
+    """Under the fleet's vmap: every operand with its scenario axis first
+    (an unbatched one broadcast), one :func:`delivery_combine_fleet` call."""
+    s = info.batch_size
+
+    def lead(t, d):
+        return t.expand((s,) + tuple(t.shape)) if d is None else t.movedim(d, 0)
+
+    args = [lead(t, d) for t, d in zip((ym_p, yu_p, infected_from, inv, rumor_origin), in_dims)]
+    with fleet_scope(0):
+        return delivery_combine_fleet(*args), (0, 0, 0, 0)
+
+
 delivery_combine.launches = 0
+delivery_combine_fleet.launches = 0

@@ -36,6 +36,14 @@ class EngineOps:
     key_plane: Callable  # state -> the packed-key plane (its dtype is the layout)
     pool_slots: Callable  # params -> bounded pool size, or None (no pool)
     dense_links_default: bool
+    # (params, n_ticks) -> fleet window run(fleet_state, draws, watch_rows=None)
+    # over a leading [S] scenario axis (ops/fleet.py), and its adaptive twin
+    # run(fleet_state, ad, draws, watch_rows=None); the fused name is the same
+    make_fleet_run: Callable = None
+    make_fleet_adaptive_run: Callable = None
+    #: a fleet window's peak-memory budget factor, peak / (S x one state);
+    #: None inherits the serial budget (the JAX engines' declared values)
+    fleet_memory_factor: float | None = None
 
     @property
     def has_pool(self) -> bool:
@@ -46,6 +54,11 @@ class EngineOps:
     def make_fused_adaptive_run(self) -> Callable:
         """The JAX name of the fused adaptive window: the same window."""
         return self.make_adaptive_run
+
+    @property
+    def make_fused_fleet_run(self) -> Callable:
+        """The JAX name of the fused fleet window: the same window."""
+        return self.make_fleet_run
 
 
 # -- the seams of the two engines that hold the full [N, N] view plane (dense
@@ -121,6 +134,8 @@ def _dense_engine() -> EngineOps:
         key_plane=lambda state: state.view_key,
         pool_slots=None,
         dense_links_default=True,
+        make_fleet_run=K.make_fleet_run,
+        make_fleet_adaptive_run=K.make_fleet_adaptive_run,
     )
 
 
@@ -149,6 +164,9 @@ def _pview_engine() -> EngineOps:
         key_plane=lambda state: state.nbr_key,
         pool_slots=lambda params: params.mr_pool,
         dense_links_default=False,
+        make_fleet_run=PV.make_pview_fleet_run,
+        make_fleet_adaptive_run=PV.make_pview_fleet_adaptive_run,
+        fleet_memory_factor=5.5,
     )
 
 
@@ -172,6 +190,9 @@ def _sparse_engine() -> EngineOps:
         key_plane=lambda state: state.view_key,
         pool_slots=lambda params: params.mr_slots,
         dense_links_default=False,
+        make_fleet_run=SP.make_sparse_fleet_run,
+        make_fleet_adaptive_run=SP.make_sparse_fleet_adaptive_run,
+        fleet_memory_factor=6.0,
     )
 
 

@@ -56,9 +56,9 @@ none of it runs. :func:`sentinel_core` is the chaos sentinels' check over
 the [N, N] view plane, in row chunks.
 
 Not ported yet, and refused: trace capture (``tick(trace=...)``, the
-traced window, telemetry: ROADMAP A10, second half) and the fleet windows
-(``make_fleet_run``, ``make_fused_fleet_run``, ``make_fleet_adaptive_run``:
-A9).
+traced window, telemetry: ROADMAP A10, second half). The fleet windows
+(``make_fleet_run``, its fused name, ``make_fleet_adaptive_run``) run this
+tick under ``torch.func.vmap`` (:mod:`.fleet`).
 """
 
 from __future__ import annotations
@@ -68,7 +68,7 @@ import torch
 from .. import adaptive as _adp
 from ..dissemination import strategies as dz
 from . import bitplane as bp
-from ._tensor import first_true, host_flags, nonzero_fixed, plane_chunks, scatter_reduce_1d
+from ._tensor import first_true, host_flags, index_amax_, maximum_into_, nonzero_fixed, plane_chunks, scatter_reduce_1d
 from ._tick import count_i32 as _i32
 from ._tick import seed_rows_tensor as _seed_rows_tensor
 from .engine_api import plane_view_rows as view_rows
@@ -106,7 +106,8 @@ def _live_view_mask(state: SimState) -> torch.Tensor:
     """bool [N, N]: j is in i's member list (known, not DEAD, not self).
     The unknown key -1 reads rank 3 too."""
     live = (state.view_key & 3) != RANK_DEAD
-    return live.fill_diagonal_(False)
+    live.diagonal().fill_(False)
+    return live
 
 
 def _known_live_words(state: SimState) -> torch.Tensor:
@@ -118,7 +119,7 @@ def _cluster_size(state: SimState) -> torch.Tensor:
     """int32 [N]: node i's view of the cluster size (itself included),
     over row chunks."""
     n = state.capacity
-    out = torch.empty((n,), dtype=torch.int32, device=state.device)
+    out = state.view_key.new_empty((n,), dtype=torch.int32)
     for lo, hi in plane_chunks(n, n):
         out[lo:hi] = ((state.view_key[lo:hi] & 3) != RANK_DEAD).sum(dim=1, dtype=torch.int32)
     return out
@@ -296,7 +297,7 @@ def _fd_phase(state: SimState, r: FdRandoms, params: SimParams, ad=None):
         sus_w = accept & ~ack
         metrics["_ad_miss"] = has_tgt & ~ack
         metrics["_ad_succ"] = has_tgt & ack
-        metrics["_ad_cnt"] = torch.zeros((n,), dtype=torch.int32, device=state.device).index_add_(
+        metrics["_ad_cnt"] = sus_w.new_zeros((n,), dtype=torch.int32).index_add_(
             0, tgt, sus_w.to(torch.int32)
         )
         metrics["_ad_key"] = scatter_reduce_1d(
@@ -332,13 +333,13 @@ def _gate_flags(state: SimState, params: SimParams):
     young = torch.zeros((), dtype=torch.bool, device=dev)
     for lo, hi in plane_chunks(n, n):
         blk = vk[lo:hi]
-        sus |= ((blk & 3) == RANK_SUSPECT).any()
-        young |= ((blk >= 0) & (ca[lo:hi] > horizon)).any()
+        sus = sus | ((blk & 3) == RANK_SUSPECT).any()
+        young = young | ((blk >= 0) & (ca[lo:hi] > horizon)).any()
     inf_b = bp.unpack_bits(state.infected, params.rumor_slots)
-    young |= (inf_b & state.rumor_active[None, :] & (state.infected_at > horizon)).any()
+    young = young | (inf_b & state.rumor_active[None, :] & (state.infected_at > horizon)).any()
     if params.delay_slots:
         slot_now = state.tick % params.delay_slots
-        young |= (state.pending_key[slot_now] > _noc(params)).any() | (state.pending_inf[slot_now] != 0).any()
+        young = young | (state.pending_key[slot_now] > _noc(params)).any() | (state.pending_inf[slot_now] != 0).any()
     return sus, young
 
 
@@ -444,12 +445,12 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
     del young
     # buf = max(own, every delivered candidate) cellwise; row n is a spare
     # that takes the rows delivering nothing now
-    buf = torch.empty((n + 1, n), dtype=vk.dtype, device=dev)
+    buf = vk.new_empty((n + 1, n))
     buf[n] = NOC
-    recv_inf = torch.zeros((n + 1, R), dtype=torch.uint8, device=dev)
-    recv_src = torch.full((n + 1, R), -1, dtype=torch.int32, device=dev)
+    recv_inf = vk.new_zeros((n + 1, R), dtype=torch.uint8)
+    recv_src = vk.new_full((n + 1, R), -1, dtype=torch.int32)
     if D:
-        torch.maximum(vk, arriving_key, out=buf[:n])
+        maximum_into_(buf[:n], vk, arriving_key)
         recv_inf[:n] = arriving_inf
         recv_src[:n] = state.pending_src[slot_now]
         pend_key = state.pending_key.view(D * n, n)
@@ -465,9 +466,9 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
         # rumor here, nor to its origin
         payload_r = rumor_pay & (state.infected_from != p[:, None]) & (state.rumor_origin[None, :] != p[:, None])
         ok = peer_valid[:, s] & (young_any | payload_r.any(dim=1)) & _edge_ok(state, rows, p, r.gossip_edge[:, s])
-        sent += _i32(ok)
+        sent = sent + _i32(ok)
         send_r = payload_r & ok[:, None]
-        rumor_sent += _i32(send_r)
+        rumor_sent = rumor_sent + _i32(send_r)
         src_r = torch.where(send_r, rows32[:, None], -1)
         if D:
             # per-edge delay d, P(d >= k) = q^k, capped at D - 1: sequential
@@ -483,19 +484,19 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
             # a late message lands in slot (tick + d) % D, never the current
             # one; the other rows go to the current slot, cleared below
             late_idx = torch.where(ok_late, ((state.tick + d) % D) * n + p, slot_now * n + p)
-            pend_key.index_reduce_(0, late_idx, piggyback, "amax")
-            pend_inf.index_reduce_(0, late_idx, send_r.to(torch.uint8), "amax")
-            pend_src.index_reduce_(0, late_idx, src_r, "amax")
+            index_amax_(pend_key, late_idx, piggyback)
+            index_amax_(pend_inf, late_idx, send_r.to(torch.uint8))
+            index_amax_(pend_src, late_idx, src_r)
         else:
             ok_now = ok
         now_idx = torch.where(ok_now, p, n)
-        buf.index_reduce_(0, now_idx, piggyback, "amax")
-        recv_inf.index_reduce_(0, now_idx, send_r.to(torch.uint8), "amax")
-        recv_src.index_reduce_(0, now_idx, src_r, "amax")
+        index_amax_(buf, now_idx, piggyback)
+        index_amax_(recv_inf, now_idx, send_r.to(torch.uint8))
+        index_amax_(recv_src, now_idx, src_r)
         if spec.wants_pull:
             s_m, r_m = _pull_reply(state, s, p, ok_now, piggyback, rumor_pay, buf, recv_inf, recv_src, NOC)
-            sent += s_m
-            rumor_sent += r_m
+            sent = sent + s_m
+            rumor_sent = rumor_sent + r_m
     del piggyback
 
     cols = rows[None, :]
@@ -512,9 +513,9 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
             accept &= state.ns_rel[state.ns_id[lo:hi, None].long(), state.ns_id[None, :].long()]
         if adaptive:
             sus_acc = accept & ((b & 3) == RANK_SUSPECT)
-            ev["_ad_cnt"] += sus_acc.sum(dim=0, dtype=torch.int32)
-            torch.maximum(ev["_ad_key"], torch.where(sus_acc, b.to(torch.int32), NO_CANDIDATE_I32).amax(dim=0),
-                          out=ev["_ad_key"])
+            ev["_ad_cnt"] = ev["_ad_cnt"] + sus_acc.sum(dim=0, dtype=torch.int32)
+            ev["_ad_key"] = torch.maximum(
+                ev["_ad_key"], torch.where(sus_acc, b.to(torch.int32), NO_CANDIDATE_I32).amax(dim=0))
             del sus_acc
         own.copy_(torch.where(accept, b, own))
         ca[lo:hi].masked_fill_(accept, state.tick)
@@ -555,7 +556,7 @@ def _pull_reply(state: SimState, s: int, p, ok_now, piggyback, rumor_pay, buf, r
     rev_ok = ok_now & (rev_u < (1.0 - _loss_at(state, p, rows)))
     for lo, hi in plane_chunks(n, n):
         got = piggyback.index_select(0, p[lo:hi]).masked_fill_(~rev_ok[lo:hi, None], NOC)
-        torch.maximum(buf[lo:hi], got, out=buf[lo:hi])
+        maximum_into_(buf[lo:hi], buf[lo:hi], got)
         del got
     reply_r = (
         rumor_pay[p]
@@ -564,7 +565,7 @@ def _pull_reply(state: SimState, s: int, p, ok_now, piggyback, rumor_pay, buf, r
         & rev_ok[:, None]
     )
     recv_inf[:n] |= reply_r.to(torch.uint8)
-    torch.maximum(recv_src[:n], torch.where(reply_r, p.to(torch.int32)[:, None], -1), out=recv_src[:n])
+    maximum_into_(recv_src[:n], recv_src[:n], torch.where(reply_r, p.to(torch.int32)[:, None], -1))
     return _i32(rev_ok), _i32(reply_r)
 
 
@@ -613,8 +614,8 @@ def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams, adaptive: b
     # naming one peer compute the same row, so the row write is exact
     own_p = vk[peer]
     dup_to_first = first_true(peer[:, None] == peer[None, :], 1)
-    merged = torch.full((K, n), NOC, dtype=vk.dtype, device=dev)
-    merged.index_reduce_(0, dup_to_first, caller_tables.masked_fill(~ok[:, None], NOC), "amax")
+    merged = caller_tables.new_full((K, n), NOC)
+    index_amax_(merged, dup_to_first, caller_tables.masked_fill(~ok[:, None], NOC))
     buf_p = torch.maximum(own_p, merged[dup_to_first])
     acc = (
         (buf_p > own_p)
@@ -625,8 +626,8 @@ def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams, adaptive: b
     )
     if params.namespace_gate:
         acc &= state.ns_rel[state.ns_id[peer][:, None].long(), state.ns_id[None, :].long()]
-    vk.index_reduce_(0, peer, torch.where(acc, buf_p, own_p), "amax")
-    ca.index_reduce_(0, peer, torch.where(acc, state.tick, NEVER).to(torch.int32), "amax")
+    index_amax_(vk, peer, torch.where(acc, buf_p, own_p))
+    index_amax_(ca, peer, torch.where(acc, state.tick, NEVER).to(torch.int32))
     if adaptive:
         karange = torch.arange(K, device=dev)
         peer_eff = torch.where(ok, peer, -1 - karange)
@@ -648,8 +649,8 @@ def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams, adaptive: b
     )
     if params.namespace_gate:
         accept &= state.ns_rel[state.ns_id[caller][:, None].long(), state.ns_id[None, :].long()]
-    vk.index_reduce_(0, caller, torch.where(accept, ack_cand, own_rows), "amax")
-    ca.index_reduce_(0, caller, torch.where(accept, state.tick, NEVER).to(torch.int32), "amax")
+    index_amax_(vk, caller, torch.where(accept, ack_cand, own_rows))
+    index_amax_(ca, caller, torch.where(accept, state.tick, NEVER).to(torch.int32))
 
     # a joiner's bootstrap SYNC retries every tick until a round trip lands
     ok_full = scatter_reduce_1d(n, caller, ok, "amax", 0, torch.int32) > 0
@@ -710,8 +711,8 @@ def state_metrics(state: SimState, params: SimParams, inf_b: torch.Tensor, n_up:
         for lo, hi in plane_chunks(n, n):
             rank = state.view_key[lo:hi] & 3
             pair = state.up[lo:hi, None] & state.up[None, :] & (cols[lo:hi, None] != cols[None, :])
-            alive += (pair & (rank == RANK_ALIVE)).sum(dtype=torch.int32)
-            suspect += (pair & (rank == RANK_SUSPECT)).sum(dtype=torch.int32)
+            alive = alive + (pair & (rank == RANK_ALIVE)).sum(dtype=torch.int32)
+            suspect = suspect + (pair & (rank == RANK_SUSPECT)).sum(dtype=torch.int32)
         pairs = (n_up * n_up - n_up).clamp(min=1)
         alive_frac = alive.to(torch.float32) / pairs.to(torch.float32)
     else:
@@ -855,11 +856,30 @@ def make_adaptive_run(params: SimParams, n_ticks: int):
     return run
 
 
+def make_fleet_run(params: SimParams, n_ticks: int):
+    """The fleet window (:mod:`.fleet`): ``run(fleet_state, draws,
+    watch_rows=None) -> (fleet_state, metrics [S, T], watched)``, every
+    scenario's tick one vmapped call per tick."""
+    from .fleet import make_fleet_window
+
+    return make_fleet_window(tick, view_rows, draw_dense_tick, params, n_ticks)
+
+
+def make_fleet_adaptive_run(params: SimParams, n_ticks: int):
+    """The adaptive fleet window: ``run(fleet_state, ad, draws,
+    watch_rows=None) -> (fleet_state, ad, metrics, watched)``, ``ad`` the
+    adaptive state stacked to [S, N]. Refuses a default spec."""
+    from .fleet import make_fleet_window
+
+    return make_fleet_window(tick, view_rows, draw_dense_tick, params, n_ticks, adaptive=True)
+
+
 # The JAX names of the fused windows: the same runners.
 run_ticks_fused = run_ticks
 make_fused_run = make_run
 run_ticks_fused_adaptive = run_ticks_adaptive
 make_fused_adaptive_run = make_adaptive_run
+make_fused_fleet_run = make_fleet_run
 
 
 #: the adaptive plane's window gauges, under the JAX telemetry series' names

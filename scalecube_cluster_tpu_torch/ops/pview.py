@@ -36,8 +36,10 @@ sentinels' table-edge twins of the dense check.
 
 Not ported yet, and refused: ``delay_slots > 0`` (the pending rings,
 ROADMAP A2; with them the adaptive direct-probe stretch), mesh/ragged
-delivery (A12), trace capture and telemetry (A10, second half) and fleet
-windows (A9).
+delivery (A12), trace capture and telemetry (A10, second half). The fleet
+windows (``make_pview_fleet_run``, its fused name,
+``make_pview_fleet_adaptive_run``) run the fused tick under
+``torch.func.vmap`` (:mod:`.fleet`).
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ from ._tick import row_index as _row_index
 from ._tick import rows_of as _rows
 from ._tick import seed_rows_tensor as _seed_rows_tensor
 from ._tick import set_at as _set
-from ._tensor import first_true, host_flags, nonzero_fixed, put_drop_, row_chunks, scatter_reduce_1d
+from ._tensor import first_true, host_flags, nonzero_fixed, put_drop_, row_chunks, scatter_, scatter_reduce_1d
 from .kernel import _fold_evidence, _no_evidence
 from .bitplane import MASK32, or_rows, pack_bits, popcount, to_i32, to_u32, unpack_bits, words_for
 from .lattice import (
@@ -236,7 +238,7 @@ class PviewState:
 
     @property
     def capacity(self) -> int:
-        return self.up.shape[0]
+        return self.up.shape[-1]
 
     @property
     def device(self) -> torch.device:
@@ -912,9 +914,9 @@ def _mr_apply_packed(state: PviewState, recv_m_p, zero_p, params: PviewParams, a
         lsb = v & -v
         b = popcount((lsb - 1) & MASK32)
         col = torch.where(got[:, None], w * 32 + b, 0)
-        rem_p.scatter_(1, w, to_i32(v & (v - 1)))
+        scatter_(rem_p, 1, w, to_i32(v & (v - 1)))
         cur = torch.gather(minf, 1, col)
-        minf.scatter_(1, col, torch.maximum(cur, got[:, None].to(torch.uint8)))
+        scatter_(minf, 1, col, torch.maximum(cur, got[:, None].to(torch.uint8)))
         col = col[:, 0]
         subj = st.mr_subject[col]
         cand = st.mr_key[col]
@@ -1150,7 +1152,7 @@ def _sync_phase(state: PviewState, r: SparseRoundRandoms, params: PviewParams, a
     cp = nonzero_fixed(due_p, K, n)
     buf = torch.cat([cf, cf.new_full((1,), n)])
     pos = karange + nf
-    buf.scatter_(0, torch.where(pos < K, pos, K), cp)
+    scatter_(buf, 0, torch.where(pos < K, pos, K), cp)
     caller = buf[:K]
     valid_c = caller < n
     caller = caller.clamp(max=n - 1).to(torch.int32)
@@ -1481,8 +1483,27 @@ def sentinel_init(state: PviewState, spec) -> dict:
     return sent
 
 
+def make_pview_fleet_run(params, n_ticks: int):
+    """The fleet window (:mod:`.fleet`): ``run(fleet_state, draws,
+    watch_rows=None) -> (fleet_state, metrics [S, T], watched)``, every
+    scenario's tick one vmapped call per tick (the kernel: one launch of its
+    scenario-axis variant per gossip tick)."""
+    from .fleet import make_fleet_window
+
+    return make_fleet_window(pview_tick_fused, view_rows, draw_sparse_tick, params, n_ticks)
+
+
+def make_pview_fleet_adaptive_run(params, n_ticks: int):
+    """The adaptive fleet window, ``ad`` stacked to [S, N]. Refuses a
+    default spec."""
+    from .fleet import make_fleet_window
+
+    return make_fleet_window(pview_tick_fused, view_rows, draw_sparse_tick, params, n_ticks, adaptive=True)
+
+
 # The JAX names of the driver's window: the same runners as the fused ones.
 run_pview_ticks = run_pview_ticks_fused
 make_pview_run = make_pview_fused_run
 run_pview_ticks_fused_adaptive = run_pview_ticks_adaptive
 make_pview_fused_adaptive_run = make_pview_adaptive_run
+make_pview_fused_fleet_run = make_pview_fleet_run

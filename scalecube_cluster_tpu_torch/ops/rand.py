@@ -123,57 +123,59 @@ def _uniform(gen: torch.Generator, shape) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
 
 
-def draw_fd_randoms(gen: torch.Generator, n: int, ping_req_k: int) -> FdRandoms:
+def draw_fd_randoms(gen: torch.Generator, n: int, ping_req_k: int, lead: tuple = ()) -> FdRandoms:
     """One dense tick's FD draws from ``gen``, on the generator's device."""
     return FdRandoms(
-        fd_sel=_uniform(gen, (n, 1 + ping_req_k)),
-        fd_direct=_uniform(gen, (n,)),
-        fd_relay=_uniform(gen, (n, ping_req_k)),
+        fd_sel=_uniform(gen, (*lead, n, 1 + ping_req_k)),
+        fd_direct=_uniform(gen, (*lead, n)),
+        fd_relay=_uniform(gen, (*lead, n, ping_req_k)),
     )
 
 
-def draw_round_randoms(gen: torch.Generator, n: int, fanout: int) -> RoundRandoms:
+def draw_round_randoms(gen: torch.Generator, n: int, fanout: int, lead: tuple = ()) -> RoundRandoms:
     """One dense tick's gossip/SYNC draws from ``gen``, on its device."""
     return RoundRandoms(
-        gossip_sel=_uniform(gen, (n, fanout)),
-        gossip_edge=_uniform(gen, (n, fanout)),
-        gossip_delay=_uniform(gen, (n, fanout)),
-        sync_sel=_uniform(gen, (n,)),
-        sync_edge=_uniform(gen, (n,)),
+        gossip_sel=_uniform(gen, (*lead, n, fanout)),
+        gossip_edge=_uniform(gen, (*lead, n, fanout)),
+        gossip_delay=_uniform(gen, (*lead, n, fanout)),
+        sync_sel=_uniform(gen, (*lead, n)),
+        sync_edge=_uniform(gen, (*lead, n)),
     )
 
 
-def draw_sparse_fd(gen: torch.Generator, n: int, ping_req_k: int, tries: int) -> SparseFdRandoms:
+def draw_sparse_fd(gen: torch.Generator, n: int, ping_req_k: int, tries: int, lead: tuple = ()) -> SparseFdRandoms:
     """One tick's FD draws from ``gen``, on the generator's device."""
     return SparseFdRandoms(
-        fd_try=_uniform(gen, (n, (1 + ping_req_k) * tries)),
-        fd_direct=_uniform(gen, (n,)),
-        fd_relay=_uniform(gen, (n, ping_req_k)),
+        fd_try=_uniform(gen, (*lead, n, (1 + ping_req_k) * tries)),
+        fd_direct=_uniform(gen, (*lead, n)),
+        fd_relay=_uniform(gen, (*lead, n, ping_req_k)),
     )
 
 
-def draw_sparse_round(gen: torch.Generator, n: int, fanout: int, tries: int) -> SparseRoundRandoms:
+def draw_sparse_round(gen: torch.Generator, n: int, fanout: int, tries: int, lead: tuple = ()) -> SparseRoundRandoms:
     """One tick's gossip/SYNC draws from ``gen``, on the generator's device."""
     return SparseRoundRandoms(
-        gossip_try=_uniform(gen, (n, fanout * tries)),
-        gossip_edge=_uniform(gen, (n, fanout)),
-        gossip_delay=_uniform(gen, (n, fanout)),
-        sync_try=_uniform(gen, (n, tries)),
-        sync_fb=_uniform(gen, (n,)),
-        sync_edge=_uniform(gen, (n,)),
+        gossip_try=_uniform(gen, (*lead, n, fanout * tries)),
+        gossip_edge=_uniform(gen, (*lead, n, fanout)),
+        gossip_delay=_uniform(gen, (*lead, n, fanout)),
+        sync_try=_uniform(gen, (*lead, n, tries)),
+        sync_fb=_uniform(gen, (*lead, n)),
+        sync_edge=_uniform(gen, (*lead, n)),
     )
 
 
-def draw_dense_tick(gen: torch.Generator, params, fd_due: bool):
-    """A dense tick's ``(fd, round)`` draws (``fd`` None off FD ticks)."""
+def draw_dense_tick(gen: torch.Generator, params, fd_due: bool, lead: tuple = ()):
+    """A dense tick's ``(fd, round)`` draws (``fd`` None off FD ticks);
+    ``lead`` prefixes every shape (a fleet's ``(S,)``: one draw per site
+    for all its scenarios)."""
     n = params.capacity
-    fd = draw_fd_randoms(gen, n, params.ping_req_k) if fd_due else None
-    return fd, draw_round_randoms(gen, n, params.fanout)
+    fd = draw_fd_randoms(gen, n, params.ping_req_k, lead) if fd_due else None
+    return fd, draw_round_randoms(gen, n, params.fanout, lead)
 
 
-def draw_sparse_tick(gen: torch.Generator, params, fd_due: bool):
+def draw_sparse_tick(gen: torch.Generator, params, fd_due: bool, lead: tuple = ()):
     """A pview or sparse tick's ``(fd, round)`` draws (``fd`` None off FD
-    ticks)."""
+    ticks; ``lead`` as in :func:`draw_dense_tick`)."""
     n, t = params.capacity, params.sample_tries
-    fd = draw_sparse_fd(gen, n, params.ping_req_k, t) if fd_due else None
-    return fd, draw_sparse_round(gen, n, params.fanout, t)
+    fd = draw_sparse_fd(gen, n, params.ping_req_k, t, lead) if fd_due else None
+    return fd, draw_sparse_round(gen, n, params.fanout, t, lead)

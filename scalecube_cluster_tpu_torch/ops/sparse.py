@@ -55,8 +55,10 @@ engine; :func:`sentinel_reduce` is the chaos sentinels' check.
 
 Not ported yet, and refused: ``delay_slots > 0`` and ``uniform_delay > 0``
 (the pending rings, ROADMAP A2; with them the adaptive direct-probe
-stretch), trace capture and telemetry (A10, second half), the fleet
-windows (A9), meshes (A12).
+stretch), trace capture and telemetry (A10, second half), meshes (A12).
+The fleet windows (``make_sparse_fleet_run``, its fused name,
+``make_sparse_fleet_adaptive_run``) run the fused tick under
+``torch.func.vmap`` (:mod:`.fleet`).
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ from ..adaptive import AdaptiveSpec
 from ..dissemination import strategies as dz
 from ..dissemination.spec import DissemSpec
 from . import delivery
-from ._tensor import first_true, host_flags, nonzero_fixed, plane_chunks, put_drop_, row_chunks, scatter_reduce_1d
+from ._tensor import first_true, host_flags, nonzero_fixed, plane_chunks, put_drop_, row_chunks, scatter_, scatter_reduce_1d
 from ._tick import announce, covered_columns, crash_row, crash_rows, rumor_metrics, run_window, spread_rumor  # noqa: F401
 from ._tick import count_i32 as _i32
 from ._tick import no_props as _no_props
@@ -211,7 +213,7 @@ class SparseState:
 
     @property
     def capacity(self) -> int:
-        return self.up.shape[0]
+        return self.up.shape[-1]
 
     @property
     def device(self) -> torch.device:
@@ -227,9 +229,9 @@ class SparseState:
 
 
 def _roundtrip(loss: torch.Tensor) -> torch.Tensor:
-    if loss.dim() == 0:
+    if loss.dim() < 2:
         return (1.0 - loss) * (1.0 - loss)
-    return (1.0 - loss) * (1.0 - loss.T)
+    return (1.0 - loss) * (1.0 - loss.transpose(-1, -2))
 
 
 def init_sparse_state(
@@ -840,7 +842,7 @@ def _top_props(acc_mask, cand_vals, owner_rows, owner_valid, P: int):
         keys.append(val)
         origs.append(owner_rows.to(torch.int32))
         vals.append((val > NO_CANDIDATE) & owner_valid)
-        remaining.scatter_(1, col, NO_CANDIDATE)
+        scatter_(remaining, 1, col, NO_CANDIDATE)
     return tuple(torch.cat(x) for x in (subs, keys, origs, vals))
 
 
@@ -867,7 +869,7 @@ def _sync_phase(state: SparseState, r: SparseRoundRandoms, params: SparseParams,
     cp = nonzero_fixed(due_p, K, n)
     buf = torch.cat([cf, cf.new_full((1,), n)])
     pos = karange + nf
-    buf.scatter_(0, torch.where(pos < K, pos, K), cp)
+    scatter_(buf, 0, torch.where(pos < K, pos, K), cp)
     caller = buf[:K]
     valid_c = caller < n
     caller = caller.clamp(max=n - 1)
@@ -1172,8 +1174,27 @@ def sentinel_reduce(state: SparseState, sent: dict, spec: dict) -> dict:
     return sent
 
 
+def make_sparse_fleet_run(params, n_ticks: int):
+    """The fleet window (:mod:`.fleet`): ``run(fleet_state, draws,
+    watch_rows=None) -> (fleet_state, metrics [S, T], watched)``, every
+    scenario's tick one vmapped call per tick (the kernel: one launch of its
+    scenario-axis variant per gossip tick)."""
+    from .fleet import make_fleet_window
+
+    return make_fleet_window(sparse_tick_fused, view_rows, draw_sparse_tick, params, n_ticks)
+
+
+def make_sparse_fleet_adaptive_run(params, n_ticks: int):
+    """The adaptive fleet window, ``ad`` stacked to [S, N]. Refuses a
+    default spec."""
+    from .fleet import make_fleet_window
+
+    return make_fleet_window(sparse_tick_fused, view_rows, draw_sparse_tick, params, n_ticks, adaptive=True)
+
+
 # The JAX names of the driver's window: the same runners as the fused ones.
 run_sparse_ticks = run_sparse_ticks_fused
 make_sparse_run = make_sparse_fused_run
 run_sparse_ticks_fused_adaptive = run_sparse_ticks_adaptive
 make_sparse_fused_adaptive_run = make_sparse_adaptive_run
+make_sparse_fused_fleet_run = make_sparse_fleet_run

@@ -25,7 +25,7 @@ import torch
 
 from ..adaptive import AdaptiveSpec
 from ..dissemination.spec import DissemSpec
-from ._tensor import plane_chunks
+from ._tensor import in_fleet, maximum_into_, plane_chunks
 from .bitplane import clear_col, set_bit, unpack_bits, words_for
 from .lattice import (
     ALIVE,
@@ -134,7 +134,7 @@ class SimState:
 
     @property
     def capacity(self) -> int:
-        return self.up.shape[0]
+        return self.up.shape[-1]
 
     @property
     def rumor_slots(self) -> int:
@@ -276,10 +276,14 @@ def init_state(
 
 def _roundtrip(loss: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """(1-loss)·(1-lossᵀ): the derived round-trip plane (``out``: written
-    in place); a scalar loss gives the scalar."""
-    if loss.dim() == 0:
+    in place); a scalar loss gives the scalar. The transpose is over the
+    last two axes and anything below rank 2 is a uniform loss, so a
+    fleet's [S, N, N] planes and [S] scalars derive per scenario."""
+    if loss.dim() < 2:
         return (1.0 - loss) * (1.0 - loss)
-    return torch.mul(1.0 - loss, 1.0 - loss.T, out=out)
+    if out is not None and in_fleet():
+        return out.copy_((1.0 - loss) * (1.0 - loss.transpose(-1, -2)))
+    return torch.mul(1.0 - loss, 1.0 - loss.transpose(-1, -2), out=out)
 
 
 # ---------------------------------------------------------------------------
@@ -409,10 +413,10 @@ def set_link_delay_q(state: SimState, src, dst, q) -> SimState:
     _need_dense(state.delay_q, "delay")
     if state.pending_key.shape[0] == 0:
         raise ValueError("link delay requires params.delay_slots > 0")
-    return _put_delay_q(state, src, dst, float(np.float32(q)))
+    return _put_delay_q(state, src, dst, q if isinstance(q, torch.Tensor) else float(np.float32(q)))
 
 
-def _put_delay_q(state: SimState, src, dst, q: float) -> SimState:
+def _put_delay_q(state: SimState, src, dst, q) -> SimState:
     from ._tick import row_index
 
     src = row_index(src, state.device)
@@ -431,7 +435,7 @@ def set_uniform_loss(state: SimState, loss, floor: bool = False) -> SimState:
         new_loss = torch.maximum(state.loss, new) if floor else new
         return state.replace(loss=new_loss, fetch_rt=_roundtrip(new_loss))
     if floor:
-        torch.maximum(state.loss, new, out=state.loss)
+        maximum_into_(state.loss, state.loss, new)
     else:
         state.loss.copy_(new.expand_as(state.loss))
     _roundtrip(state.loss, out=state.fetch_rt)

@@ -258,12 +258,9 @@ def test_cluster_math_and_suspicion_timeout_match_jax():
 
 
 def test_certifier_refuses_what_is_not_ported():
-    for fn in (TCert.certify_spread_mc, TCert.mc_spread_certifier, TCert.fp_rate_mc,
-               TCert.adaptive_knob_sweep):
-        with pytest.raises(NotImplementedError, match="A9"):
-            fn(TSpec())
-    with pytest.raises(NotImplementedError, match="A10"):
-        TCert.spread_certifier(bus=object(), device="cpu")
+    for fn in (TCert.spread_certifier, TCert.mc_spread_certifier):
+        with pytest.raises(NotImplementedError, match="A10"):
+            fn(bus=object(), device="cpu")
     with pytest.raises(ValueError, match="per-link delay"):
         TCert.measure_spread(TSpec(topology="geo", geo_wan_delay_ticks=2), n=64, engine="pview", device="cpu")
     with pytest.raises(ValueError, match="per-link delay"):

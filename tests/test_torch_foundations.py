@@ -136,7 +136,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "dissemination/spec.py", "dissemination/topology.py", "dissemination/strategies.py",
                    "dissemination/certify.py", "utils/cluster_math.py", "adaptive.py",
                    "chaos/__init__.py", "chaos/events.py", "chaos/shifting.py", "chaos/sentinels.py",
-                   "chaos/engine.py"):
+                   "chaos/engine.py", "ops/fleet.py", "ops/delivery.py", "ops/_tensor.py"):
         assert f"scalecube_cluster_tpu_torch/{module}" in walked, module
     bad = [
         f"{p.relative_to(REPO)}:{line}: import {name}"
