@@ -11,8 +11,11 @@ the strategies' certification matrix, and again armed with the adaptive
 failure-detection plane and through chaos scenarios, with config13's
 certification sweep and config7's armed-idle overhead, and the fleet engine
 (S clusters per window: its kernel, its windows, config14's Monte Carlo
-workload and its full-width path) — on the card, and fails (non-zero
-exit, no result line) unless every phase passes:
+workload and its full-width path), the delay rings of the sparse and
+partial-view engines (their windows, config3's published delay run, both
+main paths under delay) and the telemetry plane on every engine's driver —
+on the card, and fails (non-zero exit, no result line) unless every phase
+passes:
 
 1. device   — a CUDA device is present; prints its name and power limit;
 2. build    — builds the port's CUDA kernel with nvcc; prints ptxas's
@@ -22,7 +25,7 @@ exit, no result line) unless every phase passes:
    compiled variants, and on the ``inv`` that ``accelerated/expander``
    peers build at 1M (every receiver one sender per slot): bit-equal
    outputs, timed beside the byte bound;
-4. window   — a 4,096-member, 40-tick fused window on the CPU (plain
+4. window   — a 4,096-member, 24-tick (40 before the delay phases) fused window on the CPU (plain
    versions) and on the card (kernels) from the same draws: equal state
    and metrics;
 5. main path — the 1M-member scenario (warm start, 8 live rumors, a crash
@@ -33,7 +36,7 @@ exit, no result line) unless every phase passes:
 6. profile  — three more fused ticks under ``torch.profiler``: the
    device's busy share, each phase's device and host time, and the
    kernel's own device time per tick;
-7. driver-window — a 4,096-member, 20-tick (40 through PR 7) ``SimDriver``
+7. driver-window — a 4,096-member, 13-tick (20 before the delay phases) ``SimDriver``
    script (spreads, a crash, a join, a leave, metadata bumps, a partition
    and its heal, two watched rows) on the CPU and on the card from the same
    draws: equal state, per-tick metrics and event logs;
@@ -45,7 +48,7 @@ exit, no result line) unless every phase passes:
    and read just after; then three ticks profiled by phase, as in phase 6;
 9. checkpoint — a 65,536-member driver: ``step(5)``, ``checkpoint``,
    ``step(10)``, ``restore``, ``step(10)``: both trajectories bit-equal;
-10. sparse-window — a 4,096-member, 40-tick sparse window with dense links
+10. sparse-window — a 4,096-member, 24-tick (40 before the delay phases) sparse window with dense links
    (a crash wave, user rumors, a ``join_rows`` batch with rejoins, a
    partition and its heal) on the CPU and on the card from the same draws:
    equal state and metrics;
@@ -65,11 +68,11 @@ exit, no result line) unless every phase passes:
    ``crash``, 8 joins, two watched rows): a 5-tick warm-up, then a timed
    ``step(10)`` window (three through PR 7), launch counts zeroed before
    and read after;
-15. dense-window — a 4,096-member, 20-tick (40 through PR 7) dense window at config9's i16
+15. dense-window — a 4,096-member, 12-tick (20 before the delay phases) dense window at config9's i16
    widths with dense links (a crash wave, rumors, a ``join_rows`` batch
    with rejoins, a partition and its heal) on the CPU and on the card from
    the same draws: equal state and metrics;
-16. dense-delay-window — a 2,048-member, 40-tick dense window in config3's
+16. dense-delay-window — a 2,048-member, 24-tick (40 before the delay phases) dense window in config3's
    delay regime (loss 0.05, mean delay 1.5 ticks, six ring slots, a group
    of slower links through ``set_link_delay``): CPU = card;
 17. dense-main — config4's partition at 10,000 members
@@ -155,9 +158,9 @@ exit, no result line) unless every phase passes:
    (past the 65,535 grid limit of a y axis), timed (20 launches, the
    profiler) beside its byte bound, its plain version and S serial launches
    of the serial kernel on the same inputs;
-32. fleet-windows — one fleet window per engine (S = 8, 16 ticks; dense N
-   = 256 i32 and i16, sparse N = 1,024, pview N = 4,096 at config16's
-   widths; every third scenario with crashes of its own) and the adaptive
+32. fleet-windows — one fleet window per engine (S = 8, 16 ticks, pview 8
+   (16 before the delay phases); dense N = 256 i32 and i16, sparse N = 1,024, pview N =
+   4,096 at config16's widths; every third scenario with crashes of its own) and the adaptive
    dense fleet (config13's knobs, rings at D = 4, a degraded cohort) on the
    CPU and on the card from the same draws: equal; each card row equal to
    the serial window fed that row's draws;
@@ -177,7 +180,34 @@ exit, no result line) unless every phase passes:
    4,096 (config11's widths), 8 rumors and a crash wave each, a warm-up and
    a timed 16-tick window: ms per window, member-ticks/s, peak (< 80 GB),
    flag reads per fleet tick, kernel launches (one per pview fleet tick;
-   counts zeroed just before the timed window, read just after).
+   counts zeroed just before the timed window, read just after);
+35. delay-windows — the pending delivery rings at D = 6 (config3's delay
+   regime: loss 0.05, mean delay 1.5 ticks) on the CPU and on the card from
+   the same draws, 12 ticks each at N = 4,096: sparse with scalar links,
+   sparse with dense links and a SlowMember (rows 0-7 at 4.0 ticks on every
+   link touching them), pview at config16's i16 widths; each again armed
+   with the adaptive plane (config13's knobs: the direct probe's timeout
+   stretched by local health); then a sparse and a pview fleet with D = 4
+   (S = 4, N = 256, 12 ticks), CPU = card and each row = the serial
+   window. Every state leaf, the three rings included, and every metric
+   equal;
+36. config3-delay — ``benchmarks/config3_fd_loss.py:delay_main`` as
+   published: the sparse lean layout at N = 1,024, fanout 3, ping_req_k 3,
+   fd_every 1, D = 6, loss 0.05, mean 1.5, 200 FD rounds in windows of 50;
+   the raw FD failure rate against the analytic rate, failing outside
+   config3's 3-sigma rule;
+37. delay-main — phase 5's pview path at 1M and phase 11's sparse churn
+   run at 49,152 under the same delay (D = 6, mean 1.5): ms/tick beside the
+   unarmed runs of this call, peak (< 80 GB), flag reads per tick, one
+   launch per gossip tick (counts zeroed just before, read just after), the
+   engines' invariants; two more pview ticks profiled by phase, as in
+   phase 6, with the ring helpers labelled;
+38. telemetry — the telemetry plane on each engine's driver at full width
+   (pview 1M: a warm-up and two timed ``step(10)``; sparse 49,152 and
+   dense 10,000: one), against an unarmed driver of the same seed: states
+   bit-equal, no readback while stepping, the same device waits under the
+   sync-debug mode, ms/tick armed beside unarmed; then one ``flush()`` and
+   one ring read.
 
 The dense paths launch no hand-written kernel; their launch counts (0)
 stand in the kernels line. The line before the last is a JSON object with one entry per kernel; the
@@ -216,9 +246,12 @@ KERNEL_CASES = tuple((n, 3, 8, 64, 0, ("vector", 3)) for n in KERNEL_SHAPES) + (
 TICKS_PER_SECOND = 5  # config5's simulated second
 # Depth cut for the fleet phases' time (each listed in PERF.md section 4):
 DRIVER_WINDOWS = 1  # timed step(10) windows of the 1M and the sparse driver (3 through PR 7)
-DRIVER_SCRIPT_STEPS = (5, 7, 5, 3)  # the CPU-vs-card driver script's steps (10, 13, 10, 7 through PR 7)
-DENSE_WINDOW_STEPS = (5, 8, 7)  # the CPU-vs-card dense window's (10, 15, 15 through PR 7)
+DRIVER_SCRIPT_STEPS = (3, 5, 3, 2)  # the CPU-vs-card driver script's steps (5, 7, 5, 3 before the delay phases)
+DENSE_WINDOW_STEPS = (3, 5, 4)  # the CPU-vs-card dense window's (5, 8, 7 before the delay phases)
 CHAOS_DENSE_AFTER_HEAL = 800  # the full-width dense scenario's horizon past its heal (automatic through PR 7)
+# Depth cut for the delay and telemetry phases' time:
+WINDOW_TICKS = 24  # the CPU-vs-card windows of phases 4, 10, 16, 22 and 25 (40 before)
+FLEET_PVIEW_TICKS = 8  # phase 32's pview fleet window (16 before)
 C13_KNOBS = dict(min_mult=5, max_mult=10, conf_target=4, lh_max=8)  # config13's ADAPTIVE_KNOBS
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 
@@ -344,6 +377,19 @@ def time_cuda(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def count_waits(fn) -> int:
+    """The operations of ``fn()`` that wait for the device, under the
+    sync-debug mode (its notice on first use is not a wait)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
 def kernel_ms(fn, kernel: str, reps: int = 20, warmup: int = 3) -> float:
     """Median device time in ms of the kernel named ``kernel`` over ``reps``
     calls of ``fn``, from the profiler's record of the device: a call's own
@@ -379,11 +425,12 @@ def config16_params(n: int, key_dtype: str = "i16"):
     )
 
 
-def busy_state(params, n: int, device):
-    """Warm cluster, a live rumor in every slot, a crash wave of n/1024 rows."""
+def busy_state(params, n: int, device, delay: float = 0.0):
+    """Warm cluster, a live rumor in every slot, a crash wave of n/1024 rows;
+    ``delay``: a uniform mean link delay in ticks (the delay rings)."""
     from scalecube_cluster_tpu_torch.ops import pview as PV
 
-    st = PV.init_pview_state(params, n, warm=True, device=device)
+    st = PV.init_pview_state(params, n, warm=True, uniform_delay=delay, device=device)
     for s in range(params.rumor_slots):
         st = PV.spread_rumor(st, s, origin=(s * 997) % n)
     return PV.crash_rows(st, list(range(n // 2, n // 2 + max(2, n // 1024))))
@@ -496,14 +543,14 @@ def check_kernels(device) -> dict:
 
 
 def check_cross_device(device, params=None, label: str = "window", floor: float = 0.0) -> dict:
-    """40 ticks at N = 4,096 on the CPU and on the card from the same draws
+    """``WINDOW_TICKS`` ticks at N = 4,096 on the CPU and on the card from the same draws
     (``params``: config16's widths by default; ``floor``: a uniform loss
     floor over the scenario). Returns the CPU run's metrics."""
     from scalecube_cluster_tpu_torch import convert
     from scalecube_cluster_tpu_torch.ops import pview as PV
     from scalecube_cluster_tpu_torch.ops import rand as PR
 
-    n, ticks = 4096, 40
+    n, ticks = 4096, WINDOW_TICKS
     params = params or config16_params(n)
     gen = torch.Generator(device="cpu").manual_seed(7)
     draws = [
@@ -537,17 +584,18 @@ def check_cross_device(device, params=None, label: str = "window", floor: float 
     return cpu_ms
 
 
-def run_main_path(device, params=None, label: str = "main") -> dict:
+def run_main_path(device, params=None, label: str = "main", delay: float = 0.0) -> dict:
     """The pview main path at N_MAIN (``params``: config16's widths by
-    default): a warm-up window, a timed 10-tick window with the launch
-    counts zeroed just before and read just after, its invariants."""
+    default; ``delay``: a uniform mean link delay): a warm-up window, a
+    timed 10-tick window with the launch counts zeroed just before and read
+    just after, its invariants."""
     from scalecube_cluster_tpu_torch.ops import _tensor, delivery
     from scalecube_cluster_tpu_torch.ops import pview as PV
 
     n = N_MAIN
     params = params or config16_params(n)
     t0 = time.perf_counter()
-    st = busy_state(params, n, device)
+    st = busy_state(params, n, device, delay)
     torch.cuda.synchronize()
     phase(label, f"N={n} state built in {time.perf_counter() - t0:.2f} s "
                   f"(minf_age {tuple(st.minf_age.shape)} {st.minf_age.dtype})")
@@ -574,14 +622,12 @@ def run_main_path(device, params=None, label: str = "main") -> dict:
     # device warns: the count shows whether the branch flags are the only
     # syncs (the mode is kept out of the timed window, which it perturbs)
     _tensor.HOST_SYNCS.count = 0
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            st, _, _ = win(st, gen, 2)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    device_waits = sum("synchroniz" in str(w.message) for w in caught)
+
+    def two_more():
+        nonlocal st
+        st, _, _ = win(st, gen, 2)
+
+    device_waits = count_waits(two_more)
     flag_reads = _tensor.HOST_SYNCS.count
 
     n_crash = n // 1024
@@ -721,7 +767,7 @@ def cpu_draws(params, ticks: int, seed: int) -> list:
 def driver_script(d, n: int, swap=None) -> None:
     """The driver-window script: two watched rows, spreads, a crash, a
     join, a leave, metadata bumps, a partition and its heal
-    (``DRIVER_SCRIPT_STEPS``, 20 ticks); ``swap`` (``set_dissemination``'s
+    (``DRIVER_SCRIPT_STEPS``, 13 ticks); ``swap`` (``set_dissemination``'s
     keywords) arms a strategy in the middle, before the partition."""
     first, second, parted, healed = DRIVER_SCRIPT_STEPS
     for row in (0, n // 3):
@@ -1001,7 +1047,7 @@ def run_cpu_and_card(run, device, what: str) -> dict:
 
 def check_sparse_window(device, n: int = 4096, params=None, label: str = "sparse-window",
                         cohort=None) -> dict:
-    """40 sparse ticks at N = 4,096 with dense links on the CPU and on the
+    """``WINDOW_TICKS`` sparse ticks at N = 4,096 with dense links on the CPU and on the
     card from the same draws: config5's widths, with a 2-tick FD period, a
     one-period suspicion timeout and a 20-tick SYNC period so that expiry
     and anti-entropy happen inside the window (``params`` replaces them).
@@ -1009,9 +1055,11 @@ def check_sparse_window(device, n: int = 4096, params=None, label: str = "sparse
     CPU run's metrics."""
     from scalecube_cluster_tpu_torch.ops import sparse as SP
 
-    ticks = 40
+    ticks = WINDOW_TICKS
     params = params or config5_params(n, fd_every=2, suspicion_mult=1, sync_every=20)
     draws = cpu_draws(params, ticks, seed=17)
+    # a quarter before the joins and the partition, the heal at five eighths
+    t1, t2 = ticks // 4, ticks * 5 // 8
     halves = (list(range(n // 2)), list(range(n // 2, n)))
     crashed = list(range(n // 2, n // 2 + 16))
 
@@ -1021,12 +1069,12 @@ def check_sparse_window(device, n: int = 4096, params=None, label: str = "sparse
         if cohort:
             st = SP.set_link_loss(st, list(range(n)), list(cohort), 0.7)
         st = SP.crash_rows(SP.spread_rumor(st, 0, 5), crashed)
-        st, ms_a, _ = win(st, draws[:10], 10)
+        st, ms_a, _ = win(st, draws[:t1], t1)
         st = SP.join_rows(st, [n - 8, n - 7] + crashed[:2], params.seed_rows)  # two rejoins
         st = SP.block_partition(SP.spread_rumor(st, 1, 77), *halves)
-        st, ms_b, _ = win(st, draws[10:25], 15)
+        st, ms_b, _ = win(st, draws[t1:t2], t2 - t1)
         st = SP.heal_partition(st, *halves)
-        st, ms_c, _ = win(st, draws[25:], 15)
+        st, ms_c, _ = win(st, draws[t2:], ticks - t2)
         return st, {**{k: torch.cat([ms_a[k], ms_b[k], ms_c[k]]).cpu() for k in ms_a}, **win.planes()}
 
     cpu_ms = run_cpu_and_card(run, device, "sparse windows")
@@ -1038,9 +1086,9 @@ def check_sparse_window(device, n: int = 4096, params=None, label: str = "sparse
     return cpu_ms
 
 
-def run_sparse_main_path(device, params=None, label: str = "sparse-main") -> dict:
+def run_sparse_main_path(device, params=None, label: str = "sparse-main", delay: float = 0.0) -> dict:
     """The sparse main path: config5's churn run at N_SPARSE (``params``:
-    config5's by default)."""
+    config5's by default; ``delay``: a uniform mean link delay)."""
     from scalecube_cluster_tpu_torch.ops import _tensor, delivery
     from scalecube_cluster_tpu_torch.ops import sparse as SP
 
@@ -1049,7 +1097,7 @@ def run_sparse_main_path(device, params=None, label: str = "sparse-main") -> dic
     warm_s, timed_s = 2, 6
     churn, crash, join = churn_schedule(n, warm_s + timed_s, params.seed_rows)
     t0 = time.perf_counter()
-    st = SP.init_sparse_state(params, n - churn, warm=True, device=device)
+    st = SP.init_sparse_state(params, n - churn, warm=True, uniform_delay=delay, device=device)
     torch.cuda.synchronize()
     phase(label, f"N={n} state built in {time.perf_counter() - t0:.2f} s: view_key "
                          f"{tuple(st.view_key.shape)} {st.view_key.dtype}, minf_age {tuple(st.minf_age.shape)}, "
@@ -1229,7 +1277,7 @@ def dense_launch_count() -> int:
 
 
 def check_dense_window(device, n: int = 4096) -> None:
-    """20 dense ticks at N = 4,096 with config9's i16 widths and dense links
+    """``DENSE_WINDOW_STEPS`` dense ticks at N = 4,096 with config9's i16 widths and dense links
     on the CPU and on the card from the same draws: a crash wave, a rumor,
     a ``join_rows`` batch with two rejoins, a partition and its heal."""
     from scalecube_cluster_tpu_torch.ops import kernel as K
@@ -1262,14 +1310,14 @@ def check_dense_window(device, n: int = 4096) -> None:
 
 def check_dense_delay_window(device, n: int = 2048, params=None, label: str = "dense-delay-window",
                              flaky=None) -> dict:
-    """40 dense ticks at N = 2,048 with config3's delay configuration (i32,
+    """``WINDOW_TICKS`` dense ticks at N = 2,048 with config3's delay configuration (i32,
     loss 0.05, mean delay 1.5 ticks, 6 ring slots; ``params`` replaces it)
     and a slower group of links through ``set_link_delay``, on the CPU and
     on the card. ``flaky`` (a row) becomes an observer whose sends mostly
     drop. Returns the CPU run's metrics."""
     from scalecube_cluster_tpu_torch.ops import state as S
 
-    ticks = 40
+    ticks = WINDOW_TICKS
     params = params or config4_params(n, **CONFIG3_KNOBS)
     draws = cpu_draws(params, ticks, seed=23)
 
@@ -1514,14 +1562,12 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
     # two more ticks in the mode where every operation that waits for the
     # device warns (kept out of the timed run, which it perturbs)
     _tensor.HOST_SYNCS.count = 0
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            st, _, _ = win(st, gen, 2)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    waits = sum("synchroniz" in str(w.message) for w in caught)
+
+    def two_more():
+        nonlocal st
+        st, _, _ = win(st, gen, 2)
+
+    waits = count_waits(two_more)
     phase(label, f"2 more ticks: {_tensor.HOST_SYNCS.count} branch-flag reads, {waits} operations "
                         "waited for the device")
     st, ms, _ = win(st, gen, settle)
@@ -2450,7 +2496,7 @@ def row_draws(draws, i: int) -> list:
 
 
 def check_fleet_window(device, label: str, mod, init, make_fleet, make_serial, params, draw, s: int = 8,
-                       ticks: int = 16, adaptive: bool = False) -> dict:
+                       ticks: int = 16, adaptive: bool = False, tag: str = "fleet-windows") -> dict:
     """One fleet window on the CPU and on the card from the same draws (every
     leaf, every metric), then each row on the card against the serial
     window fed that row's draws. Returns the card's launch counts."""
@@ -2491,7 +2537,7 @@ def check_fleet_window(device, label: str, mod, init, make_fleet, make_serial, p
         elif not np.array_equal(va, vb):
             bad.append(f"metric {k}")
     if bad:
-        raise AssertionError(f"[fleet-windows] {label}: CPU and card fleets differ in {bad}")
+        raise AssertionError(f"[{tag}] {label}: CPU and card fleets differ in {bad}")
     serial_launches = delivery.delivery_combine.launches
     for i in range(s):
         st = FL.fleet_row(start(device), i)
@@ -2504,11 +2550,11 @@ def check_fleet_window(device, label: str, mod, init, make_fleet, make_serial, p
         row = FL.fleet_row(dev_fs, i)
         diff = state_differences(row, st) + [k for k, v in ms.items() if not torch.equal(v.cpu(), dev_ms[k][i])]
         if diff:
-            raise AssertionError(f"[fleet-windows] {label}: card fleet row {i} differs from the serial window "
+            raise AssertionError(f"[{tag}] {label}: card fleet row {i} differs from the serial window "
                                  f"in {diff}")
     serial_launches = delivery.delivery_combine.launches - serial_launches
     delivery.delivery_combine.launches -= serial_launches
-    phase("fleet-windows", f"{label}: S={s} N={n}, {ticks} ticks: CPU = card (every leaf, every metric"
+    phase(tag, f"{label}: S={s} N={n}, {ticks} ticks: CPU = card (every leaf, every metric"
                            f"{', the adaptive planes' if adaptive else ''}); every card row = the serial window "
                            f"fed its draws; fleet kernel launches on the card {fleet_launches} in {ticks} ticks "
                            f"(the {s} serial rows: {serial_launches})")
@@ -2541,7 +2587,7 @@ def check_fleet_windows(device) -> dict:
     pp = config16_params(4096)
     out["fleet-pview"] = check_fleet_window(
         device, "pview", PV, lambda d: PV.init_pview_state(pp, 4096, warm=True, device=d),
-        PV.make_pview_fleet_run, PV.make_pview_run, pp, PR.draw_sparse_tick)["launches"]
+        PV.make_pview_fleet_run, PV.make_pview_run, pp, PR.draw_sparse_tick, ticks=FLEET_PVIEW_TICKS)["launches"]
     ap = with_adaptive(c14_params(256, fd_every=1, delay_slots=4, quiet_gates=True))
 
     def adaptive_init(d):
@@ -2812,6 +2858,315 @@ def run_fleet_main(device, ticks: int = 16, cells=FLEET_MAIN) -> dict:
     return out
 
 
+# -- the delay rings on sparse and pview, and the telemetry plane ---------------------
+
+CONFIG3_N = 1024  # config3's lean sparse delay run (benchmarks/config3_fd_loss.py:delay_main)
+DELAY_WINDOW_TICKS = 12  # ticks of each CPU-vs-card delay window
+SLOW_ROWS, SLOW_MEAN = tuple(range(8)), 4.0  # the SlowMember of the dense-link window
+
+
+def device_state_differences(a, b) -> list:
+    """Names of the leaves in which two states on one device differ,
+    compared there (a host copy of a 9.66 GB view plane is not needed)."""
+    import dataclasses as dc
+
+    out = []
+    for f in dc.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        same = torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        if not same:
+            out.append(f.name)
+    return out
+
+
+def delay_sparse_run(params, n: int, draws, dense_links: bool):
+    """The sparse delay window: ``n - 8`` members up at loss 0.05 and a mean
+    delay of 1.5 ticks, scalar links or dense links with a SlowMember (rows
+    0-7 at 4.0 ticks on every link touching them, as the chaos event writes
+    it); a rumor, a crash wave, a ``join_rows`` batch with rejoins halfway."""
+    from scalecube_cluster_tpu_torch.ops import sparse as SP
+
+    ticks = len(draws)
+    crashed = list(range(n // 2, n // 2 + 16))
+
+    def run(dev):
+        win = sparse_window(params, dev)
+        st = SP.init_sparse_state(params, n - 8, dense_links=dense_links, uniform_loss=CONFIG3_LOSS,
+                                  uniform_delay=CONFIG3_DELAY_MEAN, device=dev)
+        if dense_links:
+            everyone = list(range(n))
+            st = SP.set_link_delay(st, everyone, list(SLOW_ROWS), SLOW_MEAN)
+            st = SP.set_link_delay(st, list(SLOW_ROWS), everyone, SLOW_MEAN)
+        st = SP.crash_rows(SP.spread_rumor(st, 0, 5), crashed)
+        st, ms_a, _ = win(st, draws[: ticks // 2], ticks // 2)
+        st = SP.join_rows(SP.spread_rumor(st, 1, 77), [n - 8, n - 7] + crashed[:2], params.seed_rows)
+        st, ms_b, _ = win(st, draws[ticks // 2:], ticks - ticks // 2)
+        return st, {**{k: torch.cat([ms_a[k], ms_b[k]]).cpu() for k in ms_a}, **win.planes()}
+
+    return run
+
+
+def delay_pview_run(params, n: int, draws):
+    """The pview delay window: phase 4's scenario under a uniform mean
+    delay of 1.5 ticks."""
+    def run(dev):
+        win = pview_window(params, dev)
+        st, ms, _ = win(busy_state(params, n, dev, CONFIG3_DELAY_MEAN), draws, len(draws))
+        return st, {**{k: v.cpu() for k, v in ms.items()}, **win.planes()}
+
+    return run
+
+
+def check_delay_windows(device, n: int = 4096, ticks: int = DELAY_WINDOW_TICKS) -> dict:
+    """Phase 35: windows with the delay rings at D = 6 on the CPU (plain
+    versions) and on the card (the kernel) from the same draws — sparse with
+    scalar links, sparse with dense links and a SlowMember, pview at
+    config16's i16 widths; each again armed with the adaptive plane
+    (config13's knobs; the direct-probe stretch) — then a sparse and a pview
+    fleet with D = 4 rings (S = 4, N = 256), CPU = card and each row = the
+    serial window. Every leaf, the rings included, and every metric equal.
+    Returns the card's launches per window."""
+    import dataclasses as dc
+
+    from scalecube_cluster_tpu_torch.ops import pview as PV
+    from scalecube_cluster_tpu_torch.ops import rand as PR
+    from scalecube_cluster_tpu_torch.ops import sparse as SP
+
+    sp = config5_params(n, fd_every=2, suspicion_mult=1, sync_every=20, delay_slots=CONFIG3_KNOBS["delay_slots"])
+    pv = dc.replace(config16_params(n), delay_slots=CONFIG3_KNOBS["delay_slots"])
+    out = {}
+    for adaptive in (False, True):
+        for key, label, params, make in (
+            ("sparse", "sparse, scalar links", sp, lambda p, d: delay_sparse_run(p, n, d, False)),
+            ("sparse-slow", f"sparse, dense links, rows {SLOW_ROWS[0]}-{SLOW_ROWS[-1]} at {SLOW_MEAN}", sp,
+             lambda p, d: delay_sparse_run(p, n, d, True)),
+            ("pview", "pview i16", pv, lambda p, d: delay_pview_run(p, n, d)),
+        ):
+            p = with_adaptive(params) if adaptive else params
+            draws = cpu_draws(p, ticks, seed=23)
+            cpu_ms, launches = count_launches(lambda: run_cpu_and_card(make(p, draws), device, f"{label} windows"))
+            name = f"delay-{key}{'-adaptive' if adaptive else ''}-window"
+            out[name] = launches
+            sums = {k: int(cpu_ms[k].sum()) for k in ("fd_failed_probes", "rumor_deliveries", "mr_accepts",
+                                                        "sync_roundtrips")}
+            extra = f", adaptive_lh_high max {int(cpu_ms['adaptive_lh_high'].max())}" if adaptive else ""
+            phase("delay-windows", f"{label}, N={n}, {ticks} ticks, D = {p.delay_slots}, mean "
+                                   f"{CONFIG3_DELAY_MEAN}{adaptive_label(p)}: every state leaf (the three rings "
+                                   f"included), metric and adaptive plane equal on CPU and {device}; {sums}{extra}; "
+                                   f"delivery_combine launches on the card {launches} in {ticks} ticks")
+    fsp = config5_params(256, fd_every=2, suspicion_mult=1, sync_every=20, mr_slots=64, delay_slots=4)
+    out["delay-fleet-sparse"] = check_fleet_window(
+        device, "sparse, D = 4", SP,
+        lambda d: SP.init_sparse_state(fsp, 256, warm=True, uniform_loss=0.1, uniform_delay=1.5, device=d),
+        SP.make_sparse_fleet_run, SP.make_sparse_run, fsp, PR.draw_sparse_tick, s=4, ticks=12,
+        tag="delay-windows")["launches"]
+    fpv = dc.replace(config16_params(256), delay_slots=4)
+    out["delay-fleet-pview"] = check_fleet_window(
+        device, "pview i16, D = 4", PV,
+        lambda d: PV.init_pview_state(fpv, 256, warm=True, uniform_loss=0.1, uniform_delay=1.5, device=d),
+        PV.make_pview_fleet_run, PV.make_pview_run, fpv, PR.draw_sparse_tick, s=4, ticks=12,
+        tag="delay-windows")["launches"]
+    return out
+
+
+def run_config3_delay(device, n: int = CONFIG3_N, rounds: int = CONFIG3_ROUNDS, window: int = 50) -> dict:
+    """Phase 36: ``benchmarks/config3_fd_loss.py:delay_main`` as published —
+    the sparse lean layout (scalar links) at N = 1,024, fanout 3,
+    ping_req_k 3, fd_every 1, D = 6, loss 0.05, mean delay 1.5 ticks, 200
+    FD rounds in windows of 50 — the raw FD failure rate against the
+    analytic rate; fails outside config3's 3-sigma rule."""
+    from scalecube_cluster_tpu_torch.ops import sparse as SP
+    from scalecube_cluster_tpu_torch.ops.state import delay_mean_to_q
+
+    params = SP.SparseParams(
+        capacity=n, fanout=3, repeat_mult=3, ping_req_k=3, fd_every=1, sync_every=300, suspicion_mult=5,
+        rumor_slots=2, mr_slots=512, announce_slots=256, seed_rows=(0,), delay_slots=6,
+        fd_direct_timeout_ticks=2, fd_leg_timeout_ticks=1,
+    )
+    st = SP.init_sparse_state(params, n, warm=True, dense_links=False, uniform_loss=CONFIG3_LOSS,
+                              uniform_delay=CONFIG3_DELAY_MEAN, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    probes = failed = suspects = 0
+
+    def go():
+        nonlocal st, probes, failed, suspects
+        for _ in range(rounds // window):
+            st, ms, _ = SP.run_sparse_ticks(st, gen, window, params)
+            probes += int(ms["fd_probes"].sum())
+            failed += int(ms["fd_failed_probes"].sum())
+            suspects += int(ms["fd_new_suspects"].sum())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, launches = count_launches(go)
+    wall = time.perf_counter() - t0
+    q = delay_mean_to_q(CONFIG3_DELAY_MEAN)
+    p_direct = (1 - CONFIG3_LOSS) ** 2 * timely(q, params.fd_direct_timeout_ticks)
+    p_relay = (1 - CONFIG3_LOSS) ** 4 * timely(q, params.fd_leg_timeout_ticks) ** 2
+    analytic = (1 - p_direct) * (1 - p_relay) ** params.ping_req_k
+    observed = failed / max(probes, 1)
+    sigma = (analytic * (1 - analytic) / max(probes, 1)) ** 0.5
+    z = (observed - analytic) / sigma
+    sparse_invariants(st)
+    ring = int(st.pending_minf.sum()) + int(st.pending_inf.sum())
+    phase("config3-delay", f"sparse lean, N={n}, D = {params.delay_slots}, {rounds} FD rounds: raw FD failure rate "
+                           f"{observed:.6f} against analytic {analytic:.6f} (sigma {sigma:.6f} over {probes} probes, "
+                           f"z = {z:.2f}); config3's 3-sigma within_tolerance {abs(z) < 3}; new-suspect rate "
+                           f"{suspects / max(probes, 1):.6f}; {wall / rounds * 1e3:.2f} ms/tick (the loop reads its "
+                           f"counters each window), delivery_combine launches {launches}, ring cells in flight at "
+                           f"the end {ring}; invariants held")
+    if abs(z) >= 3:
+        raise AssertionError(f"config3's delay run is {z:.2f} sigma from its analytic rate (its rule: < 3)")
+    return {"launches": launches, "z": z}
+
+
+#: the ring helpers the gossip phase and the sweeps call, labelled in the
+#: delay path's profile
+RING_PHASES = ("late_deliveries_", "receive_pending", "clear_pending_now_", "keep_columns_")
+
+
+def run_delay_main(device, unarmed: dict) -> dict:
+    """Phase 37: each engine's full-width main path under config3's delay
+    regime (D = 6, mean 1.5 ticks): pview at 1M (phase 5's scenario, then
+    two ticks profiled by phase with the ring helpers labelled) and
+    sparse at 49,152 (phase 11's churn run), beside their unarmed runs of
+    this call; peak below 80 GB, one launch per gossip tick."""
+    import dataclasses as dc
+
+    from scalecube_cluster_tpu_torch.ops import pview as PV
+
+    d = CONFIG3_KNOBS["delay_slots"]
+    pv = run_main_path(device, params=dc.replace(config16_params(N_MAIN), delay_slots=d), label="delay-main",
+                       delay=CONFIG3_DELAY_MEAN)
+    st, gen, params = pv.pop("state"), pv["gen"], pv["params"]
+    profile_phases(lambda: PV.run_pview_ticks_fused(st, gen, 2, params), PHASES + RING_PHASES, ticks=2,
+                   label="delay-profile")
+    ring_gib = (st.pending_minf.numel() + st.pending_inf.numel() + 4 * st.pending_src.numel()) / 2 ** 30
+    del st
+    torch.cuda.empty_cache()
+    sp = run_sparse_main_path(device, params=config5_params(N_SPARSE, delay_slots=d), label="delay-main",
+                              delay=CONFIG3_DELAY_MEAN)
+    sst = sp.pop("state")
+    sring = (sst.pending_minf.numel() + sst.pending_inf.numel() + 4 * sst.pending_src.numel()) / 2 ** 30
+    del sst
+    torch.cuda.empty_cache()
+    for label, run, ticks, ref, ring in (("pview 1M", pv, 10, unarmed["pview"], ring_gib),
+                                         (f"sparse {N_SPARSE}", sp, 30, unarmed["sparse"], sring)):
+        if run["peak"] >= 80e9:
+            raise AssertionError(f"{label} under delay peaks at {run['peak'] / 1e9:.1f} GB")
+        if run["launches"] != ticks:
+            raise AssertionError(f"{label} under delay: {run['launches']} launches in {ticks} ticks")
+        phase("delay-main", f"{label}, D = {d}, mean {CONFIG3_DELAY_MEAN}: {beside(run['ms_tick'], ref)}, "
+                            f"peak {run['peak'] / 2 ** 30:.2f} GiB (rings {ring:.2f} GiB), flag reads "
+                            f"{run['flags']:.1f}/tick, launches {run['launches'] / ticks:.2f}/tick")
+    return {"delay-main-pview": pv["launches"], "delay-main-sparse": sp["launches"]}
+
+
+def telemetry_pair(device, make, label: str, windows: int, per: int = 10) -> dict:
+    """``make()`` -> a fresh driver (one seed, nothing watched): one unarmed
+    and one armed with the telemetry plane step a 5-tick warm-up and
+    ``windows`` timed ``step(per)``, then 2 ticks under the sync-debug mode.
+    Both states must be bit-equal, the armed steps must take no driver
+    readback and wait for the device no more often than the unarmed ones;
+    one ``flush()`` and one ring read follow. Returns launches per run."""
+    from scalecube_cluster_tpu_torch.ops import _tensor, delivery
+
+    drivers, rec = {}, {}
+    for arm in (False, True):
+        d = make()
+        if arm:
+            d.arm_telemetry()
+        d.step(5)
+        d.sync()
+        reads = d.dispatch_stats["readbacks"]
+        delivery.delivery_combine.launches = 0
+        _tensor.HOST_SYNCS.count = 0
+        t0 = time.perf_counter()
+        for _ in range(windows):
+            d.step(per)
+        d.sync()
+        wall = time.perf_counter() - t0
+        launches, flags = delivery.delivery_combine.launches, _tensor.HOST_SYNCS.count
+        waits = count_waits(lambda: d.step(2))
+        drivers[arm] = d
+        rec[arm] = dict(ms_tick=wall / (windows * per) * 1e3, launches=launches, flags=flags / (windows * per),
+                        waits=waits, readbacks=d.dispatch_stats["readbacks"] - reads)
+        # the unarmed driver stays for the comparison; its window's
+        # temporaries go back to the allocator
+        torch.cuda.empty_cache()
+    diff = device_state_differences(drivers[False].state, drivers[True].state)
+    if diff:
+        raise AssertionError(f"[telemetry] {label}: the armed driver's state differs in {diff}")
+    armed_, plain = rec[True], rec[False]
+    if armed_["readbacks"] or plain["readbacks"]:
+        raise AssertionError(f"[telemetry] {label}: {armed_['readbacks']} readbacks while the armed driver stepped")
+    if armed_["waits"] != plain["waits"]:
+        raise AssertionError(f"[telemetry] {label}: the armed steps waited {armed_['waits']} times, the unarmed "
+                             f"{plain['waits']}")
+    d = drivers[True]
+    d.flush()
+    t0 = time.perf_counter()
+    snap = d.telemetry.collect()
+    read_s = time.perf_counter() - t0
+    rows = snap["ring"]["rows"]
+    names = snap["ring"]["names"]
+    last = dict(zip(names, rows[-1]))
+    if len(rows) != windows + 2 or last["tick"] != float(d.tick):
+        raise AssertionError(f"[telemetry] {label}: ring rows {len(rows)}, last tick {last['tick']} "
+                             f"(driver at {d.tick})")
+    phase("telemetry", f"{label}: armed {beside(armed_['ms_tick'], plain['ms_tick'])} over {windows} x step({per}); "
+                       f"state bit-equal to the unarmed driver's, 0 readbacks while stepping, device waits in 2 "
+                       f"ticks {armed_['waits']} armed / {plain['waits']} unarmed, flag reads {armed_['flags']:.1f}/tick, "
+                       f"launches {armed_['launches']}; flush and one ring read ({len(rows)} rows x {len(names)} "
+                       f"series, {read_s * 1e3:.1f} ms): newest window n_up {last['n_up']:g}, gossip_msgs "
+                       f"{last['gossip_msgs']:g}, rumor_coverage_mean {last['rumor_coverage_mean']:.4f}")
+    del drivers
+    torch.cuda.empty_cache()
+    return {"armed": armed_["launches"], "unarmed": plain["launches"]}
+
+
+def run_telemetry(device) -> dict:
+    """Phase 38: the telemetry plane on each engine's driver at full width
+    — pview at 1M (config16's widths, 8 rumors, a crash wave of 1,024 rows;
+    two timed ``step(10)``), sparse at 49,152 (config5's widths, 2 rumors,
+    491 crashes) and dense at 10,000 (config4's partition) at one window
+    each — against the unarmed driver of the same seed."""
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    def pview_driver():
+        n = N_MAIN
+        d = SimDriver(config16_params(n), n, warm=True, seed=0, device=device)
+        for s in range(d.params.rumor_slots):
+            d.spread_rumor((s * 997) % n, f"rumor {s}")
+        for r in range(n // 2, n // 2 + n // 1024):
+            d.crash(r)
+        return d
+
+    def sparse_driver():
+        n = N_SPARSE
+        d = SimDriver(config5_params(n), n, warm=True, seed=0, device=device)
+        for s in range(d.params.rumor_slots):
+            d.spread_rumor((s * 997) % n, f"rumor {s}")
+        for r in range(n // 2, n // 2 + n // 100):
+            d.crash(r)
+        return d
+
+    def dense_driver():
+        n = N_DENSE
+        d = SimDriver(config4_params(n), n, warm=True, seed=0, device=device)
+        d.block_partition(list(range(n // 10)), list(range(n // 10, n)))
+        return d
+
+    out = {}
+    for key, make, label, windows in (("pview", pview_driver, f"pview {N_MAIN}", 2),
+                                      ("sparse", sparse_driver, f"sparse {N_SPARSE}", 1),
+                                      ("dense", dense_driver, f"dense {N_DENSE}", 1)):
+        rec = telemetry_pair(device, make, label, windows)
+        out[f"telemetry-{key}-armed"] = rec["armed"]
+        out[f"telemetry-{key}-unarmed"] = rec["unarmed"]
+    return out
+
+
 def fleet_kernel_entry(rows: dict, launches: dict) -> dict:
     """The kernels line's entry of the scenario-axis variant: its numbers at
     the full-width batch, the other shapes beside them; ``launches`` from
@@ -2947,6 +3302,16 @@ def main() -> int:
     fleet_main = run_fleet_main(device)
     fleet_launches.update({f"fleet-main-{k}": v["launches"] for k, v in fleet_main.items()})
     marks.append(("phase 34 (fleet-main)", time.perf_counter()))
+    delay = check_delay_windows(device)
+    fleet_launches.update({k: delay.pop(k) for k in ("delay-fleet-sparse", "delay-fleet-pview")})
+    launches.update(delay)
+    marks.append(("phase 35 (delay-windows)", time.perf_counter()))
+    launches["config3-delay"] = run_config3_delay(device)["launches"]
+    marks.append(("phase 36 (config3-delay)", time.perf_counter()))
+    launches.update(run_delay_main(device, unarmed))
+    marks.append(("phase 37 (delay-main)", time.perf_counter()))
+    launches.update(run_telemetry(device))
+    marks.append(("phase 38 (telemetry)", time.perf_counter()))
 
     last = t_start
     for what, at in marks:

@@ -15,10 +15,13 @@ the JAX package's ``chaos/engine.py``:
   :meth:`DriverChaosRunner.snapshot`) is the one sync point. The report's
   ``backend`` names the torch device type (``"cuda"`` or ``"cpu"``).
 
+With the driver's telemetry plane armed, the scenario's lifecycle and
+applied events go onto its bus, and the final report feeds the plane
+(detection latencies, the outcome record, a flight dump on a violation).
+
 Not ported yet, and refused by name: ``EmulatorChaosRunner`` (the scalar
 engine's network emulators, ROADMAP A13) and ``trace=True`` (the trace
-plane, A10, second half). Publishing to a telemetry bus is a no-op while
-the driver has no telemetry plane.
+plane, A10, trace half).
 """
 
 from __future__ import annotations
@@ -594,7 +597,7 @@ class DriverChaosRunner:
         if trace:
             raise NotImplementedError(
                 "run_scenario(trace=True) needs the trace plane, which is not ported yet "
-                "(ROADMAP A10, second half)"
+                "(ROADMAP A10, trace half)"
             )
         self.driver = driver
         self.scenario = scenario
@@ -630,7 +633,7 @@ class DriverChaosRunner:
     def _publish(self, kind: str, **fields) -> None:
         plane = getattr(self.driver, "_telemetry", None)
         if plane is not None:
-            plane.bus.publish("chaos", kind, tick=self.driver.tick, **fields)
+            plane.bus.publish("chaos", kind, tick=self.driver._host_tick, **fields)
 
     # -- Restart with driver identity bookkeeping (no device reads) ----------
     def _restart(self, state, row: int, seed_rows):
@@ -683,6 +686,13 @@ class DriverChaosRunner:
         self.done = True
         report = self.report()  # THE sync point: one coalesced readback
         self.last_report = report
+        plane = getattr(d, "_telemetry", None)
+        if plane is not None:
+            # detection latencies -> histogram, completion -> bus; any
+            # violation writes the flight-recorder post-mortem artifact
+            dump = plane.ingest_chaos_report(report)
+            if dump is not None:
+                report["flight_dump"] = dump
         return report
 
     def _run_check(self) -> None:
@@ -744,7 +754,7 @@ def run_driver_scenario(
 ) -> dict:
     """Arm ``scenario`` on ``driver`` and run it to the horizon (the
     function behind ``SimDriver.run_scenario``). ``trace=True`` is refused
-    until the trace plane is ported (ROADMAP A10, second half)."""
+    until the trace plane is ported (ROADMAP A10, trace half)."""
     runner = DriverChaosRunner(
         driver, scenario, config=config, sentinels=sentinels, trace=trace
     )

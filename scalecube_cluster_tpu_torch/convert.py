@@ -29,10 +29,9 @@ def params_from_dict(d: dict):
     from ``dataclasses.asdict(jax_params)``.
 
     The ``dissem`` and ``adaptive`` dicts become the port's own
-    :class:`DissemSpec` and :class:`AdaptiveSpec`. Refuses what the port
-    does not run (``delay_slots > 0`` on the pview and sparse engines),
-    naming its ROADMAP item. A pview ``delivery_kernel`` is dropped: its
-    two values compute the same function."""
+    :class:`DissemSpec` and :class:`AdaptiveSpec`. A pview
+    ``delivery_kernel`` is dropped: its two values compute the same
+    function."""
     d = dict(d)
     d["dissem"] = DissemSpec(**(d.pop("dissem", None) or {}))
     d["adaptive"] = AdaptiveSpec(**(d.pop("adaptive", None) or {}))
@@ -40,11 +39,6 @@ def params_from_dict(d: dict):
     d["seed_rows"] = tuple(int(s) for s in d.get("seed_rows", ()))
     if "mr_slots" not in d:
         return SimParams(**d)
-    if d.get("delay_slots", 0):
-        raise ValueError(
-            "delay_slots > 0 on the pview and sparse engines (their pending delivery rings) "
-            "is not ported yet (ROADMAP A2)"
-        )
     return PviewParams(**d) if "view_slots" in d else SparseParams(**d)
 
 

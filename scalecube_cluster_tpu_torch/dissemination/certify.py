@@ -39,9 +39,9 @@ anti-entropy carries membership records, not rumor infections).
 The windows run on ``device`` (the card by default) and draw their
 uniforms from a CUDA generator seeded per seed (the JAX harness's key
 chain plays this part there); ``draws=`` replaces that source, which is
-how the parity tests feed the port the JAX key chain. ``bus=`` (the
-telemetry bus) is refused until the telemetry plane is ported (ROADMAP
-A10).
+how the parity tests feed the port the JAX key chain. ``bus=`` (a
+:class:`..telemetry.TelemetryBus`) receives one record per certified
+entry, as in JAX.
 
 The Monte Carlo half (``certify_spread_mc``, ``mc_spread_certifier``,
 ``fp_rate_mc``, ``adaptive_knob_sweep``) runs S seeds as one fleet
@@ -72,10 +72,6 @@ MC_MIN_SAMPLES = 1000
 # ceil_log2(256) = 8): the bound formulas and the chord-set caps must
 # agree on what "log2 N" means or the recorded formula strings lie
 _ceil_log2 = topo._ceil_log2
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def det_schedule_bound(spec: DissemSpec, n: int, fanout: int) -> int:
@@ -473,10 +469,9 @@ def spread_certifier(
 ) -> dict:
     """Run the certification matrix on ``device`` and return the artifact
     record (the JAX harness's, entry for entry). ``log`` is an optional
-    ``print``-like progress sink; ``bus`` (a telemetry bus) is refused
-    until the telemetry plane is ported (ROADMAP A10)."""
-    if bus is not None:
-        _not_ported("publishing certification events on a telemetry bus (bus=)", "A10")
+    ``print``-like progress sink; ``bus`` (a telemetry bus) receives one
+    ``spread_certified`` record per entry and the pipelined steady state's
+    verdict, on the same ordered stream a live driver's plane writes."""
     entries = []
     matrix = tuple(matrix or DEFAULT_MATRIX)
     for strat, topol, engine in matrix:
@@ -499,6 +494,14 @@ def spread_certifier(
                 f"<= bound {rec['bound_ticks']} "
                 f"{'OK' if rec['certified'] else 'VIOLATION'}"
             )
+        if bus is not None:
+            bus.publish(
+                "dissemination", "spread_certified",
+                strategy=strat, topology=topol, engine=engine,
+                certified=rec["certified"],
+                spread_ticks_max=rec["spread_ticks_max"],
+                bound_ticks=rec["bound_ticks"],
+            )
     # the steady-state claim belongs to the pipelined strategy: it runs
     # (and gates the verdict) only when the matrix certifies pipelined
     pipeline = None
@@ -515,6 +518,12 @@ def spread_certifier(
                 f"{pipeline['completions']} "
                 f"<= {pipeline['single_rumor_bound_ticks']} "
                 f"{'OK' if pipeline['certified'] else 'VIOLATION'}"
+            )
+        if bus is not None:
+            bus.publish(
+                "dissemination", "pipeline_steady_state",
+                certified=pipeline["certified"],
+                overhead=pipeline["pipelining_overhead_ticks"],
             )
     strategies = sorted({e["strategy"] for e in entries if e["certified"]})
     topologies = sorted({e["topology"] for e in entries if e["certified"]})
@@ -746,10 +755,8 @@ def mc_spread_certifier(
     """Run the Monte Carlo certification matrix: one fleet per cell,
     ``n_seeds`` scenarios each, Wilson and order-statistic intervals
     recorded per entry. ``draws(strategy, topology, engine)``, when given,
-    returns a cell's draw source. ``bus`` is refused until the telemetry
-    plane is ported (ROADMAP A10)."""
-    if bus is not None:
-        _not_ported("publishing certification events on a telemetry bus (bus=)", "A10")
+    returns a cell's draw source. ``bus`` (a telemetry bus) receives one
+    ``spread_certified_mc`` record per cell."""
     entries = []
     for strat, topol, engine in tuple(matrix or DEFAULT_MC_MATRIX):
         spec = DissemSpec(
@@ -772,6 +779,14 @@ def mc_spread_certifier(
                 f"(CI {rec['p99_ci']}) <= bound {rec['bound_ticks']}; "
                 f"P(within) wilson {rec['wilson']} "
                 f"{'OK' if rec['certified'] else 'VIOLATION'}"
+            )
+        if bus is not None:
+            bus.publish(
+                "dissemination", "spread_certified_mc",
+                strategy=strat, topology=topol, engine=engine,
+                certified=rec["certified"], n_seeds=n_seeds,
+                p99=rec["spread_ticks_p99"], p99_ci=rec["p99_ci"],
+                bound_ticks=rec["bound_ticks"], wilson=rec["wilson"],
             )
     return {
         "n": n,

@@ -14,6 +14,8 @@
   [N, M] temporary wider than a byte exists at a million rows; and row
   chunks bounded by a cell count for passes over the sparse engine's
   [N, N] view plane and its per-cell [N, M] arithmetic;
+* byte-wise AND / OR over bool planes through an int64 view
+  (:func:`bytes64`), eight cells a word;
 * the fleet seams (:mod:`.fleet`): while a fleet window runs the tick under
   ``torch.func.vmap`` over S scenarios (:func:`fleet_scope`), a chunk
   counts the cells of all S scenarios, a host flag opens its gate when any
@@ -202,3 +204,24 @@ def put_drop_(t: torch.Tensor, index: tuple, vals: torch.Tensor, ok: torch.Tenso
     okb = ok.view(ok.shape + (1,) * (vals.dim() - ok.dim()))
     t.index_put_(index, torch.where(okb, vals, fill))
     return t
+
+
+def bytes64(t: torch.Tensor):
+    """An int64 view of a contiguous bool or uint8 tensor whose last axis is
+    a multiple of 8 bytes, or None (in a fleet tick too: vmap batches no
+    dtype view on every torch build). A byte-wise AND or OR
+    through it moves a word per eight cells, at the memory rate where a
+    bool kernel runs well below it."""
+    if in_fleet() or not t.is_contiguous() or t.shape[-1] % 8 or t.storage_offset() % 8:
+        return None
+    return t.view(torch.uint8).view(torch.int64)
+
+
+def keep_columns_(ring: torch.Tensor, keep: torch.Tensor) -> None:
+    """``ring &= keep`` in place along the last axis: [D, N, M] bool ring
+    cells of the columns outside ``keep`` [M] are cleared."""
+    ring64 = bytes64(ring)
+    if ring64 is None:
+        ring.logical_and_(keep)
+    else:
+        ring64.bitwise_and_((keep.to(torch.uint8) * 255).view(torch.int64))

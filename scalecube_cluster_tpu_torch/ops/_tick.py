@@ -3,8 +3,8 @@ leaves under the same names and meanings for everything but the view
 (``tick``, ``up``, ``sus_key``/``sus_since``, the membership-rumor pool
 ``mr_*``/``minf_age``, the user-rumor pool ``rumor_*``/``infected*``), so
 the host mutators of those leaves, the pool's coverage and segmentation
-reductions, the rumor metrics, the push-pull reply leg and the window loop
-are written once here. Each engine module re-exports the mutators under
+reductions, the rumor metrics, the push-pull reply leg, the pending
+delivery rings and the window loop are written once here. Each engine module re-exports the mutators under
 the JAX names."""
 
 from __future__ import annotations
@@ -15,8 +15,8 @@ import numpy as np
 import torch
 
 from ..dissemination.strategies import pull_salt
-from ._tensor import host_flags, row_chunks
-from .bitplane import unpack_bits
+from ._tensor import bytes64, host_flags, plane_chunks, row_chunks
+from .bitplane import pack_bits, unpack_bits
 from .pool import allocate
 from .rand import fetch_uniform
 from .state import NEVER
@@ -145,6 +145,165 @@ def spread_rumor(state, slot: int, origin: int):
         infected_at=set_at(state.infected_at, (origin, slot), state.tick),
         infected_from=set_at(state.infected_from, (slice(None), slot), -1),
     )
+
+
+# -- the pending delivery rings (``params.delay_slots`` = D > 0) ---------------
+#
+# ``pending_minf`` [D, N, M] bool, ``pending_inf`` [D, N, R] bool and
+# ``pending_src`` [D, N, R] int32 hold what lands at each receiver in a later
+# tick: ring slot ``t % D`` is delivered in tick t and then cleared. Every
+# write goes into the state's ring tensors in place (a tick or a mutator
+# consumes its state), and the [N, M] membership passes run in row chunks.
+# A ring cell's source is -1 wherever its infection bit is clear, and
+# membership bits sit only in active pool columns: the allocation clears a
+# superseded or evicted column, the rumor sweep a freed one.
+
+
+def clear_pending_rows_(state, rows) -> None:
+    """A (re)joined row has nothing in flight: its cells of the three rings
+    are cleared in place."""
+    if state.pending_minf.shape[0]:
+        rows = row_index(rows, state.device)
+        state.pending_minf.index_fill_(1, rows, False)
+        state.pending_inf.index_fill_(1, rows, False)
+        state.pending_src.index_fill_(1, rows, -1)
+
+
+def pending_now_flags(state, D: int) -> tuple:
+    """``(user, membership)``: 0-d bools, whether ring slot ``tick % D``
+    holds a delivery (both False without rings)."""
+    if not D:
+        f = torch.zeros((), dtype=torch.bool, device=state.device)
+        return f, f
+    slot = state.tick % D
+    return state.pending_inf[slot].any(), state.pending_minf[slot].any()
+
+
+def receive_pending(state, D: int, user: bool, member: bool, recv_u, recv_src, recv_m_p):
+    """Fold ring slot ``tick % D`` into this tick's receipts (``recv_*``
+    are fresh tensors: the result of an OR and a max)."""
+    slot = state.tick % D
+    if user:
+        recv_u = recv_u | state.pending_inf[slot]
+        recv_src = torch.maximum(recv_src, state.pending_src[slot])
+    if member:
+        recv_m_p = recv_m_p | pack_bits(state.pending_minf[slot])
+    return recv_u, recv_src, recv_m_p
+
+
+def clear_pending_now_(state, D: int, user: bool, member: bool) -> None:
+    """Clear the delivered ring slot in place (a slot whose flag was clear
+    holds nothing to clear)."""
+    slot = state.tick % D
+    if user:
+        state.pending_inf[slot].fill_(False)
+        state.pending_src[slot].fill_(-1)
+    if member:
+        state.pending_minf[slot].fill_(False)
+
+
+def delay_ticks(gossip_delay_t, qd, D: int) -> torch.Tensor:
+    """[F, N] per-edge delay d with P(d >= k) = q^k, capped at D - 1, from
+    the edges' delay draws (``gossip_delay_t`` [F, N]) and the links'
+    geometric parameter ``qd`` (a scalar or [F, N]); each power its own f32
+    product, in the JAX order."""
+    d_all = torch.zeros(gossip_delay_t.shape, dtype=torch.int32, device=gossip_delay_t.device)
+    qpow = qd
+    for _ in range(1, D):
+        d_all = d_all + (gossip_delay_t < qpow).to(torch.int32)
+        qpow = qpow * qd
+    return d_all
+
+
+@functools.lru_cache(maxsize=None)
+def _byte_cells(device) -> torch.Tensor:
+    """[256] int64: byte value v -> its 8 bits as 8 bytes of 0 or 1, bit b
+    in byte b (little-endian), made on ``device`` once."""
+    v = torch.arange(256, dtype=torch.int64, device=device)
+    return sum(((v >> b) & 1) << (8 * b) for b in range(8))
+
+
+def or_words_(plane: torch.Tensor, words: torch.Tensor) -> None:
+    """``plane |= unpack(words)`` in place: the bits of the int32 words [N, W]
+    into the bool plane [N, M], over row chunks."""
+    n, m = plane.shape
+    wide = bytes64(plane) if m % 32 == 0 else None
+    for lo, hi in plane_chunks(n, m):
+        if wide is None:
+            plane[lo:hi] |= unpack_bits(words[lo:hi], m)
+        else:
+            # byte k of word w (little-endian) holds cells 32w + 8k .. + 7,
+            # which are int64 element 4w + k of the plane's row: one table
+            # lookup per byte gives those eight cells
+            byte = words[lo:hi].contiguous().view(torch.uint8)
+            wide[lo:hi] |= _byte_cells(plane.device)[byte.long()]
+
+
+def origin_words(state, n_words: int) -> torch.Tensor:
+    """[N, W] int32: bit c set in row ``mr_origin[c]`` — the origin filter of
+    a membership delivery, packed (the bits of one (row, word) are
+    distinct, so adding them is OR-ing them)."""
+    n = state.capacity
+    m = state.mr_origin.shape[0]
+    cols = torch.arange(m, device=state.device)
+    vo = (state.mr_origin >= 0) & (state.mr_origin < n)
+    flat = torch.zeros(((n + 1) * n_words,), dtype=torch.int32, device=state.device)
+    flat.index_add_(
+        0,
+        torch.where(vo, state.mr_origin, n).long() * n_words + cols // 32,
+        torch.ones((m,), dtype=torch.int32, device=state.device) << (cols % 32).to(torch.int32),
+    )
+    return flat.view(n + 1, n_words)[:n]
+
+
+def late_deliveries_(state, D: int, ok_all, d_all, p_all, ym_p, yu_p, user: bool, member: bool) -> None:
+    """The delayed contacts of the gossip phase into the rings, per fanout
+    slot s: the highest-row sender whose contact is late reaches each
+    receiver, and its payload (the young user rumors and forwarding words
+    of the sender planes ``yu_p`` / ``ym_p``, gathered in place) lands in
+    slot ``(tick + d) % D`` under the receiver-side filters of an on-time
+    delivery. ``user`` / ``member``: whether any user rumor / pool slot is
+    active (a quiet payload writes nothing).
+
+    The user rumors go in per fanout slot (the (slot, row) pairs of one
+    fanout slot are distinct, so a gather, an OR and a put are exact). The
+    membership words are filtered packed, OR-ed per delay d over the fanout
+    slots (a ring cell is the OR of every contribution, in any order), and
+    each d's words go into its ring slot in place."""
+    n = state.capacity
+    rows = rows_of(state)
+    rows_l = rows.long()
+    R = state.infected.shape[1]
+    late = []
+    for s in range(p_all.shape[0]):
+        ok_late = ok_all[s] & (d_all[s] > 0)
+        inv_l = torch.full((n,), -1, dtype=torch.int32, device=state.device)
+        inv_l.scatter_reduce_(0, p_all[s].long(), torch.where(ok_late, rows, -1), "amax", include_self=True)
+        jl = inv_l.clamp(min=0).long()
+        hasl = inv_l >= 0
+        d_row = d_all[s][jl]
+        late.append((jl, hasl, d_row))
+        if user:
+            late_u = (
+                unpack_bits(yu_p[jl], R)
+                & hasl[:, None]
+                & (state.infected_from[jl] != rows[:, None])
+                & (state.rumor_origin[None, :] != rows[:, None])
+            )
+            idx = (((state.tick + d_row) % D).long(), rows_l)
+            state.pending_inf.index_put_(idx, state.pending_inf[idx] | late_u)
+            src = state.pending_src[idx]
+            state.pending_src.index_put_(idx, torch.maximum(src, torch.where(late_u, jl.to(torch.int32)[:, None], -1)))
+    if not member:
+        return
+    not_origin = ~origin_words(state, ym_p.shape[1])
+    words = [torch.where(hasl[:, None], ym_p[jl] & not_origin, 0) for jl, hasl, _ in late]
+    del not_origin
+    for d in range(1, D):
+        acc = torch.zeros_like(words[0])
+        for (_jl, _hasl, d_row), w in zip(late, words):
+            acc |= torch.where((d_row == d)[:, None], w, 0)
+        or_words_(state.pending_minf[(state.tick + d) % D], acc)
 
 
 # -- pool reductions and metrics ----------------------------------------------

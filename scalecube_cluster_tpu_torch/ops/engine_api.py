@@ -1,7 +1,7 @@
 """The engine-interface spelling the driver resolves through.
 
 A port of the JAX package's ``ops/engine_api.py``, cut to the fields the
-driver and the chaos runner read: an engine is one :class:`EngineOps`
+driver, the chaos runner and the telemetry plane read: an engine is one :class:`EngineOps`
 descriptor, and :func:`resolve` picks it by the params type. All three
 engines are ported: dense (``SimParams``), sparse (``SparseParams``) and
 partial-view (``PviewParams``). The seams over the one [N, N] view plane
@@ -36,6 +36,8 @@ class EngineOps:
     key_plane: Callable  # state -> the packed-key plane (its dtype is the layout)
     pool_slots: Callable  # params -> bounded pool size, or None (no pool)
     dense_links_default: bool
+    telemetry_series: tuple = ()  # the metric ring's engine columns
+    telemetry_window_vector: Callable = None  # (ms, state) -> [len(series)] f32
     # (params, n_ticks) -> fleet window run(fleet_state, draws, watch_rows=None)
     # over a leading [S] scenario axis (ops/fleet.py), and its adaptive twin
     # run(fleet_state, ad, draws, watch_rows=None); the fused name is the same
@@ -134,6 +136,8 @@ def _dense_engine() -> EngineOps:
         key_plane=lambda state: state.view_key,
         pool_slots=None,
         dense_links_default=True,
+        telemetry_series=tuple(K.TELEMETRY_SERIES),
+        telemetry_window_vector=K.telemetry_window_vector,
         make_fleet_run=K.make_fleet_run,
         make_fleet_adaptive_run=K.make_fleet_adaptive_run,
     )
@@ -164,6 +168,8 @@ def _pview_engine() -> EngineOps:
         key_plane=lambda state: state.nbr_key,
         pool_slots=lambda params: params.mr_pool,
         dense_links_default=False,
+        telemetry_series=tuple(PV.TELEMETRY_SERIES),
+        telemetry_window_vector=PV.telemetry_window_vector,
         make_fleet_run=PV.make_pview_fleet_run,
         make_fleet_adaptive_run=PV.make_pview_fleet_adaptive_run,
         fleet_memory_factor=5.5,
@@ -190,6 +196,8 @@ def _sparse_engine() -> EngineOps:
         key_plane=lambda state: state.view_key,
         pool_slots=lambda params: params.mr_slots,
         dense_links_default=False,
+        telemetry_series=tuple(SP.TELEMETRY_SERIES),
+        telemetry_window_vector=SP.telemetry_window_vector,
         make_fleet_run=SP.make_sparse_fleet_run,
         make_fleet_adaptive_run=SP.make_sparse_fleet_adaptive_run,
         fleet_memory_factor=6.0,

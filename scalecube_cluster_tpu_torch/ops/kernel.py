@@ -55,8 +55,10 @@ self-refutations) and the tick folds it at its end; with the default spec
 none of it runs. :func:`sentinel_core` is the chaos sentinels' check over
 the [N, N] view plane, in row chunks.
 
+:func:`telemetry_window_vector` is the telemetry plane's per-window row.
+
 Not ported yet, and refused: trace capture (``tick(trace=...)``, the
-traced window, telemetry: ROADMAP A10, second half). The fleet windows
+traced window: ROADMAP A10, trace half). The fleet windows
 (``make_fleet_run``, its fused name, ``make_fleet_adaptive_run``) run this
 tick under ``torch.func.vmap`` (:mod:`.fleet`).
 """
@@ -757,7 +759,7 @@ def tick(state: SimState, fd_r, round_r: RoundRandoms, params: SimParams, trace=
     ``adaptive_conf_high`` gauges, and the return is ``(state, ad',
     metrics)``. ``trace`` is refused until the trace plane is ported."""
     if trace is not None:
-        raise NotImplementedError("trace capture on the dense tick is not ported yet (ROADMAP A10)")
+        raise NotImplementedError("trace capture on the dense tick is not ported yet (ROADMAP A10, trace half)")
     armed = ad is not None
     if armed and params.adaptive.is_default:
         raise ValueError(
@@ -897,6 +899,83 @@ def adaptive_gauges(ms: dict) -> dict:
 
 
 # -- chaos sentinels -------------------------------------------------------------------
+
+
+# Per-window telemetry series (the metric ring's column layout, the
+# ``/metrics`` contract): reductions over a window's stacked metrics and the
+# post-window state, on the device, with no transfer.
+TELEMETRY_SERIES = (
+    "tick",  # window-end tick
+    "window_ticks",
+    "n_up",
+    "fd_probes",
+    "fd_failed_probes",
+    "fd_new_suspects",
+    "gossip_msgs",
+    "rumor_sends",
+    "rumor_deliveries",
+    "sync_roundtrips",
+    "gossip_segmentation_max",
+    "rumor_coverage_mean",  # over ACTIVE slots, at window end
+    "rumor_coverage_min",
+    "rumor_active_slots",
+    "alive_view_fraction",  # 0 when params.full_metrics is off
+    "false_suspect_pairs_max",
+    "convergence_lag",  # 1 - alive_view_fraction (meaningful iff full_metrics)
+    "adaptive_lh_max",  # 0 on static-FD windows
+    "adaptive_conf_max",
+)
+
+#: window metrics reduced by SUM into the telemetry vector (counters);
+#: everything else is a max or an end-of-window gauge.
+_TELEM_SUMS = (
+    "fd_probes", "fd_failed_probes", "fd_new_suspects", "gossip_msgs",
+    "rumor_sends", "rumor_deliveries", "sync_roundtrips",
+)
+
+
+def _f32(value: float, device) -> torch.Tensor:
+    """A 0-d f32 device scalar made by a fill (a Python number copied onto
+    the card would wait for it)."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def telemetry_window_core(ms: dict, state) -> list:
+    """The engine-shared prefix of the telemetry window vector (every
+    series of :data:`TELEMETRY_SERIES`) as a list of 0-d f32 tensors.
+    ``ms`` is a window's stacked per-tick metrics (each leaf ``[n_ticks,
+    ...]``), ``state`` the post-window state; the host tick enters by a
+    fill, everything else is a reduction on the device."""
+    f32 = torch.float32
+    dev = state.up.device
+    n_ticks = next(iter(ms.values())).shape[0]
+    cov = ms["rumor_coverage"][-1]  # [R], end of window
+    active = state.rumor_active
+    n_active = active.sum().clamp(min=1)
+    alive_frac = ms["alive_view_fraction"][-1].to(f32)
+    zero = _f32(0.0, dev)
+    return [
+        _f32(float(state.tick), dev),
+        _f32(float(n_ticks), dev),
+        ms["n_up"][-1].to(f32),
+        *(ms[name].sum().to(f32) for name in _TELEM_SUMS),
+        ms["gossip_segmentation"].max().to(f32),
+        (torch.where(active, cov, 0.0).sum() / n_active).to(f32),
+        torch.where(active.any(), torch.where(active, cov, float("inf")).min(), 0.0).to(f32),
+        active.sum().to(f32),
+        alive_frac,
+        ms["false_suspect_pairs"].max().to(f32),
+        (1.0 - alive_frac).to(f32),
+        ms["adaptive_lh_high"].max().to(f32) if "adaptive_lh_high" in ms else zero,
+        ms["adaptive_conf_high"].max().to(f32) if "adaptive_conf_high" in ms else zero,
+    ]
+
+
+def telemetry_window_vector(ms: dict, state: SimState) -> torch.Tensor:
+    """Dense-engine telemetry row: one [len(TELEMETRY_SERIES)] f32 vector
+    per window, appended to the device metric ring by the telemetry
+    plane."""
+    return torch.stack(telemetry_window_core(ms, state))
 
 
 def sentinel_core(view_key: torch.Tensor, up: torch.Tensor, tick: int, sent: dict, spec: dict) -> dict:

@@ -6,8 +6,9 @@ engine imports there, shared here by the pview and sparse engines:
 ``_allocate`` (supersede / fresh slot / priority eviction of the rumor
 closest to done) and ``_alloc_phase`` (compaction of the tick's proposals
 to ``announce_slots`` entries, pool dedup, per-source drop attribution).
-Neither engine has the delay rings, so the pending-ring clears of the JAX
-``_allocate`` have nothing to clear. See ``ops/sparse.py`` of the JAX
+A superseded or evicted slot's column of the pending membership ring
+(``pending_minf``, when the engine runs the delay rings) is cleared in
+place, as the JAX ``_allocate`` clears it. See ``ops/sparse.py`` of the JAX
 package for the semantics and the deviations they implement.
 """
 
@@ -16,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._tensor import first_true, host_flags, nonzero_fixed, put_drop_, row_chunks, scatter_reduce_1d
+from ._tensor import first_true, host_flags, keep_columns_, nonzero_fixed, put_drop_, row_chunks, scatter_reduce_1d
 from .state import NO_CANDIDATE_I32
 
 _I32_MIN = NO_CANDIDATE_I32
@@ -81,7 +82,14 @@ def allocate(state, subj_p, key_p, orig_p, got, prio):
     erank_raw = torch.cumsum(need, 0) - 1
     erank = erank_raw.clamp(0, K - 1)
 
-    (need_any,) = host_flags(need.any())
+    # with the rings, whether any column restarts (a supersede or an
+    # eviction) rides the same read
+    D = state.pending_minf.shape[0]
+    if D:
+        need_any, replace_any = host_flags(need.any(), replace.any())
+    else:
+        (need_any,) = host_flags(need.any())
+        replace_any = False
     if need_any:
         need_m, cov_m = _need_and_cover(state)
         replace_tgt = torch.zeros((M + 1,), dtype=torch.bool, device=dev)
@@ -109,6 +117,8 @@ def allocate(state, subj_p, key_p, orig_p, got, prio):
     clear = torch.zeros((M + E,), dtype=torch.bool, device=dev)
     clear.index_fill_(0, clear_slot, True)
     age = state.minf_age.masked_fill(clear[None, :M], 0)
+    if D and (need_any or replace_any):
+        keep_columns_(state.pending_minf, ~clear[:M])
     put_drop_(age, (orig_p, slot), torch.ones((E,), dtype=torch.uint8, device=dev), slot < M)
 
     def _set(leaf, vals):

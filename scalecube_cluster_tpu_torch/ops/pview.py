@@ -34,10 +34,15 @@ threads an :class:`..adaptive.AdaptiveState` through the window, as on the
 dense engine; :func:`sentinel_init` / :func:`sentinel_reduce` are the chaos
 sentinels' table-edge twins of the dense check.
 
-Not ported yet, and refused: ``delay_slots > 0`` (the pending rings,
-ROADMAP A2; with them the adaptive direct-probe stretch), mesh/ragged
-delivery (A12), trace capture and telemetry (A10, second half). The fleet
-windows (``make_pview_fleet_run``, its fused name,
+``delay_slots`` = D > 0 arms the pending delivery rings
+(:mod:`._tick`) under the uniform delay ``delay_q``: late gossip contacts
+land D - 1 ticks ahead at most, the FD probes and the SYNC round trip are
+gated on their timeouts, and the adaptive plane stretches the direct
+probe's (``scaled_timely_rt``). A per-link delay stays refused, as in JAX.
+:func:`telemetry_window_vector` is the telemetry plane's per-window row.
+
+Not ported yet, and refused: mesh/ragged delivery (A12), trace capture
+(A10, trace half). The fleet windows (``make_pview_fleet_run``, its fused name,
 ``make_pview_fleet_adaptive_run``) run the fused tick under
 ``torch.func.vmap`` (:mod:`.fleet`).
 """
@@ -55,6 +60,15 @@ from ..dissemination import strategies as dz
 from ..dissemination.spec import DissemSpec
 from . import delivery
 from ._tick import announce, covered_columns, crash_row, crash_rows, rumor_metrics, run_window, spread_rumor  # noqa: F401
+from ._tick import (  # the pending delivery rings
+    clear_pending_now_,
+    clear_pending_rows_,
+    delay_ticks,
+    late_deliveries_,
+    origin_words,
+    pending_now_flags,
+    receive_pending,
+)
 from ._tick import count_i32 as _i32
 from ._tick import no_props as _no_props
 from ._tick import pull_replies
@@ -63,8 +77,10 @@ from ._tick import row_index as _row_index
 from ._tick import rows_of as _rows
 from ._tick import seed_rows_tensor as _seed_rows_tensor
 from ._tick import set_at as _set
-from ._tensor import first_true, host_flags, nonzero_fixed, put_drop_, row_chunks, scatter_, scatter_reduce_1d
-from .kernel import _fold_evidence, _no_evidence
+from ._tensor import first_true, host_flags, keep_columns_, nonzero_fixed, put_drop_, row_chunks, scatter_, scatter_reduce_1d
+from .kernel import _f32, _fold_evidence, _no_evidence, _timely_rt, telemetry_window_core
+from .sparse import TELEMETRY_SERIES as _SPARSE_TELEMETRY_SERIES
+from .sparse import pool_telemetry
 from .bitplane import MASK32, or_rows, pack_bits, popcount, to_i32, to_u32, unpack_bits, words_for
 from .lattice import (
     ALIVE,
@@ -167,10 +183,6 @@ class PviewParams:
         key_dtype(self.key_dtype)  # validates the spelling
         if self.partition_groups < 3:
             raise ValueError(f"partition_groups must be >= 3: got G={self.partition_groups}")
-        if self.delay_slots:
-            raise NotImplementedError(
-                "delay_slots > 0 (the pending delivery rings) is not ported yet (ROADMAP A2)"
-            )
 
     @property
     def mr_pool(self) -> int:
@@ -264,10 +276,13 @@ def init_pview_state(
     """Fresh partial-view sim on ``device``; rows ``0..n_initial-1`` up.
     A warm start fills each table with the JAX package's scattered
     binary-dissemination overlay (odd geometric chords in the active slots,
-    small offsets in the passive tail); a cold start knows only the seeds."""
-    if uniform_delay > 0:
-        raise NotImplementedError("uniform_delay needs the delay rings (delay_slots > 0), not ported yet")
+    small offsets in the passive tail); a cold start knows only the seeds.
+    ``uniform_delay`` (mean ticks) needs ``params.delay_slots`` (D) > 0,
+    which sizes the pending delivery rings."""
+    if uniform_delay > 0 and params.delay_slots <= 0:
+        raise ValueError("uniform_delay > 0 requires params.delay_slots > 0")
     n, k, m, r = params.capacity, params.view_slots, params.mr_pool, params.rumor_slots
+    n_rings = max(0, params.delay_slots)
     g = params.partition_groups
     kdt = key_dtype(params.key_dtype)
     rows = np.arange(n)
@@ -332,9 +347,9 @@ def init_pview_state(
         delay_q=t(np.float32(delay_mean_to_q(uniform_delay)), torch.float32),
         part_id=torch.zeros((n,), dtype=i32, device=device),
         part_loss=torch.zeros((g, g), dtype=torch.float32, device=device),
-        pending_minf=torch.zeros((0, n, m), dtype=torch.bool, device=device),
-        pending_inf=torch.zeros((0, n, r), dtype=torch.bool, device=device),
-        pending_src=torch.full((0, n, r), -1, dtype=i32, device=device),
+        pending_minf=torch.zeros((n_rings, n, m), dtype=torch.bool, device=device),
+        pending_inf=torch.zeros((n_rings, n, r), dtype=torch.bool, device=device),
+        pending_src=torch.full((n_rings, n, r), -1, dtype=i32, device=device),
     )
 
 
@@ -399,6 +414,7 @@ def join_row(state: PviewState, row: int, seed_rows) -> PviewState:
         infected=_set(state.infected, row, False),
         infected_from=_set(state.infected_from, row, -1),
     )
+    clear_pending_rows_(state, row)
     return announce(state, row, self_key, row)
 
 
@@ -427,6 +443,7 @@ def join_rows(state: PviewState, rows, seed_rows) -> PviewState:
         infected=_set(state.infected, ridx, False),
         infected_from=_set(state.infected_from, ridx, -1),
     )
+    clear_pending_rows_(state, ridx)
     ones = torch.ones((nk,), dtype=torch.bool, device=dev)
     state, _a, _d, _e = allocate(state, rows, self_keys, rows, ones, prio=ones)
     return state
@@ -597,6 +614,12 @@ def _rt_at(state: PviewState, i, j) -> torch.Tensor:
     return (1.0 - _loss_at(state, i, j)) * (1.0 - _loss_at(state, j, i))
 
 
+def _rt_timely(state: PviewState, i, j, t: int) -> torch.Tensor:
+    """The round trip i <-> j delivered within ``t`` ticks under the
+    uniform delay (the rings' runs)."""
+    return _rt_at(state, i, j) * _timely_rt(state.delay_q, state.delay_q, t)
+
+
 def _sample_slots(state: PviewState, u, n_picks: int, tries: int, ka: int):
     """Per-row ``n_picks`` distinct ACTIVE-SLOT draws by bounded rejection:
     each pick takes the first of ``tries`` slot draws that holds a non-DEAD
@@ -713,12 +736,26 @@ def _fd_phase(state: PviewState, r: SparseFdRandoms, params: PviewParams, ad=Non
     tgt_slot = tgt_slot_all[:, 0]
     tgt = tgt_all[:, 0]
     has_tgt = valid[:, 0] & state.up
-    direct_ok = has_tgt & state.up[tgt] & (r.fd_direct < _rt_at(state, rows, tgt))
+    if params.delay_slots and ad is not None:
+        # the prober's own direct timeout stretches to t_base * (1 + lh)
+        q = state.delay_q.expand(n)
+        p_direct = _rt_at(state, rows, tgt) * _adp.scaled_timely_rt(
+            q, q, params.fd_direct_timeout_ticks, ad.lh, params.adaptive.lh_max
+        )
+    elif params.delay_slots:
+        p_direct = _rt_timely(state, rows, tgt, params.fd_direct_timeout_ticks)
+    else:
+        p_direct = _rt_at(state, rows, tgt)
+    direct_ok = has_tgt & state.up[tgt] & (r.fd_direct < p_direct)
 
     relays = tgt_all[:, 1:]
     relay_valid = valid[:, 1:]
     tgt_b = tgt[:, None]
     p_relay = _rt_at(state, rows[:, None], relays) * _rt_at(state, relays, tgt_b)
+    if params.delay_slots:
+        leg = _timely_rt(state.delay_q, state.delay_q, params.fd_leg_timeout_ticks)
+        p_relay = p_relay * leg
+        p_relay = p_relay * leg
     relay_ok = relay_valid & state.up[relays] & state.up[tgt_b] & (r.fd_relay < p_relay)
     ack = direct_ok | relay_ok.any(dim=1)
 
@@ -879,22 +916,12 @@ def _mr_apply_packed(state: PviewState, recv_m_p, zero_p, params: PviewParams, a
     and with ``adaptive`` the confirmation evidence (accepted SUSPECT
     records per subject, and their max key)."""
     n = state.capacity
-    m = params.mr_pool
     W = recv_m_p.shape[1]
     dev = state.device
-    cols = torch.arange(m, device=dev)
     ka = params.active_slots
 
-    # origin-row exclusion: column c's bit lands in row mr_origin[c]; the
-    # bits of one (row, word) are distinct, so adding them is OR-ing them
-    vo = (state.mr_origin >= 0) & (state.mr_origin < n)
-    flat = torch.zeros(((n + 1) * W,), dtype=torch.int32, device=dev)
-    flat.index_add_(
-        0,
-        torch.where(vo, state.mr_origin, n).long() * W + cols // 32,
-        torch.ones((m,), dtype=torch.int32, device=dev) << (cols % 32).to(torch.int32),
-    )
-    excl_p = flat.view(n + 1, W)[:n]
+    # origin-row exclusion: column c's bit lands in row mr_origin[c]
+    excl_p = origin_words(state, W)
     active_p = pack_bits(state.mr_active[None, :])[0]
     rem0 = recv_m_p & zero_p & ~excl_p & active_p[None, :]
     rem0 = torch.where(state.up[:, None], rem0, 0)
@@ -964,8 +991,13 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
     dev = state.device
     rows = _rows(state)
 
-    u_any, mr_any = host_flags(state.rumor_active.any(), state.mr_active.any())
-    if not (u_any or mr_any):
+    D = params.delay_slots
+    # one read: the pools, and with the rings their slot due this tick
+    u_any, m_any, pu, pm = host_flags(
+        state.rumor_active.any(), state.mr_active.any(), *pending_now_flags(state, D)
+    )
+    mr_any = m_any or pm
+    if not (u_any or mr_any or pu):
         z = torch.zeros((), dtype=torch.int32, device=dev)
         mets = {k: z for k in _GOSSIP_METRICS}
         if adaptive:
@@ -1021,18 +1053,28 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
         & (r.gossip_edge.T < (1.0 - _loss_at(state, rows_b, p_all)))
     )
     sent = _i32(ok_all)
+    if D:
+        # each edge's delay: only the undelayed contacts deliver now
+        d_all = delay_ticks(r.gossip_delay.T, state.delay_q, D)
+        ok_now_all = ok_all & (d_all == 0)
+    else:
+        ok_now_all = ok_all
     inv = torch.full((F, n), -1, dtype=torch.int32, device=dev)
     inv.scatter_reduce_(
-        1, p_all.long(), torch.where(ok_all, rows_b, -1), "amax", include_self=True
+        1, p_all.long(), torch.where(ok_now_all, rows_b, -1), "amax", include_self=True
     )
     # the kernel reads the three sender planes in place: no payload copy
     recv_u, recv_src, recv_m_p, rumor_sent = delivery.delivery_combine(
         ym_p, yu_p, state.infected_from, inv, state.rumor_origin.contiguous()
     )
+    if D:
+        recv_u, recv_src, recv_m_p = receive_pending(state, D, pu, pm, recv_u, recv_src, recv_m_p)
     if spec.wants_pull:
-        pulled, rumor_pulled = pull_replies(state, ok_all, p_all, ym_p, yu_p, _loss_at, recv_u, recv_src, recv_m_p)
+        pulled, rumor_pulled = pull_replies(state, ok_now_all, p_all, ym_p, yu_p, _loss_at, recv_u, recv_src, recv_m_p)
         sent = sent + pulled
         rumor_sent = rumor_sent + rumor_pulled
+    if D:
+        late_deliveries_(state, D, ok_all, d_all, p_all, ym_p, yu_p, u_any, m_any)
 
     newly_u = recv_u & ~state.infected & state.up[:, None] & state.rumor_active[None, :]
     state = state.replace(
@@ -1051,6 +1093,8 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
     else:
         n_mr_deliveries = n_mr_accepts = torch.zeros((), dtype=torch.int32, device=dev)
         fwd_post_p = fwd_p
+    if D:
+        clear_pending_now_(state, D, pu, pm)
     mets = {
         "gossip_msgs": sent,
         "rumor_sends": rumor_sent,
@@ -1194,7 +1238,9 @@ def _sync_phase(state: PviewState, r: SparseRoundRandoms, params: PviewParams, a
         use_seed = ((round_ % Q) == 0) & (sp != caller) & is_periodic & valid_c
         peer = torch.where(use_seed, sp, peer)
         valid_pick = valid_pick | use_seed
-    ok = valid_c & valid_pick & state.up[peer] & (r.sync_edge[caller] < _rt_at(state, caller, peer))
+    p_rt = (_rt_timely(state, caller, peer, params.sync_timeout_ticks) if params.delay_slots
+            else _rt_at(state, caller, peer))
+    ok = valid_c & valid_pick & state.up[peer] & (r.sync_edge[caller] < p_rt)
 
     pre_id = state.nbr_id
     pre_key = _keys_i32(state)
@@ -1266,7 +1312,11 @@ def _rumor_sweeps_fused(state: PviewState, params: PviewParams, fwd_post_p) -> P
         & state.up[:, None]
         & ((state.tick - state.infected_at) < params.spread_ticks)
     ).any(dim=0)
-    state = state.replace(rumor_active=state.rumor_active & (keep_u | forwarding_u))
+    keep_u = keep_u | forwarding_u
+    D = params.delay_slots
+    if D:
+        keep_u = keep_u | state.pending_inf.flatten(0, 1).any(dim=0)
+    state = state.replace(rumor_active=state.rumor_active & keep_u)
 
     (mr_any,) = host_flags(state.mr_active.any())
     if not mr_any:
@@ -1274,10 +1324,17 @@ def _rumor_sweeps_fused(state: PviewState, params: PviewParams, fwd_post_p) -> P
     fwd_words = or_rows(torch.where(state.up[:, None], fwd_post_p, 0))
     forwarding_m = unpack_bits(fwd_words[None, :], m)[0]
     keep_m = ((state.tick - state.mr_created) <= sweep) | forwarding_m
+    # a rumor with deliveries in flight stays, and is not freed as covered
+    pending_m = state.pending_minf.flatten(0, 1).any(dim=0) if D else None
+    if D:
+        keep_m = keep_m | pending_m
     if params.early_free:
-        keep_m = keep_m & ~covered_columns(state)
+        covered = covered_columns(state)
+        keep_m = keep_m & ~(covered & ~pending_m) if D else keep_m & ~covered
     keep_m = keep_m & state.mr_active
     freed = state.mr_active & ~keep_m
+    if D:
+        keep_columns_(state.pending_minf, keep_m)
     return state.replace(
         mr_active=keep_m,
         mr_subject=torch.where(freed, -1, state.mr_subject),
@@ -1376,7 +1433,7 @@ def pview_tick(state: PviewState, fd_r, round_r: SparseRoundRandoms, params: Pvi
     the trace plane is ported. Returns ``(state, metrics)``, or ``(state,
     ad', metrics)`` with ``ad``."""
     if trace is not None:
-        raise NotImplementedError("trace capture on the pview tick is not ported yet (ROADMAP A10)")
+        raise NotImplementedError("trace capture on the pview tick is not ported yet (ROADMAP A10, trace half)")
     return pview_tick_fused(state, fd_r, round_r, params, ad=ad)
 
 
@@ -1402,6 +1459,26 @@ def make_pview_adaptive_run(params: PviewParams, n_ticks: int):
         return run_pview_ticks_adaptive(state, ad, draws, n_ticks, params, watch_rows)
 
     return run
+
+
+# pview telemetry ring layout: the sparse series plus the two mesh
+# columns. ``delivery_overflow`` (the sharded delivery's drop count) is 0 on
+# one device; ``shard_peak_mem_mb`` is the whole state's footprint,
+# reckoned once when the plane is armed (``telemetry/plane.py``).
+TELEMETRY_SERIES = _SPARSE_TELEMETRY_SERIES + (
+    "delivery_overflow",
+    "shard_peak_mem_mb",
+)
+
+
+def telemetry_window_vector(ms: dict, state: PviewState, *, shard_mem_mb: float = 0.0) -> torch.Tensor:
+    """pview telemetry row: the sparse series and the two mesh columns, one
+    [len(TELEMETRY_SERIES)] f32 vector (device ops only)."""
+    dev = state.device
+    overflow = ms["delivery_overflow"].sum().to(torch.float32) if "delivery_overflow" in ms else _f32(0.0, dev)
+    return torch.stack(
+        telemetry_window_core(ms, state) + pool_telemetry(ms) + [overflow, _f32(shard_mem_mb, dev)]
+    )
 
 
 def sentinel_reduce(state: PviewState, sent: dict, spec: dict) -> dict:

@@ -53,10 +53,16 @@ The adaptive plane (``sparse_tick(ad=...)``,
 :class:`..adaptive.AdaptiveState` through the window, as on the dense
 engine; :func:`sentinel_reduce` is the chaos sentinels' check.
 
-Not ported yet, and refused: ``delay_slots > 0`` and ``uniform_delay > 0``
-(the pending rings, ROADMAP A2; with them the adaptive direct-probe
-stretch), trace capture and telemetry (A10, second half), meshes (A12).
-The fleet windows (``make_sparse_fleet_run``, its fused name,
+``delay_slots`` = D > 0 arms the pending delivery rings (:mod:`._tick`)
+under a scalar delay or, with dense links, a per-link [N, N] ``delay_q``
+(``set_link_delay``, which a ``SlowMember`` scenario writes): late gossip
+contacts land D - 1 ticks ahead at most, the FD probes and the SYNC round
+trip are gated on their timeouts, and the adaptive plane stretches the
+direct probe's (``scaled_timely_rt``). :func:`telemetry_window_vector` is
+the telemetry plane's per-window row.
+
+Not ported yet, and refused: trace capture (A10, trace half), meshes
+(A12). The fleet windows (``make_sparse_fleet_run``, its fused name,
 ``make_sparse_fleet_adaptive_run``) run the fused tick under
 ``torch.func.vmap`` (:mod:`.fleet`).
 """
@@ -73,8 +79,16 @@ from ..adaptive import AdaptiveSpec
 from ..dissemination import strategies as dz
 from ..dissemination.spec import DissemSpec
 from . import delivery
-from ._tensor import first_true, host_flags, nonzero_fixed, plane_chunks, put_drop_, row_chunks, scatter_, scatter_reduce_1d
+from ._tensor import first_true, host_flags, keep_columns_, nonzero_fixed, plane_chunks, put_drop_, row_chunks, scatter_, scatter_reduce_1d
 from ._tick import announce, covered_columns, crash_row, crash_rows, rumor_metrics, run_window, spread_rumor  # noqa: F401
+from ._tick import (  # the pending delivery rings
+    clear_pending_now_,
+    clear_pending_rows_,
+    delay_ticks,
+    late_deliveries_,
+    pending_now_flags,
+    receive_pending,
+)
 from ._tick import count_i32 as _i32
 from ._tick import no_props as _no_props
 from ._tick import pull_replies
@@ -85,7 +99,8 @@ from ._tick import seed_rows_tensor as _seed_rows_tensor
 from ._tick import set_at as _set
 from .bitplane import pack_bits, unpack_bits, words_for
 from .engine_api import plane_view_rows as view_rows
-from .kernel import _fold_evidence, _no_evidence, ceil_log2, sentinel_core
+from .kernel import TELEMETRY_SERIES as _CORE_TELEMETRY_SERIES
+from .kernel import _fold_evidence, _no_evidence, _timely_rt, ceil_log2, sentinel_core, telemetry_window_core
 from .lattice import ALIVE, RANK_ALIVE, RANK_DEAD, RANK_LEAVING, RANK_SUSPECT, UNKNOWN_KEY, precedence_key
 from .pool import alloc_phase, allocate
 from .rand import (
@@ -156,10 +171,6 @@ class SparseParams:
                             adaptive=AdaptiveSpec.from_config(config), **units)
 
     def __post_init__(self):
-        if self.delay_slots:
-            raise NotImplementedError(
-                "delay_slots > 0 (the pending delivery rings) is not ported yet (ROADMAP A2)"
-            )
         # the JAX window's check of an explicit apply block (its column
         # block width); the port's apply does not block by columns
         if self.apply_block and (self.apply_block < 0 or self.capacity % self.apply_block):
@@ -248,13 +259,12 @@ def init_sparse_state(
     up. A warm start has every up row know every up row ALIVE (within its
     namespace hierarchy when ``namespaces`` is given); a cold one knows
     only itself. ``dense_links`` keeps per-link loss/delay as [N, N]
-    planes (emulator runs at moderate N) instead of one scalar each."""
-    if uniform_delay > 0:
-        raise NotImplementedError(
-            "uniform_delay > 0 needs the pending delivery rings (delay_slots > 0), "
-            "not ported yet (ROADMAP A2)"
-        )
+    planes (emulator runs at moderate N) instead of one scalar each.
+    ``params.delay_slots`` (D) sizes the pending delivery rings."""
+    if uniform_delay > 0 and params.delay_slots <= 0:
+        raise ValueError("uniform_delay > 0 requires params.delay_slots > 0")
     n, m, r = params.capacity, params.mr_slots, params.rumor_slots
+    d = max(0, params.delay_slots)
     i32 = torch.int32
     up = torch.arange(n, device=device) < n_initial
     view_key = torch.full((n, n), UNKNOWN_KEY, dtype=i32, device=device)
@@ -318,9 +328,9 @@ def init_sparse_state(
         loss=loss,
         fetch_rt=_roundtrip(loss),
         delay_q=delay_q,
-        pending_minf=torch.zeros((0, n, m), dtype=torch.bool, device=device),
-        pending_inf=torch.zeros((0, n, r), dtype=torch.bool, device=device),
-        pending_src=torch.full((0, n, r), -1, dtype=i32, device=device),
+        pending_minf=torch.zeros((d, n, m), dtype=torch.bool, device=device),
+        pending_inf=torch.zeros((d, n, r), dtype=torch.bool, device=device),
+        pending_src=torch.full((d, n, r), -1, dtype=i32, device=device),
     )
 
 
@@ -359,6 +369,7 @@ def join_rows(state: SparseState, rows, seed_rows) -> SparseState:
         infected=_set(state.infected, rows, False),
         infected_from=_set(state.infected_from, rows, -1),
     )
+    clear_pending_rows_(state, rows)
     # self-announces: a full pool EVICTS the most-covered rumor rather than
     # dropping a joiner's identity (priority eviction, deviation 3)
     ones = torch.ones((k,), dtype=torch.bool, device=dev)
@@ -406,15 +417,13 @@ def set_link_loss(state: SparseState, src, dst, loss: float) -> SparseState:
 
 
 def set_link_delay(state: SparseState, src, dst, mean_delay_ticks: float) -> SparseState:
-    """Per-link delay (dense links only). A positive delay needs the
-    pending delivery rings, which are not ported: it raises, as the JAX
-    engine does without ``delay_slots``."""
+    """Mean delay in ticks on every link src -> dst (dense links only). A
+    positive delay needs the pending delivery rings (``params.delay_slots >
+    0``)."""
     if state.delay_q.dim() == 0:
         raise ValueError("per-link delay needs dense links; init_sparse_state(dense_links=True)")
-    if mean_delay_ticks > 0:
-        raise ValueError(
-            "link delay requires params.delay_slots > 0 (the pending delivery rings, ROADMAP A2)"
-        )
+    if mean_delay_ticks > 0 and state.pending_minf.shape[0] == 0:
+        raise ValueError("link delay requires params.delay_slots > 0")
     src = _row_index(src, state.device)
     dst = _row_index(dst, state.device)
     q = float(np.float32(delay_mean_to_q(mean_delay_ticks)))
@@ -481,6 +490,11 @@ def _rt_at(state: SparseState, i, j) -> torch.Tensor:
     return state.fetch_rt if state.fetch_rt.dim() == 0 else state.fetch_rt[i, j]
 
 
+def _delay_q_at(state: SparseState, i, j) -> torch.Tensor:
+    """Geometric delay parameter of the link i -> j; the scalar broadcasts."""
+    return state.delay_q if state.delay_q.dim() == 0 else state.delay_q[i, j]
+
+
 def _fetch_gate(state: SparseState, salt: int, i, j, cand_key, p_fetch) -> torch.Tensor:
     """ALIVE-rank candidates gated on the metadata-fetch round trip (the
     same stateless hash draw as the other engines)."""
@@ -535,12 +549,29 @@ def _fd_phase(state: SparseState, r: SparseFdRandoms, params: SparseParams, ad=N
     sel, valid = _sample_rejection(state, rows, r.fd_try, 1 + params.ping_req_k, params.sample_tries)
     tgt = sel[:, 0]
     has_tgt = valid[:, 0] & state.up
-    direct_ok = has_tgt & state.up[tgt] & (r.fd_direct < _rt_at(state, rows, tgt))
+    p_direct = _rt_at(state, rows, tgt)
+    if params.delay_slots:
+        q_out, q_back = _delay_q_at(state, rows, tgt), _delay_q_at(state, tgt, rows)
+        if ad is not None:
+            # the prober's own direct timeout stretches to t_base * (1 + lh)
+            if q_out.dim() == 0:
+                q_out, q_back = q_out.expand(n), q_back.expand(n)
+            p_direct = p_direct * _adp.scaled_timely_rt(
+                q_out, q_back, params.fd_direct_timeout_ticks, ad.lh, params.adaptive.lh_max
+            )
+        else:
+            p_direct = p_direct * _timely_rt(q_out, q_back, params.fd_direct_timeout_ticks)
+    direct_ok = has_tgt & state.up[tgt] & (r.fd_direct < p_direct)
 
     relays = sel[:, 1:]
     relay_valid = valid[:, 1:]
     tgt_b = tgt[:, None]
     p_relay = _rt_at(state, rows[:, None], relays) * _rt_at(state, relays, tgt_b)
+    if params.delay_slots:
+        leg = params.fd_leg_timeout_ticks
+        rows_b = rows[:, None]
+        p_relay = p_relay * _timely_rt(_delay_q_at(state, rows_b, relays), _delay_q_at(state, relays, rows_b), leg)
+        p_relay = p_relay * _timely_rt(_delay_q_at(state, relays, tgt_b), _delay_q_at(state, tgt_b, relays), leg)
     relay_ok = relay_valid & state.up[relays] & state.up[tgt_b] & (r.fd_relay < p_relay)
     ack = direct_ok | relay_ok.any(dim=1)
 
@@ -738,9 +769,14 @@ def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: Spars
     dev = state.device
     rows = _rows(state)
 
-    u_any, mr_any = host_flags(state.rumor_active.any(), state.mr_active.any())
+    D = params.delay_slots
+    # one read: the pools, and with the rings their slot due this tick
+    u_any, m_any, pu, pm = host_flags(
+        state.rumor_active.any(), state.mr_active.any(), *pending_now_flags(state, D)
+    )
+    mr_any = m_any or pm
     covered = torch.zeros((m,), dtype=torch.bool, device=dev)
-    if not (u_any or mr_any):
+    if not (u_any or mr_any or pu):
         z = torch.zeros((), dtype=torch.int32, device=dev)
         mets = {k: z for k in _GOSSIP_METRICS}
         if adaptive:
@@ -792,17 +828,27 @@ def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: Spars
         & (r.gossip_edge.T < (1.0 - _loss_at(state, rows_b, p_all)))
     )
     sent = _i32(ok_all)
+    if D:
+        # each edge's delay: only the undelayed contacts deliver now
+        d_all = delay_ticks(r.gossip_delay.T, _delay_q_at(state, rows_b, p_all), D)
+        ok_now_all = ok_all & (d_all == 0)
+    else:
+        ok_now_all = ok_all
     # receiver-pulled delivery (deviation 6): per slot, the highest-row
     # sender that reached each receiver
     inv = torch.full((F, n), -1, dtype=torch.int32, device=dev)
-    inv.scatter_reduce_(1, p_all.long(), torch.where(ok_all, rows_b, -1), "amax", include_self=True)
+    inv.scatter_reduce_(1, p_all.long(), torch.where(ok_now_all, rows_b, -1), "amax", include_self=True)
     recv_u, recv_src, recv_m_p, rumor_sent = delivery.delivery_combine(
         ym_p, yu_p, state.infected_from, inv, state.rumor_origin.contiguous()
     )
+    if D:
+        recv_u, recv_src, recv_m_p = receive_pending(state, D, pu, pm, recv_u, recv_src, recv_m_p)
     if spec.wants_pull:
-        pulled, rumor_pulled = pull_replies(state, ok_all, p_all, ym_p, yu_p, _loss_at, recv_u, recv_src, recv_m_p)
+        pulled, rumor_pulled = pull_replies(state, ok_now_all, p_all, ym_p, yu_p, _loss_at, recv_u, recv_src, recv_m_p)
         sent = sent + pulled
         rumor_sent = rumor_sent + rumor_pulled
+    if D:
+        late_deliveries_(state, D, ok_all, d_all, p_all, ym_p, yu_p, u_any, m_any)
 
     newly_u = recv_u & ~state.infected & state.up[:, None] & state.rumor_active[None, :]
     state = state.replace(
@@ -819,6 +865,8 @@ def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: Spars
             covered = covered_columns(state)
     else:
         n_mr_deliveries = n_mr_accepts = torch.zeros((), dtype=torch.int32, device=dev)
+    if D:
+        clear_pending_now_(state, D, pu, pm)
     mets = {
         "gossip_msgs": sent,
         "rumor_sends": rumor_sent,
@@ -890,7 +938,11 @@ def _sync_phase(state: SparseState, r: SparseRoundRandoms, params: SparseParams,
         use_fb = ~valid_pick & (fb != caller)
         peer = torch.where(use_fb, fb, peer)
         valid_pick = valid_pick | use_fb
-    ok = valid_c & valid_pick & state.up[peer] & (r.sync_edge[caller] < _rt_at(state, caller, peer))
+    p_rt = _rt_at(state, caller, peer)
+    if params.delay_slots:
+        p_rt = p_rt * _timely_rt(_delay_q_at(state, caller, peer), _delay_q_at(state, peer, caller),
+                                 params.sync_timeout_ticks)
+    ok = valid_c & valid_pick & state.up[peer] & (r.sync_edge[caller] < p_rt)
 
     vk = state.view_key
     dense_rt = state.fetch_rt.dim() != 0
@@ -1007,7 +1059,11 @@ def _rumor_sweeps_fused(state: SparseState, params: SparseParams, covered, mr_an
         & state.up[:, None]
         & ((state.tick - state.infected_at) < spread[:, None])
     ).any(dim=0)
-    state = state.replace(rumor_active=state.rumor_active & (keep_u | forwarding_u))
+    keep_u = keep_u | forwarding_u
+    D = params.delay_slots
+    if D:
+        keep_u = keep_u | state.pending_inf.flatten(0, 1).any(dim=0)
+    state = state.replace(rumor_active=state.rumor_active & keep_u)
     if not mr_any:
         return state
     spread8 = spread.clamp(max=255).to(torch.uint8)
@@ -1017,10 +1073,16 @@ def _rumor_sweeps_fused(state: SparseState, params: SparseParams, covered, mr_an
             ((state.minf_age[lo:hi] - 1) < spread8[lo:hi, None]) & state.up[lo:hi, None]
         ).any(dim=0)
     keep_m = ((state.tick - state.mr_created) <= sweep) | forwarding_m
+    # a rumor with deliveries in flight stays, and is not freed as covered
+    pending_m = state.pending_minf.flatten(0, 1).any(dim=0) if D else None
+    if D:
+        keep_m = keep_m | pending_m
     if params.early_free:
-        keep_m = keep_m & ~covered
+        keep_m = keep_m & ~(covered & ~pending_m) if D else keep_m & ~covered
     keep_m = keep_m & state.mr_active
     freed = state.mr_active & ~keep_m
+    if D:
+        keep_columns_(state.pending_minf, keep_m)
     # in place: with a live pool, the gossip phase's aging made this plane
     # this tick
     return state.replace(
@@ -1133,7 +1195,7 @@ def sparse_tick(state: SparseState, fd_r, round_r: SparseRoundRandoms, params: S
     the trace plane is ported. Returns ``(state, metrics)``, or ``(state,
     ad', metrics)`` with ``ad``."""
     if trace is not None:
-        raise NotImplementedError("trace capture on the sparse tick is not ported yet (ROADMAP A10)")
+        raise NotImplementedError("trace capture on the sparse tick is not ported yet (ROADMAP A10, trace half)")
     return sparse_tick_fused(state, fd_r, round_r, params, ad=ad)
 
 
@@ -1158,6 +1220,33 @@ def make_sparse_adaptive_run(params: SparseParams, n_ticks: int):
         return run_sparse_ticks_adaptive(state, ad, draws, n_ticks, params, watch_rows)
 
     return run
+
+
+# Sparse telemetry ring layout: the engine-shared prefix
+# (:data:`.kernel.TELEMETRY_SERIES`) plus the bounded pool's backpressure.
+TELEMETRY_SERIES = _CORE_TELEMETRY_SERIES + (
+    "announced",
+    "announce_dropped",
+    "pool_evicted",
+    "mr_active_high_water",
+)
+
+
+def telemetry_window_vector(ms: dict, state: SparseState) -> torch.Tensor:
+    """Sparse-engine telemetry row: the shared core vector plus the pool
+    series, as one [len(TELEMETRY_SERIES)] f32 vector (device ops only)."""
+    return torch.stack(telemetry_window_core(ms, state) + pool_telemetry(ms))
+
+
+def pool_telemetry(ms: dict) -> list:
+    """The pool-backpressure series of a window (sparse and pview)."""
+    f32 = torch.float32
+    return [
+        ms["announced"].sum().to(f32),
+        ms["announce_dropped"].sum().to(f32),
+        ms["pool_evicted"].sum().to(f32),
+        ms["mr_active_count"].max().to(f32),
+    ]
 
 
 def sentinel_reduce(state: SparseState, sent: dict, spec: dict) -> dict:

@@ -27,16 +27,20 @@ the JAX package's engine policy). The driver owns:
 * chaos scenarios (:meth:`SimDriver.run_scenario`, :mod:`..chaos`), whose
   runner applies the fault timeline between windows and checks the
   sentinels on the device; :meth:`SimDriver.chaos_snapshot` and the
-  ``chaos`` section of :meth:`SimDriver.health_snapshot` read them.
+  ``chaos`` section of :meth:`SimDriver.health_snapshot` read them;
+* the telemetry plane (:meth:`SimDriver.arm_telemetry`, :mod:`..telemetry`):
+  one ring row per window on the device, the lifecycle, chaos and
+  checkpoint records on its bus, the ``/metrics`` exposition and the flight
+  recorder.
 
 ``dispatch_stats`` counts the driver's own device→host readbacks as the
 JAX driver does: a watch or ``record_metrics`` adds one per window, a flush
 one per staged reduction. The tick itself reads one flag to the host per
 data-keyed branch; :data:`..ops._tensor.HOST_SYNCS` counts those.
 
-Not ported yet, and refused by name: meshes (ROADMAP A12), the telemetry
-and trace planes (A10, second half; ``run_scenario(trace=True)`` too),
-protocol knobs and the control plane (A11), the compile-cache audit (A13).
+Not ported yet, and refused by name: meshes (ROADMAP A12), the trace plane
+(A10, trace half; ``run_scenario(trace=True)`` too), protocol knobs and the
+control plane (A11), the compile-cache audit (A13).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import os
 import pickle
 import tempfile
 import threading
+import time
 import zlib
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
@@ -173,6 +178,7 @@ class SimDriver:
         the JAX driver's own key chain through it)."""
         if mesh is not None:
             _not_ported("a sharded driver (mesh=)", "A12")
+        self.mesh = None
         if compile_cache_dir:
             _not_ported("the compile-cache directory", "A13")
         self.device = torch.device(device)
@@ -198,6 +204,10 @@ class SimDriver:
 
             self._ad = init_adaptive_state(params.capacity, device=self.device)
         self._chaos = None  # the armed DriverChaosRunner, if any
+        # the armed telemetry plane (a pure consumer: arming never changes
+        # the trajectory nor adds a per-window transfer), or None
+        self._telemetry = None
+        self._init_warm = bool(warm)
         self._key_dtype = self._eng.key_plane(self.state).dtype
         self._lay = layout_for(self._key_dtype)
         self.seed = int(seed)
@@ -257,12 +267,20 @@ class SimDriver:
         self._win_rumor_cov = None
         self._rumor_cov_host = None
         self._rumor_cov_dirty = True
+        # rumors awaiting full coverage, slot -> spread tick (the telemetry
+        # plane's rumor-spread histogram reads them at flush time)
+        self._rumor_spread_pending: Dict[int, int] = {}
 
     # -- time ---------------------------------------------------------------
     @property
     def tick(self) -> int:
         with self._lock:
             return self.state.tick
+
+    @property
+    def _host_tick(self) -> int:
+        """The tick bus records and flight dumps stamp: a host int here."""
+        return self.state.tick
 
     # -- stepping -----------------------------------------------------------
     def step(self, n_ticks: int = 1) -> dict:
@@ -278,18 +296,24 @@ class SimDriver:
         rows = sorted(self._watches)
         watch_arr = torch.tensor(rows, dtype=torch.int64, device=self.device) if rows else None
         source = self._gen if self._draws is None else self._draws(n_ticks)
+        t0 = time.perf_counter()
         if self._ad is not None:
             step = self._eng.make_adaptive_run(self.params, n_ticks)
             self.state, self._ad, ms, watched = step(self.state, self._ad, source, watch_rows=watch_arr)
         else:
             step = self._eng.make_run(self.params, n_ticks)
             self.state, ms, watched = step(self.state, source, watch_rows=watch_arr)
+        dispatch_s = time.perf_counter() - t0
         ds = self.dispatch_stats
         ds["windows_dispatched"] += 1
         ds["ticks_dispatched"] += n_ticks
         ds["queue_depth"] += 1
         ds["queue_high_water"] = max(ds["queue_high_water"], ds["queue_depth"])
         self._accumulate_window(ms)
+        if self._telemetry is not None:
+            # one ring row on the device and the host's wall-clock
+            # histograms: still no transfer
+            self._telemetry.on_window(ms, self.state, n_ticks, dispatch_s)
         self._ticks_since_flush += n_ticks
         if self._ticks_since_flush >= self.flush_ticks_cap:
             self.flush()
@@ -375,6 +399,16 @@ class SimDriver:
             self._rumor_cov_host = self._win_rumor_cov.cpu().numpy()
             self._win_rumor_cov = None
             flushed += 1
+            if self._rumor_spread_pending and self._telemetry is not None and not self._rumor_cov_dirty:
+                # a rumor that reached every up member since its spread:
+                # its window-granular spread time goes to the histogram
+                # (not while host mutations postdate the staged vector: a
+                # rumor spread into a reclaimed slot must not inherit the
+                # previous occupant's coverage)
+                for slot, t0 in list(self._rumor_spread_pending.items()):
+                    if self._rumor_cov_host[slot] >= 1.0:
+                        self._telemetry.hist_spread.observe(max(self._host_tick - t0, 1))
+                        del self._rumor_spread_pending[slot]
         if flushed:
             self._note_readback(flushed)
             self.dispatch_stats["flushes"] += 1
@@ -521,16 +555,19 @@ class SimDriver:
         ]
         self._recent_joins.append((tick, row))
         self._rumor_cov_dirty = True  # the up set changed under the cache
+        self._publish("driver", "join", row=row, member=self.members[row].id)
         return row
 
     def crash(self, row: int) -> None:
         with self._lock:
             self.state = self._ops.crash_row(self.state, row)
             self._rumor_cov_dirty = True
+            self._publish("driver", "crash", row=row)
 
     def leave(self, row: int, crash_after_ticks: int = 0) -> None:
         with self._lock:
             self.state = self._ops.begin_leave(self.state, row)
+            self._publish("driver", "leave", row=row)
         if crash_after_ticks:
             self.step(crash_after_ticks)
             self.crash(row)
@@ -555,6 +592,8 @@ class SimDriver:
             self.state = self._ops.spread_rumor(self.state, slot, origin)
             self._rumor_payloads[slot] = payload
             self._rumor_cov_dirty = True  # the cached coverage predates this rumor
+            self._rumor_spread_pending[slot] = self._host_tick
+            self._publish("driver", "rumor_spread", slot=slot, origin=origin)
             return slot
 
     def _claim_rumor_slot_locked(self) -> int:
@@ -703,10 +742,44 @@ class SimDriver:
         _not_ported("the compile-cache audit", "A13")
 
     def arm_telemetry(self, config=None, bus=None):
-        _not_ported("the telemetry plane", "A10")
+        """Arm the telemetry plane on this driver; returns the
+        :class:`..telemetry.TelemetryPlane` (the armed one, if any).
+        ``config`` is a :class:`..config.ClusterConfig` or a
+        :class:`..config.TelemetryConfig` (None: the defaults); ``bus`` an
+        existing :class:`..telemetry.TelemetryBus` to merge into.
+
+        Arming is a pure consumer: each window appends ONE f32 row to the
+        device metric ring, reduced from the window's metric outputs, so
+        stepping stays free of transfers and the trajectory is the unarmed
+        driver's, bit for bit."""
+        from ..config import ClusterConfig
+        from ..telemetry.plane import TelemetryPlane
+
+        with self._lock:
+            if self._telemetry is not None:
+                return self._telemetry
+            if isinstance(config, ClusterConfig):
+                config = config.telemetry
+            self._telemetry = TelemetryPlane(self, config=config, bus=bus)
+            self._telemetry.bus.publish(
+                "driver", "telemetry_armed", tick=self._host_tick,
+                engine=self.engine, capacity=self.params.capacity,
+            )
+            return self._telemetry
+
+    @property
+    def telemetry(self):
+        """The armed :class:`..telemetry.TelemetryPlane`, or None."""
+        return self._telemetry
+
+    def _publish(self, source: str, kind: str, **fields) -> None:
+        """One host-side lifecycle record onto the armed telemetry bus (a
+        no-op when unarmed; never touches the device)."""
+        if self._telemetry is not None:
+            self._telemetry.bus.publish(source, kind, tick=self._host_tick, **fields)
 
     def arm_trace(self, config=None, tracer_rows=None, rumor_slots=None):
-        _not_ported("the trace plane", "A10")
+        _not_ported("the trace plane", "A10, trace half")
 
     def set_dissemination(self, spec=None, *, strategy=None, topology=None, **spec_kw) -> None:
         """Swap the dissemination strategy/topology on a live driver.
@@ -790,7 +863,7 @@ class SimDriver:
         point. ``strategy=`` / ``topology=`` / ``dissem=`` arm a
         dissemination spec (:meth:`set_dissemination`) and ``adaptive=`` an
         adaptive spec (:meth:`set_adaptive`) first. ``trace=True`` is
-        refused until the trace plane is ported (ROADMAP A10)."""
+        refused until the trace plane is ported (ROADMAP A10, trace half)."""
         from ..chaos.engine import run_driver_scenario
 
         if dissem is not None or strategy is not None or topology is not None:
@@ -836,6 +909,7 @@ class SimDriver:
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
+        self._publish("checkpoint", "saved", path=target)
 
     def _checkpoint_payload_locked(self) -> dict:
         self._flush_locked()  # fold staged device reductions into host counters
@@ -878,8 +952,16 @@ class SimDriver:
         before anything is unpickled; so are a newer schema, another engine,
         a failed CRC, missing members, state planes of another shape and a
         key dtype other than this driver's."""
-        with self._lock:
-            self._restore_locked(path)
+        try:
+            with self._lock:
+                self._restore_locked(path)
+        except CheckpointError as exc:
+            # a failed restore is a post-mortem moment: the flight recorder
+            # keeps the last windows and the bus tail before the error
+            if self._telemetry is not None:
+                self._telemetry.flight_record("checkpoint_error", context={"path": path, "error": str(exc)})
+            raise
+        self._publish("checkpoint", "restored", path=path)
 
     def _restore_locked(self, path: str) -> None:
         try:
@@ -961,6 +1043,7 @@ class SimDriver:
         self._win_rumor_cov = None
         self._rumor_cov_host = None
         self._rumor_cov_dirty = True
+        self._rumor_spread_pending = {}
         self._free_rumor_slots = host.get("free_rumor_slots")
         self._health_counters = dict(host["health_counters"])
         self._pool_high_water = host["pool_high_water"]

@@ -258,9 +258,14 @@ def test_cluster_math_and_suspicion_timeout_match_jax():
 
 
 def test_certifier_refuses_what_is_not_ported():
-    for fn in (TCert.spread_certifier, TCert.mc_spread_certifier):
-        with pytest.raises(NotImplementedError, match="A10"):
-            fn(bus=object(), device="cpu")
+    # the telemetry bus is ported: each certified entry leaves its record
+    # (tests/test_torch_telemetry.py holds the records against JAX's)
+    from scalecube_cluster_tpu_torch.telemetry import TelemetryBus
+
+    bus = TelemetryBus(16)
+    rec = TCert.spread_certifier(matrix=[("push", "full", "dense")], n=32, seeds=(0,), bus=bus, device="cpu")
+    got = [(r.source, r.kind, r.fields["certified"]) for r in bus.tail()]
+    assert got == [("dissemination", "spread_certified", rec["entries"][0]["certified"])]
     with pytest.raises(ValueError, match="per-link delay"):
         TCert.measure_spread(TSpec(topology="geo", geo_wan_delay_ticks=2), n=64, engine="pview", device="cpu")
     with pytest.raises(ValueError, match="per-link delay"):

@@ -303,7 +303,6 @@ def test_refused_surfaces_raise_not_implemented():
     d = _generator_driver()
     calls = {
         "jit_cache_audit": lambda: d.jit_cache_audit(),
-        "arm_telemetry": lambda: d.arm_telemetry(),
         "arm_trace": lambda: d.arm_trace(),
         "run_scenario(trace=True)": lambda: d.run_scenario(_idle_scenario(), trace=True),
         "EmulatorChaosRunner": lambda: EmulatorChaosRunner(_idle_scenario(), [], []),
@@ -312,15 +311,20 @@ def test_refused_surfaces_raise_not_implemented():
         "transport": lambda: SimCluster(d).node(1).transport(),
         "mesh": lambda: SimDriver(d.params, 8, mesh=object(), device="cpu"),
         "compile_cache_dir": lambda: SimDriver(d.params, 8, compile_cache_dir="x", device="cpu"),
-        "sparse delay rings": lambda: TSP.SparseParams(capacity=8, delay_slots=2),
     }
-    items = {"arm_telemetry": "A10", "arm_trace": "A10", "run_scenario(trace=True)": "A10",
+    items = {"arm_trace": "A10, trace half", "run_scenario(trace=True)": "A10, trace half",
              "EmulatorChaosRunner": "A13", "set_protocol_knobs": "A11",
              "arm_control": "A11", "jit_cache_audit": "A13", "transport": "A13", "mesh": "A12",
-             "compile_cache_dir": "A13", "sparse delay rings": "A2"}
+             "compile_cache_dir": "A13"}
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match=items[name]):
             call()
+    # the telemetry plane and the sparse delay rings are ported
+    # (tests/test_torch_telemetry.py, tests/test_torch_delay_rings.py)
+    plane = d.arm_telemetry()
+    assert d.telemetry is plane and d.arm_telemetry() is plane
+    assert [r.kind for r in plane.bus.tail()] == ["telemetry_armed"]
+    assert TSP.SparseParams(capacity=8, delay_slots=2).delay_slots == 2
     with pytest.raises(ValueError, match="no \\[N, N\\] link plane"):
         SimDriver(d.params, 8, dense_links=True, device="cpu")
     with pytest.raises(ValueError, match="per-link delay"):

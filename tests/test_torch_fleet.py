@@ -447,8 +447,8 @@ def test_fleet_folds_match_jax():
 
 
 def test_fleet_refusals_by_name():
-    """Unequal ticks do not stack; the scenario mesh, a bus and a default
-    adaptive spec are refused by name."""
+    """Unequal ticks do not stack; the scenario mesh and a default adaptive
+    spec are refused by name; a bus takes the Monte Carlo records."""
     from scalecube_cluster_tpu_torch.dissemination import certify as TC
 
     p = TS.SimParams(capacity=8, rumor_slots=4)
@@ -460,8 +460,14 @@ def test_fleet_refusals_by_name():
         TFL.shard_fleet(TFL.fleet_broadcast(a, 2), None)
     with pytest.raises(NotImplementedError, match="A12"):
         TFL.fleet_mesh()
-    with pytest.raises(NotImplementedError, match="A10"):
-        TC.mc_spread_certifier(bus=object(), device="cpu")
+    # the telemetry bus is ported: each Monte Carlo cell leaves its record
+    from scalecube_cluster_tpu_torch.telemetry import TelemetryBus
+
+    bus = TelemetryBus(8)
+    rec = TC.mc_spread_certifier(matrix=[("push", "full", "dense")], n=16, n_seeds=8, window=16, bus=bus,
+                                 device="cpu")
+    got = [(r.kind, r.fields["engine"], r.fields["n_seeds"], r.fields["certified"]) for r in bus.tail()]
+    assert got == [("spread_certified_mc", "dense", 8, rec["entries"][0]["certified"])]
     with pytest.raises(ValueError, match="enabled AdaptiveSpec"):
         TFL.make_fleet_adaptive_run(p, 4)
     fs = TFL.fleet_broadcast(a, 3)

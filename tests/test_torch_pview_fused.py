@@ -222,9 +222,12 @@ def test_port_refuses_what_it_does_not_run():
     assert armed.dissem.strategy == "push_pull" and isinstance(armed, TPV.PviewParams)
     adaptive = convert.params_from_dict({**base, "adaptive": {**base["adaptive"], "enabled": True}})
     assert adaptive.adaptive.enabled and isinstance(adaptive, TPV.PviewParams)
-    with pytest.raises(ValueError, match="delay_slots"):
-        convert.params_from_dict({**base, "delay_slots": 2})
-    with pytest.raises(NotImplementedError):
-        TPV.PviewParams(capacity=33, delay_slots=2)
-    with pytest.raises(NotImplementedError):
+    # the delay rings are ported: delay_slots is carried across; a delay
+    # without rings, and any per-link delay, stay refused as in JAX
+    assert convert.params_from_dict({**base, "delay_slots": 2}).delay_slots == 2
+    assert TPV.PviewParams(capacity=33, delay_slots=2).delay_slots == 2
+    with pytest.raises(ValueError, match="delay_slots > 0"):
         TPV.init_pview_state(TPV.PviewParams(capacity=33), 33, uniform_delay=1.0, device="cpu")
+    with pytest.raises(ValueError, match="uniform delay only"):
+        TPV.set_link_delay(TPV.init_pview_state(TPV.PviewParams(capacity=33, delay_slots=2), 33, device="cpu"),
+                           [0], [1], 2.0)

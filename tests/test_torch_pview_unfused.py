@@ -26,6 +26,7 @@ import scalecube_cluster_tpu.ops.pview as JPV
 from scalecube_cluster_tpu_torch import convert
 from scalecube_cluster_tpu_torch.ops import _tensor
 from scalecube_cluster_tpu_torch.ops import pview as TPV
+from scalecube_cluster_tpu_torch.ops import rand as TR
 from test_torch_pview_fused import (
     _assert_metrics_equal,
     _assert_state_equal,
@@ -209,5 +210,10 @@ def test_unfused_tick_refuses_what_it_does_not_run():
     # the adaptive plane is ported: it needs an enabled spec on the params
     with pytest.raises(ValueError, match="enabled AdaptiveSpec"):
         TPV.pview_tick(st, None, None, params, ad=object())
-    with pytest.raises(NotImplementedError, match="A2"):
-        TPV.PviewParams(capacity=33, delay_slots=2)
+    # the delay rings are ported: a D = 2 tick runs and keeps its rings
+    # (tests/test_torch_delay_rings.py holds them against JAX)
+    dparams = TPV.PviewParams(capacity=33, delay_slots=2)
+    dst = TPV.init_pview_state(dparams, 33, uniform_delay=1.0, device="cpu")
+    fd, rd = TR.draw_sparse_tick(torch.Generator().manual_seed(0), dparams, True)
+    dst, _ms = TPV.pview_tick(dst, fd, rd, dparams)
+    assert dst.tick == 1 and tuple(dst.pending_inf.shape) == (2, 33, dparams.rumor_slots)

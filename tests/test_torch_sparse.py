@@ -340,12 +340,12 @@ def test_port_refuses_what_it_does_not_run():
     assert armed.dissem.strategy == "push_pull" and isinstance(armed, TSP.SparseParams)
     adaptive = convert.params_from_dict({**base, "adaptive": {**base["adaptive"], "enabled": True}})
     assert adaptive.adaptive.enabled and isinstance(adaptive, TSP.SparseParams)
-    with pytest.raises(ValueError, match="A2"):
-        convert.params_from_dict({**base, "delay_slots": 2})
-    with pytest.raises(NotImplementedError, match="A2"):
-        TSP.SparseParams(capacity=33, delay_slots=2)
+    # the delay rings are ported: delay_slots is carried across, and a
+    # delay without rings is refused as JAX refuses it
+    assert convert.params_from_dict({**base, "delay_slots": 2}).delay_slots == 2
+    assert TSP.SparseParams(capacity=33, delay_slots=2).delay_slots == 2
     params = TSP.SparseParams(capacity=33)
-    with pytest.raises(NotImplementedError, match="A2"):
+    with pytest.raises(ValueError, match="delay_slots > 0"):
         TSP.init_sparse_state(params, 33, uniform_delay=1.0, device="cpu")
     st = TSP.init_sparse_state(params, 33, device="cpu")
     rd = None
