@@ -25,7 +25,7 @@ passes:
    compiled variants, and on the ``inv`` that ``accelerated/expander``
    peers build at 1M (every receiver one sender per slot): bit-equal
    outputs, timed beside the byte bound;
-4. window   — a 4,096-member, 24-tick (40 before the delay phases) fused window on the CPU (plain
+4. window   — a 4,096-member, 16-tick (40, then 24 before the trace phases) fused window on the CPU (plain
    versions) and on the card (kernels) from the same draws: equal state
    and metrics;
 5. main path — the 1M-member scenario (warm start, 8 live rumors, a crash
@@ -36,7 +36,7 @@ passes:
 6. profile  — three more fused ticks under ``torch.profiler``: the
    device's busy share, each phase's device and host time, and the
    kernel's own device time per tick;
-7. driver-window — a 4,096-member, 13-tick (20 before the delay phases) ``SimDriver``
+7. driver-window — a 4,096-member, 10-tick (20, then 13 before the trace phases) ``SimDriver``
    script (spreads, a crash, a join, a leave, metadata bumps, a partition
    and its heal, two watched rows) on the CPU and on the card from the same
    draws: equal state, per-tick metrics and event logs;
@@ -48,7 +48,7 @@ passes:
    and read just after; then three ticks profiled by phase, as in phase 6;
 9. checkpoint — a 65,536-member driver: ``step(5)``, ``checkpoint``,
    ``step(10)``, ``restore``, ``step(10)``: both trajectories bit-equal;
-10. sparse-window — a 4,096-member, 24-tick (40 before the delay phases) sparse window with dense links
+10. sparse-window — a 4,096-member, 16-tick (40, then 24 before the trace phases) sparse window with dense links
    (a crash wave, user rumors, a ``join_rows`` batch with rejoins, a
    partition and its heal) on the CPU and on the card from the same draws:
    equal state and metrics;
@@ -68,11 +68,11 @@ passes:
    ``crash``, 8 joins, two watched rows): a 5-tick warm-up, then a timed
    ``step(10)`` window (three through PR 7), launch counts zeroed before
    and read after;
-15. dense-window — a 4,096-member, 12-tick (20 before the delay phases) dense window at config9's i16
+15. dense-window — a 4,096-member, 9-tick (20, then 12 before the trace phases) dense window at config9's i16
    widths with dense links (a crash wave, rumors, a ``join_rows`` batch
    with rejoins, a partition and its heal) on the CPU and on the card from
    the same draws: equal state and metrics;
-16. dense-delay-window — a 2,048-member, 24-tick (40 before the delay phases) dense window in config3's
+16. dense-delay-window — a 2,048-member, 16-tick (40, then 24 before the trace phases) dense window in config3's
    delay regime (loss 0.05, mean delay 1.5 ticks, six ring slots, a group
    of slower links through ``set_link_delay``): CPU = card;
 17. dense-main — config4's partition at 10,000 members
@@ -102,8 +102,10 @@ passes:
 23. dissem-certify — ``spread_certifier`` over config12's matrix
    (``dissemination/certify.py: DEFAULT_MATRIX``, 15 dense and 2 pview
    entries, N = 256, seeds 0-4, fanout 3, 8 rumor slots, geo WAN delay 2,
-   pipeline budget 2, the entries spread over four worker processes on
-   the card) and the pipelined steady state: every entry certified, each
+   pipeline budget 2; the entries run in one pool of worker processes on
+   the card with the Monte Carlo tasks of phases 29, 33 and 43, the longest
+   first) and the
+   pipelined steady state: every entry certified, each
    entry's spread ticks printed beside its bound; then
    config12's default-spec control (dense N = 4,096, 8 rumor slots, one
    80-tick sweep window) beside two armed spellings of it;
@@ -129,7 +131,8 @@ passes:
    tick, launches, the ``adaptive_lh_max`` / ``adaptive_conf_max`` gauges
    (the phase fails where one stays 0), dense detection and recovery;
 27. chaos-windows — ``SimDriver.run_scenario`` on the CPU and on the card
-   from the same draws at 4,096: pview (a crash and a partition healed),
+   from the same draws at 4,096 (32 ticks past the last event, 40 before
+   the trace phases, but dense): pview (a crash and a partition healed),
    dense at config9's widths (20 ticks, 40 through PR 7), sparse with dense links (a crash wave, a
    partition healed, restarts); dense at 2,048 with a loss storm over a
    partition healed inside it: equal reports (but the backend stamp) and
@@ -138,12 +141,12 @@ passes:
    violations and no readback while it steps: pview at 1M (its crash wave
    and a partition healed, 60 ticks), sparse at 49,152 (a crash, a loss
    storm on scalar links, a restart, 60 ticks), dense at 10,000 (config4's
-   1,000 / 9,000 split healed after detection, 800 ticks past the heal; the
+   1,000 / 9,000 split healed after detection, 600 ticks past the heal (800 before the trace phases); the
    automatic horizon through PR 7):
    ms/tick against the unarmed runs, flag reads, launches;
 29. config13 — ``benchmarks/config13_adaptive.py``'s sweep at its published
    widths (N = 48, seeds 0-2, loss floors 0/10/20%, both arms: 18 entries,
-   in four worker processes on the card), each entry beside
+   run in phase 23's worker pool on the card), each entry beside
    ``ADAPTIVE_BENCH_r14.json``'s; fails unless config13's ``certified``
    holds;
 30. config7 — the armed-but-idle chaos overhead at dense N = 4,096 (24
@@ -158,23 +161,24 @@ passes:
    (past the 65,535 grid limit of a y axis), timed (20 launches, the
    profiler) beside its byte bound, its plain version and S serial launches
    of the serial kernel on the same inputs;
-32. fleet-windows — one fleet window per engine (S = 8, 16 ticks, pview 8
-   (16 before the delay phases); dense N = 256 i32 and i16, sparse N = 1,024, pview N =
+32. fleet-windows — one fleet window per engine (S = 8, 16 ticks, pview 4
+   (16, then 8 before the trace phases); dense N = 256 i32 and i16, sparse N = 1,024, pview N =
    4,096 at config16's widths; every third scenario with crashes of its own) and the adaptive
    dense fleet (config13's knobs, rings at D = 4, a degraded cohort) on the
    CPU and on the card from the same draws: equal; each card row equal to
    the serial window fed that row's draws;
 33. config14 — ``benchmarks/config14_fleet.py`` at its published widths:
    batched against serial at S = 256 x N = 64 and S = 64 x N = 256 (32-tick
-   windows, interleaved median of 5, aggregate member-ticks/s; the serial
-   arm loops over 16 of the S clusters; readbacks in each timed span
+   windows, interleaved median of 3 (5 before the trace phases), aggregate
+   member-ticks/s; the serial arm loops over 4 of the S clusters (16,
+   then 8 before); readbacks in each timed span
    counted under sync-debug; fails below 3x or on a readback at S = 256 x N
    = 64); ``mc_spread_certifier``'s matrix (12 cells at n = 64, 1,024 seeds
    each; every cell certified, the pview and sparse cells at most one
    kernel launch per fleet tick); ``fp_rate_mc`` static and adaptive (N =
    48, 512 seeds, 10% floor; config14's rule); ``adaptive_knob_sweep`` at
-   its defaults; the one-window ladder (S doubled at N = 64 and 256 until
-   an 8-tick window's peak passes 16 GiB);
+   its default grid, 86 seeds per floor (config14's 171 before) — these
+   three in phase 23's worker pool; the one-window ladder (S doubled at N = 64 and 256 until an 8-tick window's peak passes 16 GiB);
 34. fleet-main — the fleet's full-width path: the dense fleet at S = 4,096
    x N = 256 (1,048,576 member rows) and the pview fleet at S = 256 x N =
    4,096 (config11's widths), 8 rumors and a crash wave each, a warm-up and
@@ -183,12 +187,12 @@ passes:
    counts zeroed just before the timed window, read just after);
 35. delay-windows — the pending delivery rings at D = 6 (config3's delay
    regime: loss 0.05, mean delay 1.5 ticks) on the CPU and on the card from
-   the same draws, 12 ticks each at N = 4,096: sparse with scalar links,
+   the same draws, 8 ticks each (12 before the trace phases) at N = 4,096: sparse with scalar links,
    sparse with dense links and a SlowMember (rows 0-7 at 4.0 ticks on every
    link touching them), pview at config16's i16 widths; each again armed
    with the adaptive plane (config13's knobs: the direct probe's timeout
    stretched by local health); then a sparse and a pview fleet with D = 4
-   (S = 4, N = 256, 12 ticks), CPU = card and each row = the serial
+   (S = 4, N = 256, 8 ticks), CPU = card and each row = the serial
    window. Every state leaf, the three rings included, and every metric
    equal;
 36. config3-delay — ``benchmarks/config3_fd_loss.py:delay_main`` as
@@ -203,14 +207,52 @@ passes:
    engines' invariants; two more pview ticks profiled by phase, as in
    phase 6, with the ring helpers labelled;
 38. telemetry — the telemetry plane on each engine's driver at full width
-   (pview 1M: a warm-up and two timed ``step(10)``; sparse 49,152 and
-   dense 10,000: one), against an unarmed driver of the same seed: states
+   (pview 1M, sparse 49,152 and dense 10,000: a warm-up and one timed
+   ``step(10)``; pview two before the trace phases), against an unarmed driver of the same seed: states
    bit-equal, no readback while stepping, the same device waits under the
    sync-debug mode, ms/tick armed beside unarmed; then one ``flush()`` and
-   one ring read.
+   one ring read;
+39. trace-windows — each engine's traced window (``make_traced_run``) on
+   the CPU and on the card from the same draws, 24 ticks at 4,096: pview
+   at config16's i16 widths, sparse at config5's with dense links, dense
+   at config9's i16 widths, then pview again with the delay rings at D =
+   6; a crash wave whose first rows are tracers, every rumor slot live, a
+   partition and its heal. Every state leaf, metric and trace-ring row
+   equal;
+40. trace-main — a trace-armed driver (4 tracers, rumor slots 0 and 1)
+   against an unarmed one from one seed at full width: pview 1M, sparse
+   49,152, dense 10,000 partitioned (one timed ``step(10)`` each):
+   states bit-equal, no readback while stepping, the same device waits,
+   ms/tick beside the unarmed, the same launches (one per gossip tick on
+   pview and sparse); one ring read holding K records per tick plus K per
+   window boundary;
+41. trace-scenario — ``run_scenario(trace=True)`` on phase 28's pview 1M
+   crash scenario with the telemetry plane armed: ``ok``, 0 violations, no
+   readback while stepping, every traced crashed row with a sewn
+   detection tree, the Perfetto document written under ``chiprun_out/``;
+   then a forced violation whose flight dump carries the trace section;
+42. config10 — ``benchmarks/config10_trace.py`` as published (dense N =
+   4,096, 24 one-tick windows, 5 interleaved reps): the armed overhead
+   beside config10's 2% gate (fails only on a readback), and the phase
+   split of ``trace/profile.py`` (CUDA events per phase) with the 20%
+   coverage check;
+43. config15 — ``certify_controller_mc`` as config15 publishes it (N = 48,
+   the three shifting cells, 512 seeds each, storm floors 20/24/28%): every
+   cell certified, 0 false-DEAD, the blind and unclamped controllers
+   failing (the cells run in phase 23's worker pool); then a control-armed sparse driver at 49,152 under clean
+   conditions against an unarmed one: 0 actuations, one readback per
+   epoch, state bit-equal, ms/tick beside;
+44. config17 — ``benchmarks/config17_replay.py`` as published (N = 24, 256
+   seeds, detect budget 60, horizon 96): the incident made on the card,
+   its flight dump round-tripped by ``validate_incident``, ``whatif`` over
+   the as-recorded and three counterfactual arms (at least one
+   CI-separated), and the card's dump replayed on the CPU to the same
+   verdict.
 
-The dense paths launch no hand-written kernel; their launch counts (0)
-stand in the kernels line. The line before the last is a JSON object with one entry per kernel; the
+The dense paths launch no hand-written kernel; their launch counts
+stand in the kernels line as measured. Every path's count is zeroed just
+before it runs and read just after, in the worker processes too.
+The worker pool's processes end with phase 23. The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -246,12 +288,18 @@ KERNEL_CASES = tuple((n, 3, 8, 64, 0, ("vector", 3)) for n in KERNEL_SHAPES) + (
 TICKS_PER_SECOND = 5  # config5's simulated second
 # Depth cut for the fleet phases' time (each listed in PERF.md section 4):
 DRIVER_WINDOWS = 1  # timed step(10) windows of the 1M and the sparse driver (3 through PR 7)
-DRIVER_SCRIPT_STEPS = (3, 5, 3, 2)  # the CPU-vs-card driver script's steps (5, 7, 5, 3 before the delay phases)
-DENSE_WINDOW_STEPS = (3, 5, 4)  # the CPU-vs-card dense window's (5, 8, 7 before the delay phases)
-CHAOS_DENSE_AFTER_HEAL = 800  # the full-width dense scenario's horizon past its heal (automatic through PR 7)
+DRIVER_SCRIPT_STEPS = (2, 4, 2, 2)  # the CPU-vs-card driver script's steps (5, 7, 5, 3, then 3, 5, 3, 2 before the trace phases)
+DENSE_WINDOW_STEPS = (2, 4, 3)  # the CPU-vs-card dense window's (5, 8, 7, then 3, 5, 4 before the trace phases)
+CHAOS_DENSE_AFTER_HEAL = 600  # the full-width dense scenario's horizon past its heal (800 before the trace phases; automatic at first)
 # Depth cut for the delay and telemetry phases' time:
-WINDOW_TICKS = 24  # the CPU-vs-card windows of phases 4, 10, 16, 22 and 25 (40 before)
-FLEET_PVIEW_TICKS = 8  # phase 32's pview fleet window (16 before)
+WINDOW_TICKS = 16  # the CPU-vs-card windows of phases 4, 10, 16, 22 and 25 (40, then 24 before)
+FLEET_PVIEW_TICKS = 4  # phase 32's pview fleet window (16, then 8 before)
+# Depth cut for the trace, control and replay phases' time:
+MAIN_PVIEW_WINDOWS = 1  # timed step(10) windows of the 1M pview drivers of phases 38 and 40 (2 before)
+CHAOS_WINDOW_HORIZON = 32  # phase 27's 40-tick CPU-vs-card scenarios, cut past their last event (40 before)
+C14_THROUGHPUT_REPS = 3  # config14's batched-vs-serial medians (of 5 before)
+C14_SERIAL_SAMPLE = 4  # scenarios the serial arm loops over (16, then 8 before; its rate per member-tick does not depend on S)
+C14_SWEEP_SEEDS = 86  # adaptive_knob_sweep's seeds per floor (config14's 171 before)
 C13_KNOBS = dict(min_mult=5, max_mult=10, conf_target=4, lh_max=8)  # config13's ADAPTIVE_KNOBS
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 
@@ -695,7 +743,7 @@ def profile_phases(run, phases, ticks: int = 3, label: str = "profile", module=N
         for name, fn in saved.items():
             setattr(PV, name, fn)
     cuda = torch.autograd.DeviceType.CUDA
-    host, span, busy = {}, {}, []
+    host, span, busy, by_kernel = {}, {}, [], {}
     for e in prof.events():
         if e.name.startswith("phase:"):
             # a labelled range shows twice: on the host, and as the span of
@@ -704,6 +752,11 @@ def profile_phases(run, phases, ticks: int = 3, label: str = "profile", module=N
             book[e.name[6:]] = book.get(e.name[6:], 0) + e.time_range.elapsed_us()
         elif e.device_type == cuda:
             busy.append((e.time_range.start, e.time_range.end))
+            # the device's own records: kernels, copies and fills, by name
+            # (one pass here, where key_averages() would walk them again)
+            agg = by_kernel.setdefault(e.name, [0, 0])
+            agg[0] += e.time_range.elapsed_us()
+            agg[1] += 1
     device_us, reach = 0, float("-inf")
     for a, b in sorted(busy):  # the union of the device's activity intervals
         device_us += max(0, b - max(a, reach))
@@ -717,9 +770,7 @@ def profile_phases(run, phases, ticks: int = 3, label: str = "profile", module=N
     for name in sorted(host, key=lambda k: -host[k]):
         phase(label, f"{name}: host {host[name] / ticks / 1e3:.3f} ms/tick, device span "
                      f"{span.get(name, 0) / ticks / 1e3:.3f} ms/tick")
-    kernels = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
-                      if e.self_device_time_total > 0 and not e.key.startswith(("phase:", "aten::"))),
-                     reverse=True)
+    kernels = sorted(((us, key, count) for key, (us, count) in by_kernel.items() if us > 0), reverse=True)
     for us, key, count in kernels[:8]:
         phase(label, f"top kernel {key[:90]}: {us / ticks / 1e3:.3f} ms/tick ({count} launches)")
     ours = [(us, count) for us, key, count in kernels if "delivery_combine_kernel" in key]
@@ -767,7 +818,7 @@ def cpu_draws(params, ticks: int, seed: int) -> list:
 def driver_script(d, n: int, swap=None) -> None:
     """The driver-window script: two watched rows, spreads, a crash, a
     join, a leave, metadata bumps, a partition and its heal
-    (``DRIVER_SCRIPT_STEPS``, 13 ticks); ``swap`` (``set_dissemination``'s
+    (``DRIVER_SCRIPT_STEPS``, 10 ticks); ``swap`` (``set_dissemination``'s
     keywords) arms a strategy in the middle, before the partition."""
     first, second, parted, healed = DRIVER_SCRIPT_STEPS
     for row in (0, n // 3):
@@ -1755,6 +1806,21 @@ def count_launches(fn):
         delivery.delivery_combine.launches += saved
 
 
+def count_kernel_launches(fn):
+    """``fn()``'s result and the launches of both kernel wrappers it made,
+    (result, delivery_combine launches, delivery_combine_fleet launches):
+    each count zeroed just before, read just after."""
+    from scalecube_cluster_tpu_torch.ops import delivery
+
+    saved = delivery.delivery_combine_fleet.launches
+    delivery.delivery_combine_fleet.launches = 0
+    try:
+        out, serial = count_launches(fn)
+        return out, serial, delivery.delivery_combine_fleet.launches
+    finally:
+        delivery.delivery_combine_fleet.launches += saved
+
+
 def check_dissem_windows(device) -> dict:
     """Armed windows on the CPU and on the card from the same draws: pview
     at 4,096 under push_pull/expander, sparse at 4,096 under
@@ -1810,52 +1876,102 @@ def config12_control(device, n: int = 4096, spec=None) -> float:
 
 
 CERTIFY_KW = dict(n=256, seeds=(0, 1, 2, 3, 4), fanout=3, rumor_slots=8, geo_wan_delay_ticks=2, pipeline_budget=2)
-CERTIFY_WORKERS = 6
 
 
 def certify_entry(task) -> tuple:
     """One entry of the certification matrix in a worker process:
     ``spread_certifier`` over that entry alone (with the pipelined steady
     state when the entry is pipelined) on ``device``. ``task`` is (entry,
-    device, the certifier's keywords). Returns (record, the worker's
-    delivery_combine launches, its log lines)."""
+    device, the certifier's keywords). Returns (record, its log lines)."""
     from scalecube_cluster_tpu_torch.dissemination.certify import spread_certifier
-    from scalecube_cluster_tpu_torch.ops import delivery
 
     entry, device, kw = task
     lines = []
-    delivery.delivery_combine.launches = 0
     rec = spread_certifier((entry,), device=device, log=lines.append, **kw)
-    return rec, delivery.delivery_combine.launches, lines
+    return rec, lines
 
 
-def run_dissem_certify(device) -> dict:
-    """config12's certification matrix on the card (DEFAULT_MATRIX at the
-    published N = 256, seeds 0-4, fanout 3, 8 rumor slots, geo WAN delay 2,
-    pipeline budget 2): every entry and the pipelined steady state must be
-    certified. A tick at N = 256 is bound by the host's dispatch of its
-    operations, so the entries run in CERTIFY_WORKERS processes on the one
-    card, the longest first (by their bounds). Then config12's default-spec
-    control at dense N = 4,096 beside two armed spellings of it."""
+POOL_WORKERS = 8  # the one-card machine's CPU cores
+
+
+def pool_task(task) -> tuple:
+    """One task of the shared worker pool, in a worker process: ``task`` is
+    (kind, argument), kind one of "config15", "c14-sweep", "certify",
+    "c14-fp", "c14-mc" and "config13". Returns (kind, result, the
+    delivery_combine launches and the delivery_combine_fleet launches the
+    task made, both counts zeroed just before it, its wall seconds)."""
+    from scalecube_cluster_tpu_torch.ops import delivery
+
+    torch.set_num_threads(1)  # a worker's tensors live on the card; its host work is one thread
+    kind, arg = task
+    delivery.delivery_combine.launches = 0
+    delivery.delivery_combine_fleet.launches = 0
+    t0 = time.perf_counter()
+    out = {"certify": certify_entry, "config13": config13_entry, "config15": config15_cell, "c14-mc": c14_mc_cell,
+           "c14-fp": c14_fp_arm, "c14-sweep": c14_sweep}[kind](arg)
+    return (kind, out, delivery.delivery_combine.launches, delivery.delivery_combine_fleet.launches,
+            time.perf_counter() - t0)
+
+
+def run_worker_pool(device) -> dict:
+    """The Monte Carlo tasks of phases 23, 29, 33 and 43 in one pool of
+    POOL_WORKERS processes on the one card, the longest first: config15's
+    three certification cells, config14's ``adaptive_knob_sweep``,
+    config12's certification matrix (entries by their bounds), config14's
+    ``fp_rate_mc`` arms and Monte Carlo cells, config13's 18 entries. Their
+    ticks are small (N = 48 to 256; S up to 1,024) and bound by the host's
+    dispatch, so one pool keeps every core busy where running them in turn
+    left most idle. The main process waits for the pool: no timed phase
+    runs beside it. Returns, per kind, the (result, launches, fleet
+    launches) of each task in submission order, and the pool's wall
+    time."""
     import multiprocessing
 
+    from scalecube_cluster_tpu_torch.chaos import shifting as SH
     from scalecube_cluster_tpu_torch.dissemination import DissemSpec
-    from scalecube_cluster_tpu_torch.dissemination.certify import DEFAULT_MATRIX, theory_bound
+    from scalecube_cluster_tpu_torch.dissemination.certify import DEFAULT_MATRIX, DEFAULT_MC_MATRIX, theory_bound
 
     def cost(entry):
         strategy, topology, engine = entry
         spec = DissemSpec(strategy=strategy, topology=topology, pipeline_budget=CERTIFY_KW["pipeline_budget"])
         return theory_bound(spec, CERTIFY_KW["n"], CERTIFY_KW["fanout"], CERTIFY_KW["rumor_slots"])["bound_ticks"]
 
+    dev = str(device)
     order = sorted(range(len(DEFAULT_MATRIX)), key=lambda i: -cost(DEFAULT_MATRIX[i]))
+    tasks = [("config15", (i, C15_N, C15_SEEDS, dev)) for i in range(len(SH.SHIFTING_FAMILY))]
+    tasks += [("c14-sweep", (C14_SWEEP_SEEDS, dev))]
+    tasks += [("certify", (DEFAULT_MATRIX[i], dev, CERTIFY_KW)) for i in order]
+    tasks += [("c14-fp", (arm, dev)) for arm in ("static", "adaptive")]
+    tasks += [("c14-mc", (strat, topol, engine, dev)) for strat, topol, engine in DEFAULT_MC_MATRIX]
+    tasks += [("config13", (seed, floor, adaptive, dev)) for floor in C13_FLOORS for seed in C13_SEEDS
+              for adaptive in (False, True)]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(CERTIFY_WORKERS) as pool:
-        done = pool.map(certify_entry, [(DEFAULT_MATRIX[i], str(device), CERTIFY_KW) for i in order], chunksize=1)
+    with multiprocessing.get_context("spawn").Pool(POOL_WORKERS) as pool:
+        done = pool.map(pool_task, tasks, chunksize=1)
     wall = time.perf_counter() - t0
+    out = {"wall": wall, "n_tasks": len(tasks), "certify_order": order}
+    walls = {}
+    for kind, res, serial, fleet, task_s in done:
+        out.setdefault(kind, []).append((res, serial, fleet))
+        walls[kind] = walls.get(kind, 0.0) + task_s
+    phase("worker-pool", f"{len(tasks)} tasks in {POOL_WORKERS} worker processes on {device}: {wall:.1f} s; "
+                         f"task seconds by kind {({k: round(v, 1) for k, v in walls.items()})} "
+                         f"({sum(walls.values()) / (POOL_WORKERS * wall):.2f} of the pool's process-seconds); "
+                         "their verdicts are printed by phases 23, 29, 33 and 43")
+    return out
+
+
+def run_dissem_certify(device, pooled: dict) -> dict:
+    """config12's certification matrix on the card (DEFAULT_MATRIX at the
+    published N = 256, seeds 0-4, fanout 3, 8 rumor slots, geo WAN delay 2,
+    pipeline budget 2), run by ``run_worker_pool``: every entry and the
+    pipelined steady state must be certified. Then config12's default-spec
+    control at dense N = 4,096 beside two armed spellings of it."""
+    order = pooled["certify_order"]
     results = [None] * len(order)
-    for i, out in zip(order, done):
-        results[i] = out
+    for i, ((rec, lines), serial, _fleet) in zip(order, pooled["certify"]):
+        results[i] = (rec, serial, lines)
     launches = sum(n for _, n, _ in results)
     # each pipelined entry's worker measured the (same) steady state too
     logged = [line for _, _, lines in results for line in lines]
@@ -1870,8 +1986,7 @@ def run_dissem_certify(device) -> dict:
     phase("dissem-certify", f"{n_ok} of {len(entries)} entries certified ({sum(e['engine'] == 'dense' for e in entries)} "
                             f"dense, {sum(e['engine'] == 'pview' for e in entries)} pview), pipelined steady state "
                             f"{steady[0]['certified']} (overhead {steady[0]['pipelining_overhead_ticks']} ticks); "
-                            f"{wall:.1f} s in {CERTIFY_WORKERS} worker processes, delivery_combine launches {launches} "
-                            "(the pview entries)")
+                            f"run in the shared worker pool, delivery_combine launches {launches} (the pview entries)")
     if n_ok != len(entries) or not steady[0]["certified"]:
         bad = [(e["engine"], e["strategy"], e["topology"], e["spread_ticks"], e["bound_ticks"])
                for e in entries if not e["certified"]]
@@ -1933,7 +2048,6 @@ def run_dissem_main(device, unarmed: dict) -> dict:
 
 C13_N, C13_SEEDS, C13_FLOORS = 48, (0, 1, 2), (0.0, 0.1, 0.2)
 C13_STATIC_MULT = 3  # benchmarks/config13_adaptive.py: STATIC_SUSPICION_MULT
-C13_WORKERS = 6
 
 
 def check_adaptive_windows(device) -> dict:
@@ -2056,7 +2170,7 @@ def check_chaos_windows(device) -> dict:
     _, launches["chaos-pview-window"] = count_launches(lambda: scenario_cpu_and_card(
         device, config16_params(n), n, lambda: EV.Scenario(name="pview-split", events=[
             EV.Crash(rows=list(range(n // 2, n // 2 + 4)), at=2),
-            EV.Partition(groups=halves, at=5, heal_at=25)], horizon=40, check_interval=8), "pview",
+            EV.Partition(groups=halves, at=5, heal_at=25)], horizon=CHAOS_WINDOW_HORIZON, check_interval=8), "pview",
         setup=lambda d: [d.spread_rumor((s * 997) % n, s) for s in range(d.params.rumor_slots)]))
     scenario_cpu_and_card(
         device, config9_dense_params(n), n, lambda: EV.Scenario(name="dense-split", events=[
@@ -2067,12 +2181,12 @@ def check_chaos_windows(device) -> dict:
         device, config5_params(n, fd_every=2, suspicion_mult=1, sync_every=20), n, lambda: EV.Scenario(
             name="sparse-split", events=[
                 EV.Crash(rows=crashed, at=2), EV.Partition(groups=halves, at=5, heal_at=20),
-                EV.Restart(rows=crashed[:2], at=30, seed_rows=(0, 1))], horizon=40, check_interval=8),
+                EV.Restart(rows=crashed[:2], at=30, seed_rows=(0, 1))], horizon=CHAOS_WINDOW_HORIZON, check_interval=8),
         "sparse, dense links", dense_links=True))
     scenario_cpu_and_card(
         device, config4_params(n // 2, fd_every=2, sync_every=20), n // 2, lambda: EV.Scenario(name="dense-storm", events=[
             EV.LossStorm(pct=30.0, at=3, until=20), EV.Crash(rows=[50], at=4),
-            EV.Partition(groups=[range(0, 100), range(100, 200)], at=8, heal_at=15)], horizon=40,
+            EV.Partition(groups=[range(0, 100), range(100, 200)], at=8, heal_at=15)], horizon=CHAOS_WINDOW_HORIZON,
             check_interval=8), "dense, loss storm", dense_links=True)
     return launches
 
@@ -2250,21 +2364,16 @@ def config13_entry(task) -> dict:
     }
 
 
-def run_config13(device) -> dict:
+def run_config13(pooled: dict) -> dict:
     """config13's full sweep at its published widths (N = 48, seeds 0-2,
-    loss floors 0/10/20%, both arms: 18 entries) in C13_WORKERS processes
-    on the card, each entry beside ``ADAPTIVE_BENCH_r14.json``'s (the JAX
-    package's run: protocol outcomes, compared by verdict — the port draws
-    from torch's generator). Fails unless config13's own ``certified``
-    holds."""
-    import multiprocessing
-
-    tasks = [(seed, floor, adaptive, str(device)) for floor in C13_FLOORS for seed in C13_SEEDS
-             for adaptive in (False, True)]
-    t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(C13_WORKERS) as pool:
-        entries = pool.map(config13_entry, tasks, chunksize=1)
-    wall = time.perf_counter() - t0
+    loss floors 0/10/20%, both arms: 18 entries), run by
+    ``run_worker_pool`` on the card, each entry beside
+    ``ADAPTIVE_BENCH_r14.json``'s (the JAX package's run: protocol
+    outcomes, compared by verdict — the port draws from torch's
+    generator). Fails unless config13's own ``certified`` holds. Returns
+    the entries and the launches the workers made."""
+    entries = [e for e, _, _ in pooled["config13"]]
+    launches = sum(n for _, n, _ in pooled["config13"])
     ref_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ADAPTIVE_BENCH_r14.json")
     ref = {}
     if os.path.exists(ref_path):
@@ -2284,12 +2393,12 @@ def run_config13(device) -> dict:
     ad_fp = sum(e["false_positive_dead_max"] or 0 for e in ad)
     st_fp = sum(e["false_positive_dead_max"] or 0 for e in st)
     certified = (ad_fp == 0 and st_fp > 0 and all(e["crash_ok"] for e in ad) and all(e["violations"] == 0 for e in ad))
-    phase("config13", f"{len(entries)} entries in {wall:.1f} s ({C13_WORKERS} worker processes): adaptive false-DEAD "
+    phase("config13", f"{len(entries)} entries (the shared worker pool): adaptive false-DEAD "
                       f"total {ad_fp}, static {st_fp} (JAX, ADAPTIVE_BENCH_r14.json: 0 and 9); adaptive detections "
                       f"ok {all(e['crash_ok'] for e in ad)}; certified {certified}")
     if not certified:
         raise AssertionError("config13 is not certified")
-    return {"entries": entries, "adaptive_fp": ad_fp, "static_fp": st_fp, "wall": wall}
+    return {"entries": entries, "adaptive_fp": ad_fp, "static_fp": st_fp, "launches": launches}
 
 
 def run_config7(device, n: int = 4096, windows: int = 24, reps: int = 5) -> dict:
@@ -2364,7 +2473,8 @@ FLEET_KERNEL_CASES = (  # (label, S, N, F, R, Wm, ym_offset, path)
 )
 C14_CELLS = ((256, 64), (64, 256))  # config14's THROUGHPUT_CELLS; the first is the 3x gate
 C14_WINDOW = 32  # config14's WINDOW_TICKS
-C14_SERIAL_SAMPLE = 16  # scenarios the serial arm loops over (its rate per member-tick does not depend on S)
+C14_MC_N, C14_MC_SEEDS = 64, 1024  # config14's MC matrix as published
+C14_FP_N, C14_FP_SEEDS = 48, 512  # config14's fp_rate_mc and adaptive_knob_sweep as published
 C14_LADDER_GIB = 16  # config14's LADDER_BUDGET_GIB
 C14_LADDER_START = {64: 8192, 256: 1024}  # config14's ladder starts
 FLEET_MAIN = ((4096, 256), (256, 4096))  # dense S x N, pview S x N
@@ -2712,19 +2822,58 @@ def c14_ladder(device, n: int, start_s: int, ticks: int = 8, budget_gib: float =
     return {"n": n, "max_s": fit, "steps": steps}
 
 
-def run_config14(device, mc_seeds: int = 1024, fp_seeds: int = 512, sweep_seeds: int = 171,
-                 ladder_start=C14_LADDER_START, throughput_reps: int = 5, cells=C14_CELLS, mc_n: int = 64,
-                 fp_n: int = 48, ladder_gib: float = C14_LADDER_GIB) -> dict:
-    """Phase 33: config14 (``benchmarks/config14_fleet.py``) at its published
-    widths: the batched-vs-serial cells, ``mc_spread_certifier`` over
-    ``DEFAULT_MC_MATRIX`` (n = 64, 1,024 seeds, every cell certified; the
-    pview and sparse cells launch the kernel at most once per tick),
-    ``fp_rate_mc`` both arms (config14's rule), ``adaptive_knob_sweep``
-    and the one-window ladder."""
+def c14_mc_cell(task) -> tuple:
+    """One cell of config14's Monte Carlo matrix in a worker process:
+    ``task`` is (strategy, topology, engine, device); ``certify_spread_mc``
+    at n = 64, 1,024 seeds. Returns (record, wall seconds)."""
     from scalecube_cluster_tpu_torch.dissemination import certify as C
     from scalecube_cluster_tpu_torch.dissemination.spec import DissemSpec
-    from scalecube_cluster_tpu_torch.ops import delivery
 
+    strat, topol, engine, device = task
+    t0 = time.perf_counter()
+    rec = C.certify_spread_mc(DissemSpec(strategy=strat, topology=topol, pipeline_budget=2), n=C14_MC_N,
+                              n_seeds=C14_MC_SEEDS, engine=engine, device=device)
+    return rec, time.perf_counter() - t0
+
+
+def c14_fp_arm(task) -> tuple:
+    """One arm of config14's ``fp_rate_mc`` in a worker process: ``task`` is
+    (arm, device); N = 48, 512 seeds, a 10% loss floor. Returns (record,
+    wall seconds)."""
+    from scalecube_cluster_tpu_torch.dissemination import certify as C
+
+    arm, device = task
+    t0 = time.perf_counter()
+    rec = C.fp_rate_mc(n=C14_FP_N, n_seeds=C14_FP_SEEDS, loss_floor=0.10, adaptive=arm == "adaptive", device=device)
+    return rec, time.perf_counter() - t0
+
+
+def c14_sweep(task) -> tuple:
+    """config14's ``adaptive_knob_sweep`` in a worker process: ``task`` is
+    (seeds per floor, device). Returns (record, its log lines, wall
+    seconds)."""
+    from scalecube_cluster_tpu_torch.dissemination import certify as C
+
+    seeds, device = task
+    lines = []
+    t0 = time.perf_counter()
+    sweep = C.adaptive_knob_sweep(n=C14_FP_N, n_seeds_per_floor=seeds, device=device, log=lines.append)
+    return sweep, lines, time.perf_counter() - t0
+
+
+def run_config14(device, pooled: dict, ladder_start=C14_LADDER_START,
+                 throughput_reps: int = C14_THROUGHPUT_REPS, cells=C14_CELLS,
+                 ladder_gib: float = C14_LADDER_GIB) -> dict:
+    """Phase 33: config14 (``benchmarks/config14_fleet.py``) at its published
+    widths: the batched-vs-serial cells (timed here), then from
+    ``run_worker_pool`` ``mc_spread_certifier``'s cells over
+    ``DEFAULT_MC_MATRIX`` (n = 64, 1,024 seeds, every cell certified; the
+    pview and sparse cells launch the kernel at most once per tick),
+    ``fp_rate_mc`` both arms (config14's rule) and ``adaptive_knob_sweep``;
+    and the one-window ladder (here: it reads this process's peak)."""
+    from scalecube_cluster_tpu_torch.dissemination import certify as C
+
+    mc_seeds, fp_seeds, sweep_seeds = C14_MC_SEEDS, C14_FP_SEEDS, C14_SWEEP_SEEDS
     out = {"throughput": [c14_throughput_cell(device, s, n, reps=throughput_reps) for s, n in cells]}
     failures = []  # each check is judged when the whole phase has run and printed
     gate = out["throughput"][0]
@@ -2732,14 +2881,8 @@ def run_config14(device, mc_seeds: int = 1024, fp_seeds: int = 512, sweep_seeds:
         failures.append(f"S={gate['s']} N={gate['n']}: speedup {gate['speedup']:.2f}x (gate 3x), readbacks "
                         f"{gate['readbacks']}")
 
-    t0 = time.perf_counter()
     entries, launches = [], {}
-    for strat, topol, engine in C.DEFAULT_MC_MATRIX:
-        before = delivery.delivery_combine_fleet.launches
-        spec = DissemSpec(strategy=strat, topology=topol, pipeline_budget=2)
-        c0 = time.perf_counter()
-        rec = C.certify_spread_mc(spec, n=mc_n, n_seeds=mc_seeds, engine=engine, device=device)
-        lc = delivery.delivery_combine_fleet.launches - before
+    for (strat, topol, engine), ((rec, wall), _serial, lc) in zip(C.DEFAULT_MC_MATRIX, pooled["c14-mc"]):
         ticks = rec["windows_dispatched"] * rec["window_ticks"]
         if engine != "dense":
             launches[f"mc-{engine}-{strat}-{topol}"] = lc
@@ -2750,19 +2893,17 @@ def run_config14(device, mc_seeds: int = 1024, fp_seeds: int = 512, sweep_seeds:
         phase("config14", f"MC {engine}/{strat}/{topol}: {rec['finished']}/{mc_seeds} finished, median "
                           f"{rec['spread_ticks_median']} p99 {rec['spread_ticks_p99']} (CI {rec['p99_ci']}) <= bound "
                           f"{rec['bound_ticks']}; wilson {rec['wilson']}; {rec['windows_dispatched']} windows, "
-                          f"fleet kernel launches {lc} in {ticks} ticks; {time.perf_counter() - c0:.1f} s; "
+                          f"fleet kernel launches {lc} in {ticks} ticks; {wall:.1f} s in the worker pool; "
                           f"{'certified' if rec['certified'] else 'NOT CERTIFIED'}")
         entries.append(rec)
     n_ok = sum(e["certified"] for e in entries)
-    phase("config14", f"MC matrix: {n_ok}/{len(entries)} cells certified, {mc_seeds} seeds each, "
-                      f"{time.perf_counter() - t0:.1f} s (JAX, FLEET_BENCH_r15.json: 8 of 8 at 1,024 seeds)")
+    phase("config14", f"MC matrix: {n_ok}/{len(entries)} cells certified, {mc_seeds} seeds each "
+                      f"(JAX, FLEET_BENCH_r15.json: 8 of 8 at 1,024 seeds)")
     if n_ok != len(entries):
         failures.append("a Monte Carlo cell is not certified")
     out["mc"], out["launches"] = entries, launches
 
-    t0 = time.perf_counter()
-    fp = {arm: C.fp_rate_mc(n=fp_n, n_seeds=fp_seeds, loss_floor=0.10, adaptive=arm == "adaptive", device=device)
-          for arm in ("static", "adaptive")}
+    fp = {arm: rec for arm, ((rec, _wall), _s, _f) in zip(("static", "adaptive"), pooled["c14-fp"])}
     st, ad = fp["static"], fp["adaptive"]
     fp_ok = (ad["fp_rate_wilson"][1] <= 0.02 and ad["fp_rate_wilson"][1] < st["fp_rate_wilson"][0]
              and ad["detections_ok"])
@@ -2771,20 +2912,21 @@ def run_config14(device, mc_seeds: int = 1024, fp_seeds: int = 512, sweep_seeds:
                           f"{rec['fp_rate_wilson']}, crash detected {rec['crash_detected']}/{fp_seeds}, max "
                           f"{rec['crash_detect_max']} <= deadline {rec['crash_detect_deadline']}, detections_ok "
                           f"{rec['detections_ok']}")
+    fp_wall = max(wall for (_rec, wall), _s, _f in pooled["c14-fp"])
     phase("config14", f"fp_rate_mc: adaptive upper bound {ad['fp_rate_wilson'][1]} <= 0.02 and below the static "
                       f"lower bound {st['fp_rate_wilson'][0]}, detections ok: certified {fp_ok} (JAX, "
                       f"FLEET_BENCH_r15.json: 409/512 static, 1/512 adaptive, upper bound 0.011); "
-                      f"{time.perf_counter() - t0:.1f} s")
+                      f"{fp_wall:.1f} s in the worker pool")
     if not fp_ok:
         failures.append("fp_rate_mc does not meet config14's rule")
     out["fp"] = fp
 
-    t0 = time.perf_counter()
-    sweep = C.adaptive_knob_sweep(n=fp_n, n_seeds_per_floor=sweep_seeds, device=device,
-                                  log=lambda m: phase("config14", m))
+    (sweep, lines, sweep_wall), _s, _f = pooled["c14-sweep"][0]
+    for line in lines:
+        phase("config14", line)
     phase("config14", f"adaptive_knob_sweep ({sweep_seeds} seeds per floor): recommended "
                       f"{ {k: (v and {x: v[x] for x in ('min_mult', 'conf_target', 'fp_rate')}) for k, v in sweep['recommended'].items()} }; "
-                      f"{time.perf_counter() - t0:.1f} s")
+                      f"{sweep_wall:.1f} s in the worker pool")
     out["sweep"] = sweep["recommended"]
 
     out["ladder"] = {}
@@ -2861,7 +3003,7 @@ def run_fleet_main(device, ticks: int = 16, cells=FLEET_MAIN) -> dict:
 # -- the delay rings on sparse and pview, and the telemetry plane ---------------------
 
 CONFIG3_N = 1024  # config3's lean sparse delay run (benchmarks/config3_fd_loss.py:delay_main)
-DELAY_WINDOW_TICKS = 12  # ticks of each CPU-vs-card delay window
+DELAY_WINDOW_TICKS = 8  # ticks of each CPU-vs-card delay window, past the D = 6 ring's wrap (12 before)
 SLOW_ROWS, SLOW_MEAN = tuple(range(8)), 4.0  # the SlowMember of the dense-link window
 
 
@@ -2958,13 +3100,13 @@ def check_delay_windows(device, n: int = 4096, ticks: int = DELAY_WINDOW_TICKS) 
     out["delay-fleet-sparse"] = check_fleet_window(
         device, "sparse, D = 4", SP,
         lambda d: SP.init_sparse_state(fsp, 256, warm=True, uniform_loss=0.1, uniform_delay=1.5, device=d),
-        SP.make_sparse_fleet_run, SP.make_sparse_run, fsp, PR.draw_sparse_tick, s=4, ticks=12,
+        SP.make_sparse_fleet_run, SP.make_sparse_run, fsp, PR.draw_sparse_tick, s=4, ticks=ticks,
         tag="delay-windows")["launches"]
     fpv = dc.replace(config16_params(256), delay_slots=4)
     out["delay-fleet-pview"] = check_fleet_window(
         device, "pview i16, D = 4", PV,
         lambda d: PV.init_pview_state(fpv, 256, warm=True, uniform_loss=0.1, uniform_delay=1.5, device=d),
-        PV.make_pview_fleet_run, PV.make_pview_run, fpv, PR.draw_sparse_tick, s=4, ticks=12,
+        PV.make_pview_fleet_run, PV.make_pview_run, fpv, PR.draw_sparse_tick, s=4, ticks=ticks,
         tag="delay-windows")["launches"]
     return out
 
@@ -3127,10 +3269,10 @@ def telemetry_pair(device, make, label: str, windows: int, per: int = 10) -> dic
 
 def run_telemetry(device) -> dict:
     """Phase 38: the telemetry plane on each engine's driver at full width
-    — pview at 1M (config16's widths, 8 rumors, a crash wave of 1,024 rows;
-    two timed ``step(10)``), sparse at 49,152 (config5's widths, 2 rumors,
-    491 crashes) and dense at 10,000 (config4's partition) at one window
-    each — against the unarmed driver of the same seed."""
+    — pview at 1M (config16's widths, 8 rumors, a crash wave of 1,024
+    rows), sparse at 49,152 (config5's widths, 2 rumors, 491 crashes) and
+    dense at 10,000 (config4's partition), each a warm-up and
+    ``MAIN_PVIEW_WINDOWS`` (pview) or one timed ``step(10)`` — against the unarmed driver of the same seed."""
     from scalecube_cluster_tpu_torch.sim import SimDriver
 
     def pview_driver():
@@ -3158,13 +3300,572 @@ def run_telemetry(device) -> dict:
         return d
 
     out = {}
-    for key, make, label, windows in (("pview", pview_driver, f"pview {N_MAIN}", 2),
+    for key, make, label, windows in (("pview", pview_driver, f"pview {N_MAIN}", MAIN_PVIEW_WINDOWS),
                                       ("sparse", sparse_driver, f"sparse {N_SPARSE}", 1),
                                       ("dense", dense_driver, f"dense {N_DENSE}", 1)):
         rec = telemetry_pair(device, make, label, windows)
         out[f"telemetry-{key}-armed"] = rec["armed"]
         out[f"telemetry-{key}-unarmed"] = rec["unarmed"]
     return out
+
+
+# -- the causal trace plane, the control plane and incident replay (phases 39-44)
+
+TRACE_TRACERS = 4  # tracer rows of every traced path (TraceConfig's default count)
+TRACE_SLOTS = (0, 1)  # traced rumor slots
+TRACE_WINDOW_TICKS = 24  # the CPU-vs-card traced windows of phase 39
+TRACE_RING = 1024  # the CPU-vs-card windows' ring: 24 ticks x 4 tracers = 96 records
+
+
+def trace_spec(tracers, ring_len: int = TRACE_RING, ping_req_k: int = 3):
+    from scalecube_cluster_tpu_torch.trace.schema import TraceSpec
+
+    return TraceSpec(tracer_rows=tuple(int(r) for r in tracers), rumor_slots=TRACE_SLOTS, ring_len=ring_len,
+                     ping_req_k=ping_req_k)
+
+
+def traced_window_run(mod, make_traced, params, n: int, draws, start, spec):
+    """The traced window at ``n`` from ``start(dev)``: a crash wave of
+    tracers and rumors before tick 0, a partition between the two halves at
+    a third of the window, its heal at two thirds; the ring on ``dev``.
+    Returns ``run(dev) -> (state, metrics with the ring as one more
+    [1, ring_len, F] int32 series)``."""
+    from scalecube_cluster_tpu_torch.trace.rings import TraceRing
+
+    ticks = len(draws)
+    cuts = (0, ticks // 3, 2 * ticks // 3, ticks)
+    half = (list(range(n // 2)), list(range(n // 2, n)))
+
+    def run(dev):
+        st = start(dev)
+        ring = TraceRing(spec, device=dev)
+        parts = []
+        for i in range(3):
+            if i == 1:
+                st = mod.block_partition(st, *half)
+            if i == 2:
+                st = mod.heal_partition(st, *half)
+            k = cuts[i + 1] - cuts[i]
+            st, ms, _ = make_traced(params, k, spec)(st, ring, draws[cuts[i]:cuts[i + 1]])
+            parts.append(ms)
+        ms = {k: torch.cat([p[k] for p in parts]).cpu() for k in parts[0]}
+        ms["trace ring"] = ring.buf[None].cpu()
+        ms["trace records"] = torch.tensor([[ring.records]])
+        return st, ms
+
+    return run
+
+
+def check_trace_windows(device, n: int = 4096, ticks: int = TRACE_WINDOW_TICKS) -> dict:
+    """Phase 39: each engine's traced window on the CPU (plain versions) and
+    on the card (the kernel) from the same draws, ``ticks`` ticks at ``n``:
+    pview at config16's i16 widths, sparse at config5's widths with dense
+    links, dense at config9's i16 widths; a crash wave whose first rows
+    are the tracers, every rumor slot live, a partition between the halves
+    and its heal; then the pview window again with the delay rings at D =
+    6. Every state leaf, every metric and every trace-ring row equal.
+    Returns the card's launches per window."""
+    import dataclasses as dc
+
+    from scalecube_cluster_tpu_torch.ops import kernel as K
+    from scalecube_cluster_tpu_torch.ops import pview as PV
+    from scalecube_cluster_tpu_torch.ops import sparse as SP
+    from scalecube_cluster_tpu_torch.ops import state as S
+
+    crashed = list(range(n // 2, n // 2 + max(4, n // 1024)))
+    tracers = crashed[:2] + [1, n // 4]
+    spec = trace_spec(tracers)
+
+    def pview_start(params, delay=0.0):
+        return lambda dev: busy_state(params, n, dev, delay)
+
+    def sparse_start(params):
+        def start(dev):
+            st = SP.init_sparse_state(params, n, warm=True, dense_links=True, uniform_loss=0.02, device=dev)
+            for s in range(params.rumor_slots):
+                st = SP.spread_rumor(st, s, (s * 997) % n)
+            return SP.crash_rows(st, crashed)
+        return start
+
+    def dense_start(params):
+        def start(dev):
+            st = S.init_state(params, n, warm=True, uniform_loss=0.02, device=dev)
+            for s in range(params.rumor_slots):
+                st = S.spread_rumor(st, s, (s * 997) % n)
+            return S.crash_rows(st, crashed)
+        return start
+
+    pv = config16_params(n)
+    pv_delay = dc.replace(pv, delay_slots=6)
+    sp = config5_params(n, fd_every=2, suspicion_mult=1, sync_every=20)
+    de = dc.replace(config9_dense_params(n), fd_every=2, suspicion_mult=1, sync_every=20)
+    out = {}
+    for key, label, mod, make, params, start in (
+        ("pview", "pview i16", PV, PV.make_pview_traced_run, pv, pview_start(pv)),
+        ("sparse", "sparse, dense links", SP, SP.make_sparse_traced_run, sp, sparse_start(sp)),
+        ("dense", "dense i16", S, K.make_traced_run, de, dense_start(de)),
+        ("pview-delay", "pview i16, D = 6, mean 1.5", PV, PV.make_pview_traced_run, pv_delay,
+         pview_start(pv_delay, CONFIG3_DELAY_MEAN)),
+    ):
+        draws = cpu_draws(params, ticks, seed=31)
+        run = traced_window_run(mod, make, params, n, draws, start, spec)
+        cpu_ms, launches = count_launches(lambda: run_cpu_and_card(run, device, f"{label} traced windows"))
+        out[f"trace-window-{key}"] = launches
+        rows = cpu_ms["trace ring"][0].numpy()
+        from scalecube_cluster_tpu_torch.trace.schema import decode_records
+
+        kinds = sorted({e["kind"] for e in decode_records(rows, spec)})
+        records = int(cpu_ms["trace records"])
+        if records != ticks * spec.n_tracers or "probe" not in kinds or "suspect_raised" not in kinds:
+            raise AssertionError(f"[trace-windows] {label}: {records} records, kinds {kinds}")
+        if key != "dense" and torch.device(device).type == "cuda" and launches <= 0:
+            raise AssertionError(f"[trace-windows] {label}: no delivery_combine launch on the card")
+        phase("trace-windows", f"{label}, N={n}, {ticks} ticks, tracers {tracers}, rumor slots {list(TRACE_SLOTS)}: "
+                               f"every state leaf, metric and trace-ring row ({records} records, {spec.n_fields} "
+                               f"fields) equal on CPU and {device}; record kinds {kinds}; delivery_combine launches "
+                               f"on the card {launches} in {ticks} ticks")
+    return out
+
+
+def trace_pair(device, make, label: str, windows: int, per: int = 10, tracers=None) -> dict:
+    """``make()`` -> a fresh driver: one unarmed and one armed with the
+    trace plane (``tracers``, rumor slots 0 and 1) step a 5-tick warm-up
+    and ``windows`` timed ``step(per)``, then 2 ticks under the sync-debug
+    mode. Both states bit-equal, no driver readback while stepping, the
+    same device waits; then one ring read, whose record count must be K
+    per tick plus K per window boundary. Returns launches per run."""
+    from scalecube_cluster_tpu_torch.ops import _tensor, delivery
+
+    drivers, rec = {}, {}
+    for arm in (False, True):
+        d = make()
+        if arm:
+            plane = d.arm_trace(tracer_rows=tracers, rumor_slots=TRACE_SLOTS)
+        d.step(5)
+        d.sync()
+        reads = d.dispatch_stats["readbacks"]
+        delivery.delivery_combine.launches = 0
+        _tensor.HOST_SYNCS.count = 0
+        t0 = time.perf_counter()
+        for _ in range(windows):
+            d.step(per)
+        d.sync()
+        wall = time.perf_counter() - t0
+        launches, flags = delivery.delivery_combine.launches, _tensor.HOST_SYNCS.count
+        waits = count_waits(lambda: d.step(2))
+        drivers[arm] = d
+        rec[arm] = dict(ms_tick=wall / (windows * per) * 1e3, launches=launches, flags=flags / (windows * per),
+                        waits=waits, readbacks=d.dispatch_stats["readbacks"] - reads)
+        torch.cuda.empty_cache()
+    diff = device_state_differences(drivers[False].state, drivers[True].state)
+    if diff:
+        raise AssertionError(f"[trace-main] {label}: the armed driver's state differs in {diff}")
+    armed_, plain = rec[True], rec[False]
+    if armed_["readbacks"] or plain["readbacks"]:
+        raise AssertionError(f"[trace-main] {label}: {armed_['readbacks']} readbacks while the armed driver stepped")
+    if armed_["waits"] != plain["waits"]:
+        raise AssertionError(f"[trace-main] {label}: the armed steps waited {armed_['waits']} times, the unarmed "
+                             f"{plain['waits']}")
+    if armed_["launches"] != plain["launches"]:
+        raise AssertionError(f"[trace-main] {label}: armed launches {armed_['launches']}, unarmed {plain['launches']}")
+    d = drivers[True]
+    ds = d.dispatch_stats
+    k = plane.spec.n_tracers
+    want = k * (ds["ticks_dispatched"] + ds["windows_dispatched"])
+    t0 = time.perf_counter()
+    snap = plane.snapshot()
+    read_s = time.perf_counter() - t0
+    if plane.ring.records != want or ds["readbacks"] - reads != 1:
+        raise AssertionError(f"[trace-main] {label}: {plane.ring.records} records (want {want}), "
+                             f"{ds['readbacks'] - reads} readbacks for the ring read")
+    kinds = sorted({e["kind"] for e in plane.events()})
+    phase("trace-main", f"{label}: armed {beside(armed_['ms_tick'], plain['ms_tick'])} over {windows} x step({per}); "
+                        f"state bit-equal to the unarmed driver's, 0 readbacks while stepping, device waits in 2 "
+                        f"ticks {armed_['waits']} armed / {plain['waits']} unarmed, flag reads {armed_['flags']:.1f}/tick, "
+                        f"launches {armed_['launches']} armed / {plain['launches']} unarmed in {windows * per} ticks; "
+                        f"one ring read ({len(snap['rows'])} rows x {plane.spec.n_fields} fields, "
+                        f"{read_s * 1e3:.1f} ms): {plane.ring.records} records = {k} x ({ds['ticks_dispatched']} ticks "
+                        f"+ {ds['windows_dispatched']} window boundaries); kinds {kinds}")
+    del drivers, d
+    torch.cuda.empty_cache()
+    return {"armed": armed_["launches"], "unarmed": plain["launches"], "ms": armed_["ms_tick"],
+            "plain_ms": plain["ms_tick"]}
+
+
+def run_trace_main(device) -> dict:
+    """Phase 40: a trace-armed driver against an unarmed one from one seed
+    at full width, 4 tracers (two crashed rows, two live) and rumor slots
+    0 and 1: pview at 1M (config11's widths, 8 rumors, a crash wave of
+    1,024 rows), sparse at 49,152 (config5's widths, 2 rumors, 491
+    crashes), dense at 10,000 (config4's partition), one timed
+    ``step(10)`` each."""
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    def pview_driver():
+        n = N_MAIN
+        d = SimDriver(config16_params(n), n, warm=True, seed=0, device=device)
+        for s in range(d.params.rumor_slots):
+            d.spread_rumor((s * 997) % n, f"rumor {s}")
+        for r in range(n // 2, n // 2 + n // 1024):
+            d.crash(r)
+        return d
+
+    def sparse_driver():
+        n = N_SPARSE
+        d = SimDriver(config5_params(n), n, warm=True, seed=0, device=device)
+        for s in range(d.params.rumor_slots):
+            d.spread_rumor((s * 997) % n, f"rumor {s}")
+        for r in range(n // 2, n // 2 + n // 100):
+            d.crash(r)
+        return d
+
+    def dense_driver():
+        n = N_DENSE
+        d = SimDriver(config4_params(n), n, warm=True, seed=0, device=device)
+        d.block_partition(list(range(n // 10)), list(range(n // 10, n)))
+        return d
+
+    out = {}
+    for key, make, n, label, windows in (("pview", pview_driver, N_MAIN, f"pview {N_MAIN}", MAIN_PVIEW_WINDOWS),
+                                         ("sparse", sparse_driver, N_SPARSE, f"sparse {N_SPARSE}", 1),
+                                         ("dense", dense_driver, N_DENSE, f"dense {N_DENSE}", 1)):
+        tracers = (n // 2, n // 2 + 1, 1, n // 4) if key != "dense" else (1, 2, n // 10, n // 2)
+        rec = trace_pair(device, make, label, windows, tracers=tracers)
+        if key != "dense" and torch.device(device).type == "cuda" and rec["armed"] <= 0:
+            raise AssertionError(f"[trace-main] {label}: no delivery_combine launch")
+        out[f"trace-main-{key}-armed"] = rec["armed"]
+        out[f"trace-main-{key}-unarmed"] = rec["unarmed"]
+    return out
+
+
+def run_trace_scenario(device, n: int = N_MAIN) -> dict:
+    """Phase 41: ``run_scenario(trace=True)`` on phase 28's pview crash
+    scenario at ``n`` (1M: config16's widths, 8 rumors, a crash wave of
+    n/1024 rows and a partition healed, 60 ticks) with the telemetry plane
+    armed: the report ``ok`` with no violation and no readback while it
+    steps, the first 4 crashed rows traced, each with a sewn detection tree,
+    the rest named untraced; the Chrome/Perfetto document written under
+    ``chiprun_out/``; then an 8-tick scenario with an unmeetable detection
+    budget, whose violation writes a flight dump that must carry the trace
+    section. Returns the launches of both runs."""
+    from scalecube_cluster_tpu_torch.chaos import events as EV
+    from scalecube_cluster_tpu_torch.config import TelemetryConfig
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+    from scalecube_cluster_tpu_torch.telemetry.flight import load_flight_dump
+
+    out_dir = os.path.join("chiprun_out", "trace")
+    os.makedirs(out_dir, exist_ok=True)
+    g = min(1 << 16, n // 8)
+    d = SimDriver(config16_params(n), n, warm=True, seed=0, device=device)
+    d.arm_telemetry(TelemetryConfig(flight_dir=out_dir))
+    for s in range(d.params.rumor_slots):
+        d.spread_rumor((s * 997) % n, f"rumor {s}")
+    wave = list(range(n // 2, n // 2 + max(8, n // 1024)))
+    scn = EV.Scenario(name="pview-wave-split", events=[
+        EV.Crash(rows=wave, at=2),
+        EV.Partition(groups=[range(0, g), range(g, 2 * g)], at=5, heal_at=30)], horizon=60)
+    d.step(2)
+    from scalecube_cluster_tpu_torch.chaos.engine import DriverChaosRunner
+
+    def go():
+        runner = DriverChaosRunner(d, scn, trace=True)
+        base = d.dispatch_stats["readbacks"]
+        t0 = time.perf_counter()
+        runner.run()
+        return runner, base, time.perf_counter() - t0
+
+    (runner, base, wall), launches = count_launches(go)
+    rep = runner.last_report
+    # one readback for the report, one for the ring read behind trace_spans
+    if d.dispatch_stats["readbacks"] != base + 2:
+        raise AssertionError(f"[trace-scenario] {d.dispatch_stats['readbacks'] - base - 2} readbacks while stepping")
+    if not rep["ok"] or rep["violations"]:
+        raise AssertionError(f"[trace-scenario] report not ok: {rep['sentinels']}")
+    traced = list(d.trace.spec.tracer_rows)
+    if traced != wave[:4] or sorted(rep["trace_spans"]) != traced or rep["untraced_crash_rows"] != wave[4:]:
+        raise AssertionError(f"[trace-scenario] traced {traced}, trees {sorted(rep['trace_spans'])}")
+    depth = {r: len(t.get("children", ())) for r, t in rep["trace_spans"].items()}
+    doc = d.trace.perfetto()
+    path = os.path.join(out_dir, "pview_1m_detections.perfetto.json")
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
+    phase("trace-scenario", f"pview {n}, {rep['ticks_run']} ticks, events {events_text(rep)}: ok, 0 violations, "
+                            f"no readback while stepping ({wall / rep['ticks_run'] * 1e3:.2f} ms/tick with trace and "
+                            f"telemetry armed); tracers {traced} each with a sewn detection tree (children {depth}), "
+                            f"{len(rep['untraced_crash_rows'])} crashed rows named untraced; Perfetto document "
+                            f"{path} ({len(doc['traceEvents'])} events); launches {launches}")
+    # a traced row crashed again: its detection obligation cannot be met in
+    # one tick, and its span tree rides the dump
+    bad = EV.Scenario(name="forced-violation", events=[EV.Crash(rows=[traced[0]], at=1)], horizon=8,
+                      detect_budget=1, check_interval=4)
+    rep2, launches2 = count_launches(lambda: d.run_scenario(bad))
+    if rep2["ok"] or not rep2.get("flight_dump"):
+        raise AssertionError(f"[trace-scenario] the forced violation wrote no flight dump: {rep2['sentinels']}")
+    dump = load_flight_dump(rep2["flight_dump"])
+    tr = dump.get("trace") or {}
+    if not tr.get("rows") or tr.get("tracer_rows") != traced:
+        raise AssertionError("[trace-scenario] the flight dump carries no trace section")
+    phase("trace-scenario", f"forced violation ({rep2['violations']} violation(s), detect budget 1): flight dump "
+                            f"{rep2['flight_dump']} carries the trace section ({len(tr['rows'])} ring rows, span "
+                            f"trees for rows {sorted(tr['span_trees'])}); launches {launches2}")
+    del d
+    torch.cuda.empty_cache()
+    return {"trace-scenario": launches + launches2}
+
+
+def run_config10(device, n: int = 4096, windows: int = 24, reps: int = 5, profile_ticks: int = 24) -> dict:
+    """Phase 42: ``benchmarks/config10_trace.py`` as published — the trace
+    plane's armed-idle overhead on the plain pipelined dense driver (N =
+    4,096, 24 one-tick windows per span, interleaved median of 5 reps; 4
+    tracer rows and one traced rumor slot) beside config10's 2% gate (the
+    phase fails only on a readback while the armed loop steps), and the
+    phase breakdown of the split window (``trace/profile.py:
+    profile_driver``, 24 ticks), whose phase times must cover the split
+    window's wall within 20%."""
+    from scalecube_cluster_tpu_torch.ops.state import SimParams
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+    from scalecube_cluster_tpu_torch.trace.profile import profile_driver
+
+    params = SimParams(capacity=n, fanout=3, repeat_mult=3, ping_req_k=3, fd_every=5, sync_every=150,
+                       suspicion_mult=5, rumor_slots=8, seed_rows=(0,), full_metrics=False)
+    loops = {}
+    for armed in (False, True):
+        d = SimDriver(params, n, warm=True, seed=0, device=device)
+        if armed:
+            d.arm_trace(tracer_rows=(0, 1, 2, 3), rumor_slots=(0,))
+        d.step(1)
+        d.sync()
+        loops[armed] = d
+    spans = {False: [], True: []}
+    for _rep in range(reps):
+        for armed, d in loops.items():
+            base = d.dispatch_stats["readbacks"]
+            t0 = time.perf_counter()
+            for _ in range(windows):
+                d.step(1)
+            d.sync()
+            spans[armed].append(time.perf_counter() - t0)
+            if d.dispatch_stats["readbacks"] != base:
+                raise AssertionError("[config10] a driver read the device back while stepping")
+    plain, armed = statistics.median(spans[False]), statistics.median(spans[True])
+    overhead = (armed / plain - 1.0) * 100.0
+    phase("config10", f"dense N={n}, {reps} x {windows} one-tick windows: pipelined {windows / plain:.1f} ticks/s, "
+                      f"trace-armed {windows / armed:.1f} ticks/s, armed overhead {overhead:+.2f}% (config10's gate "
+                      f"2%: {'within' if overhead <= 2.0 else 'outside'}); no readback while stepping; "
+                      f"{loops[True].trace.ring.records} records appended")
+    prof = profile_driver(loops[True], n_ticks=profile_ticks)
+    cover = prof["phase_coverage"]
+    if abs(cover - 1.0) > 0.2:
+        raise AssertionError(f"[config10] the phase times cover {cover} of the split window's wall")
+    shares = ", ".join(f"{k} {v:.1f}%" for k, v in sorted(prof["phases_pct"].items(), key=lambda kv: -kv[1]))
+    phase("config10", f"phase-split profile ({profile_ticks} ticks, CUDA events per phase): "
+                      f"{prof['split_ticks_per_s']} split ticks/s against {windows / plain:.1f} fused "
+                      f"({windows / plain / prof['split_ticks_per_s']:.2f}x), coverage {cover}; {shares}")
+    del loops
+    return {"overhead_pct": overhead, "phase_coverage": cover}
+
+
+STORM_GRID = (20.0, 24.0, 28.0)  # config15's per-scenario storm floors (percent)
+C15_N, C15_SEEDS = 48, 512  # config15's certification as published
+
+
+def config15_cell(task) -> dict:
+    """One shifting cell of config15's certification in a worker process:
+    ``task`` is (cell index, N, seeds, device). Every arm's fleet draws
+    from the JAX key chains ``PRNGKey(1000 + s)``."""
+    from scalecube_cluster_tpu_torch.chaos import shifting as SH
+    from scalecube_cluster_tpu_torch.control import certify_controller_mc
+    from scalecube_cluster_tpu_torch.ops.keychain import KeyChain
+
+    i, n, seeds, device = task
+    cert = certify_controller_mc(cells=[SH.SHIFTING_FAMILY[i](n=n)], n=n, n_seeds=seeds, window=8,
+                                 vary_storm_pct=STORM_GRID, device=device,
+                                 draws=lambda cell, arm, rung: KeyChain(1000 + np.arange(seeds), device))
+    return cert["entries"][0]
+
+
+def jax_record(name: str) -> dict:
+    """A record of the JAX package committed under ``reference/``
+    (``reference/jax_records.py`` writes them on the CPU)."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "reference", name)) as fh:
+        return json.load(fh)
+
+
+def run_config15(device, pooled: dict) -> dict:
+    """Phase 43: ``benchmarks/config15_control.py``'s certification as
+    published — ``certify_controller_mc`` over the three shifting cells at
+    N = 48, 512 seeds per cell, 8-tick windows, storm floors 20/24/28%,
+    every arm's fleet drawing from the JAX package's own key chains
+    (``ops/keychain.py``: ``PRNGKey(1000 + s)`` per scenario, as JAX's
+    harness seeds them), one cell per task of ``run_worker_pool`` on the
+    card: every cell's controlled arm certified with 0 false-DEAD, the
+    blind and unclamped controllers failing, and every arm's SLO, failure
+    and false-DEAD counts and actuations equal to the JAX package's record
+    of the same run (``reference/config15_certification.jax.json``); then
+    the armed-idle check at full width: a control-armed sparse driver at
+    49,152 (config5's widths) under clean conditions against an unarmed
+    one: 0 actuations, one readback per control epoch, the state
+    bit-equal, ms/tick beside the unarmed. Returns the launches of both
+    kernels on each part."""
+    from scalecube_cluster_tpu_torch.control import ControlSpec
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    seeds = C15_SEEDS
+    entries = [e for e, _, _ in pooled["config15"]]
+    cert = {"entries": entries, "n_cells": len(entries), "n_certified": sum(e["certified"] for e in entries)}
+    ref = {e["cell"]: e for e in jax_record("config15_certification.jax.json")["certification"]["entries"]}
+    keys = ("slo_met", "slo_wilson", "false_dead_scenarios", "fail_detect", "fail_fp", "fail_cost", "fail_spread",
+            "actuations", "detect_latency_p50", "detect_latency_max")
+    for e in cert["entries"]:
+        arms = e["arms"]
+        text = "; ".join(f"{k} {v['slo_met']}/{v['n_seeds']} {v['slo_wilson']} fp {v['false_dead_scenarios']}"
+                         for k, v in arms.items())
+        phase("config15", f"{e['cell']}: {'CERTIFIED' if e['certified'] else 'NOT certified'} (separation "
+                          f"{e['separation']}, controlled false-DEAD {e['controlled_false_dead']}, blind fails "
+                          f"{e['blind_fails_certification']}, unclamped fails {e['unclamped_fails_certification']}, "
+                          f"actuations {e['controlled_actuations']} / unclamped {e['unclamped_actuations']}): {text}")
+        if not (e["certified"] and e["controlled_false_dead"] == 0 and e["blind_fails_certification"]
+                and e["unclamped_fails_certification"]):
+            raise AssertionError(f"[config15] {e['cell']} not certified")
+        differ = [f"{arm}.{k}" for arm, rec in arms.items() for k in keys
+                  if rec[k] != ref[e["cell"]]["arms"][arm][k]]
+        if differ:
+            raise AssertionError(f"[config15] {e['cell']}: the card's counts differ from the JAX record in {differ}")
+    cert_launches = sum(n for _, n, _ in pooled["config15"])
+    cert_fleet = sum(n for _, _, n in pooled["config15"])
+    phase("config15", f"certify_controller_mc: {cert['n_certified']}/{cert['n_cells']} cells certified at {seeds} "
+                      f"seeds per cell (the shared worker pool); every arm's counts, intervals, actuations and "
+                      f"latencies equal to the JAX package's record of the same key chains "
+                      f"(reference/config15_certification.jax.json); the workers' launches: delivery_combine "
+                      f"{cert_launches}, delivery_combine_fleet {cert_fleet}")
+
+    def driver():
+        d = SimDriver(config5_params(N_SPARSE), N_SPARSE, warm=True, seed=0, device=device)
+        for s in range(d.params.rumor_slots):
+            d.spread_rumor((s * 997) % N_SPARSE, f"rumor {s}")
+        return d
+
+    drivers, rec = {}, {}
+    epochs, per = 3, 5
+    spec = ControlSpec()
+
+    def idle_pair():
+        for arm in (False, True):
+            d = driver()
+            if arm:
+                rec["plane"] = d.arm_control(spec=spec)
+            else:
+                d.arm_telemetry()  # the same telemetry ring, so only the controller differs
+            d.step(5)
+            d.sync()
+            reads = d.dispatch_stats["readbacks"]
+            t0 = time.perf_counter()
+            for _ in range(epochs * spec.epoch_windows):
+                d.step(per)
+            d.sync()
+            rec[arm] = dict(ms=(time.perf_counter() - t0) / (epochs * spec.epoch_windows * per) * 1e3,
+                            readbacks=d.dispatch_stats["readbacks"] - reads)
+            drivers[arm] = d
+
+    _, idle_launches = count_launches(idle_pair)
+    plane = rec["plane"]
+    diff = device_state_differences(drivers[False].state, drivers[True].state)
+    if diff or plane.state.actuations or rec[True]["readbacks"] != epochs or rec[False]["readbacks"]:
+        raise AssertionError(f"[config15] armed idle: differs in {diff}, actuations {plane.state.actuations}, "
+                             f"readbacks {rec[True]['readbacks']} (want {epochs})")
+    phase("config15", f"armed idle, sparse {N_SPARSE}, {epochs} control epochs of {spec.epoch_windows} x step({per}): "
+                      f"{beside(rec[True]['ms'], rec[False]['ms'])}; 0 actuations, {rec[True]['readbacks']} readbacks "
+                      f"(one per epoch), state bit-equal to the unarmed driver's; rung {plane.state.rung} "
+                      f"({plane.snapshot()['rung_name']}), last sensors {plane.state.last_sensors}; delivery_combine "
+                      f"launches {idle_launches} (both drivers, {2 * (5 + epochs * spec.epoch_windows * per)} ticks)")
+    del drivers
+    torch.cuda.empty_cache()
+    return {"launches": {"config15-certify": cert_launches, "config15-armed-idle": idle_launches},
+            "fleet": {"config15-certify": cert_fleet}}
+
+
+CONFIG17_ARMS = [  # benchmarks/config17_replay.py: ARMS
+    {"name": "fast-fd", "fd_every": 1, "suspicion_mult": 2},
+    {"name": "moderate-fd", "fd_every": 2, "suspicion_mult": 3},
+    {"name": "wider-fanout", "fanout": 6},
+]
+
+
+def run_config17(device, n: int = 24, seeds: int = 256, detect_budget: int = 60, horizon: int = 96) -> dict:
+    """Phase 44: ``benchmarks/config17_replay.py`` as published — the
+    incident made on the card by a telemetry-armed driver (N = 24, the slow
+    FD cadence whose detection misses a 60-tick budget, horizon 96); its
+    flight dump round-trips (``validate_incident`` on a fresh card driver
+    reproduces the recorded verdict); ``whatif`` runs the as-recorded arm
+    and three counterfactual arms at 256 seeds each, at least one
+    CI-separated from the as-recorded arm; and the card's dump replayed by
+    the port on the CPU gives the same verdict. The driver, the replay and
+    every arm's fleet draw from the JAX package's key chains
+    (``ops/keychain.py``: ``PRNGKey(11)``, ``PRNGKey(1000 + s)``), so the
+    round trip and every arm's counts, intervals and latencies must equal
+    the JAX package's record of the same run
+    (``reference/config17_replay.jax.json``)."""
+    from scalecube_cluster_tpu_torch import replay as R
+    from scalecube_cluster_tpu_torch.chaos.events import Crash, Scenario
+    from scalecube_cluster_tpu_torch.config import TelemetryConfig
+    from scalecube_cluster_tpu_torch.ops.keychain import KeyChain
+    from scalecube_cluster_tpu_torch.ops.state import SimParams
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    def serial_chain(seed: int, params, dev):
+        chain = KeyChain([seed], dev, serial=True)
+        return lambda n_ticks: chain(n_ticks, params)
+
+    flight_dir = os.path.join("chiprun_out", "replay")
+    os.makedirs(flight_dir, exist_ok=True)
+    params = SimParams(capacity=n, fanout=3, ping_req_k=2, fd_every=4, sync_every=40, suspicion_mult=5,
+                       rumor_slots=8, seed_rows=(0,))
+    d = SimDriver(params, n, warm=True, seed=11, device=device, draws=serial_chain(11, params, device))
+    d.arm_telemetry(TelemetryConfig(ring_len=64, flight_windows=32, flight_dir=flight_dir))
+    scenario = Scenario(name="slow-fd-missed-deadline", events=[Crash(rows=[7], at=8)], horizon=horizon,
+                        detect_budget=detect_budget, converge_budget=horizon, check_interval=4)
+    t0 = time.perf_counter()
+    report = d.run_scenario(scenario)
+    if not report.get("violations") or not report.get("flight_dump"):
+        raise AssertionError("[config17] the slow-FD run met its deadline: no incident")
+    incident = R.incident_from_flight(report["flight_dump"])
+    validation = R.validate_incident(incident, device=device, draws=serial_chain(11, incident.params, device))
+    t_validate = time.perf_counter() - t0
+    ref = jax_record("config17_replay.jax.json")
+    if {k: validation[k] for k in ("recorded", "replayed", "reproduced")} != ref["round_trip"]:
+        raise AssertionError(f"[config17] the round trip differs from the JAX record: {ref['round_trip']}")
+    if validation["reproduced"] is not True:
+        raise AssertionError(f"[config17] the serial replay did not reproduce the verdict: {validation['replayed']}")
+    phase("config17", f"incident on {device}: {report['violations']} violation(s), flight dump "
+                      f"{report['flight_dump']} (backend {report['backend']}); round trip: recorded "
+                      f"{validation['recorded']}, replayed {validation['replayed']}, reproduced "
+                      f"({t_validate:.1f} s)")
+    t0 = time.perf_counter()
+    record = R.whatif(incident, CONFIG17_ARMS, seeds_per_arm=seeds, device=device,
+                      draws=lambda name, p: (lambda k, c=KeyChain(1000 + np.arange(seeds), device): c(k, p)))
+    t_whatif = time.perf_counter() - t0
+    keys = ("green", "wilson", "fail_detect", "fail_converge", "false_dead_scenarios", "detect_latency_p50",
+            "detect_latency_max", "separated")
+    differ = [f"{a['arm']}.{k}" for a, r in zip(record["arms"], ref["whatif"]["arms"]) for k in keys
+              if a[k] != r[k] or a["arm"] != r["arm"]]
+    if differ:
+        raise AssertionError(f"[config17] the card's arms differ from the JAX record in {differ}: "
+                             f"{[(a['arm'], [a[k] for k in keys]) for a in record['arms']]}")
+    for arm in record["arms"]:
+        phase("config17", f"{arm['arm']}: P(green) {arm['p_green']} ({arm['green']}/{seeds}) wilson {arm['wilson']}, "
+                          f"fails detect/converge {arm['fail_detect']}/{arm['fail_converge']}, false-DEAD scenarios "
+                          f"{arm['false_dead_scenarios']}, detect latency p50 {arm['detect_latency_p50']} max "
+                          f"{arm['detect_latency_max']}, separated {arm['separated']}")
+    if record["n_arms"] < 4 or not record["any_arm_separated"]:
+        raise AssertionError("[config17] no counterfactual arm CI-separated from the as-recorded arm")
+    cpu_inc = R.incident_from_flight(report["flight_dump"])
+    cpu_val = R.validate_incident(cpu_inc, device="cpu", draws=serial_chain(11, cpu_inc.params, "cpu"))
+    if cpu_val["reproduced"] is not True:
+        raise AssertionError(f"[config17] the card's dump replayed on the CPU gave {cpu_val['replayed']}")
+    phase("config17", f"whatif: {record['n_arms']} arms x {seeds} seeds in {t_whatif:.1f} s, {record['n_separated']} "
+                      f"CI-separated, every arm's counts, intervals and latencies equal to the JAX record's; "
+                      f"the card's dump replayed on the CPU: {cpu_val['replayed']}, reproduced")
+    return record
 
 
 def fleet_kernel_entry(rows: dict, launches: dict) -> dict:
@@ -3240,8 +3941,9 @@ def run_phases_4_to_24(device, marks: list) -> dict:
 
     dissem_launches = check_dissem_windows(device)
     marks.append(("phase 22 (dissem-windows)", time.perf_counter()))
-    certify_run = run_dissem_certify(device)
-    marks.append(("phase 23 (dissem-certify)", time.perf_counter()))
+    pooled = run_worker_pool(device)
+    certify_run = run_dissem_certify(device, pooled)
+    marks.append(("phase 23 (dissem-certify, with the worker pool of phases 29 and 43)", time.perf_counter()))
     unarmed = {"pview": main_run["ms_tick"], "sparse": sparse_run["ms_tick"], "dense_part": dense_run["ms_part"],
                "dense_heal": dense_run["ms_heal"],
                "dense_ticks": (dense_run["detected"], dense_run["bulk"], dense_run["full"])}
@@ -3253,7 +3955,7 @@ def run_phases_4_to_24(device, marks: list) -> dict:
     return {"window": main_run["launches"], "driver": driver_run["launches"],
             "sparse-window": sparse_run["launches"], "sparse-driver": sparse_driver_run["launches"],
             "dense-main": dense_run["launches"], "dense-driver": dense_driver_run["launches"],
-            "dense-delay": dense_delay_run["launches"], **dissem_launches, "unarmed": unarmed}
+            "dense-delay": dense_delay_run["launches"], **dissem_launches, "unarmed": unarmed, "pooled": pooled}
 
 
 def main() -> int:
@@ -3262,7 +3964,8 @@ def main() -> int:
         return 1
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    phase("device", f"{name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    phase("device", f"{name}; torch {torch.__version__}, CUDA {torch.version.cuda}; host CPU threads "
+                    f"{torch.get_num_threads()} of {os.cpu_count()} cores")
     t_start = time.perf_counter()
     marks = []
     print(nvidia_smi(), flush=True)
@@ -3279,6 +3982,7 @@ def main() -> int:
     kern_structured = check_structured_kernel(device)
     launches = run_phases_4_to_24(device, marks)
     unarmed = launches.pop("unarmed")
+    pooled = launches.pop("pooled")
     new = check_adaptive_windows(device)
     marks.append(("phase 25 (adaptive-windows)", time.perf_counter()))
     new.update(run_adaptive_main(device, unarmed))
@@ -3287,16 +3991,16 @@ def main() -> int:
     marks.append(("phase 27 (chaos-windows)", time.perf_counter()))
     new.update(run_chaos_main(device, unarmed))
     marks.append(("phase 28 (chaos-main)", time.perf_counter()))
-    run_config13(device)
+    c13 = run_config13(pooled)
     marks.append(("phase 29 (config13)", time.perf_counter()))
-    run_config7(device)
+    _, c7_launches = count_launches(lambda: run_config7(device))
     marks.append(("phase 30 (config7)", time.perf_counter()))
-    launches.update(new, config13=0, config7=0)
+    launches.update(new, config13=c13["launches"], config7=c7_launches)
     fleet_kern = check_fleet_kernel(device)
     marks.append(("phase 31 (fleet-kernel)", time.perf_counter()))
     fleet_launches = check_fleet_windows(device)
     marks.append(("phase 32 (fleet-windows)", time.perf_counter()))
-    c14 = run_config14(device)
+    c14 = run_config14(device, pooled)
     fleet_launches.update(c14["launches"])
     marks.append(("phase 33 (config14)", time.perf_counter()))
     fleet_main = run_fleet_main(device)
@@ -3312,6 +4016,20 @@ def main() -> int:
     marks.append(("phase 37 (delay-main)", time.perf_counter()))
     launches.update(run_telemetry(device))
     marks.append(("phase 38 (telemetry)", time.perf_counter()))
+    launches.update(check_trace_windows(device))
+    marks.append(("phase 39 (trace-windows)", time.perf_counter()))
+    launches.update(run_trace_main(device))
+    marks.append(("phase 40 (trace-main)", time.perf_counter()))
+    launches.update(run_trace_scenario(device))
+    marks.append(("phase 41 (trace-scenario)", time.perf_counter()))
+    _, launches["config10"] = count_launches(lambda: run_config10(device))
+    marks.append(("phase 42 (config10)", time.perf_counter()))
+    c15 = run_config15(device, pooled)
+    launches.update(c15["launches"])
+    fleet_launches.update(c15["fleet"])
+    marks.append(("phase 43 (config15)", time.perf_counter()))
+    _, launches["config17"], fleet_launches["config17"] = count_kernel_launches(lambda: run_config17(device))
+    marks.append(("phase 44 (config17)", time.perf_counter()))
 
     last = t_start
     for what, at in marks:

@@ -12,8 +12,9 @@ re-convergence after a heal, key monotonicity and, for a degraded cohort,
 no false positive; they accumulate on the device and are read at the
 final report.
 
-Not ported yet, and refused by name: :class:`EmulatorChaosRunner`
-(ROADMAP A13) and ``trace=True`` (A10, second half).
+``run_scenario(trace=True)`` attaches the causal trace plane's detection
+span trees to the report. Not ported yet, and refused by name:
+:class:`EmulatorChaosRunner` (ROADMAP A13).
 """
 
 from .engine import (

@@ -19,9 +19,11 @@ With the driver's telemetry plane armed, the scenario's lifecycle and
 applied events go onto its bus, and the final report feeds the plane
 (detection latencies, the outcome record, a flight dump on a violation).
 
-Not ported yet, and refused by name: ``EmulatorChaosRunner`` (the scalar
-engine's network emulators, ROADMAP A13) and ``trace=True`` (the trace
-plane, A10, trace half).
+``run_driver_scenario(trace=True)`` arms the causal trace plane on the
+scenario's crashed rows and attaches their detection span trees to the
+report (``trace_spans``). Not ported yet, and refused by name:
+``EmulatorChaosRunner`` (the scalar engine's network emulators, ROADMAP
+A13).
 """
 
 from __future__ import annotations
@@ -594,13 +596,28 @@ class DriverChaosRunner:
 
     def __init__(self, driver, scenario: Scenario, config=None,
                  sentinels: bool = True, trace: bool = False):
-        if trace:
-            raise NotImplementedError(
-                "run_scenario(trace=True) needs the trace plane, which is not ported yet "
-                "(ROADMAP A10, trace half)"
-            )
         self.driver = driver
         self.scenario = scenario
+        self._untraced_crash_rows: List[int] = []
+        if trace:
+            crash_rows = []
+            for ev in scenario.events:
+                if isinstance(ev, (Crash, ChurnStorm)):
+                    crash_rows.extend(int(r) for r in ev.rows)
+            uniq = tuple(dict.fromkeys(crash_rows))
+            if driver._trace is None:
+                # the crashed rows are the members whose causal story the
+                # report needs: trace them (up to TraceConfig.tracers) so
+                # the sentinel outcomes resolve to span trees
+                from ..config import ClusterConfig, TraceConfig
+
+                tcfg = config if isinstance(config, (ClusterConfig, TraceConfig)) else None
+                trace_cfg = tcfg.trace if isinstance(tcfg, ClusterConfig) else (tcfg or TraceConfig())
+                driver.arm_trace(config=tcfg, tracer_rows=uniq[:trace_cfg.tracers] or None)
+            # no silent caps: crashed rows the armed spec does not trace are
+            # named in the report — a missing span tree reads "untraced",
+            # never "no detection activity"
+            self._untraced_crash_rows = [r for r in uniq if r not in driver._trace.spec.tracer_rows]
         with driver._lock:
             self.t0 = driver.state.tick  # a host int: no readback
             arm_state = driver.state
@@ -685,6 +702,7 @@ class DriverChaosRunner:
             self.rel_tick = t
         self.done = True
         report = self.report()  # THE sync point: one coalesced readback
+        self._attach_trace(report)
         self.last_report = report
         plane = getattr(d, "_telemetry", None)
         if plane is not None:
@@ -694,6 +712,30 @@ class DriverChaosRunner:
             if dump is not None:
                 report["flight_dump"] = dump
         return report
+
+    def _attach_trace(self, report: dict) -> None:
+        """Resolve the sentinel outcomes to sewn span trees: every traced
+        crash subject gets its probe-miss → suspect → DEAD lineage on its
+        detection entry (a passing detection's tree explains its latency),
+        and the report carries the map under ``trace_spans``. One ring
+        readback, at the final report only."""
+        tplane = getattr(self.driver, "_trace", None)
+        if tplane is None:
+            return
+        from ..trace import spans as _spans
+
+        events = tplane.events()
+        trees = {}
+        for det in (report.get("sentinels") or {}).get("detections", ()):
+            row = det["row"]
+            if row in tplane.spec.tracer_rows:
+                tree = _spans.detection_tree(events, row)
+                if tree is not None:
+                    det["span_tree"] = tree
+                    trees[int(row)] = tree
+        report["trace_spans"] = trees
+        if self._untraced_crash_rows:
+            report["untraced_crash_rows"] = list(self._untraced_crash_rows)
 
     def _run_check(self) -> None:
         d = self.driver
@@ -753,8 +795,8 @@ def run_driver_scenario(
     trace: bool = False,
 ) -> dict:
     """Arm ``scenario`` on ``driver`` and run it to the horizon (the
-    function behind ``SimDriver.run_scenario``). ``trace=True`` is refused
-    until the trace plane is ported (ROADMAP A10, trace half)."""
+    function behind ``SimDriver.run_scenario``). ``trace=True`` arms the
+    causal trace plane on the crashed rows."""
     runner = DriverChaosRunner(
         driver, scenario, config=config, sentinels=sentinels, trace=trace
     )

@@ -9,6 +9,7 @@ the JAX names."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -72,6 +73,36 @@ def pull_replies(state, ok_all, p_all, ym_p, yu_p, loss_at, recv_u, recv_src, re
         sent += count_i32(rev_ok)
         rumor_sent += count_i32(reply_u)
     return sent, rumor_sent
+
+
+def fd_trace(tgt, has_tgt, ack, direct_ok, suspect, relays, relay_valid, relay_ok) -> dict:
+    """The FD phase's trace export (``suspect``: rows whose verdict raised
+    a suspicion, the detection lineage's origin events) — shared by the
+    three engines."""
+    return {
+        "tgt": tgt.to(torch.int32),
+        "has_tgt": has_tgt,
+        "ack": ack,
+        "direct_ok": direct_ok,
+        "suspect": suspect,
+        "relays": relays.to(torch.int32),
+        "relay_valid": relay_valid,
+        "relay_ok": relay_ok,
+    }
+
+
+def sync_trace(caller, valid_c, peer, ok, req_acc, ack_acc) -> dict:
+    """The SYNC phase's trace export (the compacted callers, their peers,
+    the round trips, the records each side accepted) — shared by the
+    three engines."""
+    return {
+        "caller": caller.to(torch.int32),
+        "valid": valid_c,
+        "peer": peer.to(torch.int32),
+        "ok": ok,
+        "req_acc": req_acc.to(torch.int32),
+        "ack_acc": ack_acc.to(torch.int32),
+    }
 
 
 def no_props(state):
@@ -370,7 +401,14 @@ def rumor_metrics(state, params, n_up) -> dict:
 # -- the window loop -------------------------------------------------------------
 
 
-def run_window(tick, view_rows, draw, state, draws, n_ticks: int, params, watch_rows=None, ad=None):
+def phase(timer, name: str):
+    """The phase-split profiler's scope around one tick phase
+    (:mod:`..trace.profile`), or a no-op when no profile runs."""
+    return contextlib.nullcontext() if timer is None else timer.phase(name)
+
+
+def run_window(tick, view_rows, draw, state, draws, n_ticks: int, params, watch_rows=None, ad=None,
+               trace=None, ring=None):
     """Run ``n_ticks`` of ``tick(state, fd, round, params)``.
 
     ``draws`` is either a ``torch.Generator`` on the state's device (the
@@ -381,12 +419,20 @@ def run_window(tick, view_rows, draw, state, draws, n_ticks: int, params, watch_
     watched)``; ``watched`` is ``view_rows(state, watch_rows)`` after each
     tick, stacked, or None. With ``ad`` (an adaptive plane) each tick runs
     as ``tick(..., ad=ad)`` and the return is ``(state, ad, metrics,
-    watched)``."""
+    watched)``. With ``trace`` (a :class:`..trace.schema.TraceSpec`) each
+    tick runs as ``tick(..., trace=trace)`` and appends its record block
+    to ``ring`` (a :class:`..trace.rings.TraceRing`) in place."""
     gen = draws if isinstance(draws, torch.Generator) else None
     if gen is not None and gen.device.type != state.device.type:
         raise ValueError(f"generator on {gen.device}, state on {state.device}")
     if gen is None and len(draws) != n_ticks:
         raise ValueError(f"{len(draws)} per-tick draws for a {n_ticks}-tick window")
+    if (trace is None) != (ring is None):
+        raise ValueError("a traced window needs both the trace spec and its ring")
+    if trace is not None:
+        from ..trace.capture import tracer_index
+
+        tracer_index(trace, state.device)  # the tracer rows on the device, made before the ticks
     per_tick, watched = [], []
     for t in range(n_ticks):
         if gen is not None:
@@ -395,10 +441,13 @@ def run_window(tick, view_rows, draw, state, draws, n_ticks: int, params, watch_
             fd, rd = draws[t]
             fd = None if fd is None else fd.to(state.device)
             rd = rd.to(state.device)
-        if ad is None:
-            state, m = tick(state, fd, rd, params)
-        else:
+        if ad is not None:
             state, ad, m = tick(state, fd, rd, params, ad=ad)
+        elif trace is not None:
+            state, m = tick(state, fd, rd, params, trace=trace)
+            ring.append(m.pop("_trace_rows"))
+        else:
+            state, m = tick(state, fd, rd, params)
         per_tick.append(m)
         if watch_rows is not None:
             watched.append(view_rows(state, watch_rows))

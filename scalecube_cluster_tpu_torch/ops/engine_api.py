@@ -1,9 +1,9 @@
 """The engine-interface spelling the driver resolves through.
 
 A port of the JAX package's ``ops/engine_api.py``, cut to the fields the
-driver, the chaos runner and the telemetry plane read: an engine is one :class:`EngineOps`
-descriptor, and :func:`resolve` picks it by the params type. All three
-engines are ported: dense (``SimParams``), sparse (``SparseParams``) and
+driver, the chaos runner, the telemetry and the trace planes read: an
+engine is one :class:`EngineOps` descriptor, and :func:`resolve` picks it
+by the params type. All three engines are ported: dense (``SimParams``), sparse (``SparseParams``) and
 partial-view (``PviewParams``). The seams over the one [N, N] view plane
 that dense and sparse share (``plane_*``, the sentinel initialiser) are
 written once here.
@@ -46,6 +46,12 @@ class EngineOps:
     #: a fleet window's peak-memory budget factor, peak / (S x one state);
     #: None inherits the serial budget (the JAX engines' declared values)
     fleet_memory_factor: float | None = None
+    # (params, n_ticks, TraceSpec) -> traced window run(state, ring, draws,
+    # watch_rows=None): the trace ring appended in place each tick
+    make_traced_run: Callable = None
+    # (state, tracer_rows) -> [N, K] int32 view-key columns of the tracers
+    # (the trace plane's window-boundary diff feed)
+    tracer_view_cols: Callable = None
 
     @property
     def has_pool(self) -> bool:
@@ -77,6 +83,13 @@ def plane_view_rows(state, rows) -> torch.Tensor:
 def plane_view_row(state, row: int) -> torch.Tensor:
     """[N] int32 view row of ``row``."""
     return state.view_key[row].to(torch.int32)
+
+
+def plane_tracer_view_cols(state, tracer_rows) -> torch.Tensor:
+    """The tracers' [N, K] int32 view-key columns of the [N, N] plane."""
+    from ..trace.capture import gather_tracer_cols
+
+    return gather_tracer_cols(state.view_key, tracer_rows)
 
 
 def plane_remembered_rows(state) -> torch.Tensor:
@@ -140,6 +153,8 @@ def _dense_engine() -> EngineOps:
         telemetry_window_vector=K.telemetry_window_vector,
         make_fleet_run=K.make_fleet_run,
         make_fleet_adaptive_run=K.make_fleet_adaptive_run,
+        make_traced_run=K.make_traced_run,
+        tracer_view_cols=K.tracer_view_cols,
     )
 
 
@@ -173,6 +188,8 @@ def _pview_engine() -> EngineOps:
         make_fleet_run=PV.make_pview_fleet_run,
         make_fleet_adaptive_run=PV.make_pview_fleet_adaptive_run,
         fleet_memory_factor=5.5,
+        make_traced_run=PV.make_pview_traced_run,
+        tracer_view_cols=PV.tracer_view_cols,
     )
 
 
@@ -201,6 +218,8 @@ def _sparse_engine() -> EngineOps:
         make_fleet_run=SP.make_sparse_fleet_run,
         make_fleet_adaptive_run=SP.make_sparse_fleet_adaptive_run,
         fleet_memory_factor=6.0,
+        make_traced_run=SP.make_sparse_traced_run,
+        tracer_view_cols=SP.tracer_view_cols,
     )
 
 

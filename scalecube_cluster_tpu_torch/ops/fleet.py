@@ -478,6 +478,34 @@ def fleet_timeline(scenario, ops, dense_links: bool, horizon=None, vary: Optiona
     return _fleet_timeline_class()(scenario, FleetOps(ops, vary), dense_links=dense_links, horizon=horizon)
 
 
+def fleet_sentinel_init(eng, fleet_state, spec) -> dict:
+    """The chaos sentinels' accumulators of every scenario: the engine's
+    ``sentinel_init`` under ``vmap`` (each leaf [S, ...])."""
+    names = _leaf_names(fleet_state)
+    cls, tick = type(fleet_state), fleet_state.tick
+
+    def one(leaves):
+        return eng.sentinel_init(cls(tick=tick, **dict(zip(names, leaves))), spec)
+
+    with fleet_scope(fleet_size(fleet_state)):
+        return vmap(one)(tuple(getattr(fleet_state, k) for k in names))
+
+
+def fleet_sentinel_reduce(eng, fleet_state, sent: dict, spec_dev: dict) -> dict:
+    """One sentinel check of every scenario in one batched call: the
+    engine's ``sentinel_reduce`` under ``vmap`` over the fleet state and
+    the [S, ...] accumulators, the spec arrays shared. On the device;
+    nothing is read back."""
+    names = _leaf_names(fleet_state)
+    cls, tick = type(fleet_state), fleet_state.tick
+
+    def one(leaves, sent_s):
+        return eng.sentinel_reduce(cls(tick=tick, **dict(zip(names, leaves))), sent_s, spec_dev)
+
+    with fleet_scope(fleet_size(fleet_state)):
+        return vmap(one)(tuple(getattr(fleet_state, k) for k in names), sent)
+
+
 # ---------------------------------------------------------------------------
 # on-device fleet reductions (the Monte Carlo folds)
 # ---------------------------------------------------------------------------
@@ -526,5 +554,9 @@ def fleet_crash_detected(fleet_state, crash_row: int) -> torch.Tensor:
 def fleet_crash_detected_varied(fleet_state, crash_rows) -> torch.Tensor:
     """[S] bool twin of :func:`fleet_crash_detected` for a varied fleet: the
     subject of scenario ``s`` is ``crash_rows[s]``."""
-    rows = torch.as_tensor(np.asarray(crash_rows, np.int64), device=fleet_state.up.device)
+    dev = fleet_state.up.device
+    if isinstance(crash_rows, torch.Tensor):
+        rows = crash_rows.to(device=dev, dtype=torch.int64)
+    else:
+        rows = torch.as_tensor(np.asarray(crash_rows, np.int64), device=dev)
     return _crash_detected(fleet_state, rows)

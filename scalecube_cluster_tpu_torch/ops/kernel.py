@@ -57,10 +57,14 @@ the [N, N] view plane, in row chunks.
 
 :func:`telemetry_window_vector` is the telemetry plane's per-window row.
 
-Not ported yet, and refused: trace capture (``tick(trace=...)``, the
-traced window: ROADMAP A10, trace half). The fleet windows
-(``make_fleet_run``, its fused name, ``make_fleet_adaptive_run``) run this
-tick under ``torch.func.vmap`` (:mod:`.fleet`).
+The causal trace capture (``tick(trace=...)``, :func:`make_traced_run`)
+exports each phase's own internals into one [K, n_fields] record block per
+tick, appended to the trace ring in place (:mod:`..trace`); armed together
+with the adaptive plane it is refused, as in JAX. ``tick(timer=...)``
+scopes each phase for the phase-split profiler (:mod:`..trace.profile`).
+The fleet windows (``make_fleet_run``, its fused name,
+``make_fleet_adaptive_run``) run this tick under ``torch.func.vmap``
+(:mod:`.fleet`).
 """
 
 from __future__ import annotations
@@ -72,7 +76,11 @@ from ..dissemination import strategies as dz
 from . import bitplane as bp
 from ._tensor import first_true, host_flags, index_amax_, maximum_into_, nonzero_fixed, plane_chunks, scatter_reduce_1d
 from ._tick import count_i32 as _i32
+from ._tick import fd_trace as _fd_trace
+from ._tick import phase as _phase
 from ._tick import seed_rows_tensor as _seed_rows_tensor
+from ._tick import sync_trace as _sync_trace
+from .engine_api import plane_tracer_view_cols as tracer_view_cols  # noqa: F401
 from .engine_api import plane_view_rows as view_rows
 from .lattice import RANK_ALIVE, RANK_DEAD, RANK_LEAVING, RANK_SUSPECT, bump_inc, key_dtype, no_candidate
 from .rand import SALT_GOSSIP, SALT_SYNC_ACK, SALT_SYNC_REQ, FdRandoms, RoundRandoms, draw_dense_tick, fetch_uniform
@@ -237,13 +245,15 @@ def _fetch_gate(state: SimState, salt: int, i, j, cand_key, p_fetch) -> torch.Te
 # -- phases ----------------------------------------------------------------------
 
 
-def _fd_phase(state: SimState, r: FdRandoms, params: SimParams, ad=None):
+def _fd_phase(state: SimState, r: FdRandoms, params: SimParams, ad=None, trace: bool = False):
     """FD round: each up row probes one target from its live view directly
     and through k relays (each leg's round trip under loss and, with the
     rings, its timeliness); the verdict (ALIVE at the target's own key, or
     SUSPECT at the known one) is written where it overrides. With ``ad``
     the direct leg's timeout stretches to ``t_base * (1 + lh)`` (AD-4) and
-    the metrics carry the adaptive evidence (``_ad_*``)."""
+    the metrics carry the adaptive evidence (``_ad_*``); with ``trace``
+    they carry the probe internals the trace ring records
+    (``trace_fd``: values the phase computed anyway)."""
     n = state.capacity
     rows = _rows(state)
     if _packed(params):
@@ -306,6 +316,8 @@ def _fd_phase(state: SimState, r: FdRandoms, params: SimParams, ad=None):
             n, tgt, torch.where(sus_w, cand.to(torch.int32), NO_CANDIDATE_I32), "amax",
             NO_CANDIDATE_I32, torch.int32,
         )
+    if trace:
+        metrics["trace_fd"] = _fd_trace(tgt, has_tgt, ack, direct_ok, accept & ~ack, relays, relay_valid, relay_ok)
     return state, metrics
 
 
@@ -345,15 +357,28 @@ def _gate_flags(state: SimState, params: SimParams):
     return sus, young
 
 
-def _suspicion_phase(state: SimState, params: SimParams, has_suspect: bool = True, ad=None) -> SimState:
+def _suspicion_phase(state: SimState, params: SimParams, has_suspect: bool = True, ad=None, trace=None):
     """SUSPECT cells whose suspicion window (``changed_at`` is its start)
     has expired become DEAD at the same incarnation (key + 1), in place over
     row chunks; skipped when no SUSPECT cell exists (``has_suspect``
     False). With ``ad`` the window is ``base_i * mult(conf_j) * (1 + lh_i)
     // L``: the subject's confirmations shorten it for cells within its
-    episode (AD-1), the observer's local health stretches it (AD-3)."""
-    if not has_suspect:
-        return state
+    episode (AD-1), the observer's local health stretches it (AD-3).
+    ``trace`` (a :class:`..trace.schema.TraceSpec`) makes the return
+    ``(state, sus_tr)``: the tracers' expiry transitions, read off each
+    chunk's own ``expired`` mask."""
+    trace_acc = None
+    if trace is not None:
+        from ..trace import capture as _tc
+
+        trace_acc = _tc.ExpiryTrace(trace, state.device)
+    if has_suspect:
+        _expire_chunks(state, params, ad, trace_acc)
+    return state if trace is None else (state, trace_acc.result())
+
+
+def _expire_chunks(state: SimState, params: SimParams, ad, trace_acc) -> None:
+    """The suspicion sweep's in-place pass over the row chunks."""
     vk, ca = state.view_key, state.changed_at
     n = state.capacity
     if ad is not None:
@@ -376,9 +401,10 @@ def _suspicion_phase(state: SimState, params: SimParams, has_suspect: bool = Tru
             timeout = params.suspicion_mult * ceil_log2(size) * params.fd_every
             overdue = (state.tick - ca[lo:hi]) >= timeout[:, None]
         expired = (rank == RANK_SUSPECT) & overdue & state.up[lo:hi, None]
+        if trace_acc is not None:
+            trace_acc.add_plane(expired, lo)
         blk += expired
         ca[lo:hi].masked_fill_(expired, state.tick)
-    return state
 
 
 _GOSSIP_METRICS = ("gossip_msgs", "rumor_sends", "rumor_deliveries")
@@ -571,7 +597,8 @@ def _pull_reply(state: SimState, s: int, p, ok_now, piggyback, rumor_pay, buf, r
     return _i32(rev_ok), _i32(reply_r)
 
 
-def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams, adaptive: bool = False):
+def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams, adaptive: bool = False,
+                trace: bool = False):
     """Anti-entropy: the ≤ K due callers (stagger slot or ``force_sync``, in
     ascending row order; the rest wait) each pick one peer from their live
     view plus the seeds; over a surviving (and, with the rings, timely)
@@ -579,7 +606,8 @@ def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams, adaptive: b
     peer merge together) and the peer's merged row back into the
     caller's. ``adaptive`` adds the accepted SUSPECT records of both
     directions as confirmation evidence; slots naming one peer recompute
-    the same row, so the request side counts the first slot per peer."""
+    the same row, so the request side counts the first slot per peer.
+    ``trace`` adds the compacted callers' outcomes (``trace_sync``)."""
     n = state.capacity
     dev = state.device
     NOC = _noc(params)
@@ -664,6 +692,10 @@ def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams, adaptive: b
         metrics["_ad_key"] = torch.maximum(
             req_key, torch.where(m_ack, ack_cand.to(torch.int32), NO_CANDIDATE_I32).amax(dim=0)
         )
+    if trace:
+        metrics["trace_sync"] = _sync_trace(
+            caller, valid_c, peer, ok, acc.sum(dim=1, dtype=torch.int32), accept.sum(dim=1, dtype=torch.int32)
+        )
     return state, metrics
 
 
@@ -745,7 +777,7 @@ def state_metrics(state: SimState, params: SimParams, inf_b: torch.Tensor, n_up:
 _FD_METRICS = ("fd_probes", "fd_failed_probes", "fd_new_suspects")
 
 
-def tick(state: SimState, fd_r, round_r: RoundRandoms, params: SimParams, trace=None, ad=None):
+def tick(state: SimState, fd_r, round_r: RoundRandoms, params: SimParams, trace=None, ad=None, timer=None):
     """One gossip period for all N members: FD (every ``fd_every`` ticks)
     → suspicion sweep → gossip → SYNC → refute → rumor sweep → metrics.
     ``fd_r`` is read only on FD ticks (``tick % fd_every == 0`` after the
@@ -757,45 +789,83 @@ def tick(state: SimState, fd_r, round_r: RoundRandoms, params: SimParams, trace=
     adaptive spellings, the evidence folds into the plane at the end of
     the tick, the metrics gain the ``adaptive_lh_high`` /
     ``adaptive_conf_high`` gauges, and the return is ``(state, ad',
-    metrics)``. ``trace`` is refused until the trace plane is ported."""
-    if trace is not None:
-        raise NotImplementedError("trace capture on the dense tick is not ported yet (ROADMAP A10, trace half)")
+    metrics)``.
+
+    ``trace`` (a :class:`..trace.schema.TraceSpec`) arms the causal trace
+    capture: the metrics gain a ``_trace_rows`` [K, n_fields] int32 block
+    built from the phases' own [N]-sized internals, which never feed back
+    into the state, so the trajectory is the unarmed one, bit for bit. A
+    skipped phase yields the zero record the JAX tick's skip branch does.
+    ``timer`` (the phase-split profiler's, :mod:`..trace.profile`) scopes
+    each phase."""
     armed = ad is not None
+    if armed and trace is not None:
+        raise ValueError(
+            "trace-armed adaptive windows are not supported — run the trace plane on a "
+            "static-FD driver, or drop arm_trace"
+        )
     if armed and params.adaptive.is_default:
         raise ValueError(
             "adaptive tick needs an enabled AdaptiveSpec on params "
             "(params.adaptive = AdaptiveSpec(enabled=True, ...))"
         )
+    traced = trace is not None
     state = state.replace(tick=state.tick + 1)
     n = state.capacity
-    if state.tick % params.fd_every == 0:
-        if fd_r is None:
-            raise ValueError(f"tick {state.tick} runs the FD round and needs FD draws")
-        state, fd_m = _fd_phase(state, fd_r, params, ad=ad)
-    else:
-        z = torch.zeros((), dtype=torch.int32, device=state.device)
-        fd_m = {k: z for k in _FD_METRICS}
+    fd_ran = state.tick % params.fd_every == 0
+    with _phase(timer, "fd"):
+        if fd_ran:
+            if fd_r is None:
+                raise ValueError(f"tick {state.tick} runs the FD round and needs FD draws")
+            state, fd_m = _fd_phase(state, fd_r, params, ad=ad, trace=traced)
+        else:
+            z = torch.zeros((), dtype=torch.int32, device=state.device)
+            fd_m = {k: z for k in _FD_METRICS}
+            if armed:
+                fd_m.update(_no_evidence(n, state.device, probes=True))
+            if traced:
+                from ..trace import capture as _tc
+
+                fd_m["trace_fd"] = _tc.zero_fd_trace(n, params.ping_req_k, state.device)
+    with _phase(timer, "suspicion"):
+        if params.quiet_gates:
+            has_suspect, busy = host_flags(*_gate_flags(state, params))
+            busy = busy or has_suspect
+        else:
+            has_suspect = busy = True
+        if traced:
+            state, trace_sus = _suspicion_phase(state, params, has_suspect, trace=trace)
+        else:
+            state = _suspicion_phase(state, params, has_suspect, ad=ad)
+    with _phase(timer, "gossip"):
+        state, g_m = _gossip_phase(state, round_r, params, busy, adaptive=armed)
+    with _phase(timer, "sync"):
+        state, s_m = _sync_phase(state, round_r, params, adaptive=armed, trace=traced)
+    with _phase(timer, "refute"):
+        state, refuted = _refute_phase(state)
+    with _phase(timer, "sweep"):
+        inf_b = bp.unpack_bits(state.infected, params.rumor_slots)
+        n_up = _i32(state.up)
+        state = _rumor_sweep(state, params, inf_b, n_up)
+    trace_fd = fd_m.pop("trace_fd", None)
+    trace_sync = s_m.pop("trace_sync", None)
+    with _phase(timer, "telemetry"):
         if armed:
-            fd_m.update(_no_evidence(n, state.device, probes=True))
-    if params.quiet_gates:
-        has_suspect, busy = host_flags(*_gate_flags(state, params))
-        busy = busy or has_suspect
-    else:
-        has_suspect = busy = True
-    state = _suspicion_phase(state, params, has_suspect, ad=ad)
-    state, g_m = _gossip_phase(state, round_r, params, busy, adaptive=armed)
-    state, s_m = _sync_phase(state, round_r, params, adaptive=armed)
-    state, refuted = _refute_phase(state)
-    inf_b = bp.unpack_bits(state.infected, params.rumor_slots)
-    n_up = _i32(state.up)
-    state = _rumor_sweep(state, params, inf_b, n_up)
-    if armed:
-        ad = _fold_evidence(params, ad, fd_m, g_m, s_m, refuted, state.up)
-    metrics = {**fd_m, **g_m, **s_m, **state_metrics(state, params, inf_b, n_up)}
-    if armed:
-        metrics["adaptive_lh_high"] = ad.lh.max()
-        metrics["adaptive_conf_high"] = ad.conf.max()
-        return state, ad, metrics
+            ad = _fold_evidence(params, ad, fd_m, g_m, s_m, refuted, state.up)
+        metrics = {**fd_m, **g_m, **s_m, **state_metrics(state, params, inf_b, n_up)}
+        if armed:
+            metrics["adaptive_lh_high"] = ad.lh.max()
+            metrics["adaptive_conf_high"] = ad.conf.max()
+            return state, ad, metrics
+        if traced:
+            from ..trace import capture as _tc
+
+            metrics["_trace_rows"] = _tc.build_trace_rows(
+                trace, tick=state.tick, up=state.up, fd_ran=fd_ran,
+                trace_fd=trace_fd, trace_sus=trace_sus,
+                trace_ref=refuted[_tc.tracer_index(trace, state.device)], trace_sync=trace_sync,
+                infected_b=inf_b, infected_at=state.infected_at, infected_from=state.infected_from,
+            )
     return state, metrics
 
 
@@ -854,6 +924,30 @@ def make_adaptive_run(params: SimParams, n_ticks: int):
 
     def run(state: SimState, ad, draws, watch_rows=None):
         return run_ticks_adaptive(state, ad, draws, n_ticks, params, watch_rows)
+
+    return run
+
+
+def run_ticks_traced(state: SimState, ring, draws, n_ticks: int, params: SimParams, trace, watch_rows=None):
+    """Trace-armed :func:`run_ticks`: the same window with each tick's
+    [K, n_fields] record block appended in place to ``ring`` (a
+    :class:`..trace.rings.TraceRing`) at its host cursor. The draws and
+    every state op are the unarmed window's, so the trajectory is too.
+    Returns ``(state, metrics, watched)``."""
+    from ._tick import run_window
+
+    return run_window(tick, view_rows, draw_dense_tick, state, draws, n_ticks, params, watch_rows,
+                      trace=trace, ring=ring)
+
+
+def make_traced_run(params: SimParams, n_ticks: int, trace):
+    """The traced window as a callable ``run(state, ring, draws,
+    watch_rows=None)``; refuses an armed adaptive spec (the JAX traced
+    tick's refusal)."""
+    if not params.adaptive.is_default:
+        raise ValueError("trace-armed adaptive windows are not supported")
+    def run(state: SimState, ring, draws, watch_rows=None):
+        return run_ticks_traced(state, ring, draws, n_ticks, params, trace, watch_rows)
 
     return run
 

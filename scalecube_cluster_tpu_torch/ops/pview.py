@@ -41,8 +41,12 @@ gated on their timeouts, and the adaptive plane stretches the direct
 probe's (``scaled_timely_rt``). A per-link delay stays refused, as in JAX.
 :func:`telemetry_window_vector` is the telemetry plane's per-window row.
 
-Not ported yet, and refused: mesh/ragged delivery (A12), trace capture
-(A10, trace half). The fleet windows (``make_pview_fleet_run``, its fused name,
+The causal trace capture (``pview_tick(trace=...)``,
+:func:`make_pview_traced_run`, :func:`tracer_view_cols`) runs on the fused
+tick: JAX's traced tick is its unfused one, whose phases compute the same
+state, and the records need only the per-row accept counts the compact
+SYNC merge returns. Not ported yet, and refused: mesh/ragged delivery
+(A12). The fleet windows (``make_pview_fleet_run``, its fused name,
 ``make_pview_fleet_adaptive_run``) run the fused tick under
 ``torch.func.vmap`` (:mod:`.fleet`).
 """
@@ -70,15 +74,19 @@ from ._tick import (  # the pending delivery rings
     receive_pending,
 )
 from ._tick import count_i32 as _i32
+from ._tick import fd_trace as _fd_trace
 from ._tick import no_props as _no_props
+from ._tick import phase as _phase
 from ._tick import pull_replies
 from ._tick import register_sus as _register_sus
 from ._tick import row_index as _row_index
 from ._tick import rows_of as _rows
 from ._tick import seed_rows_tensor as _seed_rows_tensor
 from ._tick import set_at as _set
+from ._tick import sync_trace as _sync_trace
 from ._tensor import first_true, host_flags, keep_columns_, nonzero_fixed, put_drop_, row_chunks, scatter_, scatter_reduce_1d
 from .kernel import _f32, _fold_evidence, _no_evidence, _timely_rt, telemetry_window_core
+from .sparse import _trace_rows as _sparse_trace_rows
 from .sparse import TELEMETRY_SERIES as _SPARSE_TELEMETRY_SERIES
 from .sparse import pool_telemetry
 from .bitplane import MASK32, or_rows, pack_bits, popcount, to_i32, to_u32, unpack_bits, words_for
@@ -720,11 +728,12 @@ def _apply_records(state: PviewState, subj, cand, valid, salt: int, ka: int):
 # ---------------------------------------------------------------------------
 
 
-def _fd_phase(state: PviewState, r: SparseFdRandoms, params: PviewParams, ad=None):
+def _fd_phase(state: PviewState, r: SparseFdRandoms, params: PviewParams, ad=None, trace: bool = False):
     """FD round over the active view: slot-space target/relay selection,
     direct + indirect probes, the self-record ACK. Also returns the
     post-verdict int32 key plane for the maintenance sweep. With ``ad`` the
-    metrics carry the adaptive evidence (``_ad_*``)."""
+    metrics carry the adaptive evidence (``_ad_*``), with ``trace`` the
+    probe internals (``trace_fd``)."""
     n = state.capacity
     rows = _rows(state)
     ka = params.active_slots
@@ -786,29 +795,42 @@ def _fd_phase(state: PviewState, r: SparseFdRandoms, params: PviewParams, ad=Non
             0, tgt.long(), (eff & ~ack).to(torch.int32)
         )
         metrics["_ad_key"] = sus_cand
+    if trace:
+        metrics["trace_fd"] = _fd_trace(tgt, has_tgt, ack, direct_ok, eff & ~ack, relays, relay_valid, relay_ok)
     cand_rt = cand.to(kdt).to(torch.int32)
     keys_after = torch.where(onehot, cand_rt[:, None], keys)
     return st, (tgt, cand, rows, eff), metrics, keys_after
 
 
-def _maintenance_sweep(state: PviewState, params: PviewParams, keys_i32=None, ad=None):
+def _maintenance_sweep(state: PviewState, params: PviewParams, keys_i32=None, ad=None, trace=None):
     """Every ``sweep_every`` ticks: suspicion expiry over the tables and
     self records with per-subject announcer election; the tombstone purge
     (P8) every ``purge_sweeps``-th sweep; the active-view promotion.
     ``keys_i32`` is the FD phase's post-verdict key plane when it ran;
     ``ad`` scales the static timeout (P2) by the subject's confirmations
-    and the observer's local health."""
+    and the observer's local health. ``trace`` (a TraceSpec) adds the
+    tracers' expiry export as a third item (zeros when the expiry pass is
+    skipped)."""
+    sus_tr = None
     if state.tick % params.sweep_every:
-        return state, _no_props(state)
-    (has_suspects,) = host_flags((state.sus_since > NEVER).any())
-    if has_suspects:
-        st, props = _expire(state, params, keys_i32, ad)
-    else:
         st, props = state, _no_props(state)
-    return _promote(_purge(st, params), params), props
+    else:
+        (has_suspects,) = host_flags((state.sus_since > NEVER).any())
+        if has_suspects:
+            st, props, sus_tr = _expire(state, params, keys_i32, ad, trace)
+        else:
+            st, props = state, _no_props(state)
+        st = _promote(_purge(st, params), params)
+    if trace is None:
+        return st, props
+    if sus_tr is None:
+        from ..trace import capture as _tc
+
+        sus_tr = _tc.zero_sus_trace(trace, state.device)
+    return st, props, sus_tr
 
 
-def _expire(st: PviewState, params: PviewParams, keys_i32, ad=None):
+def _expire(st: PviewState, params: PviewParams, keys_i32, ad=None, trace=None):
     n = st.capacity
     rows = _rows(st)
     k = st.nbr_id.shape[1]
@@ -856,10 +878,17 @@ def _expire(st: PviewState, params: PviewParams, keys_i32, ad=None):
     col = first_true(mine, 1)[:, None]
     subj = torch.gather(sid, 1, col)[:, 0]
     key = torch.gather(new_keys, 1, col)[:, 0]
+    sus_tr = None
+    if trace is not None:
+        from ..trace import capture as _tc
+
+        # the tracer subjects' expiring table cells (self expiry excluded)
+        exp_cols = torch.stack([(expired & (sid == t)).any(dim=1) for t in trace.tracer_rows], dim=1)
+        sus_tr = {"count": exp_cols.sum(dim=0, dtype=torch.int32), "by": _tc._exemplar(exp_cols)}
     st = st.replace(
         nbr_key=new_keys.to(_kdt(st)), self_key=new_self, sus_key=sus_key, sus_since=sus_since
     )
-    return st, (subj.clamp(min=0), key, rows, any_exp)
+    return st, (subj.clamp(min=0), key, rows, any_exp), sus_tr
 
 
 def _purge(st: PviewState, params: PviewParams) -> PviewState:
@@ -1174,14 +1203,16 @@ def _merge_entries_compact(state, src_rows, pre_id, pre_key_i32, pre_self, salt,
     return state, acc_full, subj_full, key_full
 
 
-def _sync_phase(state: PviewState, r: SparseRoundRandoms, params: PviewParams, adaptive: bool = False):
+def _sync_phase(state: PviewState, r: SparseRoundRandoms, params: PviewParams, adaptive: bool = False,
+                trace: bool = False):
     """Anti-entropy + shuffle: each due caller (forced first, then periodic,
     compacted to K) exchanges its table and self record with one peer drawn
     from ``active slots ∪ seeds`` (every ``seed_sync_every``-th periodic
     round deterministically to a seed); both directions merge the other's
     PRE-exchange entries (P4); several callers on one peer collapse to the
     highest slot (P6). ``adaptive`` adds both directions' confirmation
-    evidence."""
+    evidence, ``trace`` the compacted callers' outcomes (``trace_sync``:
+    a caller's request-side accepts are its peer's when it won the peer)."""
     n = state.capacity
     dev = state.device
     rows = _rows(state)
@@ -1249,12 +1280,12 @@ def _sync_phase(state: PviewState, r: SparseRoundRandoms, params: PviewParams, a
     # REQ direction: the highest-slot caller wins each peer (P6)
     inv_slot = scatter_reduce_1d(n, peer, torch.where(ok, karange, -1), "amax", -1, torch.int32)
     req_src = torch.where(inv_slot >= 0, caller[inv_slot.clamp(min=0)], -1)
-    st, _req_acc, req_subj, req_key, *req_ev = _merge_entries_compact(
+    st, req_acc_n, req_subj, req_key, *req_ev = _merge_entries_compact(
         state, req_src, pre_id, pre_key, pre_self, SALT_SYNC_REQ, params, K, adaptive
     )
     # ACK direction: distinct callers each merge their peer's pre-entries
     ack_src = scatter_reduce_1d(n, caller, torch.where(ok, peer, -1), "amax", -1, torch.int32)
-    st, _ack_acc, ack_subj, ack_key, *ack_ev = _merge_entries_compact(
+    st, ack_acc_n, ack_subj, ack_key, *ack_ev = _merge_entries_compact(
         st, ack_src, pre_id, pre_key, pre_self, SALT_SYNC_ACK, params, K, adaptive
     )
     ok_full = scatter_reduce_1d(n, caller, ok, "amax", 0, torch.int32) > 0
@@ -1279,6 +1310,12 @@ def _sync_phase(state: PviewState, r: SparseRoundRandoms, params: PviewParams, a
         (req_ev,), (ack_ev,) = req_ev, ack_ev
         metrics["_ad_cnt"] = req_ev["_ad_cnt"] + ack_ev["_ad_cnt"]
         metrics["_ad_key"] = torch.maximum(req_ev["_ad_key"], ack_ev["_ad_key"])
+    if trace:
+        winner = ok & (inv_slot[peer.long()] == karange)
+        metrics["trace_sync"] = _sync_trace(
+            caller, valid_c, peer, ok,
+            torch.where(winner, req_acc_n[peer.long()], 0), torch.where(ok, ack_acc_n[caller.long()], 0),
+        )
     return st, props, metrics
 
 
@@ -1369,40 +1406,69 @@ _FD_METRICS = ("fd_probes", "fd_failed_probes", "fd_new_suspects")
 
 
 def pview_tick_fused(state: PviewState, fd_r, round_r: SparseRoundRandoms, params: PviewParams,
-                     ad=None):
+                     ad=None, trace=None, timer=None):
     """One gossip period for all N members (the JAX ``pview_tick_fused``):
     FD → maintenance sweep → gossip → SYNC → refute → rumor sweeps → pool
     allocation → metrics. ``fd_r`` is read only on FD ticks
     (``tick % fd_every == 0`` after the increment) and may be None
     otherwise. Returns ``(state, metrics)``, or with ``ad`` (the adaptive
-    plane, as in the dense ``tick``) ``(state, ad', metrics)``."""
+    plane, as in the dense ``tick``) ``(state, ad', metrics)``. ``trace``
+    (a TraceSpec) adds the ``_trace_rows`` record block the JAX unfused
+    tick builds (the fused phases compute the same state, and the records
+    need only the per-row accept counts the compact SYNC merge returns);
+    ``timer`` scopes each phase for the phase-split profiler."""
     armed = ad is not None
+    traced = trace is not None
+    if armed and traced:
+        raise ValueError("trace-armed adaptive windows are not supported")
     if armed and params.adaptive.is_default:
         raise ValueError("adaptive tick needs an enabled AdaptiveSpec on params")
     state = state.replace(tick=state.tick + 1)
     n = state.capacity
-    if state.tick % params.fd_every == 0:
-        if fd_r is None:
-            raise ValueError(f"tick {state.tick} runs the FD round and needs FD draws")
-        state, props_fd, fd_m, keys_h = _fd_phase(state, fd_r, params, ad=ad)
-    else:
-        z = torch.zeros((), dtype=torch.int32, device=state.device)
-        props_fd, fd_m, keys_h = _no_props(state), {k: z for k in _FD_METRICS}, None
+    fd_ran = state.tick % params.fd_every == 0
+    with _phase(timer, "fd"):
+        if fd_ran:
+            if fd_r is None:
+                raise ValueError(f"tick {state.tick} runs the FD round and needs FD draws")
+            state, props_fd, fd_m, keys_h = _fd_phase(state, fd_r, params, ad=ad, trace=traced)
+        else:
+            z = torch.zeros((), dtype=torch.int32, device=state.device)
+            props_fd, fd_m, keys_h = _no_props(state), {k: z for k in _FD_METRICS}, None
+            if armed:
+                fd_m.update(_no_evidence(n, state.device, probes=True))
+            if traced:
+                from ..trace import capture as _tc
+
+                fd_m["trace_fd"] = _tc.zero_fd_trace(n, params.ping_req_k, state.device)
+    with _phase(timer, "suspicion"):
+        if traced:
+            state, props_exp, trace_sus = _maintenance_sweep(state, params, keys_h, trace=trace)
+        else:
+            state, props_exp = _maintenance_sweep(state, params, keys_h, ad=ad)
+    with _phase(timer, "gossip"):
+        state, g_m, fwd_post_p = _gossip_phase_fused(state, round_r, params, adaptive=armed)
+    with _phase(timer, "sync"):
+        state, props_sync, s_m = _sync_phase(state, round_r, params, adaptive=armed, trace=traced)
+    with _phase(timer, "refute"):
+        state, props_ref = _refute_phase(state, params)
+    with _phase(timer, "sweep"):
+        state = _rumor_sweeps_fused(state, params, fwd_post_p)
+    with _phase(timer, "alloc"):
+        state, a_m = alloc_phase(state, (props_fd, props_exp, props_ref, props_sync), params)
+    trace_fd = fd_m.pop("trace_fd", None)
+    trace_sync = s_m.pop("trace_sync", None)
+    with _phase(timer, "telemetry"):
         if armed:
-            fd_m.update(_no_evidence(n, state.device, probes=True))
-    state, props_exp = _maintenance_sweep(state, params, keys_h, ad=ad)
-    state, g_m, fwd_post_p = _gossip_phase_fused(state, round_r, params, adaptive=armed)
-    state, props_sync, s_m = _sync_phase(state, round_r, params, adaptive=armed)
-    state, props_ref = _refute_phase(state, params)
-    state = _rumor_sweeps_fused(state, params, fwd_post_p)
-    state, a_m = alloc_phase(state, (props_fd, props_exp, props_ref, props_sync), params)
-    if armed:
-        ad = _fold_evidence(params, ad, fd_m, g_m, s_m, props_ref[3], state.up)
-    metrics = {**fd_m, **g_m, **s_m, **a_m, **state_metrics(state, params)}
-    if armed:
-        metrics["adaptive_lh_high"] = ad.lh.max()
-        metrics["adaptive_conf_high"] = ad.conf.max()
-        return state, ad, metrics
+            ad = _fold_evidence(params, ad, fd_m, g_m, s_m, props_ref[3], state.up)
+        metrics = {**fd_m, **g_m, **s_m, **a_m, **state_metrics(state, params)}
+        if armed:
+            metrics["adaptive_lh_high"] = ad.lh.max()
+            metrics["adaptive_conf_high"] = ad.conf.max()
+            return state, ad, metrics
+        if traced:
+            metrics["_trace_rows"] = _sparse_trace_rows(
+                state, trace, fd_ran, trace_fd, trace_sus, props_ref[3], trace_sync
+            )
     return state, metrics
 
 
@@ -1427,14 +1493,49 @@ def make_pview_fused_run(params: PviewParams, n_ticks: int):
 
 
 def pview_tick(state: PviewState, fd_r, round_r: SparseRoundRandoms, params: PviewParams,
-               trace=None, ad=None):
+               trace=None, ad=None, timer=None):
     """One gossip period (the JAX ``pview_tick``): the fused tick, whose
-    state and metrics are the unfused tick's. ``trace`` is refused until
-    the trace plane is ported. Returns ``(state, metrics)``, or ``(state,
-    ad', metrics)`` with ``ad``."""
-    if trace is not None:
-        raise NotImplementedError("trace capture on the pview tick is not ported yet (ROADMAP A10, trace half)")
-    return pview_tick_fused(state, fd_r, round_r, params, ad=ad)
+    state and metrics are the unfused tick's, with the unfused tick's trace
+    records when ``trace`` is armed. Returns ``(state, metrics)``, or
+    ``(state, ad', metrics)`` with ``ad``."""
+    return pview_tick_fused(state, fd_r, round_r, params, ad=ad, trace=trace, timer=timer)
+
+
+def run_pview_ticks_traced(state: PviewState, ring, draws, n_ticks: int, params: PviewParams, trace,
+                           watch_rows=None):
+    """Trace-armed :func:`run_pview_ticks`: each tick's record block is
+    appended in place to ``ring`` at its host cursor; the trajectory is the
+    unarmed window's. Returns ``(state, metrics, watched)``."""
+    return run_window(pview_tick_fused, view_rows, draw_sparse_tick, state, draws, n_ticks, params, watch_rows,
+                      trace=trace, ring=ring)
+
+
+def make_pview_traced_run(params: PviewParams, n_ticks: int, trace):
+    """The traced window as a callable ``run(state, ring, draws,
+    watch_rows=None)``; refuses an armed adaptive spec."""
+    if not params.adaptive.is_default:
+        raise ValueError("trace-armed adaptive windows are not supported")
+    def run(state: PviewState, ring, draws, watch_rows=None):
+        return run_pview_ticks_traced(state, ring, draws, n_ticks, params, trace, watch_rows)
+
+    return run
+
+
+def tracer_view_cols(state: PviewState, tracer_rows) -> torch.Tensor:
+    """The tracers' [N, K] int32 view-key columns synthesized from the
+    [N, k] tables: observer i's record about tracer t (-1 unknown; the
+    tracer's own row carries its self record) — the trace plane's
+    window-boundary diff feed. One [N, k] pass per tracer."""
+    from ..trace.capture import tracer_index
+
+    keys = _keys_i32(state)
+    sid = state.nbr_id
+    cols = torch.stack(
+        [torch.where(sid == int(t), keys, UNKNOWN_KEY).amax(dim=1) for t in tracer_rows], dim=1
+    )
+    tr = tracer_index(tracer_rows, state.device)
+    cols[tr, torch.arange(tr.shape[0], device=state.device)] = state.self_key[tr]
+    return cols
 
 
 def run_pview_ticks_adaptive(state: PviewState, ad, draws, n_ticks: int, params: PviewParams,

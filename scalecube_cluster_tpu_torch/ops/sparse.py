@@ -61,8 +61,10 @@ trip are gated on their timeouts, and the adaptive plane stretches the
 direct probe's (``scaled_timely_rt``). :func:`telemetry_window_vector` is
 the telemetry plane's per-window row.
 
-Not ported yet, and refused: trace capture (A10, trace half), meshes
-(A12). The fleet windows (``make_sparse_fleet_run``, its fused name,
+The causal trace capture (``sparse_tick(trace=...)``,
+:func:`make_sparse_traced_run`) exports the phases' own internals, one
+record block per tick, into the trace ring (:mod:`..trace`). Not ported
+yet, and refused: meshes (A12). The fleet windows (``make_sparse_fleet_run``, its fused name,
 ``make_sparse_fleet_adaptive_run``) run the fused tick under
 ``torch.func.vmap`` (:mod:`.fleet`).
 """
@@ -90,14 +92,18 @@ from ._tick import (  # the pending delivery rings
     receive_pending,
 )
 from ._tick import count_i32 as _i32
+from ._tick import fd_trace as _fd_trace
 from ._tick import no_props as _no_props
+from ._tick import phase as _phase
 from ._tick import pull_replies
 from ._tick import register_sus as _register_sus
 from ._tick import row_index as _row_index
 from ._tick import rows_of as _rows
 from ._tick import seed_rows_tensor as _seed_rows_tensor
 from ._tick import set_at as _set
+from ._tick import sync_trace as _sync_trace
 from .bitplane import pack_bits, unpack_bits, words_for
+from .engine_api import plane_tracer_view_cols as tracer_view_cols  # noqa: F401
 from .engine_api import plane_view_rows as view_rows
 from .kernel import TELEMETRY_SERIES as _CORE_TELEMETRY_SERIES
 from .kernel import _fold_evidence, _no_evidence, _timely_rt, ceil_log2, sentinel_core, telemetry_window_core
@@ -536,13 +542,14 @@ def _sample_rejection(state: SparseState, rows, u, n_picks: int, tries: int, ext
 # ---------------------------------------------------------------------------
 
 
-def _fd_phase(state: SparseState, r: SparseFdRandoms, params: SparseParams, ad=None):
+def _fd_phase(state: SparseState, r: SparseFdRandoms, params: SparseParams, ad=None, trace: bool = False):
     """FD round with rejection-sampled target and relays: direct probe,
     indirect probes, the verdict written for the first V accepting rows
     (the rest retry next round), the suspicion-episode registration.
     With ``ad`` the metrics carry the adaptive evidence: the probe outcomes
-    unthrottled, the WRITTEN suspect verdicts as confirmations. Returns
-    (state, proposals, metrics)."""
+    unthrottled, the WRITTEN suspect verdicts as confirmations; with
+    ``trace`` the probe internals (``trace_fd``). Returns (state,
+    proposals, metrics)."""
     n = state.capacity
     rows = _rows(state)
     vk = state.view_key
@@ -602,10 +609,12 @@ def _fd_phase(state: SparseState, r: SparseFdRandoms, params: SparseParams, ad=N
             0, tgt.long(), sus_w.to(torch.int32)
         )
         metrics["_ad_key"] = sus_cand
+    if trace:
+        metrics["trace_fd"] = _fd_trace(tgt, has_tgt, ack, direct_ok, eff & ~ack, relays, relay_valid, relay_ok)
     return st, (tgt, cand, rows, eff), metrics
 
 
-def _suspicion_sweep(state: SparseState, params: SparseParams, ad=None):
+def _suspicion_sweep(state: SparseState, params: SparseParams, ad=None, trace=None):
     """Every ``sweep_every`` ticks, while an episode is registered: SUSPECT
     cells whose subject's episode stamp is older than the observer's
     suspicion timeout become DEAD at the same incarnation (rank + 1), in
@@ -613,12 +622,24 @@ def _suspicion_sweep(state: SparseState, params: SparseParams, ad=None):
     lowest expiring row (deviation 3); when no up observer holds a
     SUSPECT cell afterwards, every episode is over. With ``ad`` the timeout
     is the dense engine's confirmation- and health-scaled one. Returns
-    (state, proposals)."""
+    (state, proposals), and with ``trace`` (a TraceSpec) the tracers'
+    expiry export as a third item, read off each chunk's own ``expired``
+    mask (zeros when the sweep is skipped)."""
+    trace_acc = None
+    if trace is not None:
+        from ..trace import capture as _tc
+
+        trace_acc = _tc.ExpiryTrace(trace, state.device)
     if state.tick % params.sweep_every:
-        return state, _no_props(state)
-    (has_suspects,) = host_flags((state.sus_since > NEVER).any())
-    if not has_suspects:
-        return state, _no_props(state)
+        out = state, _no_props(state)
+    else:
+        (has_suspects,) = host_flags((state.sus_since > NEVER).any())
+        out = _sweep_chunks(state, params, ad, trace_acc) if has_suspects else (state, _no_props(state))
+    return out if trace is None else out + (trace_acc.result(),)
+
+
+def _sweep_chunks(state: SparseState, params: SparseParams, ad, trace_acc):
+    """The expiry pass over the row chunks (see :func:`_suspicion_sweep`)."""
     n = state.capacity
     dev = state.device
     rows = _rows(state)
@@ -652,6 +673,8 @@ def _suspicion_sweep(state: SparseState, params: SparseParams, ad=None):
             & overdue
             & (blk <= state.sus_key[None, :])
         )
+        if trace_acc is not None:
+            trace_acc.add_plane(expired, lo)
         blk += expired  # in place: SUSPECT rank 2 -> DEAD rank 3
         expired_cnt[lo:hi] = expired.sum(dim=1, dtype=torch.int32)
         left |= (((blk & 3) == RANK_SUSPECT) & state.up[lo:hi, None]).any()
@@ -894,7 +917,8 @@ def _top_props(acc_mask, cand_vals, owner_rows, owner_valid, P: int):
     return tuple(torch.cat(x) for x in (subs, keys, origs, vals))
 
 
-def _sync_phase(state: SparseState, r: SparseRoundRandoms, params: SparseParams, adaptive: bool = False):
+def _sync_phase(state: SparseState, r: SparseRoundRandoms, params: SparseParams, adaptive: bool = False,
+                trace: bool = False):
     """Anti-entropy full-table exchange over ≤ K compacted callers (forced
     first, then periodic): each caller's row goes to one peer drawn from
     its live view (seeds admitted; a seed fallback when the view is too
@@ -902,7 +926,8 @@ def _sync_phase(state: SparseState, r: SparseRoundRandoms, params: SparseParams,
     and the peer's post-merge row comes back. Liveness deltas, episode
     registration and capped re-gossip proposals (deviation 3). ``adaptive``
     adds the accepted SUSPECT records of both directions as confirmation
-    evidence (the first slot per peer on the request side)."""
+    evidence (the first slot per peer on the request side); ``trace`` the
+    compacted callers' outcomes (``trace_sync``)."""
     n = state.capacity
     dev = state.device
     rows = _rows(state)
@@ -1020,6 +1045,10 @@ def _sync_phase(state: SparseState, r: SparseRoundRandoms, params: SparseParams,
         m_ack = accept & ((ack_cand & 3) == RANK_SUSPECT)
         metrics["_ad_cnt"] = m_req.sum(dim=0, dtype=torch.int32) + m_ack.sum(dim=0, dtype=torch.int32)
         metrics["_ad_key"] = sus_cand
+    if trace:
+        metrics["trace_sync"] = _sync_trace(
+            caller, valid_c, peer, ok, acc.sum(dim=1, dtype=torch.int32), accept.sum(dim=1, dtype=torch.int32)
+        )
     return st, proposals, metrics
 
 
@@ -1127,45 +1156,84 @@ _FD_METRICS = ("fd_probes", "fd_failed_probes", "fd_new_suspects")
 
 
 def sparse_tick_fused(state: SparseState, fd_r, round_r: SparseRoundRandoms, params: SparseParams,
-                      ad=None):
+                      ad=None, trace=None, timer=None):
     """One gossip period for all N members (the JAX ``sparse_tick(...,
     fused=True)``): FD → suspicion sweep → gossip → SYNC → refute → rumor
     sweeps → pool allocation → metrics. ``fd_r`` is read only on FD ticks
     (``tick % fd_every == 0`` after the increment) and may be None
     otherwise. Consumes ``state``; returns ``(state, metrics)``, or with
     ``ad`` (the adaptive plane, as in the dense ``tick``) ``(state, ad',
-    metrics)``."""
+    metrics)``. ``trace`` (a TraceSpec) adds the ``_trace_rows`` record
+    block, as in the dense ``tick`` (a skipped phase yields JAX's zero
+    record; the gossip phase exports nothing); ``timer`` scopes each phase
+    for the phase-split profiler."""
     armed = ad is not None
+    traced = trace is not None
+    if armed and traced:
+        raise ValueError("trace-armed adaptive windows are not supported")
     if armed and params.adaptive.is_default:
         raise ValueError("adaptive tick needs an enabled AdaptiveSpec on params")
     state = state.replace(tick=state.tick + 1)
     n = state.capacity
-    if state.tick % params.fd_every == 0:
-        if fd_r is None:
-            raise ValueError(f"tick {state.tick} runs the FD round and needs FD draws")
-        state, props_fd, fd_m = _fd_phase(state, fd_r, params, ad=ad)
-    else:
-        z = torch.zeros((), dtype=torch.int32, device=state.device)
-        props_fd, fd_m = _no_props(state), {k: z for k in _FD_METRICS}
+    fd_ran = state.tick % params.fd_every == 0
+    with _phase(timer, "fd"):
+        if fd_ran:
+            if fd_r is None:
+                raise ValueError(f"tick {state.tick} runs the FD round and needs FD draws")
+            state, props_fd, fd_m = _fd_phase(state, fd_r, params, ad=ad, trace=traced)
+        else:
+            z = torch.zeros((), dtype=torch.int32, device=state.device)
+            props_fd, fd_m = _no_props(state), {k: z for k in _FD_METRICS}
+            if armed:
+                fd_m.update(_no_evidence(n, state.device, probes=True))
+            if traced:
+                from ..trace import capture as _tc
+
+                fd_m["trace_fd"] = _tc.zero_fd_trace(n, params.ping_req_k, state.device)
+    with _phase(timer, "suspicion"):
+        if traced:
+            state, props_exp, trace_sus = _suspicion_sweep(state, params, trace=trace)
+        else:
+            state, props_exp = _suspicion_sweep(state, params, ad=ad)
+    with _phase(timer, "gossip"):
+        state, g_m, covered, mr_any = _gossip_phase_fused(state, round_r, params, adaptive=armed)
+    with _phase(timer, "sync"):
+        state, props_sync, s_m = _sync_phase(state, round_r, params, adaptive=armed, trace=traced)
+    with _phase(timer, "refute"):
+        state, props_ref = _refute_phase(state, params)
+    with _phase(timer, "sweep"):
+        n_up = _i32(state.up)
+        state = _rumor_sweeps_fused(state, params, covered, mr_any, n_up)
+    with _phase(timer, "alloc"):
+        # the allocation takes the first E valid proposals in this order:
+        # refutations rank before the sync re-gossip flood
+        state, a_m = alloc_phase(state, (props_fd, props_exp, props_ref, props_sync), params)
+    trace_fd = fd_m.pop("trace_fd", None)
+    trace_sync = s_m.pop("trace_sync", None)
+    with _phase(timer, "telemetry"):
         if armed:
-            fd_m.update(_no_evidence(n, state.device, probes=True))
-    state, props_exp = _suspicion_sweep(state, params, ad=ad)
-    state, g_m, covered, mr_any = _gossip_phase_fused(state, round_r, params, adaptive=armed)
-    state, props_sync, s_m = _sync_phase(state, round_r, params, adaptive=armed)
-    state, props_ref = _refute_phase(state, params)
-    n_up = _i32(state.up)
-    state = _rumor_sweeps_fused(state, params, covered, mr_any, n_up)
-    # the allocation takes the first E valid proposals in this order:
-    # refutations rank before the sync re-gossip flood
-    state, a_m = alloc_phase(state, (props_fd, props_exp, props_ref, props_sync), params)
-    if armed:
-        ad = _fold_evidence(params, ad, fd_m, g_m, s_m, props_ref[3], state.up)
-    metrics = {**fd_m, **g_m, **s_m, **a_m, **state_metrics(state, params, n_up)}
-    if armed:
-        metrics["adaptive_lh_high"] = ad.lh.max()
-        metrics["adaptive_conf_high"] = ad.conf.max()
-        return state, ad, metrics
+            ad = _fold_evidence(params, ad, fd_m, g_m, s_m, props_ref[3], state.up)
+        metrics = {**fd_m, **g_m, **s_m, **a_m, **state_metrics(state, params, n_up)}
+        if armed:
+            metrics["adaptive_lh_high"] = ad.lh.max()
+            metrics["adaptive_conf_high"] = ad.conf.max()
+            return state, ad, metrics
+        if traced:
+            metrics["_trace_rows"] = _trace_rows(state, trace, fd_ran, trace_fd, trace_sus, props_ref[3], trace_sync)
     return state, metrics
+
+
+def _trace_rows(state, trace, fd_ran: bool, trace_fd, trace_sus, refuted, trace_sync) -> torch.Tensor:
+    """The traced sparse or pview tick's record block: the self-refutations
+    ride the refute phase's own proposal mask (the throttled rows whose
+    self record re-announced), the rumor groups the [N, R] bool plane."""
+    from ..trace import capture as _tc
+
+    return _tc.build_trace_rows(
+        trace, tick=state.tick, up=state.up, fd_ran=fd_ran, trace_fd=trace_fd, trace_sus=trace_sus,
+        trace_ref=refuted[_tc.tracer_index(trace, state.device)], trace_sync=trace_sync,
+        infected_b=state.infected, infected_at=state.infected_at, infected_from=state.infected_from,
+    )
 
 
 def run_sparse_ticks_fused(state: SparseState, draws, n_ticks: int, params: SparseParams,
@@ -1189,14 +1257,32 @@ def make_sparse_fused_run(params: SparseParams, n_ticks: int):
 
 
 def sparse_tick(state: SparseState, fd_r, round_r: SparseRoundRandoms, params: SparseParams,
-                trace=None, ad=None):
+                trace=None, ad=None, timer=None):
     """One gossip period (the JAX ``sparse_tick``): the fused tick, whose
-    state and metrics are the unfused tick's. ``trace`` is refused until
-    the trace plane is ported. Returns ``(state, metrics)``, or ``(state,
-    ad', metrics)`` with ``ad``."""
-    if trace is not None:
-        raise NotImplementedError("trace capture on the sparse tick is not ported yet (ROADMAP A10, trace half)")
-    return sparse_tick_fused(state, fd_r, round_r, params, ad=ad)
+    state and metrics are the unfused tick's, with the unfused tick's trace
+    records when ``trace`` is armed. Returns ``(state, metrics)``, or
+    ``(state, ad', metrics)`` with ``ad``."""
+    return sparse_tick_fused(state, fd_r, round_r, params, ad=ad, trace=trace, timer=timer)
+
+
+def run_sparse_ticks_traced(state: SparseState, ring, draws, n_ticks: int, params: SparseParams, trace,
+                            watch_rows=None):
+    """Trace-armed :func:`run_sparse_ticks`: each tick's record block is
+    appended in place to ``ring`` at its host cursor; the trajectory is the
+    unarmed window's. Returns ``(state, metrics, watched)``."""
+    return run_window(sparse_tick_fused, view_rows, draw_sparse_tick, state, draws, n_ticks, params, watch_rows,
+                      trace=trace, ring=ring)
+
+
+def make_sparse_traced_run(params: SparseParams, n_ticks: int, trace):
+    """The traced window as a callable ``run(state, ring, draws,
+    watch_rows=None)``; refuses an armed adaptive spec."""
+    if not params.adaptive.is_default:
+        raise ValueError("trace-armed adaptive windows are not supported")
+    def run(state: SparseState, ring, draws, watch_rows=None):
+        return run_sparse_ticks_traced(state, ring, draws, n_ticks, params, trace, watch_rows)
+
+    return run
 
 
 def run_sparse_ticks_adaptive(state: SparseState, ad, draws, n_ticks: int, params: SparseParams,

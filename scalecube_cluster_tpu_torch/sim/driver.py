@@ -31,16 +31,27 @@ the JAX package's engine policy). The driver owns:
 * the telemetry plane (:meth:`SimDriver.arm_telemetry`, :mod:`..telemetry`):
   one ring row per window on the device, the lifecycle, chaos and
   checkpoint records on its bus, the ``/metrics`` exposition and the flight
-  recorder.
+  recorder;
+* the causal trace plane (:meth:`SimDriver.arm_trace`, :mod:`..trace`):
+  the engine's traced window appends K trace records per tick to a device
+  ring, and a summary block per window boundary — the trajectory is the
+  unarmed one, and stepping reads nothing back;
+* the closed-loop control plane (:meth:`SimDriver.arm_control`,
+  :mod:`..control`): once per control epoch it reads the newest telemetry
+  row and may step a knob ladder through :meth:`SimDriver.set_dissemination`,
+  :meth:`SimDriver.set_protocol_knobs` and :meth:`SimDriver.set_adaptive`.
 
 ``dispatch_stats`` counts the driver's own device→host readbacks as the
 JAX driver does: a watch or ``record_metrics`` adds one per window, a flush
 one per staged reduction. The tick itself reads one flag to the host per
 data-keyed branch; :data:`..ops._tensor.HOST_SYNCS` counts those.
 
-Not ported yet, and refused by name: meshes (ROADMAP A12), the trace plane
-(A10, trace half; ``run_scenario(trace=True)`` too), protocol knobs and the
-control plane (A11), the compile-cache audit (A13).
+The driver builds its window from ``params`` at every step (a window is a
+Python loop over the tick, not a compiled program), so it keeps no window
+cache: a knob swap is a replacement of ``params``.
+
+Not ported yet, and refused by name: meshes (ROADMAP A12), the
+compile-cache audit (A13).
 """
 
 from __future__ import annotations
@@ -207,6 +218,8 @@ class SimDriver:
         # the armed telemetry plane (a pure consumer: arming never changes
         # the trajectory nor adds a per-window transfer), or None
         self._telemetry = None
+        self._trace = None  # the armed TracePlane, or None
+        self._control = None  # the armed ControlPlane, or None
         self._init_warm = bool(warm)
         self._key_dtype = self._eng.key_plane(self.state).dtype
         self._lay = layout_for(self._key_dtype)
@@ -297,7 +310,13 @@ class SimDriver:
         watch_arr = torch.tensor(rows, dtype=torch.int64, device=self.device) if rows else None
         source = self._gen if self._draws is None else self._draws(n_ticks)
         t0 = time.perf_counter()
-        if self._ad is not None:
+        if self._trace is not None:
+            # the traced window appends each tick's records to the ring in
+            # place at its host cursor; the window-boundary summary follows
+            step = self._eng.make_traced_run(self.params, n_ticks, self._trace.spec)
+            self.state, ms, watched = step(self.state, self._trace.ring, source, watch_rows=watch_arr)
+            self._trace.on_window(self.state)
+        elif self._ad is not None:
             step = self._eng.make_adaptive_run(self.params, n_ticks)
             self.state, self._ad, ms, watched = step(self.state, self._ad, source, watch_rows=watch_arr)
         else:
@@ -314,6 +333,11 @@ class SimDriver:
             # one ring row on the device and the host's wall-clock
             # histograms: still no transfer
             self._telemetry.on_window(ms, self.state, n_ticks, dispatch_s)
+        if self._control is not None:
+            # a counter bump per window; at control-epoch boundaries the
+            # plane reads the newest telemetry row (one readback per epoch)
+            # and may swap knobs between windows
+            self._control.on_window()
         self._ticks_since_flush += n_ticks
         if self._ticks_since_flush >= self.flush_ticks_cap:
             self.flush()
@@ -730,6 +754,16 @@ class SimDriver:
             }
         if self._chaos is not None:
             out["chaos"] = self._chaos.snapshot()
+        if self._trace is not None:
+            # host-only counters (cursor arithmetic): the ring itself is not
+            # read here
+            out["trace"] = self._trace.stats()
+        if self._control is not None:
+            snap = self._control.snapshot()
+            out["control"] = {
+                k: snap[k]
+                for k in ("rung", "rung_name", "actuated", "epoch", "actuations", "stale_epochs", "last_sensors")
+            }
         return out
 
     def enable_health_probes(self) -> None:
@@ -779,7 +813,51 @@ class SimDriver:
             self._telemetry.bus.publish(source, kind, tick=self._host_tick, **fields)
 
     def arm_trace(self, config=None, tracer_rows=None, rumor_slots=None):
-        _not_ported("the trace plane", "A10, trace half")
+        """Arm the causal trace plane; returns the :class:`..trace.TracePlane`
+        (the armed one, if any). ``config`` is a :class:`..config.ClusterConfig`
+        or a :class:`..config.TraceConfig` (None: the defaults, the first
+        ``TraceConfig.tracers`` rows); ``tracer_rows`` / ``rumor_slots``
+        override its sampling.
+
+        Arming swaps the window for the engine's traced window: every tick
+        appends one [K, n_fields] int32 record block to the device trace
+        ring in place, and each window boundary one summary block. The
+        trajectory stays the unarmed driver's, bit for bit, and stepping
+        reads nothing back; the ring is read only at sync points
+        (:meth:`..trace.TracePlane.snapshot`, a flight dump, a chaos
+        report). Refused with the adaptive plane or the control plane
+        armed (the controller may arm adaptive FD, which the traced tick
+        does not support)."""
+        from ..config import ClusterConfig
+        from ..trace.plane import TracePlane
+
+        with self._lock:
+            if self._trace is not None:
+                return self._trace
+            if self._ad is not None:
+                raise ValueError(
+                    "trace capture and adaptive failure detection cannot share a driver yet — "
+                    "use set_adaptive(None) first, or trace a static-FD driver"
+                )
+            if self._control is not None:
+                raise ValueError(
+                    "trace capture and the control plane cannot share a driver (the controller "
+                    "may arm adaptive FD)"
+                )
+            if isinstance(config, ClusterConfig):
+                config = config.trace
+            self._trace = TracePlane(self, config=config, tracer_rows=tracer_rows, rumor_slots=rumor_slots)
+            self._publish(
+                "driver", "trace_armed",
+                tracers=list(self._trace.spec.tracer_rows),
+                rumor_slots=list(self._trace.spec.rumor_slots),
+            )
+            return self._trace
+
+    @property
+    def trace(self):
+        """The armed :class:`..trace.TracePlane`, or None."""
+        return self._trace
 
     def set_dissemination(self, spec=None, *, strategy=None, topology=None, **spec_kw) -> None:
         """Swap the dissemination strategy/topology on a live driver.
@@ -829,6 +907,8 @@ class SimDriver:
                 spec = dataclasses.replace(cur, **overrides) if overrides else AdaptiveSpec()
             if spec == cur and (self._ad is not None) == (not spec.is_default):
                 return
+            if not spec.is_default and self._trace is not None:
+                raise ValueError("trace capture and adaptive failure detection cannot share a driver yet")
             self.params = dataclasses.replace(self.params, adaptive=spec)
             self._ad = None if spec.is_default else init_adaptive_state(self.params.capacity, device=self.device)
 
@@ -837,11 +917,65 @@ class SimDriver:
         """The armed :class:`..adaptive.AdaptiveState`, or None (static FD)."""
         return self._ad
 
-    def set_protocol_knobs(self, **knobs):
-        _not_ported("live protocol knobs", "A11")
+    def set_protocol_knobs(self, *, fanout: int | None = None, suspicion_mult: int | None = None) -> None:
+        """Live-swap the gossip ``fanout`` and/or the static
+        ``suspicion_mult`` (the control plane's actuator). Like the
+        dissemination and adaptive swaps these are properties of the params,
+        not of the state: the next window runs with them, the state is left
+        untouched and checkpoints stay compatible. A no-op when nothing
+        changes."""
+        import dataclasses
+
+        with self._lock:
+            updates = {}
+            if fanout is not None and fanout != self.params.fanout:
+                if fanout < 1:
+                    raise ValueError("fanout must be >= 1")
+                updates["fanout"] = int(fanout)
+            if suspicion_mult is not None and suspicion_mult != self.params.suspicion_mult:
+                if suspicion_mult < 1:
+                    raise ValueError("suspicion_mult must be >= 1")
+                updates["suspicion_mult"] = int(suspicion_mult)
+            if updates:
+                self.params = dataclasses.replace(self.params, **updates)
 
     def arm_control(self, spec=None, config=None):
-        _not_ported("the control plane", "A11")
+        """Arm the closed-loop control plane; returns the
+        :class:`..control.ControlPlane` (the armed one, if any). ``spec`` is
+        a :class:`..control.ControlSpec` (None: the defaults, or derived
+        from ``config``, a :class:`..config.ClusterConfig`). It arms the
+        telemetry plane too: the metric ring is the sensor.
+
+        Arming is knob-passive: no knob changes until the decision rule
+        fires, so an armed but idle driver's trajectory is the unarmed
+        one's. Sensor reads happen once per control epoch. Refused with the
+        trace plane armed, and for the blind and unclamped controllers
+        (certification arms only)."""
+        from ..control import ControlPlane
+
+        with self._lock:
+            if self._control is not None:
+                return self._control
+            if self._trace is not None:
+                raise ValueError(
+                    "trace capture and the control plane cannot share a driver (the controller may "
+                    "arm adaptive FD, which traced windows do not support yet)"
+                )
+            self._control = ControlPlane(self, spec=spec, config=config)
+            return self._control
+
+    @property
+    def control(self):
+        """The armed :class:`..control.ControlPlane`, or None."""
+        return self._control
+
+    def control_snapshot(self) -> dict:
+        """The controller's view: spec, rung and the bounded decision log,
+        or ``{"armed": False}``. Host values only — never a device read."""
+        plane = self._control
+        if plane is None:
+            return {"armed": False}
+        return plane.snapshot()
 
     def run_scenario(
         self,
@@ -862,8 +996,11 @@ class SimDriver:
         Stepping reads nothing back; the returned report is the one sync
         point. ``strategy=`` / ``topology=`` / ``dissem=`` arm a
         dissemination spec (:meth:`set_dissemination`) and ``adaptive=`` an
-        adaptive spec (:meth:`set_adaptive`) first. ``trace=True`` is
-        refused until the trace plane is ported (ROADMAP A10, trace half)."""
+        adaptive spec (:meth:`set_adaptive`) first. ``trace=True`` arms
+        the trace plane on the scenario's crashed rows (up to
+        ``TraceConfig.tracers``) and attaches each traced crash subject's
+        detection tree to the report (``trace_spans``; crashed rows left
+        untraced are named in ``untraced_crash_rows``)."""
         from ..chaos.engine import run_driver_scenario
 
         if dissem is not None or strategy is not None or topology is not None:
@@ -927,6 +1064,10 @@ class SimDriver:
                 list(self._free_rumor_slots) if self._free_rumor_slots is not None else None
             ),
         }
+        if self._control is not None:
+            # controller memory (rung, dwell, decision log) follows the
+            # timeline; an optional key, so control-less archives still load
+            host["control_state"] = self._control.state_dict()
         host_bytes = pickle.dumps(host)
         payload = dict(
             self._ops.snapshot(self.state),
@@ -1024,6 +1165,14 @@ class SimDriver:
 
         self.state = state
         self._gen = gen
+        if self._control is not None:
+            # before the adaptive planes restore: re-applying the rung's
+            # knobs (set_adaptive starts fresh planes) must not discard the
+            # evidence the checkpoint carries
+            if "control_state" in host:
+                self._control.load_state_dict(host["control_state"])
+            else:
+                self._control.reset_for_restore()
         if self._ad is not None:
             # an adaptive driver restoring a static checkpoint starts fresh
             from ..adaptive import init_adaptive_state, restore_adaptive_state
@@ -1049,6 +1198,10 @@ class SimDriver:
         self._pool_high_water = host["pool_high_water"]
         self._segmentation_warnings = host["segmentation_warnings"]
         self._recent_joins = [tuple(j) for j in host["recent_joins"]]
+        if self._trace is not None:
+            # clear the ring (records of the abandoned timeline would sew
+            # into the restored one) and re-baseline the column mirror
+            self._trace.on_restore(state)
         # re-baseline watches so a restore emits no phantom events
         for w in self._watches.values():
             w.prev_key = self._view_row_host(w.row)

@@ -13,8 +13,8 @@ K windows before it died", without a debugger or a rerun.
 
 The JAX package's ``telemetry/flight.py`` in the port: the backend stamp is
 the driver's torch device type (``"cuda"`` / ``"cpu"``), the rest is the
-same code. The reconstruction section is written as there; reading it back
-into a re-run is the replay service's, which the port does not have yet.
+same code. The reconstruction section is written as there and read back by
+the replay service (:mod:`..replay`), which takes dumps of either package.
 """
 
 from __future__ import annotations

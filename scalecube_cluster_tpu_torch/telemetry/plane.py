@@ -192,6 +192,18 @@ class TelemetryPlane:
         with self.driver._lock:
             snap = self.ring.snapshot(self.config.flight_windows)
         self.driver._note_readback(1)
+        # an armed trace plane contributes the causal section: the trace
+        # ring's tail and the sewn span trees of the violating members (the
+        # rows of failed detection obligations in the context, else the
+        # tracers)
+        trace_doc = None
+        tplane = getattr(self.driver, "_trace", None)
+        if tplane is not None:
+            sent = (context or {}).get("sentinels") or {}
+            bad = [
+                det["row"] for det in sent.get("detections", ()) if not det.get("ok", True)
+            ] or list(tplane.spec.tracer_rows)
+            trace_doc = tplane.flight_section(bad)
         target = path or default_dump_path(self.config.flight_dir, reason)
         recon = self._reconstruction_section()
         tick_hi = int(self.driver._host_tick)
@@ -203,6 +215,7 @@ class TelemetryPlane:
             ring_snapshot=snap,
             bus_tail=[r.as_dict() for r in self.bus.tail()],
             context=context,
+            trace=trace_doc,
             reconstruction=recon,
             tick_range=[tick_lo, tick_hi],
             backend=self.driver.device.type,

@@ -211,11 +211,15 @@ def test_refusals_name_their_items():
     with pytest.raises(NotImplementedError, match="A12"):
         SimDriver(params, 33, mesh=object(), device="cpu")
     d = SimDriver(params, 33, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        d.arm_trace()
     # the adaptive plane is ported: set_adaptive arms it
     d.set_adaptive(enabled=True)
     assert d.adaptive_state is not None and d.params.adaptive.enabled
+    # the trace plane is ported (tests/test_torch_trace.py); it refuses an
+    # adaptive driver, as in JAX
+    with pytest.raises(ValueError, match="adaptive failure detection"):
+        d.arm_trace()
+    plane = SimDriver(params, 33, device="cpu").arm_trace()
+    assert plane.spec.tracer_rows == (0, 1, 2, 3)
     with pytest.raises(ValueError, match="delay_slots > 0"):
         d.set_link_delay([0], [1], 2.0)
     lean = SimDriver(params, 33, dense_links=False, device="cpu")

@@ -196,8 +196,10 @@ def test_bitplane_helpers_match_jax():
 def test_tick_refuses_unported_planes():
     params = TS.SimParams(capacity=33)
     st = TS.init_state(params, 33, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        TK.tick(st, None, None, params, trace=object())
+    # the trace capture is ported (tests/test_torch_trace.py); armed with
+    # the adaptive plane it is refused, as in JAX
+    with pytest.raises(ValueError, match="trace-armed adaptive windows are not supported"):
+        TK.tick(st, None, None, params, trace=object(), ad=object())
     # the adaptive plane is ported: it needs an enabled spec on the params
     with pytest.raises(ValueError, match="enabled AdaptiveSpec"):
         TK.tick(st, None, None, params, ad=object())

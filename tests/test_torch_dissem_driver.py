@@ -71,8 +71,11 @@ def test_set_dissemination_swaps_and_noops_as_jax():
     with pytest.raises(ValueError, match="unknown strategy"):
         d.set_dissemination(strategy="flood")
     assert d.params is armed
-    with pytest.raises(NotImplementedError, match="A10"):
-        d.run_scenario(Scenario(name="idle", events=(), horizon=4), strategy="push_pull", trace=True)
+    # run_scenario arms the spec first, then (trace=True, ported) the trace
+    # plane on the default tracers
+    rep = d.run_scenario(Scenario(name="idle", events=(), horizon=4), strategy="push_pull", trace=True)
+    assert d.params.dissem.strategy == "push_pull" and d.trace is not None
+    assert rep["ok"] and rep["trace_spans"] == {} and "untraced_crash_rows" not in rep
 
 
 def _swap_script(jd, td, chain, specs):

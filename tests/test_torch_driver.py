@@ -303,18 +303,12 @@ def test_refused_surfaces_raise_not_implemented():
     d = _generator_driver()
     calls = {
         "jit_cache_audit": lambda: d.jit_cache_audit(),
-        "arm_trace": lambda: d.arm_trace(),
-        "run_scenario(trace=True)": lambda: d.run_scenario(_idle_scenario(), trace=True),
         "EmulatorChaosRunner": lambda: EmulatorChaosRunner(_idle_scenario(), [], []),
-        "set_protocol_knobs": lambda: d.set_protocol_knobs(fanout=4),
-        "arm_control": lambda: d.arm_control(),
         "transport": lambda: SimCluster(d).node(1).transport(),
         "mesh": lambda: SimDriver(d.params, 8, mesh=object(), device="cpu"),
         "compile_cache_dir": lambda: SimDriver(d.params, 8, compile_cache_dir="x", device="cpu"),
     }
-    items = {"arm_trace": "A10, trace half", "run_scenario(trace=True)": "A10, trace half",
-             "EmulatorChaosRunner": "A13", "set_protocol_knobs": "A11",
-             "arm_control": "A11", "jit_cache_audit": "A13", "transport": "A13", "mesh": "A12",
+    items = {"EmulatorChaosRunner": "A13", "jit_cache_audit": "A13", "transport": "A13", "mesh": "A12",
              "compile_cache_dir": "A13"}
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match=items[name]):
@@ -324,6 +318,16 @@ def test_refused_surfaces_raise_not_implemented():
     plane = d.arm_telemetry()
     assert d.telemetry is plane and d.arm_telemetry() is plane
     assert [r.kind for r in plane.bus.tail()] == ["telemetry_armed"]
+    # and so are the trace plane, the live knobs and the control plane
+    # (tests/test_torch_trace.py, tests/test_torch_control.py)
+    tplane = d.arm_trace()
+    assert d.trace is tplane and d.arm_trace() is tplane
+    assert [r.kind for r in plane.bus.tail()] == ["telemetry_armed", "trace_armed"]
+    assert d.run_scenario(_idle_scenario(), trace=True)["trace_spans"] == {}
+    d.set_protocol_knobs(fanout=4)
+    assert d.params.fanout == 4
+    c = _generator_driver()
+    assert c.arm_control() is c.control and c.control_snapshot()["armed"]
     assert TSP.SparseParams(capacity=8, delay_slots=2).delay_slots == 2
     with pytest.raises(ValueError, match="no \\[N, N\\] link plane"):
         SimDriver(d.params, 8, dense_links=True, device="cpu")

@@ -138,7 +138,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "chaos/__init__.py", "chaos/events.py", "chaos/shifting.py", "chaos/sentinels.py",
                    "chaos/engine.py", "ops/fleet.py", "ops/delivery.py", "ops/_tensor.py",
                    "telemetry/__init__.py", "telemetry/bus.py", "telemetry/openmetrics.py",
-                   "telemetry/flight.py", "telemetry/rings.py", "telemetry/plane.py"):
+                   "telemetry/flight.py", "telemetry/rings.py", "telemetry/plane.py",
+                   "trace/__init__.py", "trace/schema.py", "trace/spans.py", "trace/export.py",
+                   "trace/rings.py", "trace/capture.py", "trace/plane.py", "trace/profile.py",
+                   "control.py", "replay.py", "ops/keychain.py"):
         assert f"scalecube_cluster_tpu_torch/{module}" in walked, module
     bad = [
         f"{p.relative_to(REPO)}:{line}: import {name}"
@@ -147,3 +150,43 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "scalecube_cluster_tpu")
     ]
     assert bad == [], "\n".join(bad)
+
+
+@pytest.mark.parametrize("engine", ["dense", "sparse"])
+def test_key_chain_matches_jax(engine):
+    """``ops/keychain.py`` reproduces the JAX package's per-tick key chain
+    bit for bit: ``PRNGKey``, ``split``, ``uniform`` and every draw of five
+    ticks of a fleet of four chains (``fleet_keys``), the chains' keys
+    after them included."""
+    import dataclasses
+
+    import jax
+
+    from scalecube_cluster_tpu.ops import fleet as JFL
+    from scalecube_cluster_tpu.ops import sparse as JSP
+    from scalecube_cluster_tpu.ops import state as JS
+    from scalecube_cluster_tpu_torch import convert
+    from scalecube_cluster_tpu_torch.ops import keychain as KC
+    from test_torch_dense import dense_draws
+    from test_torch_pview_fused import _jax_draws
+
+    seeds = [1000, 1001, 7, 123456]
+    assert np.array_equal(np.asarray(JFL.fleet_keys(seeds)).astype(np.int64), KC.prng_keys(seeds, "cpu").numpy())
+    key5 = KC.prng_keys([5], "cpu")
+    ref = np.asarray(jax.random.split(jax.random.PRNGKey(5), 5)).astype(np.int64)
+    assert np.array_equal(ref, KC.split(key5, 5)[0].numpy())
+    ref = np.asarray(jax.random.uniform(jax.random.PRNGKey(5), (7, 3)))
+    assert np.array_equal(ref, KC.uniform(key5, (7, 3))[0].numpy())
+    params, draws = ((JS.SimParams(capacity=33, fanout=3, ping_req_k=2), dense_draws) if engine == "dense"
+                     else (JSP.SparseParams(capacity=33, mr_slots=16), _jax_draws))
+    chain = KC.KeyChain(seeds, "cpu")
+    got = chain(5, convert.params_from_dict(dataclasses.asdict(params)))
+    for s, seed in enumerate(seeds):
+        key, want = draws(jax.random.PRNGKey(seed), 5, params)
+        for t in range(5):
+            for a, b in zip(want[t], got[t]):
+                for f in dataclasses.fields(a):
+                    assert np.array_equal(getattr(a, f.name).numpy(), getattr(b, f.name)[s].numpy()), (s, t, f.name)
+        assert np.array_equal(np.asarray(key).astype(np.int64), chain.keys[s].numpy())
+    serial = KC.KeyChain([seeds[0]], "cpu", serial=True)(1, convert.params_from_dict(dataclasses.asdict(params)))
+    assert torch.equal(serial[0][1].sync_edge, got[0][1].sync_edge[0])

@@ -205,8 +205,10 @@ def test_snapshot_restore_round_trip():
 def test_unfused_tick_refuses_what_it_does_not_run():
     params = TPV.PviewParams(capacity=33)
     st = TPV.init_pview_state(params, 33, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        TPV.pview_tick(st, None, None, params, trace=object())
+    # the trace capture is ported (tests/test_torch_trace.py); armed with
+    # the adaptive plane it is refused, as in JAX
+    with pytest.raises(ValueError, match="trace-armed adaptive windows are not supported"):
+        TPV.pview_tick(st, None, None, params, trace=object(), ad=object())
     # the adaptive plane is ported: it needs an enabled spec on the params
     with pytest.raises(ValueError, match="enabled AdaptiveSpec"):
         TPV.pview_tick(st, None, None, params, ad=object())

@@ -349,8 +349,10 @@ def test_port_refuses_what_it_does_not_run():
         TSP.init_sparse_state(params, 33, uniform_delay=1.0, device="cpu")
     st = TSP.init_sparse_state(params, 33, device="cpu")
     rd = None
-    with pytest.raises(NotImplementedError, match="A10"):
-        TSP.sparse_tick(st, None, rd, params, trace=object())
+    # the trace capture is ported (tests/test_torch_trace.py); armed with
+    # the adaptive plane it is refused, as in JAX
+    with pytest.raises(ValueError, match="trace-armed adaptive windows are not supported"):
+        TSP.sparse_tick(st, None, rd, params, trace=object(), ad=object())
     # the adaptive plane is ported: it needs an enabled spec on the params
     with pytest.raises(ValueError, match="enabled AdaptiveSpec"):
         TSP.sparse_tick(st, None, rd, params, ad=object())
