@@ -25,7 +25,7 @@ passes:
    compiled variants, and on the ``inv`` that ``accelerated/expander``
    peers build at 1M (every receiver one sender per slot): bit-equal
    outputs, timed beside the byte bound;
-4. window   — a 4,096-member, 16-tick (40, then 24 before the trace phases) fused window on the CPU (plain
+4. window   — a 4,096-member, 12-tick (40, 24, then 16 before the mesh phase) fused window on the CPU (plain
    versions) and on the card (kernels) from the same draws: equal state
    and metrics;
 5. main path — the 1M-member scenario (warm start, 8 live rumors, a crash
@@ -48,7 +48,7 @@ passes:
    and read just after; then three ticks profiled by phase, as in phase 6;
 9. checkpoint — a 65,536-member driver: ``step(5)``, ``checkpoint``,
    ``step(10)``, ``restore``, ``step(10)``: both trajectories bit-equal;
-10. sparse-window — a 4,096-member, 16-tick (40, then 24 before the trace phases) sparse window with dense links
+10. sparse-window — a 4,096-member, 12-tick (40, 24, then 16 before the mesh phase) sparse window with dense links
    (a crash wave, user rumors, a ``join_rows`` batch with rejoins, a
    partition and its heal) on the CPU and on the card from the same draws:
    equal state and metrics;
@@ -72,7 +72,7 @@ passes:
    widths with dense links (a crash wave, rumors, a ``join_rows`` batch
    with rejoins, a partition and its heal) on the CPU and on the card from
    the same draws: equal state and metrics;
-16. dense-delay-window — a 2,048-member, 16-tick (40, then 24 before the trace phases) dense window in config3's
+16. dense-delay-window — a 2,048-member, 12-tick (40, 24, then 16 before the mesh phase) dense window in config3's
    delay regime (loss 0.05, mean delay 1.5 ticks, six ring slots, a group
    of slower links through ``set_link_delay``): CPU = card;
 17. dense-main — config4's partition at 10,000 members
@@ -213,7 +213,7 @@ passes:
    sync-debug mode, ms/tick armed beside unarmed; then one ``flush()`` and
    one ring read;
 39. trace-windows — each engine's traced window (``make_traced_run``) on
-   the CPU and on the card from the same draws, 24 ticks at 4,096: pview
+   the CPU and on the card from the same draws, 16 ticks at 4,096 (24 before the mesh phase): pview
    at config16's i16 widths, sparse at config5's with dense links, dense
    at config9's i16 widths, then pview again with the delay rings at D =
    6; a crash wave whose first rows are tracers, every rumor slot live, a
@@ -247,7 +247,21 @@ passes:
    its flight dump round-tripped by ``validate_incident``, ``whatif`` over
    the as-recorded and three counterfactual arms (at least one
    CI-separated), and the card's dump replayed on the CPU to the same
-   verdict.
+   verdict;
+45. mesh — the member mesh (``ops/sharding.py``) on a world-size-1 NCCL
+   group (one card: no multi-GPU time exists, and none is claimed): the
+   sharded fused pview window at 1,048,576 members against the unsharded
+   one from a copy of the same start state with the same draws (every leaf
+   and metric bit-equal, overflow 0, the delivery kernel launched 0 times,
+   counted; the exchange's bytes, ms/tick sharded and unsharded, peak); a
+   starved exchange budget at 4,096 members on the card against the CPU
+   (gloo) with the same overflow > 0; the sharded ``SimDriver`` at 1M with
+   the adaptive and telemetry planes armed, and with the trace and
+   telemetry planes, against the unsharded drivers (state, planes, rings,
+   events and readbacks equal); the pview fleet on a 1-rank scenario mesh
+   against the one-process fleet; then the group is destroyed.
+   ``python3 chip_smoke.py --mesh-only`` runs the build and this phase
+   alone.
 
 The dense paths launch no hand-written kernel; their launch counts
 stand in the kernels line as measured. Every path's count is zeroed just
@@ -289,10 +303,10 @@ TICKS_PER_SECOND = 5  # config5's simulated second
 # Depth cut for the fleet phases' time (each listed in PERF.md section 4):
 DRIVER_WINDOWS = 1  # timed step(10) windows of the 1M and the sparse driver (3 through PR 7)
 DRIVER_SCRIPT_STEPS = (2, 4, 2, 2)  # the CPU-vs-card driver script's steps (5, 7, 5, 3, then 3, 5, 3, 2 before the trace phases)
-DENSE_WINDOW_STEPS = (2, 4, 3)  # the CPU-vs-card dense window's (5, 8, 7, then 3, 5, 4 before the trace phases)
+DENSE_WINDOW_STEPS = (2, 3, 2)  # the CPU-vs-card dense window's (5, 8, 7, 3, 5, 4, then 2, 4, 3 before)
 CHAOS_DENSE_AFTER_HEAL = 600  # the full-width dense scenario's horizon past its heal (800 before the trace phases; automatic at first)
 # Depth cut for the delay and telemetry phases' time:
-WINDOW_TICKS = 16  # the CPU-vs-card windows of phases 4, 10, 16, 22 and 25 (40, then 24 before)
+WINDOW_TICKS = 12  # the CPU-vs-card windows of phases 4, 10, 16, 22 and 25 (40, 24, then 16 before)
 FLEET_PVIEW_TICKS = 4  # phase 32's pview fleet window (16, then 8 before)
 # Depth cut for the trace, control and replay phases' time:
 MAIN_PVIEW_WINDOWS = 1  # timed step(10) windows of the 1M pview drivers of phases 38 and 40 (2 before)
@@ -302,6 +316,12 @@ C14_SERIAL_SAMPLE = 4  # scenarios the serial arm loops over (16, then 8 before;
 C14_SWEEP_SEEDS = 86  # adaptive_knob_sweep's seeds per floor (config14's 171 before)
 C13_KNOBS = dict(min_mult=5, max_mult=10, conf_target=4, lh_max=8)  # config13's ADAPTIVE_KNOBS
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+# Depth of the mesh phases (PERF.md section 4):
+MESH_TICKS = 5  # ticks of the 1M sharded window and of its unsharded twin
+MESH_DRIVER_STEP = 10  # the 1M sharded drivers' timed step
+MESH_SMALL_N = 4096  # the starved-budget window, card against CPU
+MESH_STARVED_BUDGET = 4096  # records per (src, dst); the lossless budget is F * N = 12,288
+MESH_FLEET = (8, 4096, 8)  # S x N pview fleet on the scenario mesh, ticks
 
 
 def nvidia_smi() -> str:
@@ -3313,8 +3333,8 @@ def run_telemetry(device) -> dict:
 
 TRACE_TRACERS = 4  # tracer rows of every traced path (TraceConfig's default count)
 TRACE_SLOTS = (0, 1)  # traced rumor slots
-TRACE_WINDOW_TICKS = 24  # the CPU-vs-card traced windows of phase 39
-TRACE_RING = 1024  # the CPU-vs-card windows' ring: 24 ticks x 4 tracers = 96 records
+TRACE_WINDOW_TICKS = 16  # the CPU-vs-card traced windows of phase 39 (24 before)
+TRACE_RING = 1024  # the CPU-vs-card windows' ring: 16 ticks x 4 tracers = 64 records
 
 
 def trace_spec(tracers, ring_len: int = TRACE_RING, ping_req_k: int = 3):
@@ -3891,6 +3911,235 @@ def fleet_kernel_entry(rows: dict, launches: dict) -> dict:
     }
 
 
+def mesh_draws(params, ticks: int, device, seed: int) -> list:
+    """``ticks`` full per-tick (fd, round) draw pairs from one generator on
+    ``device`` (FD draws on FD ticks only, from tick 1), shared by a
+    sharded window and its unsharded twin."""
+    from scalecube_cluster_tpu_torch.ops import rand as PR
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [PR.draw_sparse_tick(gen, params, (t + 1) % params.fd_every == 0) for t in range(ticks)]
+
+
+def metric_differences(a: dict, b: dict) -> list:
+    """Names of the metrics of ``a`` that ``b`` does not hold equal."""
+    return [k for k in a if k not in b or not torch.equal(a[k], b[k].to(a[k].device))]
+
+
+def run_mesh_window(device, mesh, n: int = N_MAIN, ticks: int = MESH_TICKS) -> dict:
+    """The sharded fused window at config16's widths against the unsharded
+    one from a copy of one start state, with the same draws."""
+    from scalecube_cluster_tpu_torch.ops import delivery, ragged_a2a
+    from scalecube_cluster_tpu_torch.ops import pview as PV
+    from scalecube_cluster_tpu_torch.ops import sharding as SH
+    from scalecube_cluster_tpu_torch.ops.bitplane import words_for
+
+    params = config16_params(n)
+    wt = words_for(params.mr_pool) + words_for(params.rumor_slots) + params.rumor_slots
+    nbytes = ragged_a2a.exchange_bytes(params.fanout, n, SH.member_mesh_size(mesh), wt)
+    phase("mesh-window", f"N={n}: exchange buffer [W=1, B={params.fanout * n}, 3 + {wt}] int32, "
+                         f"{nbytes / 2 ** 30:.3f} GiB sent and as much received per gossip tick")
+    st = busy_state(params, n, device)
+    start = copy_state(st, device)
+    draws = mesh_draws(params, ticks, device, seed=11)
+
+    def timed(window, state):
+        """Tick 1 (it grows the allocator's pools), then ticks 2.. timed."""
+        state, first, _ = window(1)(state, draws[:1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, rest, _ = window(ticks - 1)(state, draws[1:])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return state, {k: torch.cat([first[k], rest[k]]) for k in first}, wall / (ticks - 1) * 1e3
+
+    delivery.delivery_combine.launches = 0
+    st, ms, ms_u = timed(lambda t: PV.make_pview_fused_run(params, t), st)
+    launches_u = delivery.delivery_combine.launches
+    mine = SH.shard_pview_state(start, mesh)
+    del start
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()  # the unsharded result and what earlier phases hold
+    torch.cuda.reset_peak_memory_stats()
+    delivery.delivery_combine.launches = 0
+    mine, ms_s, ms_sh = timed(lambda t: SH.make_sharded_pview_fused_run(mesh, params, t), mine)
+    launches = delivery.delivery_combine.launches
+    peak = torch.cuda.max_memory_allocated()
+    diff = device_state_differences(st, mine) + metric_differences(ms, ms_s)
+    if diff:
+        raise AssertionError(f"[mesh-window] the sharded window differs from the unsharded one in {diff}")
+    overflow = int(ms_s["delivery_overflow"].sum())
+    if overflow or launches or launches_u != ticks:
+        raise AssertionError(f"[mesh-window] overflow {overflow}, sharded launches {launches}, unsharded "
+                             f"launches {launches_u} of {ticks}")
+    phase("mesh-window", f"N={n}, {ticks} ticks from one start state and draws: every leaf and metric "
+                         f"bit-equal; ticks 2-{ticks} sharded {ms_sh:.2f} ms/tick against unsharded "
+                         f"{ms_u:.2f} ({ms_sh / ms_u - 1:+.1%}), peak allocated "
+                         f"{peak / 2 ** 30:.2f} GiB, {(peak - live) / 2 ** 30:.2f} GiB above the {live / 2 ** 30:.2f} "
+                         f"live before the sharded window; delivery_overflow 0; delivery_combine launches 0 sharded, "
+                         f"{launches_u} unsharded")
+    del st, mine, draws
+    torch.cuda.empty_cache()
+    return {"mesh-window": launches}
+
+
+def run_mesh_starved(device, mesh, cpu_mesh, n: int = MESH_SMALL_N, ticks: int = 8,
+                     budget: int = MESH_STARVED_BUDGET) -> dict:
+    """A starved exchange budget on the card and on the CPU (gloo) from one
+    start state and one set of draws: equal states, metrics and overflow,
+    the overflow > 0."""
+    from scalecube_cluster_tpu_torch import convert
+    from scalecube_cluster_tpu_torch.ops import delivery
+    from scalecube_cluster_tpu_torch.ops import sharding as SH
+
+    params = config16_params(n)
+    start = busy_state(params, n, "cpu")
+    draws = mesh_draws(params, ticks, "cpu", seed=5)
+    out = {}
+    delivery.delivery_combine.launches = 0
+    for where, m in (("card", mesh), ("cpu", cpu_mesh)):
+        run = SH.make_sharded_pview_fused_run(m, params, ticks, a2a_budget=budget)
+        st, ms, _ = run(SH.shard_pview_state(start, m), draws)
+        out[where] = (convert.state_to_numpy(st), {k: v.cpu() for k, v in ms.items()})
+    launches = delivery.delivery_combine.launches
+    (a, ma), (b, mb) = out["card"], out["cpu"]
+    diff = [k for k in a if not np.array_equal(a[k], b[k])] + metric_differences(ma, mb)
+    overflow = int(ma["delivery_overflow"].sum())
+    if diff or overflow <= 0 or launches:
+        raise AssertionError(f"[mesh-starved] card and CPU differ in {diff}; overflow {overflow}, launches {launches}")
+    phase("mesh-starved", f"N={n}, budget {budget} of a lossless {params.fanout * n}, {ticks} ticks: card (NCCL) = "
+                          f"CPU (gloo) in every leaf and metric; delivery_overflow {overflow} on both "
+                          f"({ma['delivery_overflow'].tolist()}), rumor_sends {int(ma['rumor_sends'].sum())}")
+    return {"mesh-starved": launches}
+
+
+def mesh_driver_pair(device, mesh, params, n: int, label: str, trace: bool, step: int) -> dict:
+    """An unsharded and a sharded ``SimDriver`` from one seed, the telemetry
+    plane and (``trace``) the trace plane armed, a watched row, a crash
+    and a rumor: one warm-up ``step(2)`` and one timed ``step(step)``
+    each. States, planes, rings, events and readbacks must be equal; the
+    sharded one launches the delivery kernel 0 times."""
+    from scalecube_cluster_tpu_torch.ops import delivery
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    rec = {}
+    for sharded in (False, True):
+        d = SimDriver(params, n, seed=0, device=device, mesh=mesh if sharded else None)
+        d.arm_telemetry()
+        if trace:
+            d.arm_trace(tracer_rows=(0, 1, n // 2, n - 1), rumor_slots=(0, 1))
+        d.watch(0)
+        d.spread_rumor(n // 2, "mesh")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d.crash(n // 2 + 1)  # a host mutation (a sharded driver's runs on the gathered state)
+        torch.cuda.synchronize()
+        mutation_ms = (time.perf_counter() - t0) * 1e3
+        d.step(1)
+        d.sync()
+        delivery.delivery_combine.launches = 0
+        t0 = time.perf_counter()
+        d.step(step)
+        d.sync()
+        wall = time.perf_counter() - t0
+        launches = delivery.delivery_combine.launches
+        ring = d.telemetry.collect()["ring"]["rows"]
+        rec[sharded] = dict(driver=d, ms_tick=wall / step * 1e3, launches=launches, ring=ring, mutation_ms=mutation_ms,
+                            trace=d.trace.ring.buf.clone() if trace else None,
+                            events=[(e.type.value, e.member.id) for e in d.events_of(0)],
+                            readbacks=d.dispatch_stats["readbacks"])
+        torch.cuda.empty_cache()
+    u, s = rec[False], rec[True]
+    diff = device_state_differences(u["driver"].state, s["driver"].state)
+    if u["driver"].adaptive_state is not None:
+        diff += [f"ad.{k}" for k in ("lh", "conf_key", "conf")
+                 if not torch.equal(getattr(u["driver"].adaptive_state, k), getattr(s["driver"].adaptive_state, k))]
+    for k in ("ring", "events", "readbacks"):
+        if u[k] != s[k]:
+            diff.append(k)
+    if trace and not torch.equal(u["trace"], s["trace"]):
+        diff.append("trace ring")
+    if diff or s["launches"] or u["launches"] != step:
+        raise AssertionError(f"[mesh-driver] {label}: differs in {diff}; launches {s['launches']} sharded, "
+                             f"{u['launches']} unsharded")
+    phase("mesh-driver", f"{label}: step({step}) sharded {s['ms_tick']:.2f} ms/tick against unsharded "
+                         f"{u['ms_tick']:.2f} ({s['ms_tick'] / u['ms_tick'] - 1:+.1%}); state, planes, "
+                         f"{len(s['ring'])} telemetry rows{', the trace ring' if trace else ''}, "
+                         f"{len(s['events'])} events of row 0 and {s['readbacks']} readbacks equal; "
+                         f"delivery_combine launches 0 sharded, {u['launches']} unsharded; a host mutation (crash) "
+                         f"{s['mutation_ms']:.1f} ms sharded against {u['mutation_ms']:.1f} unsharded")
+    del rec
+    torch.cuda.empty_cache()
+    return s["launches"]
+
+
+def run_mesh_driver(device, mesh, n: int = N_MAIN, step: int = MESH_DRIVER_STEP) -> dict:
+    params = config16_params(n)
+    a = mesh_driver_pair(device, mesh, with_adaptive(params), n, f"N={n} adaptive + telemetry", False, step)
+    b = mesh_driver_pair(device, mesh, params, n, f"N={n} trace + telemetry", True, step // 2)
+    return {"mesh-driver": a + b}
+
+
+def run_mesh_fleet(device, fleet=MESH_FLEET) -> dict:
+    """The pview fleet on a 1-rank scenario mesh against the one-process
+    fleet: every row and the coverage fold equal."""
+    from scalecube_cluster_tpu_torch.ops import delivery
+    from scalecube_cluster_tpu_torch.ops import fleet as FL
+    from scalecube_cluster_tpu_torch.ops import pview as PV
+
+    s, n, ticks = fleet
+    params = config16_params(n)
+    fmesh = FL.fleet_mesh(device.type)
+    base = FL.fleet_inject_rumor(PV, FL.fleet_broadcast(PV.init_pview_state(params, n, device=device), s), 0,
+                                 [(7 * i + 1) % n for i in range(s)])
+    one, ms, _ = FL.make_fleet_run(params, ticks)(copy_state(base, device), FL.fleet_generator(3, device))
+    delivery.delivery_combine_fleet.launches = 0
+    mine, ms_m, _ = FL.make_fleet_run(params, ticks)(FL.shard_fleet(base, fmesh),
+                                                     FL.fleet_draws(FL.fleet_generator(3, device), fmesh, s))
+    launches = delivery.delivery_combine_fleet.launches
+    hit = FL.fold_first_full_coverage(torch.full((s,), -1, dtype=torch.int32, device=device),
+                                      ms["rumor_coverage"][:, :, 0], 0)
+    hit_m = FL.fleet_gather(FL.fold_first_full_coverage(
+        torch.full((FL.fleet_size(mine),), -1, dtype=torch.int32, device=device), ms_m["rumor_coverage"][:, :, 0], 0),
+        fmesh)
+    covered = FL.fleet_fold_sum((hit_m >= 0).sum().to(torch.int32), fmesh)
+    diff = device_state_differences(one, mine) + metric_differences(ms, ms_m)
+    if diff or not torch.equal(hit, hit_m) or int(covered) != int((hit >= 0).sum()):
+        raise AssertionError(f"[mesh-fleet] the scenario-mesh fleet differs in {diff or 'its fold'}")
+    phase("mesh-fleet", f"S={s} x N={n}, {ticks} ticks on a 1-rank scenario mesh: every row and metric equal to "
+                        f"the one-process fleet, {int(covered)} of {s} scenarios fully covered (summed over the "
+                        f"ranks), fleet kernel launches {launches}")
+    return {"mesh-fleet": launches}
+
+
+def run_mesh(device) -> tuple:
+    """Phase 45: a world-size-1 NCCL group (``file://`` init, the card as
+    its device), a gloo group beside it for the CPU reference, the mesh
+    phases, and the group destroyed at the end."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from scalecube_cluster_tpu_torch.ops import dcn
+    from scalecube_cluster_tpu_torch.ops import sharding as SH
+
+    init = tempfile.mkdtemp(prefix="pg-")
+    t0 = time.perf_counter()
+    dcn.initialize(f"file://{init}/init", 1, 0, device=device)
+    try:
+        mesh = dcn.global_mesh("cuda")
+        cpu_mesh = DeviceMesh.from_group(dist.new_group(backend="gloo"), "cpu", mesh_dim_names=(SH.MEMBER_AXIS,))
+        phase("mesh", f"process group: backend {dist.get_backend()}, world {dist.get_world_size()}, mesh "
+                      f"{mesh.mesh_dim_names} on {SH.mesh_device(mesh)}; started in {time.perf_counter() - t0:.2f} s")
+        launches = run_mesh_window(device, mesh)
+        launches.update(run_mesh_starved(device, mesh, cpu_mesh))
+        launches.update(run_mesh_driver(device, mesh))
+        fleet = run_mesh_fleet(device)
+    finally:
+        dist.destroy_process_group()
+    phase("mesh", "process group destroyed")
+    return launches, fleet
+
+
 def run_phases_4_to_24(device, marks: list) -> dict:
     """Phases 4-24, as PRs 1-6 left them. Returns the kernel's launches on
     each of their paths, and under "unarmed" the unarmed main paths'
@@ -3958,7 +4207,7 @@ def run_phases_4_to_24(device, marks: list) -> dict:
             "dense-delay": dense_delay_run["launches"], **dissem_launches, "unarmed": unarmed, "pooled": pooled}
 
 
-def main() -> int:
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3978,6 +4227,10 @@ def main() -> int:
     for line in ptxas_report(_build.build_log("delivery_combine")):
         phase("build", f"ptxas delivery_combine_kernel {line}")
 
+    if "--mesh-only" in argv:
+        run_mesh(device)
+        phase("time", f"command time in all: {time.perf_counter() - t_start:.1f} s")
+        return 0
     kern = check_kernels(device)
     kern_structured = check_structured_kernel(device)
     launches = run_phases_4_to_24(device, marks)
@@ -4030,6 +4283,10 @@ def main() -> int:
     marks.append(("phase 43 (config15)", time.perf_counter()))
     _, launches["config17"], fleet_launches["config17"] = count_kernel_launches(lambda: run_config17(device))
     marks.append(("phase 44 (config17)", time.perf_counter()))
+    mesh_launches, mesh_fleet = run_mesh(device)
+    launches.update(mesh_launches)
+    fleet_launches.update(mesh_fleet)
+    marks.append(("phase 45 (mesh)", time.perf_counter()))
 
     last = t_start
     for what, at in marks:
@@ -4063,4 +4320,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

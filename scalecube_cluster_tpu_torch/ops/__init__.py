@@ -19,5 +19,11 @@
   and the view-plane seams dense and sparse share.
 * :mod:`fleet`      — the fleet engine: S clusters per window (each engine's
   tick under ``torch.func.vmap``), the batched chaos timeline and the Monte
-  Carlo folds.
+  Carlo folds; its scenario mesh.
+* :mod:`dcn`        — process groups (NCCL on the card, gloo on the CPU)
+  and the member mesh over them; the local lane of spawned ranks.
+* :mod:`sharding`   — the pview engine on a member mesh: each rank's rows,
+  the tick's collectives, the sharded windows.
+* :mod:`ragged_a2a` — the sharded delivery: the bucketed record exchange
+  and the rank-local election.
 """

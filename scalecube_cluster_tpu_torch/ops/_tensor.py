@@ -41,6 +41,8 @@ import torch
 from torch._C import _functorch
 from torch.overrides import TorchFunctionMode
 
+from . import sharding
+
 
 class _SyncCounter:
     """Count of host reads taken by data-dependent branches of the tick."""
@@ -130,9 +132,14 @@ def _any_scenario(flag: torch.Tensor) -> torch.Tensor:
 def host_flags(*flags: torch.Tensor) -> list:
     """Read 0-d bool tensors to the host in ONE transfer. In a fleet tick a
     flag is set when it is set in any scenario: a gated branch then runs for
-    every scenario, and is a no-op for a scenario whose own flag is clear."""
+    every scenario, and is a no-op for a scenario whose own flag is clear.
+    In a member-sharded tick a flag is set when it is set on any rank, so
+    every rank takes the same branch."""
     HOST_SYNCS.count += 1
     flags = [_any_scenario(f) for f in flags]
+    ctx = sharding.active()
+    if ctx is not None:
+        flags = ctx.flags(flags)
     if len(flags) == 1:
         return [bool(flags[0])]
     return [bool(v) for v in torch.stack(flags).tolist()]

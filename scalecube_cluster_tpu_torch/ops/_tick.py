@@ -371,14 +371,18 @@ def seg_m(state) -> torch.Tensor:
     return torch.cat(out)
 
 
-def rumor_metrics(state, params, n_up) -> dict:
+def _no_reduce(x, op):
+    return x
+
+
+def rumor_metrics(state, params, n_up, reduce=_no_reduce) -> dict:
     """The state metrics both engines report: up count, pool occupancy,
     per-rumor coverage, and the gossip segmentation, whose membership part
     is scanned on sweep ticks only (a monitoring metric; one flag read
-    there)."""
-    coverage = (state.infected & state.up[:, None]).sum(dim=0).to(torch.float32) / (
-        n_up.clamp(min=1).to(torch.float32)
-    )
+    there). ``reduce(x, op)``, on a member mesh, combines the rows' counts
+    and maxima over the ranks (``n_up`` is then the global count)."""
+    covered = reduce((state.infected & state.up[:, None]).sum(dim=0), "sum")
+    coverage = covered.to(torch.float32) / (n_up.clamp(min=1).to(torch.float32))
     newest_u = torch.where(state.infected, state.rumor_created[None, :], NEVER).amax(dim=1)
     seg = (
         state.rumor_active[None, :]
@@ -394,7 +398,7 @@ def rumor_metrics(state, params, n_up) -> dict:
         "n_up": n_up,
         "mr_active_count": count_i32(state.mr_active),
         "rumor_coverage": coverage,
-        "gossip_segmentation": seg.max().to(torch.int32),
+        "gossip_segmentation": reduce(seg.max(), "max").to(torch.int32),
     }
 
 

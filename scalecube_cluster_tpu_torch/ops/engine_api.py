@@ -1,7 +1,8 @@
 """The engine-interface spelling the driver resolves through.
 
 A port of the JAX package's ``ops/engine_api.py``, cut to the fields the
-driver, the chaos runner, the telemetry and the trace planes read: an
+driver, the chaos runner, the telemetry and the trace planes read (the
+member-mesh fields are filled for pview, the one engine on a mesh): an
 engine is one :class:`EngineOps` descriptor, and :func:`resolve` picks it
 by the params type. All three engines are ported: dense (``SimParams``), sparse (``SparseParams``) and
 partial-view (``PviewParams``). The seams over the one [N, N] view plane
@@ -52,6 +53,25 @@ class EngineOps:
     # (state, tracer_rows) -> [N, K] int32 view-key columns of the tracers
     # (the trace plane's window-boundary diff feed)
     tracer_view_cols: Callable = None
+    # the member mesh (ops/sharding.py; None where the engine is not ported
+    # to one): (mesh, params, n_ticks, dense_links) -> window, its adaptive
+    # twin (mesh, params, n_ticks), its traced twin (mesh, params, n_ticks,
+    # TraceSpec), and (state, mesh) -> this rank's shard / the whole state
+    make_sharded_run: Callable = None
+    make_sharded_adaptive_run: Callable = None
+    make_sharded_traced_run: Callable = None
+    shard_state: Callable = None
+    gather_state: Callable = None
+
+    @property
+    def supports_mesh(self) -> bool:
+        """Whether the engine runs on a member mesh."""
+        return self.make_sharded_run is not None
+
+    @property
+    def make_sharded_fused_run(self) -> Callable:
+        """The JAX name of the fused sharded window: the same window."""
+        return self.make_sharded_run
 
     @property
     def has_pool(self) -> bool:
@@ -160,6 +180,12 @@ def _dense_engine() -> EngineOps:
 
 def _pview_engine() -> EngineOps:
     from . import pview as PV
+    from . import sharding as SH
+
+    def _sharded(mesh, params, n_ticks, dense_links=False):
+        if dense_links:
+            raise ValueError("the pview engine has no [N, N] link plane (dense_links must be False/None)")
+        return SH.make_sharded_pview_run(mesh, params, n_ticks)
 
     def _init(p, n, warm, dense_links, device):
         if dense_links:
@@ -190,6 +216,11 @@ def _pview_engine() -> EngineOps:
         fleet_memory_factor=5.5,
         make_traced_run=PV.make_pview_traced_run,
         tracer_view_cols=PV.tracer_view_cols,
+        make_sharded_run=_sharded,
+        make_sharded_adaptive_run=SH.make_sharded_pview_adaptive_run,
+        make_sharded_traced_run=SH.make_sharded_pview_traced_run,
+        shard_state=SH.shard_pview_state,
+        gather_state=SH.gather_pview_state,
     )
 
 

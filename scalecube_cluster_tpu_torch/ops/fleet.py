@@ -49,8 +49,16 @@ equals a serial run fed row ``s``'s draws, not a serial run seeded with
 ``s``; per-row equality with JAX is tested by feeding the JAX fleet's
 per-row draws through the sequence form.
 
-Refused by name: the scenario mesh (:func:`fleet_mesh`, :func:`shard_fleet`,
-ROADMAP A12).
+**The scenario mesh.** :func:`fleet_mesh` spans every rank of the process
+group with a ``"scenarios"`` axis; :func:`shard_fleet` gives each rank its
+S / W scenarios of a fleet state, a draw block, a fold accumulator or a
+seed list (a keyed scenario's chain is then made on its rank only). The
+window runs each rank's scenarios with no collective inside: a generator
+wrapped by :func:`fleet_draws` draws the whole ``[S, ...]`` blocks on every
+rank and hands each rank its rows, so row s equals the one-process fleet's.
+The Monte Carlo folds are combined once at the end
+(:func:`fleet_fold_sum`, :func:`fleet_gather`). The 2-D scenarios x
+members mesh is refused by name (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -211,14 +219,21 @@ def run_fleet_window(tick: Callable, view_rows: Callable, draw: Callable, fleet_
     ``fleet_state`` (and ``ad``)."""
     s = fleet_size(fleet_state)
     dev = fleet_state.up.device
+    sliced = draws if isinstance(draws, ScenarioDraws) else None
     gen = draws if isinstance(draws, torch.Generator) else None
+    if sliced is not None:
+        if sliced.hi - sliced.lo != s:
+            raise ValueError(f"draws for {sliced.hi - sliced.lo} scenarios, fleet of {s}")
+        gen = sliced.gen
     if gen is not None and gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, fleet on {dev}")
     if gen is None and len(draws) != n_ticks:
         raise ValueError(f"{len(draws)} per-tick draws for a {n_ticks}-tick window")
     per_tick, watched = [], []
     for t in range(n_ticks):
-        if gen is not None:
+        if sliced is not None:
+            fd, rd = sliced.draw(draw, params, (fleet_state.tick + 1) % params.fd_every == 0)
+        elif gen is not None:
             fd, rd = draw(gen, params, (fleet_state.tick + 1) % params.fd_every == 0, lead=(s,))
         else:
             fd, rd = draws[t]
@@ -278,14 +293,119 @@ def make_fleet_adaptive_run(params, n_ticks: int):
     return engine_api.resolve(params).make_fleet_adaptive_run(params, n_ticks)
 
 
+#: the scenario mesh axis (orthogonal to ``sharding.MEMBER_AXIS``)
+FLEET_AXIS = "scenarios"
+
+
 def fleet_mesh(devices=None):
-    """Refused: the scenario mesh is not ported yet (ROADMAP A12)."""
-    raise NotImplementedError("fleet_mesh: the scenario mesh is not ported yet (ROADMAP A12)")
+    """A 1-D ``"scenarios"`` mesh over every rank of the default process
+    group (``devices``: the device type, ``"cuda"`` by default, or
+    ``"cpu"``). Scenarios are independent: the fleet window needs no
+    collective on it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("fleet_mesh needs a process group: call ops.dcn.initialize first")
+    kind = "cuda" if devices is None else str(devices)
+    return init_device_mesh(kind, (dist.get_world_size(),), mesh_dim_names=(FLEET_AXIS,))
+
+
+def _fleet_rows(mesh, s: int) -> tuple:
+    w = mesh.size()
+    if s % w:
+        raise ValueError(f"fleet size {s} does not divide over the {w}-device scenario mesh")
+    per = s // w
+    r = mesh.get_local_rank(0)
+    return r * per, (r + 1) * per
 
 
 def shard_fleet(tree, mesh):
-    """Refused: sharding a fleet over devices is not ported yet (ROADMAP A12)."""
-    raise NotImplementedError("shard_fleet: sharding a fleet over devices is not ported yet (ROADMAP A12)")
+    """This rank's scenarios of ``tree``, whose leaves all lead with the same
+    [S] (S must divide over the mesh): a fleet state (the host ``tick``
+    kept), an adaptive or draw dataclass, a tensor, a numpy array or a
+    sequence of per-scenario values (e.g. the seeds of a ``KeyChain``), or
+    a tuple / list / dict of them. Tensors are copied onto the mesh's
+    device; zero-size leaves pass whole."""
+    from .sharding import mesh_device
+
+    def is_leaf(x) -> bool:
+        if isinstance(x, torch.Tensor) and x.dim() == 0:
+            return False  # a shared scalar passes whole
+        return isinstance(x, (torch.Tensor, np.ndarray)) or (
+            isinstance(x, (tuple, list)) and not any(isinstance(v, (torch.Tensor, np.ndarray, dict, tuple, list))
+                                                     or dataclasses.is_dataclass(v) for v in x))
+
+    def walk(x, fn):
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            return dataclasses.replace(x, **{f.name: walk(getattr(x, f.name), fn)
+                                             for f in dataclasses.fields(x) if f.name != "tick"})
+        if isinstance(x, dict):
+            return {k: walk(v, fn) for k, v in x.items()}
+        if not is_leaf(x) and not isinstance(x, (tuple, list)):
+            return x.to(mesh_device(mesh)) if isinstance(x, torch.Tensor) else x
+        if is_leaf(x):
+            return fn(x)
+        return type(x)(walk(v, fn) for v in x)
+
+    sizes = set()
+
+    def note(x):
+        if len(x):
+            sizes.add(len(x))
+        return x
+
+    walk(tree, note)
+    if len(sizes) != 1:
+        raise ValueError(f"shard_fleet: the leaves lead with different scenario counts {sorted(sizes)}")
+    lo, hi = _fleet_rows(mesh, sizes.pop())
+    dev = mesh_device(mesh)
+
+    def cut(x):
+        if isinstance(x, torch.Tensor):
+            x = x[lo:hi] if len(x) else x
+            return x.to(device=dev, memory_format=torch.contiguous_format, copy=True)
+        return x[lo:hi] if len(x) else x
+
+    return walk(tree, cut)
+
+
+class ScenarioDraws:
+    """A fleet window's draw source on the scenario mesh: each tick draws the
+    whole ``[S, ...]`` blocks from ``gen`` (every rank the same) and hands
+    the window this rank's rows."""
+
+    def __init__(self, gen: torch.Generator, mesh, s: int):
+        self.gen = gen
+        self.s = int(s)
+        self.lo, self.hi = _fleet_rows(mesh, self.s)
+
+    def draw(self, draw: Callable, params, fd_due: bool):
+        blocks = draw(self.gen, params, fd_due, lead=(self.s,))
+        return tuple(None if b is None else type(b)(*(getattr(b, f.name)[self.lo:self.hi]
+                                                      for f in dataclasses.fields(b))) for b in blocks)
+
+
+def fleet_draws(gen: torch.Generator, mesh, s: int) -> ScenarioDraws:
+    """The draw source of a sharded fleet of ``s`` scenarios in all: the
+    one-process fleet's draws, each rank's rows."""
+    return ScenarioDraws(gen, mesh, s)
+
+
+def fleet_fold_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A Monte Carlo fold summed over the ranks' scenarios (``all_reduce``;
+    integers cross as int64)."""
+    from .sharding import all_reduce
+
+    wide = x.to(torch.int64) if not x.is_floating_point() else x
+    return all_reduce(wide, "sum", mesh.get_group(FLEET_AXIS)).to(x.dtype)
+
+
+def fleet_gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Per-scenario values ``[S / W, ...]`` of every rank, in scenario order."""
+    from .sharding import gather_rows
+
+    return gather_rows(x, mesh.get_group(FLEET_AXIS))
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ._tensor import first_true, host_flags, keep_columns_, nonzero_fixed, put_drop_, row_chunks, scatter_reduce_1d
+from .sharding import active as _shard
 from .state import NO_CANDIDATE_I32
 
 _I32_MIN = NO_CANDIDATE_I32
@@ -35,6 +36,11 @@ def _need_and_cover(state):
         needs = state.up[lo:hi, None] & (state.joined_at[lo:hi, None] <= state.mr_created[None, :])
         need_m += needs.sum(dim=0, dtype=torch.int32)
         cov_m += (needs & (state.minf_age[lo:hi] > 0)).sum(dim=0, dtype=torch.int32)
+    ctx = _shard()
+    if ctx is not None:
+        # a member mesh counts every rank's rows
+        both = ctx.reduce(torch.stack([need_m, cov_m]), "sum")
+        need_m, cov_m = both[0], both[1]
     return need_m, cov_m
 
 
@@ -119,7 +125,11 @@ def allocate(state, subj_p, key_p, orig_p, got, prio):
     age = state.minf_age.masked_fill(clear[None, :M], 0)
     if D and (need_any or replace_any):
         keep_columns_(state.pending_minf, ~clear[:M])
-    put_drop_(age, (orig_p, slot), torch.ones((E,), dtype=torch.uint8, device=dev), slot < M)
+    # on a member mesh, the origin's cell on the rank that holds its row
+    ctx = _shard()
+    orig = orig_p if ctx is None else orig_p - ctx.lo
+    put_ok = slot < M if ctx is None else (slot < M) & (orig >= 0) & (orig < ctx.L)
+    put_drop_(age, (orig, slot), torch.ones((E,), dtype=torch.uint8, device=dev), put_ok)
 
     def _set(leaf, vals):
         buf = torch.cat([leaf, leaf[:1]])
@@ -158,7 +168,8 @@ def alloc_phase(state, proposals, params):
     valid) from FD verdicts, suspicion expiries, refutations and SYNC
     re-gossip, in that order — into new membership rumors."""
     E = params.announce_slots
-    n = state.capacity
+    ctx = _shard()
+    n = state.capacity if ctx is None else ctx.n  # the proposals name global rows
     subject = torch.cat([p[0] for p in proposals])
     key = torch.cat([p[1] for p in proposals])
     origin = torch.cat([p[2] for p in proposals])

@@ -45,8 +45,12 @@ The causal trace capture (``pview_tick(trace=...)``,
 :func:`make_pview_traced_run`, :func:`tracer_view_cols`) runs on the fused
 tick: JAX's traced tick is its unfused one, whose phases compute the same
 state, and the records need only the per-row accept counts the compact
-SYNC merge returns. Not ported yet, and refused: mesh/ragged delivery
-(A12). The fleet windows (``make_pview_fleet_run``, its fused name,
+SYNC merge returns. On a member mesh (:mod:`.sharding`) the tick runs on
+each rank's rows: the seams below (``_grows``, ``_full``, ``_mine``,
+``_reduce``, ``_capped``) are the identity on one device and the site's
+collective on a mesh, the delivery takes the ragged record exchange, and
+SYNC runs over the gathered tables (:func:`_sync_phase_sharded`). The
+fleet windows (``make_pview_fleet_run``, its fused name,
 ``make_pview_fleet_adaptive_run``) run the fused tick under
 ``torch.func.vmap`` (:mod:`.fleet`).
 """
@@ -102,6 +106,8 @@ from .lattice import (
     precedence_key,
 )
 from .pool import alloc_phase, allocate
+from .sharding import active as _shard
+from .sharding import unsharded as _unsharded
 from .rand import (
     SALT_GOSSIP,
     SALT_SYNC_ACK,
@@ -597,14 +603,20 @@ def view_rows(state: PviewState, rows) -> torch.Tensor:
     """Full-width [W, N] int32 key rows for ``rows``: each row's table
     scattered by subject (-1 where untabled) plus its self record on the
     diagonal."""
-    n = state.capacity
+    n = _gcap(state)
     rows = torch.as_tensor(rows, dtype=torch.int64, device=state.device).reshape(-1)
-    ids = state.nbr_id[rows]
-    keys = _keys_i32(state)[rows]
+    ctx = _shard()
+    local = rows if ctx is None else (rows - ctx.lo).clamp(0, ctx.L - 1)
+    ids = state.nbr_id[local]
+    keys = _keys_i32(state)[local]
     full = torch.full((rows.shape[0], n + 1), UNKNOWN_KEY, dtype=torch.int32, device=state.device)
     full.scatter_reduce_(1, torch.where(ids >= 0, ids, n).long(), keys, "amax", include_self=True)
     full = full[:, :n].clone()
-    full[torch.arange(rows.shape[0], device=state.device), rows] = state.self_key[rows]
+    full[torch.arange(rows.shape[0], device=state.device), rows] = state.self_key[local]
+    if ctx is not None:
+        # each row from the rank that holds it
+        mine = (rows >= ctx.lo) & (rows < ctx.hi)
+        full = ctx.reduce(torch.where(mine[:, None], full, torch.iinfo(torch.int32).min), "max")
     return full
 
 
@@ -613,8 +625,60 @@ def view_rows(state: PviewState, rows) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# -- the member-sharded tick's seams (:mod:`.sharding`): each is the identity
+# -- on one device, and on a mesh the collective its site needs -------------
+
+
+def _grows(state: PviewState) -> torch.Tensor:
+    """int32 global row ids of the state's rows."""
+    ctx = _shard()
+    return _rows(state) if ctx is None else ctx.rows(state.device)
+
+
+def _gcap(state: PviewState) -> int:
+    """N, the global capacity (the state holds L = N / W rows on a mesh)."""
+    ctx = _shard()
+    return state.capacity if ctx is None else ctx.n
+
+
+def _full(x: torch.Tensor) -> torch.Tensor:
+    """All N rows of a member-axis tensor (read at other members' rows)."""
+    ctx = _shard()
+    return x if ctx is None else ctx.full(x)
+
+
+def _reduce(x: torch.Tensor, op: str) -> torch.Tensor:
+    """A value reduced over the ranks (max, min or sum)."""
+    ctx = _shard()
+    return x if ctx is None else ctx.reduce(x, op)
+
+
+def _mine(x: torch.Tensor, op: str) -> torch.Tensor:
+    """A global [N, ...] table written at other members' rows, combined over
+    the ranks; this rank's rows of it."""
+    ctx = _shard()
+    return x if ctx is None else ctx.reduce_mine(x, op)
+
+
+def _capped(mask: torch.Tensor, V: int) -> torch.Tensor:
+    """``mask`` less the entries past the first V in global row order."""
+    pos = torch.cumsum(mask, 0) - 1
+    ctx = _shard()
+    if ctx is not None:
+        pos = pos + ctx.offset(mask.sum())
+    return mask & (pos < V)
+
+
+def _global_props(props):
+    """A phase's re-gossip proposals over all N rows, in global row order
+    (the pool allocation is replicated)."""
+    ctx = _shard()
+    return props if ctx is None else tuple(ctx.full(p) for p in props)
+
+
 def _loss_at(state: PviewState, i, j) -> torch.Tensor:
-    part = state.part_loss[state.part_id[i].long(), state.part_id[j].long()]
+    part_id = _full(state.part_id)
+    part = state.part_loss[part_id[i].long(), part_id[j].long()]
     return torch.maximum(state.loss, part)
 
 
@@ -669,7 +733,7 @@ def _accept_and_place(tick, up_state, rows, sub_id, sub_key, sub_self, subj, can
 
     Returns (new ids, new self records, accept, onehot of the written
     slot); the caller writes the key plane in its own dtype."""
-    n = up_state.capacity
+    n = _gcap(up_state)
     k = sub_id.shape[1]
     subj_c = subj.clamp(0, n - 1)
     to_self = valid & (subj == rows)
@@ -681,7 +745,7 @@ def _accept_and_place(tick, up_state, rows, sub_id, sub_key, sub_self, subj, can
     own = torch.where(to_self, sub_self, own_tab)
     needs_fetch = (cand & 3) == RANK_ALIVE
     u = fetch_uniform(tick, salt, rows, subj_c)
-    fetch_ok = ~needs_fetch | (up_state.up[subj_c] & (u < _rt_at(up_state, rows, subj_c)))
+    fetch_ok = ~needs_fetch | (_full(up_state.up)[subj_c] & (u < _rt_at(up_state, rows, subj_c)))
     accept = (
         (to_self | to_tab)
         & (cand > own)
@@ -710,15 +774,17 @@ def _sus_election(n: int, accept, subj, cand) -> torch.Tensor:
 
 def _apply_records(state: PviewState, subj, cand, valid, salt: int, ka: int):
     """Merge one record per row (``subj``/``cand`` [N] int32, ``valid``
-    [N]) into every row's world. Returns (state, accepted, sus_cand)."""
+    [N]) into every row's world. Returns (state, accepted, sus_cand);
+    ``sus_cand`` is the global [N] election, not yet combined over the
+    ranks of a mesh."""
     kdt = _kdt(state)
-    rows = _rows(state)
+    rows = _grows(state)
     new_id, new_self, accept, onehot = _accept_and_place(
         state.tick, state, rows, state.nbr_id, _keys_i32(state), state.self_key,
         subj, cand, valid, salt, ka,
     )
     new_key = torch.where(onehot, cand[:, None].to(kdt), state.nbr_key)
-    sus_cand = _sus_election(state.capacity, accept, subj, cand)
+    sus_cand = _sus_election(_gcap(state), accept, subj, cand)
     state = state.replace(self_key=new_self, nbr_id=new_id, nbr_key=new_key)
     return state, accept, sus_cand
 
@@ -735,7 +801,9 @@ def _fd_phase(state: PviewState, r: SparseFdRandoms, params: PviewParams, ad=Non
     metrics carry the adaptive evidence (``_ad_*``), with ``trace`` the
     probe internals (``trace_fd``)."""
     n = state.capacity
-    rows = _rows(state)
+    N = _gcap(state)
+    rows = _grows(state)
+    up_all = _full(state.up)
     ka = params.active_slots
     kdt = _kdt(state)
     keys = _keys_i32(state)
@@ -755,7 +823,7 @@ def _fd_phase(state: PviewState, r: SparseFdRandoms, params: PviewParams, ad=Non
         p_direct = _rt_timely(state, rows, tgt, params.fd_direct_timeout_ticks)
     else:
         p_direct = _rt_at(state, rows, tgt)
-    direct_ok = has_tgt & state.up[tgt] & (r.fd_direct < p_direct)
+    direct_ok = has_tgt & up_all[tgt] & (r.fd_direct < p_direct)
 
     relays = tgt_all[:, 1:]
     relay_valid = valid[:, 1:]
@@ -765,23 +833,23 @@ def _fd_phase(state: PviewState, r: SparseFdRandoms, params: PviewParams, ad=Non
         leg = _timely_rt(state.delay_q, state.delay_q, params.fd_leg_timeout_ticks)
         p_relay = p_relay * leg
         p_relay = p_relay * leg
-    relay_ok = relay_valid & state.up[relays] & state.up[tgt_b] & (r.fd_relay < p_relay)
+    relay_ok = relay_valid & up_all[relays] & up_all[tgt_b] & (r.fd_relay < p_relay)
     ack = direct_ok | relay_ok.any(dim=1)
 
     own_key = torch.gather(keys, 1, tgt_slot[:, None].long())[:, 0]
-    alive_key = (state.self_key[tgt] >> 2) << 2
+    alive_key = (_full(state.self_key)[tgt] >> 2) << 2
     suspect_key = ((own_key >> 2) << 2) | RANK_SUSPECT
     cand = torch.where(ack, alive_key, suspect_key)
     accept = has_tgt & (cand > own_key)
-    V = min(n, params.fd_accept_slots or max(64, n // 16))
-    eff = accept & (torch.cumsum(accept, 0) - 1 < V)
+    V = min(N, params.fd_accept_slots or max(64, N // 16))
+    eff = _capped(accept, V)
 
     k = state.nbr_id.shape[1]
     onehot = eff[:, None] & (torch.arange(k, device=state.device)[None, :] == tgt_slot[:, None])
     st = state.replace(nbr_key=torch.where(onehot, cand[:, None].to(kdt), state.nbr_key))
-    sus_cand = scatter_reduce_1d(
-        n, tgt, torch.where(eff & ~ack, cand, NO_CANDIDATE), "amax", NO_CANDIDATE, torch.int32
-    )
+    sus_cand = _mine(scatter_reduce_1d(
+        N, tgt, torch.where(eff & ~ack, cand, NO_CANDIDATE), "amax", NO_CANDIDATE, torch.int32
+    ), "max")
     st = _register_sus(st, sus_cand)
     metrics = {
         "fd_probes": _i32(has_tgt),
@@ -791,9 +859,9 @@ def _fd_phase(state: PviewState, r: SparseFdRandoms, params: PviewParams, ad=Non
     if ad is not None:
         metrics["_ad_miss"] = has_tgt & ~ack
         metrics["_ad_succ"] = has_tgt & ack
-        metrics["_ad_cnt"] = torch.zeros((n,), dtype=torch.int32, device=state.device).index_add_(
+        metrics["_ad_cnt"] = _mine(torch.zeros((N,), dtype=torch.int32, device=state.device).index_add_(
             0, tgt.long(), (eff & ~ack).to(torch.int32)
-        )
+        ), "sum")
         metrics["_ad_key"] = sus_cand
     if trace:
         metrics["trace_fd"] = _fd_trace(tgt, has_tgt, ack, direct_ok, eff & ~ack, relays, relay_valid, relay_ok)
@@ -831,8 +899,8 @@ def _maintenance_sweep(state: PviewState, params: PviewParams, keys_i32=None, ad
 
 
 def _expire(st: PviewState, params: PviewParams, keys_i32, ad=None, trace=None):
-    n = st.capacity
-    rows = _rows(st)
+    n = _gcap(st)
+    rows = _grows(st)
     k = st.nbr_id.shape[1]
     keys = _keys_i32(st) if keys_i32 is None else keys_i32
     sid = st.nbr_id
@@ -842,7 +910,7 @@ def _expire(st: PviewState, params: PviewParams, keys_i32, ad=None, trace=None):
         L = aspec.levels
         base0 = params.log2n * params.fd_every
         num_conf = _adp.conf_mult_num(aspec, ad.conf)  # [N]
-        num = torch.where(keys <= ad.conf_key[sidc], num_conf[sidc], aspec.max_mult * L)
+        num = torch.where(keys <= _full(ad.conf_key)[sidc], _full(num_conf)[sidc], aspec.max_mult * L)
         timeout = torch.div(base0 * num * (1 + ad.lh)[:, None], L, rounding_mode="floor")  # [N, k]
         num_s = torch.where(st.self_key <= ad.conf_key, num_conf, aspec.max_mult * L)
         timeout_s = torch.div(base0 * num_s * (1 + ad.lh), L, rounding_mode="floor")  # [N]
@@ -852,8 +920,8 @@ def _expire(st: PviewState, params: PviewParams, keys_i32, ad=None, trace=None):
     expired = (
         is_sus
         & st.up[:, None]
-        & ((st.tick - st.sus_since[sidc]) >= timeout)
-        & (keys <= st.sus_key[sidc])
+        & ((st.tick - _full(st.sus_since)[sidc]) >= timeout)
+        & (keys <= _full(st.sus_key)[sidc])
     )
     new_keys = torch.where(expired, keys + 1, keys)
     self_expired = (
@@ -863,16 +931,16 @@ def _expire(st: PviewState, params: PviewParams, keys_i32, ad=None, trace=None):
         & (st.self_key <= st.sus_key)
     )
     new_self = torch.where(self_expired, st.self_key + 1, st.self_key)
-    any_suspect_left = (
+    any_suspect_left = _reduce((
         ((new_keys & 3) == RANK_SUSPECT) & st.up[:, None] & (sid >= 0)
-    ).any() | (((new_self & 3) == RANK_SUSPECT) & st.up).any()
+    ).any() | (((new_self & 3) == RANK_SUSPECT) & st.up).any(), "max")
     sus_key = torch.where(any_suspect_left, st.sus_key, NO_CANDIDATE).to(torch.int32)
     sus_since = torch.where(any_suspect_left, st.sus_since, NEVER).to(torch.int32)
     # per-subject announcer election: the lowest expiring observer row
-    first_row = scatter_reduce_1d(
-        n, torch.where(expired, sid, n).reshape(-1), rows[:, None].expand(n, k).reshape(-1),
+    first_row = _reduce(scatter_reduce_1d(
+        n, torch.where(expired, sid, n).reshape(-1), rows[:, None].expand(rows.shape[0], k).reshape(-1),
         "amin", n, torch.int32,
-    )
+    ), "min")
     mine = expired & (first_row[sidc] == rows[:, None])
     any_exp = mine.any(dim=1)
     col = first_true(mine, 1)[:, None]
@@ -883,7 +951,7 @@ def _expire(st: PviewState, params: PviewParams, keys_i32, ad=None, trace=None):
         from ..trace import capture as _tc
 
         # the tracer subjects' expiring table cells (self expiry excluded)
-        exp_cols = torch.stack([(expired & (sid == t)).any(dim=1) for t in trace.tracer_rows], dim=1)
+        exp_cols = _full(torch.stack([(expired & (sid == t)).any(dim=1) for t in trace.tracer_rows], dim=1))
         sus_tr = {"count": exp_cols.sum(dim=0, dtype=torch.int32), "by": _tc._exemplar(exp_cols)}
     st = st.replace(
         nbr_key=new_keys.to(_kdt(st)), self_key=new_self, sus_key=sus_key, sus_since=sus_since
@@ -944,13 +1012,15 @@ def _mr_apply_packed(state: PviewState, recv_m_p, zero_p, params: PviewParams, a
     Returns (state, delivered, accepts, packed bits extracted this tick),
     and with ``adaptive`` the confirmation evidence (accepted SUSPECT
     records per subject, and their max key)."""
-    n = state.capacity
+    n = _gcap(state)
     W = recv_m_p.shape[1]
     dev = state.device
     ka = params.active_slots
 
-    # origin-row exclusion: column c's bit lands in row mr_origin[c]
-    excl_p = origin_words(state, W)
+    # origin-row exclusion: column c's bit lands in row mr_origin[c] (on a
+    # mesh, at its local row on the rank that holds it)
+    ctx = _shard()
+    excl_p = origin_words(state if ctx is None else state.replace(mr_origin=state.mr_origin - ctx.lo), W)
     active_p = pack_bits(state.mr_active[None, :])[0]
     rem0 = recv_m_p & zero_p & ~excl_p & active_p[None, :]
     rem0 = torch.where(state.up[:, None], rem0, 0)
@@ -982,9 +1052,10 @@ def _mr_apply_packed(state: PviewState, recv_m_p, zero_p, params: PviewParams, a
             _count_confirmations(ad_cnt, acc, subj, cand)
         delivered = delivered + _i32(got)
         accepts = accepts + _i32(acc)
+    sus_acc = _mine(sus_acc, "max")
     state = _register_sus(st.replace(minf_age=minf), sus_acc)
     if adaptive:
-        return state, delivered, accepts, rem0 ^ rem_p, {"_ad_cnt": ad_cnt[:n], "_ad_key": sus_acc}
+        return state, delivered, accepts, rem0 ^ rem_p, {"_ad_cnt": _mine(ad_cnt[:n], "sum"), "_ad_key": sus_acc}
     return state, delivered, accepts, rem0 ^ rem_p
 
 
@@ -1011,6 +1082,10 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
     (:func:`._tick.pull_replies`); the kernel sees only their ``inv``.
     ``adaptive`` adds the membership apply's confirmation evidence.
 
+    On a mesh the delivery is the ragged record exchange
+    (:mod:`.ragged_a2a`; no kernel launch), and the metrics carry its
+    ``delivery_overflow``.
+
     Returns ``(state, metrics, fwd_post_p)``."""
     n = state.capacity
     m = params.mr_pool
@@ -1018,7 +1093,8 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
     spread = params.spread_ticks
     W = words_for(m)
     dev = state.device
-    rows = _rows(state)
+    rows = _grows(state)
+    ctx = _shard()
 
     D = params.delay_slots
     # one read: the pools, and with the rings their slot due this tick
@@ -1029,6 +1105,8 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
     if not (u_any or mr_any or pu):
         z = torch.zeros((), dtype=torch.int32, device=dev)
         mets = {k: z for k in _GOSSIP_METRICS}
+        if ctx is not None:
+            mets["delivery_overflow"] = z
         if adaptive:
             mets.update(_no_evidence(n, dev))
         return state, mets, torch.zeros((n, W), dtype=torch.int32, device=dev)
@@ -1065,10 +1143,14 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
         )
     else:
         # circulant targets (DZ-1); the random strategies read the first
-        # try of each pick's rejection block
+        # try of each pick's rejection block (on a mesh: every row's, and
+        # each rank keeps its rows)
+        u_try = r.gossip_try if ctx is None else ctx.draws[1].gossip_try
         peers, peer_valid = dz.structured_peers(
-            spec, n, state.tick, dz.try_stride_uniforms(r.gossip_try, params.sample_tries)
+            spec, _gcap(state), state.tick, dz.try_stride_uniforms(u_try, params.sample_tries)
         )
+        if ctx is not None:
+            peers, peer_valid = ctx.mine(peers), ctx.mine(peer_valid)
     yu_p = pack_bits(young_u)
 
     sender_has = young_u.any(dim=1) | (ym_p != 0).any(dim=1)
@@ -1078,7 +1160,7 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
         peer_valid.T
         & sender_has[None, :]
         & state.up[None, :]
-        & state.up[p_all]
+        & _full(state.up)[p_all]
         & (r.gossip_edge.T < (1.0 - _loss_at(state, rows_b, p_all)))
     )
     sent = _i32(ok_all)
@@ -1088,14 +1170,24 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
         ok_now_all = ok_all & (d_all == 0)
     else:
         ok_now_all = ok_all
-    inv = torch.full((F, n), -1, dtype=torch.int32, device=dev)
-    inv.scatter_reduce_(
-        1, p_all.long(), torch.where(ok_now_all, rows_b, -1), "amax", include_self=True
-    )
-    # the kernel reads the three sender planes in place: no payload copy
-    recv_u, recv_src, recv_m_p, rumor_sent = delivery.delivery_combine(
-        ym_p, yu_p, state.infected_from, inv, state.rumor_origin.contiguous()
-    )
+    if ctx is not None:
+        from .ragged_a2a import ragged_delivery_combine
+
+        payload = torch.cat([ym_p, yu_p, state.infected_from], dim=1)
+        recv_u, recv_src, recv_m_p, rumor_sent, overflow = ragged_delivery_combine(
+            payload, p_all, ok_now_all, state.rumor_origin, W, state.infected_from.shape[1],
+            mesh=ctx.mesh, capacity=ctx.n, budget=ctx.budget,
+        )
+        del payload
+    else:
+        inv = torch.full((F, n), -1, dtype=torch.int32, device=dev)
+        inv.scatter_reduce_(
+            1, p_all.long(), torch.where(ok_now_all, rows_b, -1), "amax", include_self=True
+        )
+        # the kernel reads the three sender planes in place: no payload copy
+        recv_u, recv_src, recv_m_p, rumor_sent = delivery.delivery_combine(
+            ym_p, yu_p, state.infected_from, inv, state.rumor_origin.contiguous()
+        )
     if D:
         recv_u, recv_src, recv_m_p = receive_pending(state, D, pu, pm, recv_u, recv_src, recv_m_p)
     if spec.wants_pull:
@@ -1132,6 +1224,8 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
         "mr_accepts": n_mr_accepts,
         **ev,
     }
+    if ctx is not None:
+        mets["delivery_overflow"] = overflow
     return state, mets, fwd_post_p
 
 
@@ -1319,10 +1413,32 @@ def _sync_phase(state: PviewState, r: SparseRoundRandoms, params: PviewParams, a
     return st, props, metrics
 
 
+#: the leaves SYNC reads at other members' rows, and those it writes
+_SYNC_READS = ("up", "part_id", "nbr_id", "nbr_key", "self_key", "force_sync", "sus_key", "sus_since")
+_SYNC_WRITES = ("nbr_id", "nbr_key", "self_key", "force_sync", "sus_key", "sus_since")
+
+
+def _sync_phase_sharded(state: PviewState, params: PviewParams, adaptive: bool = False, trace: bool = False):
+    """:func:`_sync_phase` on a mesh. Its K callers are compacted over all N
+    rows, their peers and merge partners are anywhere, so every rank runs
+    the phase over the gathered tables it reads and the full draws, and
+    keeps its rows of what it wrote. The proposals, the round-trip count
+    and the trace export come out whole, the same on every rank."""
+    ctx = _shard()
+    full = state.replace(**{k: ctx.full(getattr(state, k)) for k in _SYNC_READS})
+    with _unsharded():
+        st, props, metrics = _sync_phase(full, ctx.draws[1], params, adaptive=adaptive, trace=trace)
+    state = state.replace(**{k: ctx.mine(getattr(st, k)).clone() for k in _SYNC_WRITES})
+    if adaptive:
+        metrics["_ad_cnt"] = ctx.mine(metrics["_ad_cnt"])
+        metrics["_ad_key"] = ctx.mine(metrics["_ad_key"])
+    return state, props, metrics
+
+
 def _refute_phase(state: PviewState, params: PviewParams):
     """Self-record refutation (bump through :func:`.lattice.bump_inc`)."""
-    n = state.capacity
-    rows = _rows(state)
+    n = _gcap(state)
+    rows = _grows(state)
     kdt = _kdt(state)
     diag = state.self_key
     rank = diag & 3
@@ -1330,7 +1446,7 @@ def _refute_phase(state: PviewState, params: PviewParams):
         (rank == RANK_SUSPECT) | (rank == RANK_DEAD) | (state.leaving & (rank != RANK_LEAVING))
     )
     V = min(n, params.refute_slots or max(64, n // 16))
-    eff = need & (torch.cumsum(need, 0) - 1 < V)
+    eff = _capped(need, V)
     announce_rank = torch.where(state.leaving, RANK_LEAVING, RANK_ALIVE).to(kdt)
     bumped = bump_inc(diag.to(kdt), announce_rank).to(torch.int32)
     new_diag = torch.where(eff, bumped, diag)
@@ -1344,11 +1460,11 @@ def _rumor_sweeps_fused(state: PviewState, params: PviewParams, fwd_post_p) -> P
     sweep = params.sweep_ticks
     m = params.mr_pool
     keep_u = (state.tick - state.rumor_created) <= sweep
-    forwarding_u = (
+    forwarding_u = _reduce((
         state.infected
         & state.up[:, None]
         & ((state.tick - state.infected_at) < params.spread_ticks)
-    ).any(dim=0)
+    ).any(dim=0), "max")
     keep_u = keep_u | forwarding_u
     D = params.delay_slots
     if D:
@@ -1359,14 +1475,14 @@ def _rumor_sweeps_fused(state: PviewState, params: PviewParams, fwd_post_p) -> P
     if not mr_any:
         return state
     fwd_words = or_rows(torch.where(state.up[:, None], fwd_post_p, 0))
-    forwarding_m = unpack_bits(fwd_words[None, :], m)[0]
+    forwarding_m = _reduce(unpack_bits(fwd_words[None, :], m)[0], "max")
     keep_m = ((state.tick - state.mr_created) <= sweep) | forwarding_m
     # a rumor with deliveries in flight stays, and is not freed as covered
     pending_m = state.pending_minf.flatten(0, 1).any(dim=0) if D else None
     if D:
         keep_m = keep_m | pending_m
     if params.early_free:
-        covered = covered_columns(state)
+        covered = _reduce(covered_columns(state), "min")
         keep_m = keep_m & ~(covered & ~pending_m) if D else keep_m & ~covered
     keep_m = keep_m & state.mr_active
     freed = state.mr_active & ~keep_m
@@ -1382,15 +1498,17 @@ def _rumor_sweeps_fused(state: PviewState, params: PviewParams, fwd_post_p) -> P
 def state_metrics(state: PviewState, params: PviewParams) -> dict:
     """State-derived health metrics over the table edges."""
     dev = state.device
-    metrics = rumor_metrics(state, params, _i32(state.up))
+    n_up = _reduce(state.up.sum(), "sum").to(torch.int32)
+    metrics = rumor_metrics(state, params, n_up, reduce=_reduce)
     if params.full_metrics:
         keys = _keys_i32(state)
         sid = state.nbr_id
         rank = keys & 3
-        edges = (sid >= 0) & state.up[:, None] & state.up[sid.clamp(min=0)]
-        n_edges = edges.sum().clamp(min=1).to(torch.float32)
-        metrics["alive_view_fraction"] = (edges & (rank == RANK_ALIVE)).sum().to(torch.float32) / n_edges
-        metrics["false_suspect_pairs"] = _i32(edges & (rank == RANK_SUSPECT))
+        edges = (sid >= 0) & state.up[:, None] & _full(state.up)[sid.clamp(min=0)]
+        n_edges = _reduce(edges.sum(), "sum").clamp(min=1).to(torch.float32)
+        n_alive = _reduce((edges & (rank == RANK_ALIVE)).sum(), "sum")
+        metrics["alive_view_fraction"] = n_alive.to(torch.float32) / n_edges
+        metrics["false_suspect_pairs"] = _reduce((edges & (rank == RANK_SUSPECT)).sum(), "sum").to(torch.int32)
     else:
         metrics["alive_view_fraction"] = torch.zeros((), dtype=torch.float32, device=dev)
         metrics["false_suspect_pairs"] = torch.zeros((), dtype=torch.int32, device=dev)
@@ -1403,6 +1521,9 @@ def state_metrics(state: PviewState, params: PviewParams) -> dict:
 
 
 _FD_METRICS = ("fd_probes", "fd_failed_probes", "fd_new_suspects")
+#: the metrics that count this rank's rows on a mesh (the others come out
+#: whole: reduced where they are made, or from replicated leaves)
+_ROW_SUMS = _FD_METRICS + ("gossip_msgs", "rumor_deliveries", "mr_deliveries", "mr_accepts")
 
 
 def pview_tick_fused(state: PviewState, fd_r, round_r: SparseRoundRandoms, params: PviewParams,
@@ -1447,27 +1568,46 @@ def pview_tick_fused(state: PviewState, fd_r, round_r: SparseRoundRandoms, param
             state, props_exp = _maintenance_sweep(state, params, keys_h, ad=ad)
     with _phase(timer, "gossip"):
         state, g_m, fwd_post_p = _gossip_phase_fused(state, round_r, params, adaptive=armed)
+    ctx = _shard()
     with _phase(timer, "sync"):
-        state, props_sync, s_m = _sync_phase(state, round_r, params, adaptive=armed, trace=traced)
+        if ctx is None:
+            state, props_sync, s_m = _sync_phase(state, round_r, params, adaptive=armed, trace=traced)
+        else:
+            state, props_sync, s_m = _sync_phase_sharded(state, params, adaptive=armed, trace=traced)
     with _phase(timer, "refute"):
         state, props_ref = _refute_phase(state, params)
     with _phase(timer, "sweep"):
         state = _rumor_sweeps_fused(state, params, fwd_post_p)
     with _phase(timer, "alloc"):
-        state, a_m = alloc_phase(state, (props_fd, props_exp, props_ref, props_sync), params)
+        state, a_m = alloc_phase(state, (*map(_global_props, (props_fd, props_exp, props_ref)), props_sync),
+                                 params)
     trace_fd = fd_m.pop("trace_fd", None)
     trace_sync = s_m.pop("trace_sync", None)
     with _phase(timer, "telemetry"):
         if armed:
             ad = _fold_evidence(params, ad, fd_m, g_m, s_m, props_ref[3], state.up)
         metrics = {**fd_m, **g_m, **s_m, **a_m, **state_metrics(state, params)}
+        if ctx is not None:
+            # the rows' counts, summed over the ranks in one collective
+            total = _reduce(torch.stack([metrics[k].to(torch.int64) for k in _ROW_SUMS]), "sum")
+            metrics.update(zip(_ROW_SUMS, total.to(torch.int32).unbind(0)))
         if armed:
-            metrics["adaptive_lh_high"] = ad.lh.max()
-            metrics["adaptive_conf_high"] = ad.conf.max()
+            metrics["adaptive_lh_high"] = _reduce(ad.lh.max(), "max")
+            metrics["adaptive_conf_high"] = _reduce(ad.conf.max(), "max")
             return state, ad, metrics
         if traced:
+            refuted = props_ref[3]
+            if ctx is not None:
+                # the ring is whole on every rank: its records come from
+                # every row
+                trace_fd = {k: ctx.full(v) for k, v in trace_fd.items()}
+                refuted = ctx.full(refuted)
+                state_t = state.replace(**{k: ctx.full(getattr(state, k))
+                                           for k in ("up", "infected", "infected_at", "infected_from")})
+            else:
+                state_t = state
             metrics["_trace_rows"] = _sparse_trace_rows(
-                state, trace, fd_ran, trace_fd, trace_sus, props_ref[3], trace_sync
+                state_t, trace, fd_ran, trace_fd, trace_sus, refuted, trace_sync
             )
     return state, metrics
 
@@ -1530,11 +1670,11 @@ def tracer_view_cols(state: PviewState, tracer_rows) -> torch.Tensor:
 
     keys = _keys_i32(state)
     sid = state.nbr_id
-    cols = torch.stack(
+    cols = _full(torch.stack(
         [torch.where(sid == int(t), keys, UNKNOWN_KEY).amax(dim=1) for t in tracer_rows], dim=1
-    )
+    ))
     tr = tracer_index(tracer_rows, state.device)
-    cols[tr, torch.arange(tr.shape[0], device=state.device)] = state.self_key[tr]
+    cols[tr, torch.arange(tr.shape[0], device=state.device)] = _full(state.self_key)[tr]
     return cols
 
 

@@ -1,0 +1,517 @@
+"""Member-axis sharding of the partial-view engine over ``torch.distributed``.
+
+A port of the JAX package's ``ops/sharding.py`` for the pview engine. JAX
+row-shards every ``[N, ...]`` state tensor over a ``"members"`` mesh axis
+and lets GSPMD insert the collectives. PyTorch has no GSPMD: here each rank
+of a process group holds its own rows, and every access across rows is an
+explicit collective, spelled once in :class:`ShardContext` and called from
+the tick at each such site (``ops/pview.py``). The rules:
+
+* **Rows.** Rank r of W holds rows ``[r·L, (r+1)·L)``, L = N / W, of every
+  member-axis leaf (:func:`pview_state_shardings` tags each leaf); the
+  rumor pools, the partition cells, the link scalars and the tick stay
+  whole and identical on every rank. Row ids on the tick are global.
+* **Delivery** is the ragged record exchange (:mod:`.ragged_a2a`), one
+  ``all_to_all_single`` a gossip tick; the delivery kernel is not called
+  on a mesh (JAX refuses Pallas there: its ``sharding.py:328-336``).
+* **Reads of another member's row** are an ``all_gather`` of what the
+  phase reads (the ``up`` / ``part_id`` / ``self_key`` / suspicion
+  vectors, the tracer rows), gathered once per tensor and tick.
+* **Writes to another member's row** (the per-subject elections and
+  evidence counts) are a global ``[N]`` table built on each rank, combined
+  with ``all_reduce`` MAX / MIN / SUM, of which each rank keeps its rows.
+* **SYNC** compacts its K callers over all N rows, so it runs on every rank
+  over the gathered tables it reads (replicated work, as GSPMD's gathers
+  would make it), and each rank keeps its rows of what it wrote.
+* **Global reductions** (metrics, the early-free cover test, the flag
+  reads) are ``all_reduce``; integer metric sums cross in int64.
+* **The pool** stays replicated: the phases' re-gossip proposals are
+  gathered in global row order, so every rank allocates the same slots.
+* **Draws.** Every rank draws the full ``[N, ...]`` uniforms from the same
+  seeded generator and keeps its rows (SYNC reads the callers' rows).
+
+Collectives cross as int32, int64, uint8 or float32 only (gloo and NCCL
+have no int16 or uint32): narrow keys and bool planes travel as bytes.
+
+Sharded windows (:func:`make_sharded_pview_run` and its fused, adaptive
+and traced twins) are bit-identical to the one-process port under the
+default exchange budget; a starved budget drops records as JAX's sharded
+run does and counts them in ``delivery_overflow``.
+
+Not ported yet, and refused by name (ROADMAP A12): the 2-D scenarios ×
+members mesh, the pview delay rings and the push-pull pull leg on a mesh,
+and the sparse and dense sharded windows.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+MEMBER_AXIS = "members"
+
+#: the member-axis dimension of a leaf, by its tag (None: replicated)
+ROW, RING, REPLICATED = 0, 1, None
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP A12)")
+
+
+# ---------------------------------------------------------------------------
+# meshes
+# ---------------------------------------------------------------------------
+
+
+def make_mesh(devices=None):
+    """A 1-D ``"members"`` device mesh over every rank of the default
+    process group (:func:`.dcn.initialize` starts it: gloo for CPU tensors,
+    NCCL for CUDA ones). ``devices`` is the device type, ``"cuda"`` by
+    default as for every entry point of the port, or ``"cpu"``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs a process group: call ops.dcn.initialize first")
+    device_type = "cuda" if devices is None else str(devices)
+    return init_device_mesh(device_type, (dist.get_world_size(),), mesh_dim_names=(MEMBER_AXIS,))
+
+
+def member_mesh_size(mesh) -> int:
+    """The member-axis extent of ``mesh``: the ``"members"`` dimension's
+    size, or the whole mesh's for a mesh without named dimensions."""
+    names = mesh.mesh_dim_names or ()
+    if MEMBER_AXIS in names:
+        return mesh.size(names.index(MEMBER_AXIS))
+    return mesh.size()
+
+
+def _check_member_mesh(mesh) -> None:
+    """Only a 1-D ``"members"`` mesh is ported: a 2-D scenarios × members
+    mesh, or anything else passed as one, is refused by name."""
+    names = getattr(mesh, "mesh_dim_names", None) or (MEMBER_AXIS,)
+    if getattr(mesh, "ndim", None) != 1 or tuple(names) != (MEMBER_AXIS,):
+        _not_ported(f"a mesh with dimensions {getattr(mesh, 'mesh_dim_names', None)} (only a 1-D "
+                    f"'{MEMBER_AXIS}' mesh runs; the 2-D scenarios x members mesh)")
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's shards live on."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _check_pview_word_alignment(mesh, params) -> None:
+    """Pview mesh preconditions, as JAX states them: plain row divisibility,
+    and the 32-row word rule (the packed member-axis bit planes must split
+    on word boundaries)."""
+    size = member_mesh_size(mesh)
+    if params.capacity % size != 0:
+        raise ValueError(f"capacity {params.capacity} not divisible by mesh size {size}")
+    if params.capacity % (32 * size) != 0:
+        raise ValueError(
+            f"capacity {params.capacity} must be divisible by 32 * mesh size "
+            f"({32 * size}): the pview packed bit planes must align "
+            "with the row shards (pad capacity up and leave the extra rows "
+            "up=False — masks make padding free)"
+        )
+
+
+def _refuse_on_mesh(params) -> None:
+    """What the sharded pview windows do not run yet."""
+    if params.delay_slots > 0:
+        _not_ported("delay_slots > 0 on a mesh (late_deliveries_ writes into remote receivers' rings)")
+    if params.dissem.wants_pull:
+        _not_ported("the push-pull pull leg on a mesh (pull_replies is a reverse delivery)")
+
+
+# ---------------------------------------------------------------------------
+# leaf placement
+# ---------------------------------------------------------------------------
+
+
+def pview_state_shardings(mesh, dense_links: bool = False, delay_slots: int = 0):
+    """A ``PviewState``-shaped record of each leaf's placement: :data:`ROW`
+    (split on dim 0), :data:`RING` (the ``[D, N, ...]`` rings, split on dim
+    1) or :data:`REPLICATED` (whole on every rank: the pools, the scalar
+    link model, the partition cells, the tick). ``dense_links`` must be
+    falsy: the engine has no [N, N] link plane."""
+    from .pview import PviewState
+
+    if dense_links:
+        raise ValueError("the pview engine has no [N, N] link plane (dense_links must be False/None)")
+    ring = RING if delay_slots else REPLICATED
+    tags = {f.name: ROW for f in dataclasses.fields(PviewState)}
+    for name in ("tick", "mr_active", "mr_subject", "mr_key", "mr_created", "mr_origin",
+                 "rumor_active", "rumor_origin", "rumor_created", "loss", "delay_q", "part_loss"):
+        tags[name] = REPLICATED
+    for name in ("pending_minf", "pending_inf", "pending_src"):
+        tags[name] = ring
+    return PviewState(**tags)
+
+
+def _rank_rows(mesh, n: int) -> tuple[int, int]:
+    size = member_mesh_size(mesh)
+    if n % size:
+        raise ValueError(f"capacity {n} not divisible by member-mesh size {size}")
+    L = n // size
+    r = mesh.get_local_rank(MEMBER_AXIS) if MEMBER_AXIS in (mesh.mesh_dim_names or ()) else mesh.get_rank()
+    return r * L, (r + 1) * L
+
+
+def shard_pview_state(state, mesh):
+    """This rank's shard of a whole pview state (on any device): its rows of
+    every member-axis leaf, the replicated leaves whole, all copied onto
+    the mesh's device."""
+    _check_member_mesh(mesh)
+    tags = pview_state_shardings(mesh, False, state.pending_minf.shape[0])
+    lo, hi = _rank_rows(mesh, state.capacity)
+    dev = mesh_device(mesh)
+    out = {}
+    for f in dataclasses.fields(state):
+        leaf, tag = getattr(state, f.name), getattr(tags, f.name)
+        if not isinstance(leaf, torch.Tensor):
+            out[f.name] = leaf
+            continue
+        if tag is not REPLICATED:
+            leaf = leaf[lo:hi] if tag == ROW else leaf[:, lo:hi]
+        out[f.name] = leaf.to(device=dev, memory_format=torch.contiguous_format, copy=True)
+    return type(state)(**out)
+
+
+def gather_pview_state(state, mesh):
+    """The whole state from its shards, identical on every rank (an
+    ``all_gather`` per member-axis leaf): what the driver's host mutators
+    and host reads run on."""
+    _check_member_mesh(mesh)
+    group = mesh.get_group(MEMBER_AXIS)
+    tags = pview_state_shardings(mesh, False, state.pending_minf.shape[0])
+    out = {}
+    for f in dataclasses.fields(state):
+        leaf, tag = getattr(state, f.name), getattr(tags, f.name)
+        if tag is REPLICATED or not isinstance(leaf, torch.Tensor):
+            out[f.name] = leaf
+        elif tag == ROW:
+            out[f.name] = gather_rows(leaf, group)
+        else:
+            out[f.name] = gather_rows(leaf.transpose(0, 1), group).transpose(0, 1).contiguous()
+    return type(state)(**out)
+
+
+def shard_adaptive_state(ad, mesh):
+    """This rank's rows of a whole adaptive state (its three planes are [N]
+    member-axis tensors)."""
+    from ..adaptive import AdaptiveState
+
+    lo, hi = _rank_rows(mesh, ad.lh.shape[0])
+    dev = mesh_device(mesh)
+    return AdaptiveState(*(getattr(ad, k)[lo:hi].to(device=dev, copy=True) for k in ("lh", "conf_key", "conf")))
+
+
+def replicated_sharding(mesh):
+    """The placement of every telemetry tensor: whole on every rank."""
+    return REPLICATED
+
+
+def place_replicated(x, mesh):
+    """``x`` on the mesh's device, whole on every rank."""
+    return x.to(mesh_device(mesh))
+
+
+# ---------------------------------------------------------------------------
+# collectives (gloo and NCCL take int32, int64, uint8 and float32)
+# ---------------------------------------------------------------------------
+
+_WIRE = (torch.int32, torch.int64, torch.uint8, torch.float32)
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """``all_gather`` of each rank's ``[L, ...]`` rows into ``[W·L, ...]``
+    in rank order. A dtype the collectives lack crosses as its bytes."""
+    world = dist.get_world_size(group)
+    x = x.contiguous()
+    wire = x if x.dtype in _WIRE else x.view(torch.uint8)
+    out = torch.empty((world * wire.shape[0],) + tuple(wire.shape[1:]), dtype=wire.dtype, device=x.device)
+    # the list form exists and is current on every torch the port runs on
+    dist.all_gather(list(out.view((world,) + tuple(wire.shape)).unbind(0)), wire, group=group)
+    if wire is x:
+        return out
+    return out.view(x.dtype).reshape((world * x.shape[0],) + tuple(x.shape[1:]))
+
+
+_OPS = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN, "sum": dist.ReduceOp.SUM}
+
+
+def all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    """A reduced copy of ``x`` (``op``: max, min or sum); bools reduce as
+    bytes (max = any, min = all)."""
+    if x.dtype == torch.bool:
+        y = x.to(torch.uint8)
+        dist.all_reduce(y, op=_OPS[op], group=group)
+        return y.bool()
+    if x.dtype not in _WIRE:
+        raise TypeError(f"all_reduce of {x.dtype}: widen it first")
+    y = x.clone()
+    dist.all_reduce(y, op=_OPS[op], group=group)
+    return y
+
+
+class ShardContext:
+    """This rank's view of a member-sharded tick: its rows ``[lo, hi)`` of N,
+    the group, the exchange budget, and per tick the full draws and the
+    gathered tensors (each gathered once per tick)."""
+
+    def __init__(self, mesh, capacity: int, budget: Optional[int] = None):
+        _check_member_mesh(mesh)
+        self.mesh = mesh
+        self.group = mesh.get_group(MEMBER_AXIS)
+        self.size = member_mesh_size(mesh)
+        self.n = int(capacity)
+        self.lo, self.hi = _rank_rows(mesh, self.n)
+        self.L = self.hi - self.lo
+        self.rank = self.lo // self.L
+        self.budget = budget
+        self.draws = (None, None)
+        self._cache: dict = {}
+        self._rows: dict = {}
+
+    # -- per tick ----------------------------------------------------------
+    def begin_tick(self, fd, rd) -> None:
+        self.draws = (fd, rd)
+        self._cache.clear()
+
+    def local_draws(self, r):
+        """This rank's rows of a draw block (every leaf is [N, ...])."""
+        if r is None:
+            return None
+        return type(r)(*(getattr(r, f.name)[self.lo:self.hi] for f in dataclasses.fields(r)))
+
+    def rows(self, device) -> torch.Tensor:
+        """int32 [L]: this rank's global row ids."""
+        key = torch.device(device)
+        if key not in self._rows:
+            self._rows[key] = torch.arange(self.lo, self.hi, dtype=torch.int32, device=key)
+        return self._rows[key]
+
+    # -- collectives ---------------------------------------------------------
+    def full(self, x: torch.Tensor) -> torch.Tensor:
+        """All N rows of a member-axis tensor (gathered once per tick)."""
+        hit = self._cache.get(id(x))
+        if hit is not None and hit[0] is x:
+            return hit[1]
+        out = gather_rows(x, self.group)
+        self._cache[id(x)] = (x, out)
+        return out
+
+    def reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        return all_reduce(x, op, self.group)
+
+    def mine(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global [N, ...] table."""
+        return x[self.lo:self.hi]
+
+    def reduce_mine(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        """A global [N, ...] table built on each rank, combined, and this
+        rank's rows of it."""
+        return self.mine(self.reduce(x, op))
+
+    def offset(self, count: torch.Tensor) -> torch.Tensor:
+        """The sum of ``count`` over the ranks before this one (int64)."""
+        counts = gather_rows(count.reshape(1).to(torch.int64), self.group)
+        return counts[: self.rank].sum()
+
+    def flags(self, flags: list) -> list:
+        """Host flags OR-ed over the ranks (one collective for all of them),
+        so every rank takes the same branch."""
+        return list(self.reduce(torch.stack([f.reshape(()) for f in flags]), "max").unbind(0))
+
+
+#: the armed context of the tick running here (None: unsharded)
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("member_mesh", default=None)
+
+
+def active() -> Optional[ShardContext]:
+    """The :class:`ShardContext` of the sharded tick running here, or None."""
+    return _ACTIVE.get()
+
+
+@contextlib.contextmanager
+def _armed(ctx: Optional[ShardContext]):
+    token = _ACTIVE.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _ACTIVE.reset(token)
+
+
+def ragged_delivery_context(mesh, capacity: int, budget: Optional[int] = None):
+    """Arm the member-sharded tick on this rank (the JAX context of the same
+    name): the pview tick's cross-row sites take their collectives, its
+    host flags are OR-ed over the ranks, and its delivery takes the ragged
+    exchange with the per-(src, dst) ``budget`` (None: the lossless
+    default). The driver arms it around its host reads of the rows too."""
+    return _armed(ShardContext(mesh, capacity, budget))
+
+
+def unsharded():
+    """Suspend the armed context: code inside runs on whole tensors."""
+    return _armed(None)
+
+
+# ---------------------------------------------------------------------------
+# the sharded pview windows
+# ---------------------------------------------------------------------------
+
+
+def _sharded_tick(state, fd, rd, params, **kw):
+    """The fused pview tick on this rank's rows: the full draws go to the
+    context (SYNC and the structured peers read them), the rows' slices to
+    the tick."""
+    from .pview import pview_tick_fused
+
+    ctx = active()
+    ctx.begin_tick(fd, rd)
+    return pview_tick_fused(state, ctx.local_draws(fd), ctx.local_draws(rd), params, **kw)
+
+
+def _builder_checks(mesh, params, budget) -> None:
+    from .ragged_a2a import check_budget
+
+    _check_member_mesh(mesh)
+    _check_pview_word_alignment(mesh, params)
+    _refuse_on_mesh(params)
+    check_budget(params.fanout, params.capacity, member_mesh_size(mesh), budget)
+
+
+def _window(mesh, params, n_ticks: int, budget, **kw):
+    from ._tick import run_window
+    from .pview import view_rows
+    from .rand import draw_sparse_tick
+
+    def run(state, draws, watch_rows=None, ad=None, ring=None):
+        with ragged_delivery_context(mesh, params.capacity, budget):
+            return run_window(_sharded_tick, view_rows, draw_sparse_tick, state, draws, n_ticks, params,
+                              watch_rows, ad=ad, ring=ring, **kw)
+
+    return run
+
+
+def make_sharded_pview_run(mesh, params, n_ticks: int, a2a_budget: Optional[int] = None):
+    """The sharded pview window ``run(state, draws, watch_rows=None) ->
+    (state, metrics, watched)`` over ``mesh``: ``state`` is this rank's
+    shard (:func:`shard_pview_state`), ``draws`` the generator or the
+    per-tick full draws every rank shares; metrics and watched rows come
+    out whole and identical on every rank, with ``delivery_overflow``
+    added. ``a2a_budget`` is the exchange's per-(src, dst) record budget
+    (None: the lossless default). The port has one tick spelling, so the
+    unfused and fused windows are this one."""
+    _builder_checks(mesh, params, a2a_budget)
+    win = _window(mesh, params, n_ticks, a2a_budget)
+    return lambda state, draws, watch_rows=None: win(state, draws, watch_rows)
+
+
+make_sharded_pview_fused_run = make_sharded_pview_run
+
+
+def make_sharded_pview_adaptive_run(mesh, params, n_ticks: int, a2a_budget: Optional[int] = None):
+    """The sharded adaptive window ``run(state, ad, draws, watch_rows=None)
+    -> (state, ad, metrics, watched)``; ``ad`` is this rank's rows
+    (:func:`shard_adaptive_state`). Refuses a default spec."""
+    _builder_checks(mesh, params, a2a_budget)
+    if params.adaptive.is_default:
+        raise ValueError(
+            "make_sharded_pview_adaptive_run needs an enabled AdaptiveSpec on params — the default "
+            "spec's program is make_sharded_pview_run's"
+        )
+    win = _window(mesh, params, n_ticks, a2a_budget)
+    return lambda state, ad, draws, watch_rows=None: win(state, draws, watch_rows, ad=ad)
+
+
+def make_sharded_pview_traced_run(mesh, params, n_ticks: int, trace, a2a_budget: Optional[int] = None):
+    """The sharded trace-armed window ``run(state, ring, draws,
+    watch_rows=None)``: the trace ring stays whole on every rank, and each
+    tick appends the same record block on every rank (built from the
+    gathered tracer rows)."""
+    _builder_checks(mesh, params, a2a_budget)
+    if not params.adaptive.is_default:
+        raise ValueError("trace-armed adaptive windows are not supported")
+    win = _window(mesh, params, n_ticks, a2a_budget, trace=trace)
+    return lambda state, ring, draws, watch_rows=None: win(state, draws, watch_rows, ring=ring)
+
+
+# ---------------------------------------------------------------------------
+# the telemetry row on a mesh
+# ---------------------------------------------------------------------------
+
+
+def make_sharded_metric_append(mesh):
+    """The ring append on a mesh: the row is whole on every rank, so each
+    rank writes its own copy of the ring in place (no collective)."""
+    return lambda ring, row: ring.append(row)
+
+
+def make_sharded_telemetry_row(mesh, row_fn):
+    """``row_fn`` (the plane's window row) on a mesh: its inputs are the
+    sharded window's all-reduced metrics and the replicated pool leaves,
+    so the row is the same on every rank; an ``all_reduce`` MAX pins it
+    there (a no-op on equal rows)."""
+    group = mesh.get_group(MEMBER_AXIS)
+
+    def row(*args, **kwargs):
+        return all_reduce(row_fn(*args, **kwargs), "max", group)
+
+    return row
+
+
+# ---------------------------------------------------------------------------
+# refused by name (ROADMAP A12)
+# ---------------------------------------------------------------------------
+
+
+def make_pview_mesh2d(n_scenarios: int, devices=None):
+    _not_ported("make_pview_mesh2d (the 2-D scenarios x members mesh)")
+
+
+def shard_pview_fleet(fleet_state, mesh):
+    _not_ported("shard_pview_fleet (the 2-D scenarios x members mesh)")
+
+
+def make_sharded_pview_fleet_run(mesh, params, n_ticks: int, a2a_budget=None):
+    _not_ported("make_sharded_pview_fleet_run (the 2-D scenarios x members mesh)")
+
+
+def state_shardings(mesh, dense_links: bool = True, delay_slots: int = 0):
+    _not_ported("the dense engine's sharded state (state_shardings)")
+
+
+def shard_state(state, mesh):
+    _not_ported("the dense engine's sharded state (shard_state)")
+
+
+def make_sharded_tick(mesh, params, dense_links: bool = True):
+    _not_ported("the dense engine's sharded tick (make_sharded_tick)")
+
+
+def make_sharded_run(mesh, params, n_ticks: int, dense_links: bool = True):
+    _not_ported("the dense engine's sharded window (make_sharded_run)")
+
+
+def sparse_state_shardings(mesh, dense_links: bool = False, delay_slots: int = 0):
+    _not_ported("the sparse engine's sharded state (sparse_state_shardings)")
+
+
+def shard_sparse_state(state, mesh):
+    _not_ported("the sparse engine's sharded state (shard_sparse_state)")
+
+
+def make_sharded_sparse_tick(mesh, params, dense_links: bool = False):
+    _not_ported("the sparse engine's sharded tick (make_sharded_sparse_tick)")
+
+
+def make_sharded_sparse_run(mesh, params, n_ticks: int):
+    _not_ported("the sparse engine's sharded window (make_sharded_sparse_run)")

@@ -50,12 +50,22 @@ The driver builds its window from ``params`` at every step (a window is a
 Python loop over the tick, not a compiled program), so it keeps no window
 cache: a knob swap is a replacement of ``params``.
 
-Not ported yet, and refused by name: meshes (ROADMAP A12), the
-compile-cache audit (A13).
+On a member mesh (``mesh=``, :mod:`..ops.sharding`; the pview engine only)
+the driver is SPMD: every rank runs the same script with the same seed and
+holds its rows of the state; the windows are the sharded ones, a host
+mutation runs on the whole state (gathered) and each rank keeps its rows,
+and a host read (views, statuses, events, coverage) returns the same whole
+value on every rank, with the readbacks of the unsharded driver.
+
+Not ported yet, and refused by name: the sparse and dense engines, the
+2-D scenarios x members mesh, and the control plane, ``run_scenario``, the
+profiler and checkpoints on a mesh (ROADMAP A12); the compile-cache audit
+(A13).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import tempfile
@@ -187,33 +197,44 @@ class SimDriver:
         source: a callable that takes a window's tick count and returns that
         many per-tick ``(fd, round)`` draw pairs (the parity tests replay
         the JAX driver's own key chain through it)."""
-        if mesh is not None:
-            _not_ported("a sharded driver (mesh=)", "A12")
-        self.mesh = None
         if compile_cache_dir:
             _not_ported("the compile-cache directory", "A13")
-        self.device = torch.device(device)
+        self.params = params
+        self._eng = engine_api.resolve(params)
+        self.engine = self._eng.name
+        self._ops = self._eng.ops
+        self.mesh = mesh
+        if mesh is not None:
+            from ..ops import sharding
+
+            if not self._eng.supports_mesh:
+                _not_ported(f"a sharded {self.engine} driver (mesh=)", "A12")
+            sharding._check_member_mesh(mesh)
+            self.device = sharding.mesh_device(mesh)
+            if torch.device(device).type != self.device.type:
+                raise ValueError(f"device={device!r} but the mesh is on {mesh.device_type}")
+        else:
+            self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "SimDriver(device='cuda') needs a CUDA device; pass device='cpu' "
                 "to run on the host"
             )
-        self.params = params
-        self._eng = engine_api.resolve(params)
-        self.engine = self._eng.name
-        self._ops = self._eng.ops
         self.record_metrics = record_metrics
         if dense_links is None:
             dense_links = self._eng.dense_links_default
-        self.state = self._eng.init_state(params, n_initial, warm, dense_links, self.device)
+        if mesh is None:
+            self.state = self._eng.init_state(params, n_initial, warm, dense_links, self.device)
+        else:
+            # every rank builds the same init on the host and keeps its rows
+            self.state = self._eng.shard_state(self._eng.init_state(params, n_initial, warm, dense_links, "cpu"),
+                                               mesh)
         self._dense_links = self.state.loss.dim() != 0
         # an enabled AdaptiveSpec on params arms the adaptive plane; the
         # driver owns its state and threads it through the adaptive window
         self._ad = None
         if not params.adaptive.is_default:
-            from ..adaptive import init_adaptive_state
-
-            self._ad = init_adaptive_state(params.capacity, device=self.device)
+            self._ad = self._init_adaptive()
         self._chaos = None  # the armed DriverChaosRunner, if any
         # the armed telemetry plane (a pure consumer: arming never changes
         # the trajectory nor adds a per-window transfer), or None
@@ -284,6 +305,68 @@ class SimDriver:
         # plane's rumor-spread histogram reads them at flush time)
         self._rumor_spread_pending: Dict[int, int] = {}
 
+    # -- the member mesh ------------------------------------------------------
+    def _mesh_ctx(self):
+        """The sharded tick's context for a host read of this rank's rows
+        (a no-op off a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from ..ops.sharding import ragged_delivery_context
+
+        return ragged_delivery_context(self.mesh, self.params.capacity)
+
+    def _whole(self, x: torch.Tensor) -> torch.Tensor:
+        """All N rows of a member-axis tensor (gathered on a mesh)."""
+        if self.mesh is None:
+            return x
+        from ..ops.sharding import MEMBER_AXIS, gather_rows
+
+        return gather_rows(x, self.mesh.get_group(MEMBER_AXIS))
+
+    def _whole_state(self, *names):
+        """The state with the member-axis leaves ``names`` whole (on a mesh;
+        the rest stay this rank's rows)."""
+        if self.mesh is None:
+            return self.state
+        return self.state.replace(**{k: self._whole(getattr(self.state, k)) for k in names})
+
+    def _apply(self, fn) -> None:
+        """A host mutation ``fn(state) -> state``. On a mesh it runs on the
+        whole state, the same on every rank, and each rank keeps its rows."""
+        if self.mesh is None:
+            self.state = fn(self.state)
+        else:
+            whole = self._eng.gather_state(self.state, self.mesh)
+            self.state = self._eng.shard_state(fn(whole), self.mesh)
+
+    def _init_adaptive(self):
+        from ..adaptive import init_adaptive_state
+
+        ad = init_adaptive_state(self.params.capacity, device=self.device)
+        if self.mesh is not None:
+            from ..ops.sharding import shard_adaptive_state
+
+            ad = shard_adaptive_state(ad, self.mesh)
+        return ad
+
+    def _refuse_on_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            _not_ported(f"{what} on a mesh", "A12")
+
+    def _window(self, n_ticks: int):
+        """The window this step runs: traced, adaptive or plain, sharded on
+        a mesh."""
+        eng, p, mesh = self._eng, self.params, self.mesh
+        if self._trace is not None:
+            if mesh is not None:
+                return eng.make_sharded_traced_run(mesh, p, n_ticks, self._trace.spec)
+            return eng.make_traced_run(p, n_ticks, self._trace.spec)
+        if self._ad is not None:
+            return eng.make_sharded_adaptive_run(mesh, p, n_ticks) if mesh is not None else eng.make_adaptive_run(
+                p, n_ticks)
+        return eng.make_sharded_run(mesh, p, n_ticks, self._dense_links) if mesh is not None else eng.make_run(
+            p, n_ticks)
+
     # -- time ---------------------------------------------------------------
     @property
     def tick(self) -> int:
@@ -310,17 +393,15 @@ class SimDriver:
         watch_arr = torch.tensor(rows, dtype=torch.int64, device=self.device) if rows else None
         source = self._gen if self._draws is None else self._draws(n_ticks)
         t0 = time.perf_counter()
+        step = self._window(n_ticks)
         if self._trace is not None:
             # the traced window appends each tick's records to the ring in
             # place at its host cursor; the window-boundary summary follows
-            step = self._eng.make_traced_run(self.params, n_ticks, self._trace.spec)
             self.state, ms, watched = step(self.state, self._trace.ring, source, watch_rows=watch_arr)
             self._trace.on_window(self.state)
         elif self._ad is not None:
-            step = self._eng.make_adaptive_run(self.params, n_ticks)
             self.state, self._ad, ms, watched = step(self.state, self._ad, source, watch_rows=watch_arr)
         else:
-            step = self._eng.make_run(self.params, n_ticks)
             self.state, ms, watched = step(self.state, source, watch_rows=watch_arr)
         dispatch_s = time.perf_counter() - t0
         ds = self.dispatch_stats
@@ -482,7 +563,8 @@ class SimDriver:
 
     # -- membership events (host-side diff of watched rows) ----------------
     def _view_row_host(self, row: int) -> np.ndarray:
-        return self._eng.view_row(self.state, row).cpu().numpy()
+        with self._mesh_ctx():
+            return self._eng.view_row(self.state, row).cpu().numpy()
 
     def watch(self, row: int) -> EventStream:
         """Start emitting MembershipEvents as observed by node ``row``."""
@@ -554,14 +636,15 @@ class SimDriver:
             return self._join_locked(seed_rows)
 
     def _join_locked(self, seed_rows: Sequence[int]) -> int:
-        up = self.state.up.cpu().numpy()
+        whole = self._whole_state("up", "nbr_id")
+        up = whole.up.cpu().numpy()
         free = np.nonzero(~up)[0]
         if len(free) == 0:
             raise RuntimeError("no free rows (capacity exhausted)")
-        remembered = self._eng.remembered_rows(self.state).cpu().numpy()
+        remembered = self._eng.remembered_rows(whole).cpu().numpy()
         forgotten = free[~remembered[free]]
         row = int(forgotten[0]) if len(forgotten) else int(free[0])
-        self.state = self._ops.join_row(self.state, row, tuple(seed_rows))
+        self._apply(lambda st: self._ops.join_row(st, row, tuple(seed_rows)))
         # a restart reuses the row but is a NEW member identity
         self.members[row] = Member(id=f"sim-{self._next_member_ordinal}", address=row_address(row))
         self._next_member_ordinal += 1
@@ -584,13 +667,13 @@ class SimDriver:
 
     def crash(self, row: int) -> None:
         with self._lock:
-            self.state = self._ops.crash_row(self.state, row)
+            self._apply(lambda st: self._ops.crash_row(st, row))
             self._rumor_cov_dirty = True
             self._publish("driver", "crash", row=row)
 
     def leave(self, row: int, crash_after_ticks: int = 0) -> None:
         with self._lock:
-            self.state = self._ops.begin_leave(self.state, row)
+            self._apply(lambda st: self._ops.begin_leave(st, row))
             self._publish("driver", "leave", row=row)
         if crash_after_ticks:
             self.step(crash_after_ticks)
@@ -598,13 +681,17 @@ class SimDriver:
 
     def update_metadata(self, row: int) -> None:
         with self._lock:
-            self.state = self._ops.update_metadata(self.state, row)
+            self._apply(lambda st: self._ops.update_metadata(st, row))
 
     def update_metadata_batch(self, rows: Sequence[int]) -> None:
         """Metadata bumps for a batch of rows, in order."""
         with self._lock:
-            for row in rows:
-                self.state = self._ops.update_metadata(self.state, int(row))
+            def batch(st):
+                for row in rows:
+                    st = self._ops.update_metadata(st, int(row))
+                return st
+
+            self._apply(batch)
 
     # -- rumors (spreadGossip) ----------------------------------------------
     def spread_rumor(self, origin: int, payload: object) -> int:
@@ -613,7 +700,7 @@ class SimDriver:
         one readback to reclaim slots the device sweep has freed."""
         with self._lock:
             slot = self._claim_rumor_slot_locked()
-            self.state = self._ops.spread_rumor(self.state, slot, origin)
+            self._apply(lambda st: self._ops.spread_rumor(st, slot, origin))
             self._rumor_payloads[slot] = payload
             self._rumor_cov_dirty = True  # the cached coverage predates this rumor
             self._rumor_spread_pending[slot] = self._host_tick
@@ -637,9 +724,10 @@ class SimDriver:
         with self._lock:
             self._flush_locked()
             if self._rumor_cov_host is None or self._rumor_cov_dirty:
-                up = self.state.up
+                whole = self._whole_state("up", "infected")
+                up = whole.up
                 # the dense engine stores the infection bits packed
-                infected = getattr(self.state, "infected_bool", self.state.infected)
+                infected = getattr(whole, "infected_bool", whole.infected)
                 cov = (infected & up[:, None]).sum(dim=0).to(torch.float32) / (
                     up.sum().clamp(min=1).to(torch.float32)
                 )
@@ -655,21 +743,21 @@ class SimDriver:
     # -- plane; link delay needs the dense engine's rings) ---------------------
     def set_link_loss(self, src, dst, loss: float) -> None:
         with self._lock:
-            self.state = self._ops.set_link_loss(self.state, src, dst, loss)
+            self._apply(lambda st: self._ops.set_link_loss(st, src, dst, loss))
 
     def set_link_delay(self, src, dst, mean_delay_ticks: float) -> None:
         """Outbound mean delay in ticks on the links src -> dst (the dense
         engine with ``params.delay_slots > 0``)."""
         with self._lock:
-            self.state = self._ops.set_link_delay(self.state, src, dst, mean_delay_ticks)
+            self._apply(lambda st: self._ops.set_link_delay(st, src, dst, mean_delay_ticks))
 
     def block_partition(self, group_a, group_b) -> None:
         with self._lock:
-            self.state = self._ops.block_partition(self.state, group_a, group_b)
+            self._apply(lambda st: self._ops.block_partition(st, group_a, group_b))
 
     def heal_partition(self, group_a, group_b) -> None:
         with self._lock:
-            self.state = self._ops.heal_partition(self.state, group_a, group_b)
+            self._apply(lambda st: self._ops.heal_partition(st, group_a, group_b))
 
     def link_loss(self, src: int, dst: int) -> float:
         """Loss on the link src -> dst: the uniform scalar where the engine
@@ -688,13 +776,13 @@ class SimDriver:
         return status, inc
 
     def status_of(self, observer: int, subject: int) -> MemberStatus | None:
-        with self._lock:
+        with self._lock, self._mesh_ctx():
             s = _status_of_key(int(self._eng.view_row(self.state, observer)[subject]))
         return None if s == UNKNOWN else MemberStatus(s)
 
     def is_up(self, row: int) -> bool:
         with self._lock:
-            return bool(self.state.up[row])
+            return bool(self._whole(self.state.up)[row])
 
     # -- engine health ------------------------------------------------------
     def health_snapshot(self) -> dict:
@@ -711,7 +799,8 @@ class SimDriver:
     def _health_snapshot_locked(self) -> dict:
         self._health_interest = True
         self._flush_locked()
-        stale, n_up = self._eng.staleness(self.state)
+        whole = self._whole_state("up", "nbr_id", "nbr_key", "self_key")
+        stale, n_up = self._eng.staleness(whole)
         stale = stale.cpu().numpy()
         n_up = int(n_up)
         observers = max(n_up - 1, 1)
@@ -722,7 +811,7 @@ class SimDriver:
         cohorts = [
             {"row": r, "age_ticks": tick - t, "coverage": round(1.0 - float(stale[r]) / observers, 4)}
             for (t, r) in self._recent_joins
-            if bool(self.state.up[r])
+            if bool(whole.up[r])
         ]
         cov = self._rumor_cov_host
         out = {
@@ -898,7 +987,7 @@ class SimDriver:
         already agree."""
         import dataclasses
 
-        from ..adaptive import AdaptiveSpec, init_adaptive_state
+        from ..adaptive import AdaptiveSpec
 
         with self._lock:
             cur = self.params.adaptive
@@ -910,7 +999,7 @@ class SimDriver:
             if not spec.is_default and self._trace is not None:
                 raise ValueError("trace capture and adaptive failure detection cannot share a driver yet")
             self.params = dataclasses.replace(self.params, adaptive=spec)
-            self._ad = None if spec.is_default else init_adaptive_state(self.params.capacity, device=self.device)
+            self._ad = None if spec.is_default else self._init_adaptive()
 
     @property
     def adaptive_state(self):
@@ -953,6 +1042,7 @@ class SimDriver:
         (certification arms only)."""
         from ..control import ControlPlane
 
+        self._refuse_on_mesh("the control plane")
         with self._lock:
             if self._control is not None:
                 return self._control
@@ -1003,6 +1093,7 @@ class SimDriver:
         untraced are named in ``untraced_crash_rows``)."""
         from ..chaos.engine import run_driver_scenario
 
+        self._refuse_on_mesh("run_scenario")
         if dissem is not None or strategy is not None or topology is not None:
             self.set_dissemination(dissem, strategy=strategy, topology=topology)
         if adaptive is not None:
@@ -1033,6 +1124,7 @@ class SimDriver:
         position is not the driver's to save."""
         if self._draws is not None:
             raise ValueError("a driver with a caller-supplied draws source cannot be checkpointed")
+        self._refuse_on_mesh("a checkpoint")
         with self._lock:
             payload = self._checkpoint_payload_locked()
         target = os.path.abspath(path)
@@ -1093,6 +1185,7 @@ class SimDriver:
         before anything is unpickled; so are a newer schema, another engine,
         a failed CRC, missing members, state planes of another shape and a
         key dtype other than this driver's."""
+        self._refuse_on_mesh("a restore")
         try:
             with self._lock:
                 self._restore_locked(path)

@@ -10,8 +10,12 @@ transfer, and nothing the tick reads back. Host transfers happen only at
 the explicit sync points: a ``/metrics`` scrape, :meth:`collect`, a
 flight-recorder dump.
 
-The port of the JAX package's ``telemetry/plane.py`` on one device; a
-driver on a mesh is refused (ROADMAP A12), as the driver refuses it.
+The port of the JAX package's ``telemetry/plane.py``. On a member mesh the
+row is reduced from the sharded window's metrics, which every rank holds
+whole, and pinned the same on every rank
+(:func:`..ops.sharding.make_sharded_telemetry_row`); each rank appends it
+to its own copy of the ring, and ``shard_peak_mem_mb`` is the footprint of
+the rank's own rows.
 """
 
 from __future__ import annotations
@@ -53,8 +57,6 @@ class TelemetryPlane:
 
     def __init__(self, driver, config: Optional[TelemetryConfig] = None,
                  bus: Optional[TelemetryBus] = None):
-        if getattr(driver, "mesh", None) is not None:
-            raise NotImplementedError("the telemetry plane on a mesh is not ported yet (ROADMAP A12)")
         cfg = config or TelemetryConfig()
         self.config = cfg
         self.driver = driver
@@ -75,6 +77,12 @@ class TelemetryPlane:
             # the state's footprint, reckoned once here from shapes and
             # dtypes: a per-window value would be a host-to-device copy
             vector_fn = functools.partial(vector_fn, shard_mem_mb=state_footprint_mb(driver.state))
+        self._append = MetricRing.append
+        if getattr(driver, "mesh", None) is not None:
+            from ..ops.sharding import make_sharded_metric_append, make_sharded_telemetry_row
+
+            vector_fn = make_sharded_telemetry_row(driver.mesh, vector_fn)
+            self._append = make_sharded_metric_append(driver.mesh)
         self._vector_fn = vector_fn
 
     def _row(self, ms, state, false_dead, key_regr) -> torch.Tensor:
@@ -89,7 +97,7 @@ class TelemetryPlane:
         sent = getattr(runner, "_sent", None) if runner is not None else None
         false_dead = sent["false_dead_max"] if sent else self._zero
         key_regr = sent["key_regressions"] if sent else self._zero
-        self.ring.append(self._row(ms, state, false_dead, key_regr))
+        self._append(self.ring, self._row(ms, state, false_dead, key_regr))
         self.hist_dispatch.observe(dispatch_s)
         self.hist_tick.observe(dispatch_s / max(n_ticks, 1))
 

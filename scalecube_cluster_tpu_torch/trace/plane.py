@@ -79,7 +79,9 @@ class TracePlane:
         self._snap_cache: Dict[object, tuple] = {}
 
     def _gather_cols(self, state):
-        return self._eng.tracer_view_cols(state, self.spec.tracer_rows)
+        # on a mesh: the tracers' columns of every rank's rows
+        with self.driver._mesh_ctx():
+            return self._eng.tracer_view_cols(state, self.spec.tracer_rows)
 
     # -- the per-window device path (called under the driver lock) -----------
     def on_window(self, state) -> None:
@@ -87,7 +89,7 @@ class TracePlane:
         since the previous boundary as a FLAG_SUMMARY record block. Tensor
         ops on the device only — no device-to-host transfer."""
         now = self._gather_cols(state)
-        rows = _capture.build_summary_rows(self.spec, state.tick, state.up, self._cols, now)
+        rows = _capture.build_summary_rows(self.spec, state.tick, self.driver._whole(state.up), self._cols, now)
         self._cols = now
         self.ring.append(rows)
 

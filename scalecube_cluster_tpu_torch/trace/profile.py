@@ -158,13 +158,16 @@ def _result(engine: str, n: int, n_ticks: int, warmup_ticks: int, wall: float, t
     }
 
 
-def profile_ticks(params, state, draws, n_ticks: int, warmup_ticks: int = 1) -> Tuple[object, Dict]:
+def profile_ticks(params, state, draws, n_ticks: int, warmup_ticks: int = 1, mesh=None) -> Tuple[object, Dict]:
     """Run ``warmup_ticks + n_ticks`` ticks phase by phase; returns
     ``(state, result)``. ``draws`` is a ``torch.Generator`` on the state's
     device (advanced as a window advances it) or a sequence of
     ``warmup_ticks + n_ticks`` per-tick ``(fd, round)`` pairs. The state
     equals the window's over the same draws; the warm-up ticks are left out
-    of the phase totals and the wall time. Consumes ``state``."""
+    of the phase totals and the wall time. Consumes ``state``. A ``mesh``
+    is refused (ROADMAP A12)."""
+    if mesh is not None:
+        raise NotImplementedError("profile_ticks on a mesh is not ported yet (ROADMAP A12)")
     engine, tick, draw = _engine_of(params)
 
     def step(st, fd, rd, timer):
@@ -207,6 +210,8 @@ def profile_driver(driver, n_ticks: int = 32, warmup_ticks: int = 1) -> Dict:
 
     if driver._draws is not None:
         raise ValueError("profile_driver needs the driver's own generator, not a caller-supplied draws source")
+    if getattr(driver, "mesh", None) is not None:
+        raise NotImplementedError("profile_driver on a mesh is not ported yet (ROADMAP A12)")
     with driver._lock:
         st = driver.state
         state = st.replace(**{

@@ -21,8 +21,9 @@ package's, on the CPU.
 * ``certify_controller_mc``'s verdict and intervals at 8 seeds.
 
 The miss and suspect rates come from exact counts, so every decision
-must match exactly; no decision here reads the f32 ``spread_lag`` series
-(its gate is off by default).
+must match exactly. One driver arms the spread-lag gate, whose f32
+``spread_lag`` series is held to 2 ulp: its rung history equals JAX's and
+no reading comes within 2 ulp of the gate.
 """
 
 from __future__ import annotations
@@ -199,6 +200,42 @@ def test_driver_under_loss_climbs_like_jax():
     assert tplane.state.rung == jplane.state.rung == 2
     assert td.params.fanout == TC.DEFAULT_LADDER[2].fanout and td.params.adaptive.enabled
     assert td.health_snapshot()["control"]["actuations"] == 2
+
+
+def test_spread_lag_gate_armed_matches_jax_rung_history():
+    """The spread-lag gate armed (``spread_lag_gate`` 0.02, full metrics on
+    so the f32 ``convergence_lag`` is live) under a 10% loss floor: the
+    gate's votes climb the ladder while the miss rate alone would not,
+    and the port's rung history, decision log and knobs equal JAX's window
+    by window. The series is held to 2 ulp only, so a reading within 2 ulp
+    of the gate could flip a rung: none comes that close here (the closest
+    distance is asserted)."""
+    gate = 0.02
+    jp = dataclasses.replace(_jparams(), full_metrics=True)
+    jd = JSimDriver(jp, N, seed=7)
+    chain = DriverChain(7)
+    td = SimDriver(convert.params_from_dict(dataclasses.asdict(jp)), N, seed=7, device="cpu", draws=chain)
+    chain.driver = td
+    spec_kw = dict(epoch_windows=1, dwell_up=1, spread_lag_gate=gate)
+    jd.arm_control(spec=JC.ControlSpec(**spec_kw))
+    td.arm_control(spec=TC.ControlSpec(**spec_kw))
+    jd.state = JS.set_uniform_loss(jd.state, 0.1, floor=True)
+    td.state = TS.set_uniform_loss(td.state, 0.1, floor=True)
+    rungs, closest, voted = [], np.inf, 0
+    for w in range(8):
+        jd.step(8)
+        td.step(8)
+        jsnap, tsnap = jd.control_snapshot(), td.control_snapshot()
+        assert jsnap["decision_log"] == tsnap["decision_log"], f"window {w}"
+        assert dataclasses.asdict(jd.params) == dataclasses.asdict(td.params), f"window {w}"
+        jl, tl = (np.float32(s["last_sensors"]["spread_lag"]) for s in (jsnap, tsnap))
+        assert abs(int(jl.view(np.int32)) - int(tl.view(np.int32))) <= 2, f"window {w}: {jl} vs {tl}"
+        if jl > 0:
+            closest = min(closest, abs(int(jl.view(np.int32)) - int(np.float32(gate).view(np.int32))))
+        voted += bool(jl >= gate and jsnap["last_sensors"]["miss_rate"] < JC.DEFAULT_LADDER[1].enter_miss_rate)
+        rungs.append(tsnap["rung"])
+    assert voted > 0 and rungs[-1] == 2, rungs
+    assert closest > 2, f"a spread_lag reading came within {closest} ulp of the gate"
 
 
 def _states_equal_jax(jst, tst) -> bool:

@@ -299,13 +299,22 @@ def _idle_scenario():
     return Scenario(name="idle", events=(), horizon=4)
 
 
+class _Mesh2d:
+    """A stand-in for a 2-D scenarios x members device mesh."""
+
+    ndim = 2
+    mesh_dim_names = ("scenarios", "members")
+
+
 def test_refused_surfaces_raise_not_implemented():
     d = _generator_driver()
     calls = {
         "jit_cache_audit": lambda: d.jit_cache_audit(),
         "EmulatorChaosRunner": lambda: EmulatorChaosRunner(_idle_scenario(), [], []),
         "transport": lambda: SimCluster(d).node(1).transport(),
-        "mesh": lambda: SimDriver(d.params, 8, mesh=object(), device="cpu"),
+        # the member mesh is ported (tests/test_torch_sharding.py); a 2-D
+        # scenarios x members mesh stays refused
+        "mesh": lambda: SimDriver(d.params, 8, mesh=_Mesh2d(), device="cpu"),
         "compile_cache_dir": lambda: SimDriver(d.params, 8, compile_cache_dir="x", device="cpu"),
     }
     items = {"EmulatorChaosRunner": "A13", "jit_cache_audit": "A13", "transport": "A13", "mesh": "A12",

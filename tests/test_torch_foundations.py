@@ -141,7 +141,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "telemetry/flight.py", "telemetry/rings.py", "telemetry/plane.py",
                    "trace/__init__.py", "trace/schema.py", "trace/spans.py", "trace/export.py",
                    "trace/rings.py", "trace/capture.py", "trace/plane.py", "trace/profile.py",
-                   "control.py", "replay.py", "ops/keychain.py"):
+                   "control.py", "replay.py", "ops/keychain.py", "ops/dcn.py", "ops/sharding.py",
+                   "ops/ragged_a2a.py"):
         assert f"scalecube_cluster_tpu_torch/{module}" in walked, module
     bad = [
         f"{p.relative_to(REPO)}:{line}: import {name}"
