@@ -25,7 +25,7 @@ passes:
    compiled variants, and on the ``inv`` that ``accelerated/expander``
    peers build at 1M (every receiver one sender per slot): bit-equal
    outputs, timed beside the byte bound;
-4. window   — a 4,096-member, 12-tick (40, 24, then 16 before the mesh phase) fused window on the CPU (plain
+4. window   — a 4,096-member, 8-tick (40, 24, 16, then 12 before phase 46) fused window on the CPU (plain
    versions) and on the card (kernels) from the same draws: equal state
    and metrics;
 5. main path — the 1M-member scenario (warm start, 8 live rumors, a crash
@@ -33,7 +33,7 @@ passes:
    window with draws from a CUDA generator; launch counts are zeroed just
    before it and read just after, and the window's invariants are checked;
    two more ticks count the operations that wait for the device;
-6. profile  — three more fused ticks under ``torch.profiler``: the
+6. profile  — ``PROFILE_TICKS`` (2; 3 before the mesh phases) more fused ticks under ``torch.profiler``: the
    device's busy share, each phase's device and host time, and the
    kernel's own device time per tick;
 7. driver-window — a 4,096-member, 10-tick (20, then 13 before the trace phases) ``SimDriver``
@@ -45,10 +45,10 @@ passes:
    wave of 1,024 rows through ``crash``, a ``join``, a ``leave``, two
    watched rows), a 5-tick warm-up, then a timed ``step(10)`` window (three
    through PR 7) and ``sync()``, with the launch counts zeroed just before
-   and read just after; then three ticks profiled by phase, as in phase 6;
+   and read just after; then ``PROFILE_TICKS`` ticks profiled by phase, as in phase 6;
 9. checkpoint — a 65,536-member driver: ``step(5)``, ``checkpoint``,
    ``step(10)``, ``restore``, ``step(10)``: both trajectories bit-equal;
-10. sparse-window — a 4,096-member, 12-tick (40, 24, then 16 before the mesh phase) sparse window with dense links
+10. sparse-window — a 4,096-member, 8-tick (40, 24, 16, then 12 before phase 46) sparse window with dense links
    (a crash wave, user rumors, a ``join_rows`` batch with rejoins, a
    partition and its heal) on the CPU and on the card from the same draws:
    equal state and metrics;
@@ -72,7 +72,7 @@ passes:
    widths with dense links (a crash wave, rumors, a ``join_rows`` batch
    with rejoins, a partition and its heal) on the CPU and on the card from
    the same draws: equal state and metrics;
-16. dense-delay-window — a 2,048-member, 12-tick (40, 24, then 16 before the mesh phase) dense window in config3's
+16. dense-delay-window — a 2,048-member, 8-tick (40, 24, 16, then 12 before phase 46) dense window in config3's
    delay regime (loss 0.05, mean delay 1.5 ticks, six ring slots, a group
    of slower links through ``set_link_delay``): CPU = card;
 17. dense-main — config4's partition at 10,000 members
@@ -111,7 +111,7 @@ passes:
    80-tick sweep window) beside two armed spellings of it;
 24. dissem-main — one armed spec on each engine at its main path's full
    width: pview at 1M under ``push_pull/expander`` (phase 5's scenario, 10
-   timed ticks, one launch per tick, then three ticks profiled as in
+   timed ticks, one launch per tick, then ``PROFILE_TICKS`` ticks profiled as in
    phase 6), sparse at 49,152 under ``pipelined/expander`` (phase 11's
    churn run), dense at 10,000 under ``push_pull/full`` (phase 17's
    partition with phase 18's profiles): ms/tick, peak, launches and each
@@ -139,7 +139,7 @@ passes:
    state;
 28. chaos-main — one scenario per engine at full width, each ``ok`` with 0
    violations and no readback while it steps: pview at 1M (its crash wave
-   and a partition healed, 60 ticks), sparse at 49,152 (a crash, a loss
+   and a partition healed, 40 ticks: PVIEW_SCENARIO_HORIZON), sparse at 49,152 (a crash, a loss
    storm on scalar links, a restart, 60 ticks), dense at 10,000 (config4's
    1,000 / 9,000 split healed after detection, 600 ticks past the heal (800 before the trace phases); the
    automatic horizon through PR 7):
@@ -161,7 +161,7 @@ passes:
    (past the 65,535 grid limit of a y axis), timed (20 launches, the
    profiler) beside its byte bound, its plain version and S serial launches
    of the serial kernel on the same inputs;
-32. fleet-windows — one fleet window per engine (S = 8, 16 ticks, pview 4
+32. fleet-windows — one fleet window per engine (S = 8, 12 ticks, pview 4
    (16, then 8 before the trace phases); dense N = 256 i32 and i16, sparse N = 1,024, pview N =
    4,096 at config16's widths; every third scenario with crashes of its own) and the adaptive
    dense fleet (config13's knobs, rings at D = 4, a degraded cohort) on the
@@ -213,10 +213,10 @@ passes:
    sync-debug mode, ms/tick armed beside unarmed; then one ``flush()`` and
    one ring read;
 39. trace-windows — each engine's traced window (``make_traced_run``) on
-   the CPU and on the card from the same draws, 16 ticks at 4,096 (24 before the mesh phase): pview
+   the CPU and on the card from the same draws, 12 ticks at 4,096 (24, then 16 before phase 46): pview
    at config16's i16 widths, sparse at config5's with dense links, dense
    at config9's i16 widths, then pview again with the delay rings at D =
-   6; a crash wave whose first rows are tracers, every rumor slot live, a
+   6 over 16 ticks (its first suspicion is raised at tick 15); a crash wave whose first rows are tracers, every rumor slot live, a
    partition and its heal. Every state leaf, metric and trace-ring row
    equal;
 40. trace-main — a trace-armed driver (4 tracers, rumor slots 0 and 1)
@@ -227,7 +227,7 @@ passes:
    pview and sparse); one ring read holding K records per tick plus K per
    window boundary;
 41. trace-scenario — ``run_scenario(trace=True)`` on phase 28's pview 1M
-   crash scenario with the telemetry plane armed: ``ok``, 0 violations, no
+   crash scenario (PVIEW_SCENARIO_HORIZON ticks; 60 before phase 46) with the telemetry plane armed: ``ok``, 0 violations, no
    readback while stepping, every traced crashed row with a sewn
    detection tree, the Perfetto document written under ``chiprun_out/``;
    then a forced violation whose flight dump carries the trace section;
@@ -259,9 +259,26 @@ passes:
    the adaptive and telemetry planes armed, and with the trace and
    telemetry planes, against the unsharded drivers (state, planes, rings,
    events and readbacks equal); the pview fleet on a 1-rank scenario mesh
-   against the one-process fleet; then the group is destroyed.
-   ``python3 chip_smoke.py --mesh-only`` runs the build and this phase
-   alone.
+   against the one-process fleet;
+46. mesh-2 — the pview engine whole on the same world-size-1 group:
+   ``[mesh-delay]`` config16's 1M window under config3's delay regime (D =
+   6) with ``push_pull`` (the late and pull exchanges), ``MESH_TICKS``
+   ticks, sharded against unsharded from one start state (every leaf and
+   ring row bit-equal, overflow 0, 0 kernel launches sharded and one a
+   gossip tick unsharded; ms/tick both, peak); ``[mesh-delay-starved]``
+   the same at 4,096 with a starved budget, card against CPU (gloo), equal
+   with overflow > 0; ``[mesh-fleet2d]`` the pview fleet at 256 x 4,096 on
+   a 1 x 1 scenarios x members mesh against the one-process fleet (rows
+   equal, 0 launches against its 4); ``[mesh-scenario]`` phase 28's 1M
+   scenario on the sharded driver, its report equal to phase 28's (run
+   here when phase 28 did not run), readbacks and host-mutation ms;
+   ``[mesh-control]`` and ``[mesh-profile]`` two sharded 1M drivers, one
+   control-armed and idle, the other profiled by ``profile_driver``
+   between its windows: bit-equal, one ring read per control epoch, phase
+   coverage within 20%; ``[mesh-checkpoint]`` the checkpoint script on a
+   sharded 65,536-member driver, its archive also restored into an
+   unsharded driver; then the group is destroyed. ``python3 chip_smoke.py
+   --mesh-only`` runs the build and phases 45 and 46 alone.
 
 The dense paths launch no hand-written kernel; their launch counts
 stand in the kernels line as measured. Every path's count is zeroed just
@@ -306,7 +323,7 @@ DRIVER_SCRIPT_STEPS = (2, 4, 2, 2)  # the CPU-vs-card driver script's steps (5, 
 DENSE_WINDOW_STEPS = (2, 3, 2)  # the CPU-vs-card dense window's (5, 8, 7, 3, 5, 4, then 2, 4, 3 before)
 CHAOS_DENSE_AFTER_HEAL = 600  # the full-width dense scenario's horizon past its heal (800 before the trace phases; automatic at first)
 # Depth cut for the delay and telemetry phases' time:
-WINDOW_TICKS = 12  # the CPU-vs-card windows of phases 4, 10, 16, 22 and 25 (40, 24, then 16 before)
+WINDOW_TICKS = 8  # the CPU-vs-card windows of phases 4, 10, 16, 22 and 25 (40, 24, 16, then 12 before)
 FLEET_PVIEW_TICKS = 4  # phase 32's pview fleet window (16, then 8 before)
 # Depth cut for the trace, control and replay phases' time:
 MAIN_PVIEW_WINDOWS = 1  # timed step(10) windows of the 1M pview drivers of phases 38 and 40 (2 before)
@@ -318,10 +335,19 @@ C13_KNOBS = dict(min_mult=5, max_mult=10, conf_target=4, lh_max=8)  # config13's
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # Depth of the mesh phases (PERF.md section 4):
 MESH_TICKS = 5  # ticks of the 1M sharded window and of its unsharded twin
-MESH_DRIVER_STEP = 10  # the 1M sharded drivers' timed step
+MESH_DRIVER_STEP = 6  # the 1M sharded drivers' timed step (10 before phase 46)
 MESH_SMALL_N = 4096  # the starved-budget window, card against CPU
 MESH_STARVED_BUDGET = 4096  # records per (src, dst); the lossless budget is F * N = 12,288
 MESH_FLEET = (8, 4096, 8)  # S x N pview fleet on the scenario mesh, ticks
+# Depth of phase 46 (PERF.md section 4):
+MESH_DELAY_SLOTS = 6  # config3's delay regime (CONFIG3_KNOBS, CONFIG3_DELAY_MEAN) on the 1M sharded window
+MESH_FLEET2D = (256, 4096, 3)  # S x N pview fleet on the 1 x 1 scenarios x members mesh, ticks (4 before)
+MESH_CONTROL = (2, 3)  # control epochs (one window each) x ticks per window of the armed-idle pair ((3, 5) before)
+MESH_PROFILE_TICKS = 2  # profile_driver's ticks on the sharded 1M driver, one warm-up tick besides (3 before)
+# Depth cut for phase 46's time (PERF.md section 4):
+PVIEW_SCENARIO_HORIZON = 40  # phase 28's 1M pview scenario, rerun sharded by phase 46 (60 before; heal at 30)
+PROFILE_TICKS = 2  # ticks of the 1M pview window, driver and dissem profiles of phases 5, 7 and 24 (3 before)
+FLEET_WINDOW_TICKS = 12  # phase 32's CPU-vs-card fleet windows but the pview one (16 before)
 
 
 def nvidia_smi() -> str:
@@ -730,7 +756,7 @@ PHASES = ("_fd_phase", "_maintenance_sweep", "_gossip_phase_fused", "_sync_phase
           "_refute_phase", "_rumor_sweeps_fused", "alloc_phase", "state_metrics")
 
 
-def profile_phases(run, phases, ticks: int = 3, label: str = "profile", module=None) -> None:
+def profile_phases(run, phases, ticks: int = PROFILE_TICKS, label: str = "profile", module=None) -> None:
     """Where a tick's time goes: ``torch.profiler`` over ``run()``, which
     runs ``ticks`` more ticks of a main path, each function of ``phases``
     (in ``module``, by default ``ops/pview.py``) inside a labelled range.
@@ -764,18 +790,20 @@ def profile_phases(run, phases, ticks: int = 3, label: str = "profile", module=N
             setattr(PV, name, fn)
     cuda = torch.autograd.DeviceType.CUDA
     host, span, busy, by_kernel = {}, {}, [], {}
-    for e in prof.events():
-        if e.name.startswith("phase:"):
+    # the profiler's raw records, in ns: prof.events() would first build a
+    # Python event tree over them, some seconds for each 1M tick
+    for e in prof.profiler.kineto_results.events():
+        name, us = e.name(), e.duration_ns() / 1e3
+        if name.startswith("phase:"):
             # a labelled range shows twice: on the host, and as the span of
             # its kernels on the device
-            book = span if e.device_type == cuda else host
-            book[e.name[6:]] = book.get(e.name[6:], 0) + e.time_range.elapsed_us()
-        elif e.device_type == cuda:
-            busy.append((e.time_range.start, e.time_range.end))
+            book = span if e.device_type() == cuda else host
+            book[name[6:]] = book.get(name[6:], 0) + us
+        elif e.device_type() == cuda:
+            busy.append((e.start_ns() / 1e3, e.start_ns() / 1e3 + us))
             # the device's own records: kernels, copies and fills, by name
-            # (one pass here, where key_averages() would walk them again)
-            agg = by_kernel.setdefault(e.name, [0, 0])
-            agg[0] += e.time_range.elapsed_us()
+            agg = by_kernel.setdefault(name, [0, 0])
+            agg[0] += us
             agg[1] += 1
     device_us, reach = 0, float("-inf")
     for a, b in sorted(busy):  # the union of the device's activity intervals
@@ -993,13 +1021,30 @@ def run_driver_path(device) -> dict:
     return {"launches": launches, "driver": d}
 
 
-def check_checkpoint(device, n: int = 65_536) -> None:
+def check_checkpoint(device, n: int = 65_536, mesh=None) -> None:
     """step(5), checkpoint, step(10), restore, step(10) on an ``n``-member
-    driver on the card: both trajectories end bit-equal, events included."""
+    driver on the card: both trajectories end bit-equal, events included.
+    With ``mesh`` the driver is sharded, and its archive is also restored
+    into an unsharded driver, whose step(10) must end where the sharded
+    one's did."""
     from scalecube_cluster_tpu_torch.sim import SimDriver
 
+    from scalecube_cluster_tpu_torch.ops import delivery
+
+    label = "checkpoint" if mesh is None else "mesh-checkpoint"
     params = config16_params(n)
-    d = SimDriver(params, n, seed=0, device=device)
+    d = SimDriver(params, n, seed=0, device=device, mesh=mesh)
+    launches = [0]
+    step = d.step
+
+    def counted_step(n_ticks):
+        """The checked driver's own launches (an unsharded twin's are not
+        its path's)."""
+        before = delivery.delivery_combine.launches
+        step(n_ticks)
+        launches[0] += delivery.delivery_combine.launches - before
+
+    d.step = counted_step
     for s in range(params.rumor_slots):
         d.spread_rumor((s * 997) % n, f"rumor {s}")
     for r in range(n // 2, n // 2 + n // 1024):
@@ -1015,20 +1060,35 @@ def check_checkpoint(device, n: int = 65_536) -> None:
         at = len(d.events_of(0))
         d.step(10)
         first, first_events = d.state, [(e.type, e.member.id) for e in d.events_of(0)[at:]]
+        if mesh is not None:
+            first = d._eng.gather_state(first, mesh)
+            u = SimDriver(params, n, seed=0, device=device)
+            u.restore(path)
+            u.step(10)
+            unsharded = u.state
+            del u
         t0 = time.perf_counter()
         d.restore(path)
         torch.cuda.synchronize()
         rs_s = time.perf_counter() - t0
     at = len(d.events_of(0))
     d.step(10)
-    bad = state_differences(first, d.state)
+    again = d.state if mesh is None else d._eng.gather_state(d.state, mesh)
+    bad = state_differences(first, again)
     if [(e.type, e.member.id) for e in d.events_of(0)[at:]] != first_events:
         bad.append("events of row 0")
+    if mesh is not None:
+        bad += [f"unsharded restore: {k}" for k in state_differences(first, unsharded)]
     if bad:
-        raise AssertionError(f"checkpoint round trip at N={n} differs in: {bad}")
-    phase("checkpoint", f"N={n}: step(5), checkpoint ({size} bytes, {ck_s:.2f} s), step(10), restore "
-                        f"({rs_s:.2f} s), step(10): both trajectories bit-equal, "
-                        f"{len(first_events)} events each (tick {d.tick})")
+        raise AssertionError(f"[{label}] checkpoint round trip at N={n} differs in: {bad}")
+    phase(label, f"N={n}{' sharded' if mesh is not None else ''}: step(5), checkpoint ({size} bytes, {ck_s:.2f} s), "
+                 f"step(10), restore ({rs_s:.2f} s), step(10): both trajectories bit-equal, "
+                 f"{len(first_events)} events each (tick {d.tick})"
+                 + ("; the archive restored into an unsharded driver ends there too; delivery_combine launches "
+                    f"{launches[0]} sharded" if mesh is not None else ""))
+    if mesh is not None and launches[0]:
+        raise AssertionError(f"[{label}] the sharded driver launched delivery_combine {launches[0]} times")
+    return launches[0]
 
 # -- the sparse engine -----------------------------------------------------------
 
@@ -2032,7 +2092,7 @@ def run_dissem_main(device, unarmed: dict) -> dict:
     run = run_main_path(device, params=armed(config16_params(N_MAIN), strategy="push_pull", topology="expander"),
                         label="dissem-main")
     st, gen, params = run.pop("state"), run["gen"], run["params"]
-    profile_phases(lambda: PV.run_pview_ticks_fused(st, gen, 3, params), PHASES, label="dissem-profile")
+    profile_phases(lambda: PV.run_pview_ticks_fused(st, gen, PROFILE_TICKS, params), PHASES, label="dissem-profile")
     del st
     torch.cuda.empty_cache()
     if run["launches"] != 10:
@@ -2259,14 +2319,31 @@ def run_armed(d, scenario, label: str) -> tuple:
     return rep, wall / rep["ticks_run"] * 1e3, launches, in_steps[0] / rep["ticks_run"], flags - in_steps[0]
 
 
+#: phase 28's 1M pview scenario report (seed 0, PVIEW_SCENARIO_HORIZON ticks), for phase 46
+PVIEW_SCENARIO_REPORT: dict = {}
+
+
+def pview_scenario(n: int):
+    """Phase 28's pview scenario at ``n``: its 1,024-row crash wave at 2 and a
+    partition between two 65,536-row groups at 5, healed at 30;
+    ``PVIEW_SCENARIO_HORIZON`` ticks."""
+    from scalecube_cluster_tpu_torch.chaos import events as EV
+
+    g = min(1 << 16, n // 8)  # the partition's group size
+    return EV.Scenario(name="pview-wave-split", events=[
+        EV.Crash(rows=list(range(n // 2, n // 2 + n // 1024)), at=2),
+        EV.Partition(groups=[range(0, g), range(g, 2 * g)], at=5, heal_at=30)], horizon=PVIEW_SCENARIO_HORIZON)
+
+
 def run_chaos_main(device, unarmed: dict) -> dict:
     """One scenario per engine at its main path's full width, each ``ok``
     with no violation and no readback while it steps: pview at 1M (phase
     5's widths and rumors; its 1,024-row crash wave and a partition between
     two 65,536-row groups, healed), sparse at 49,152 (config5's widths,
     scalar links: a crash of 491 rows, a 20% loss storm, their restart),
-    both cut to a 60-tick horizon (the automatic one, printed beside it,
-    would take minutes at these widths), and dense at 10,000 (config4's
+    cut to a ``PVIEW_SCENARIO_HORIZON``- and a 60-tick horizon (the
+    automatic one, printed beside it, would take minutes at these widths),
+    and dense at 10,000 (config4's
     1,000 / 9,000 split as a ``Partition``, healed 5 ticks after the
     unarmed run's detection, ``CHAOS_DENSE_AFTER_HEAL`` ticks past the
     heal). Returns the
@@ -2277,20 +2354,19 @@ def run_chaos_main(device, unarmed: dict) -> dict:
 
     out = {}
     n = N_MAIN
-    g = min(1 << 16, n // 8)  # the partition's group size
     d = SimDriver(config16_params(n), n, warm=True, seed=0, device=device)
     for s in range(d.params.rumor_slots):
         d.spread_rumor((s * 997) % n, f"rumor {s}")
-    scn = EV.Scenario(name="pview-wave-split", events=[
-        EV.Crash(rows=list(range(n // 2, n // 2 + n // 1024)), at=2),
-        EV.Partition(groups=[range(0, g), range(g, 2 * g)], at=5, heal_at=30)], horizon=60)
+    scn = pview_scenario(n)
     auto = build_spec(scn.replace(horizon=None), d.params).horizon
     d.step(2)
     rep, ms, launches, flags, mut_flags = run_armed(d, scn, "pview")
     if launches <= 0:
         raise AssertionError("the pview scenario launched no delivery_combine kernel")
     out["chaos-main-pview"] = launches
-    phase("chaos-main", f"pview 1M, {rep['ticks_run']} ticks (horizon cut from the automatic {auto} to 60), events "
+    PVIEW_SCENARIO_REPORT.update(report=rep, ms_tick=ms)  # phase 46 holds the sharded run against it
+    phase("chaos-main", f"pview 1M, {rep['ticks_run']} ticks (horizon cut from the automatic {auto} to "
+                        f"{PVIEW_SCENARIO_HORIZON}), events "
                         f"{events_text(rep)}: ok, 0 violations, no readback while stepping; "
                         f"{beside(ms, unarmed['pview'])}, {flags:.1f} flag reads/tick in the ticks (+{mut_flags} in the "
                         f"mutations), launches {launches} in "
@@ -2626,7 +2702,7 @@ def row_draws(draws, i: int) -> list:
 
 
 def check_fleet_window(device, label: str, mod, init, make_fleet, make_serial, params, draw, s: int = 8,
-                       ticks: int = 16, adaptive: bool = False, tag: str = "fleet-windows") -> dict:
+                       ticks: int = FLEET_WINDOW_TICKS, adaptive: bool = False, tag: str = "fleet-windows") -> dict:
     """One fleet window on the CPU and on the card from the same draws (every
     leaf, every metric), then each row on the card against the serial
     window fed that row's draws. Returns the card's launch counts."""
@@ -2692,7 +2768,7 @@ def check_fleet_window(device, label: str, mod, init, make_fleet, make_serial, p
 
 
 def check_fleet_windows(device) -> dict:
-    """Phase 32: a fleet window per engine (S = 8, 16 ticks; dense N = 256
+    """Phase 32: a fleet window per engine (S = 8, 12 ticks; dense N = 256
     i32 and i16, sparse N = 1,024, pview N = 4,096) and the adaptive dense
     fleet (config13's knobs, rings at D = 4, a degraded cohort), CPU = card
     and each card row = the serial window. Returns launches per window."""
@@ -3333,8 +3409,9 @@ def run_telemetry(device) -> dict:
 
 TRACE_TRACERS = 4  # tracer rows of every traced path (TraceConfig's default count)
 TRACE_SLOTS = (0, 1)  # traced rumor slots
-TRACE_WINDOW_TICKS = 16  # the CPU-vs-card traced windows of phase 39 (24 before)
-TRACE_RING = 1024  # the CPU-vs-card windows' ring: 16 ticks x 4 tracers = 64 records
+TRACE_WINDOW_TICKS = 12  # the CPU-vs-card traced windows of phase 39 (24, then 16 before)
+TRACE_DELAY_WINDOW_TICKS = 16  # its pview window under D = 6 (24 before): the first suspicion is raised at tick 15
+TRACE_RING = 1024  # the CPU-vs-card windows' ring: at most 16 ticks x 4 tracers = 64 records
 
 
 def trace_spec(tracers, ring_len: int = TRACE_RING, ping_req_k: int = 3):
@@ -3376,15 +3453,16 @@ def traced_window_run(mod, make_traced, params, n: int, draws, start, spec):
     return run
 
 
-def check_trace_windows(device, n: int = 4096, ticks: int = TRACE_WINDOW_TICKS) -> dict:
+def check_trace_windows(device, n: int = 4096, ticks: int = TRACE_WINDOW_TICKS,
+                        delay_ticks: int = TRACE_DELAY_WINDOW_TICKS) -> dict:
     """Phase 39: each engine's traced window on the CPU (plain versions) and
     on the card (the kernel) from the same draws, ``ticks`` ticks at ``n``:
     pview at config16's i16 widths, sparse at config5's widths with dense
     links, dense at config9's i16 widths; a crash wave whose first rows
     are the tracers, every rumor slot live, a partition between the halves
     and its heal; then the pview window again with the delay rings at D =
-    6. Every state leaf, every metric and every trace-ring row equal.
-    Returns the card's launches per window."""
+    6, ``delay_ticks`` ticks. Every state leaf, every metric and every
+    trace-ring row equal. Returns the card's launches per window."""
     import dataclasses as dc
 
     from scalecube_cluster_tpu_torch.ops import kernel as K
@@ -3420,12 +3498,12 @@ def check_trace_windows(device, n: int = 4096, ticks: int = TRACE_WINDOW_TICKS) 
     sp = config5_params(n, fd_every=2, suspicion_mult=1, sync_every=20)
     de = dc.replace(config9_dense_params(n), fd_every=2, suspicion_mult=1, sync_every=20)
     out = {}
-    for key, label, mod, make, params, start in (
-        ("pview", "pview i16", PV, PV.make_pview_traced_run, pv, pview_start(pv)),
-        ("sparse", "sparse, dense links", SP, SP.make_sparse_traced_run, sp, sparse_start(sp)),
-        ("dense", "dense i16", S, K.make_traced_run, de, dense_start(de)),
+    for key, label, mod, make, params, start, ticks in (
+        ("pview", "pview i16", PV, PV.make_pview_traced_run, pv, pview_start(pv), ticks),
+        ("sparse", "sparse, dense links", SP, SP.make_sparse_traced_run, sp, sparse_start(sp), ticks),
+        ("dense", "dense i16", S, K.make_traced_run, de, dense_start(de), ticks),
         ("pview-delay", "pview i16, D = 6, mean 1.5", PV, PV.make_pview_traced_run, pv_delay,
-         pview_start(pv_delay, CONFIG3_DELAY_MEAN)),
+         pview_start(pv_delay, CONFIG3_DELAY_MEAN), delay_ticks),
     ):
         draws = cpu_draws(params, ticks, seed=31)
         run = traced_window_run(mod, make, params, n, draws, start, spec)
@@ -3561,7 +3639,7 @@ def run_trace_main(device) -> dict:
 def run_trace_scenario(device, n: int = N_MAIN) -> dict:
     """Phase 41: ``run_scenario(trace=True)`` on phase 28's pview crash
     scenario at ``n`` (1M: config16's widths, 8 rumors, a crash wave of
-    n/1024 rows and a partition healed, 60 ticks) with the telemetry plane
+    n/1024 rows and a partition healed, ``PVIEW_SCENARIO_HORIZON`` ticks) with the telemetry plane
     armed: the report ``ok`` with no violation and no readback while it
     steps, the first 4 crashed rows traced, each with a sewn detection tree,
     the rest named untraced; the Chrome/Perfetto document written under
@@ -3583,7 +3661,7 @@ def run_trace_scenario(device, n: int = N_MAIN) -> dict:
     wave = list(range(n // 2, n // 2 + max(8, n // 1024)))
     scn = EV.Scenario(name="pview-wave-split", events=[
         EV.Crash(rows=wave, at=2),
-        EV.Partition(groups=[range(0, g), range(g, 2 * g)], at=5, heal_at=30)], horizon=60)
+        EV.Partition(groups=[range(0, g), range(g, 2 * g)], at=5, heal_at=30)], horizon=PVIEW_SCENARIO_HORIZON)
     d.step(2)
     from scalecube_cluster_tpu_torch.chaos.engine import DriverChaosRunner
 
@@ -4112,7 +4190,287 @@ def run_mesh_fleet(device, fleet=MESH_FLEET) -> dict:
     return {"mesh-fleet": launches}
 
 
-def run_mesh(device) -> tuple:
+def mesh_delay_params(n: int):
+    """config16's widths under config3's delay regime, with the push-pull leg."""
+    import dataclasses as dc
+
+    from scalecube_cluster_tpu_torch.dissemination.spec import DissemSpec
+
+    return dc.replace(config16_params(n), delay_slots=MESH_DELAY_SLOTS, dissem=DissemSpec(strategy="push_pull"))
+
+
+def run_mesh_delay(device, mesh, n: int = N_MAIN, ticks: int = MESH_TICKS) -> dict:
+    """[mesh-delay]: the sharded fused window with the delay rings and the
+    pull leg (their exact exchanges) against the unsharded one from a copy
+    of one start state, with the same draws."""
+    from scalecube_cluster_tpu_torch.ops import delivery
+    from scalecube_cluster_tpu_torch.ops import pview as PV
+    from scalecube_cluster_tpu_torch.ops import sharding as SH
+
+    params = mesh_delay_params(n)
+    st = busy_state(params, n, device, delay=CONFIG3_DELAY_MEAN)
+    start = copy_state(st, device)
+    draws = mesh_draws(params, ticks, device, seed=13)
+
+    def timed(window, state):
+        state, first, _ = window(1)(state, draws[:1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, rest, _ = window(ticks - 1)(state, draws[1:])
+        torch.cuda.synchronize()
+        return state, {k: torch.cat([first[k], rest[k]]) for k in first}, (time.perf_counter() - t0) / (ticks - 1) * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    delivery.delivery_combine.launches = 0
+    st, ms, ms_u = timed(lambda t: PV.make_pview_fused_run(params, t), st)
+    launches_u = delivery.delivery_combine.launches
+    peak_u = torch.cuda.max_memory_allocated()
+    mine = SH.shard_pview_state(start, mesh)
+    del start
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    delivery.delivery_combine.launches = 0
+    mine, ms_s, ms_sh = timed(lambda t: SH.make_sharded_pview_fused_run(mesh, params, t), mine)
+    launches = delivery.delivery_combine.launches
+    peak = torch.cuda.max_memory_allocated()
+    diff = device_state_differences(st, mine) + metric_differences(ms, ms_s)
+    if diff:
+        raise AssertionError(f"[mesh-delay] the sharded window differs from the unsharded one in {diff}")
+    overflow = int(ms_s["delivery_overflow"].sum())
+    # ring rows holding a delivery (a reduction over the 12 GiB bool ring
+    # that makes no wider copy of it)
+    in_flight = int(mine.pending_inf.any(dim=-1).sum()) + int(mine.pending_minf.any(dim=-1).sum())
+    if overflow or launches or launches_u != ticks or not in_flight:
+        raise AssertionError(f"[mesh-delay] overflow {overflow}, sharded launches {launches}, unsharded "
+                             f"launches {launches_u} of {ticks}, ring rows in flight {in_flight}")
+    phase("mesh-delay", f"N={n}, D={params.delay_slots} (mean {CONFIG3_DELAY_MEAN}), push_pull, {ticks} ticks from "
+                        f"one start state and draws: every leaf, ring row and metric bit-equal ({in_flight} ring "
+                        f"rows in flight at the end); ticks 2-{ticks} sharded {ms_sh:.2f} ms/tick against unsharded "
+                        f"{ms_u:.2f} ({ms_sh / ms_u - 1:+.1%}); peak allocated unsharded {peak_u / 2 ** 30:.2f} GiB, "
+                        f"sharded {peak / 2 ** 30:.2f} GiB ({(peak - live) / 2 ** 30:.2f} above the "
+                        f"{live / 2 ** 30:.2f} live before it); delivery_overflow 0; delivery_combine launches 0 "
+                        f"sharded, {launches_u} unsharded (one rank: every exchange is a self-copy)")
+    del st, mine, draws
+    torch.cuda.empty_cache()
+    return {"mesh-delay": launches}
+
+
+def run_mesh_delay_starved(device, mesh, cpu_mesh, n: int = MESH_SMALL_N, ticks: int = 8,
+                           budget: int = MESH_STARVED_BUDGET) -> dict:
+    """[mesh-delay-starved]: a starved on-time budget with the rings and the
+    pull leg, card (NCCL) against CPU (gloo) from one start and draws:
+    equal, with overflow > 0 (the exact exchanges drop nothing)."""
+    from scalecube_cluster_tpu_torch import convert
+    from scalecube_cluster_tpu_torch.ops import delivery
+    from scalecube_cluster_tpu_torch.ops import sharding as SH
+
+    params = mesh_delay_params(n)
+    start = busy_state(params, n, "cpu", delay=CONFIG3_DELAY_MEAN)
+    draws = mesh_draws(params, ticks, "cpu", seed=5)
+    out = {}
+    delivery.delivery_combine.launches = 0
+    for where, m in (("card", mesh), ("cpu", cpu_mesh)):
+        run = SH.make_sharded_pview_fused_run(m, params, ticks, a2a_budget=budget)
+        st, ms, _ = run(SH.shard_pview_state(start, m), draws)
+        out[where] = (convert.state_to_numpy(st), {k: v.cpu() for k, v in ms.items()})
+    launches = delivery.delivery_combine.launches
+    (a, ma), (b, mb) = out["card"], out["cpu"]
+    diff = [k for k in a if not np.array_equal(a[k], b[k])] + metric_differences(ma, mb)
+    overflow = int(ma["delivery_overflow"].sum())
+    in_flight = int(a["pending_inf"].sum()) + int(a["pending_minf"].sum())
+    if diff or overflow <= 0 or launches or not in_flight:
+        raise AssertionError(f"[mesh-delay-starved] card and CPU differ in {diff}; overflow {overflow}, launches "
+                             f"{launches}, ring cells in flight {in_flight}")
+    phase("mesh-delay-starved", f"N={n}, D={params.delay_slots}, push_pull, budget {budget} of a lossless "
+                                f"{params.fanout * n}, {ticks} ticks: card (NCCL) = CPU (gloo) in every leaf, ring "
+                                f"row and metric; delivery_overflow {overflow} on both "
+                                f"({ma['delivery_overflow'].tolist()}), {in_flight} ring cells in flight")
+    return {"mesh-delay-starved": launches}
+
+
+def run_mesh_fleet2d(device, fleet=MESH_FLEET2D) -> dict:
+    """[mesh-fleet2d]: the pview fleet on a 1 x 1 scenarios x members mesh
+    (its collectives' vmap rules) against the one-process fleet."""
+    from scalecube_cluster_tpu_torch.ops import delivery
+    from scalecube_cluster_tpu_torch.ops import fleet as FL
+    from scalecube_cluster_tpu_torch.ops import pview as PV
+    from scalecube_cluster_tpu_torch.ops import sharding as SH
+
+    s, n, ticks = fleet
+    params = config16_params(n)
+    mesh2d = SH.make_pview_mesh2d(1, device.type)
+    base = FL.fleet_inject_rumor(PV, FL.fleet_broadcast(PV.init_pview_state(params, n, device=device), s), 0,
+                                 [(7 * i + 1) % n for i in range(s)])
+    def timed(make, fs, draws):
+        """Fleet tick 1, then ticks 2.. timed, on one draw source."""
+        fs, first, _ = make(1)(fs, draws)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fs, rest, _ = make(ticks - 1)(fs, draws)
+        torch.cuda.synchronize()
+        return fs, {k: torch.cat([first[k], rest[k]], dim=1) for k in first}, (time.perf_counter() - t0) / (
+            ticks - 1) * 1e3
+
+    delivery.delivery_combine_fleet.launches = 0
+    one, ms, ms_one = timed(lambda t: FL.make_fleet_run(params, t), copy_state(base, device),
+                            FL.fleet_generator(3, device))
+    launches_one = delivery.delivery_combine_fleet.launches
+    delivery.delivery_combine.launches = delivery.delivery_combine_fleet.launches = 0
+    mine, ms_m, ms_2d = timed(lambda t: SH.make_sharded_pview_fleet_run(mesh2d, params, t),
+                              SH.shard_pview_fleet(base, mesh2d),
+                              FL.fleet_draws(FL.fleet_generator(3, device), mesh2d, s))
+    launches = delivery.delivery_combine.launches + delivery.delivery_combine_fleet.launches
+    diff = device_state_differences(one, SH.gather_pview_fleet(mine, mesh2d)) + metric_differences(ms, ms_m)
+    if diff or launches or launches_one != ticks or int(ms_m["delivery_overflow"].sum()):
+        raise AssertionError(f"[mesh-fleet2d] differs in {diff}; launches {launches} on the 2-D mesh, "
+                             f"{launches_one} one-process")
+    phase("mesh-fleet2d", f"S={s} x N={n} ({s * n} member rows), {ticks} ticks on a 1 x 1 scenarios x members "
+                          f"mesh: every row and metric equal to the one-process fleet; fleet ticks 2-{ticks} "
+                          f"{ms_2d:.2f} ms each against {ms_one:.2f} ({ms_2d / ms_one - 1:+.1%}); "
+                          f"delivery_combine_fleet launches 0 on the mesh, {launches_one} one-process")
+    del one, mine, base
+    torch.cuda.empty_cache()
+    return {"mesh-fleet2d": launches}
+
+
+def run_mesh_scenario(device, mesh, n: int = N_MAIN) -> dict:
+    """[mesh-scenario]: phase 28's 1M pview scenario on the sharded driver,
+    its report equal to the unsharded run of the same seed (phase 28's own
+    when it ran in this call)."""
+    from scalecube_cluster_tpu_torch.chaos.engine import DriverChaosRunner
+    from scalecube_cluster_tpu_torch.ops import delivery
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    def drive(sharded: bool):
+        d = SimDriver(config16_params(n), n, warm=True, seed=0, device=device, mesh=mesh if sharded else None)
+        for s in range(d.params.rumor_slots):
+            d.spread_rumor((s * 997) % n, f"rumor {s}")
+        d.step(2)
+        mut = []
+        apply = d._apply
+
+        def timed_apply(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            apply(fn)
+            torch.cuda.synchronize()
+            mut.append((time.perf_counter() - t0) * 1e3)
+
+        d._apply = timed_apply
+        base = d.dispatch_stats["readbacks"]
+        delivery.delivery_combine.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = DriverChaosRunner(d, pview_scenario(n)).run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = dict(report=rep, ms_tick=wall / rep["ticks_run"] * 1e3, mutation_ms=mut,
+                   readbacks=d.dispatch_stats["readbacks"] - base, launches=delivery.delivery_combine.launches)
+        del d
+        torch.cuda.empty_cache()
+        return out
+
+    s = drive(True)
+    ref = dict(PVIEW_SCENARIO_REPORT) or drive(False)
+    a, b = dict(ref["report"]), dict(s["report"])
+    for r in (a, b):
+        r.pop("host_cpus", None)
+    if a != b or not b["ok"] or b["violations"] or s["launches"] or s["readbacks"] != 1:
+        raise AssertionError(f"[mesh-scenario] sharded report {b} against unsharded {a}; launches {s['launches']}, "
+                             f"readbacks {s['readbacks']}")
+    dets = b["sentinels"]["detections"]
+    det = [(x["row"], x["detected_at"]) for x in dets][:3]
+    phase("mesh-scenario", f"N={n}, {b['ticks_run']} ticks, events {events_text(b)}: the sharded report equals the "
+                           f"unsharded one ({'phase 28' if PVIEW_SCENARIO_REPORT else 'run here'}, seed 0): ok, 0 "
+                           f"violations, crash obligations {len(dets)}, detected "
+                           f"{sum(x['detected_at'] is not None for x in dets)} (first {det}; an obligation whose "
+                           f"deadline falls after the horizon is not judged); "
+                           f"{s['readbacks']} readback (the report), {s['ms_tick']:.2f} ms/tick sharded against "
+                           f"{ref['ms_tick']:.2f}; host mutations (gather, mutate, shard) "
+                           f"{', '.join(f'{m:.1f}' for m in s['mutation_ms'])} ms; delivery_combine launches 0")
+    return {"mesh-scenario": s["launches"]}
+
+
+def run_mesh_control_profile(device, mesh, n: int = N_MAIN, shape=MESH_CONTROL) -> dict:
+    """[mesh-control] and [mesh-profile]: two sharded 1M drivers from one
+    seed, a clean cluster with a rumor, telemetry armed on both; A arms the
+    control plane, B does not, and ``profile_driver`` runs on B after its
+    first window. A must end bit-equal to B with one ring read per control
+    epoch more: the armed idle controller and the profile both leave the
+    trajectory alone."""
+    from scalecube_cluster_tpu_torch.control import ControlSpec
+    from scalecube_cluster_tpu_torch.ops import delivery
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+    from scalecube_cluster_tpu_torch.trace.profile import profile_driver
+
+    epochs, per = shape
+    rec, drivers = {}, {}
+    for armed in (True, False):
+        d = SimDriver(config16_params(n), n, seed=0, device=device, mesh=mesh)
+        d.arm_telemetry()
+        plane = d.arm_control(spec=ControlSpec(epoch_windows=1)) if armed else None
+        d.spread_rumor(n // 3, "control")
+        reads = d.dispatch_stats["readbacks"]
+        # the driver's own windows, the profile's excluded
+        delivery.delivery_combine.launches = own = 0
+        t0 = time.perf_counter()
+        for w in range(epochs):
+            d.step(per)
+            if w == 0 and not armed:
+                d.sync()
+                own = delivery.delivery_combine.launches
+                delivery.delivery_combine.launches = 0
+                p0 = time.perf_counter()
+                res = profile_driver(d, n_ticks=MESH_PROFILE_TICKS, warmup_ticks=1)
+                rec["profile"] = dict(res=res, s=time.perf_counter() - p0, launches=delivery.delivery_combine.launches)
+                delivery.delivery_combine.launches = 0
+        d.sync()
+        rec[armed] = dict(readbacks=d.dispatch_stats["readbacks"] - reads, s=time.perf_counter() - t0, plane=plane,
+                          launches=own + delivery.delivery_combine.launches)
+        drivers[armed] = d
+    launches = rec[True]["launches"]
+    plane = rec[True]["plane"]
+    diff = device_state_differences(drivers[True].state, drivers[False].state)
+    res = rec["profile"]["res"]
+    if diff or plane.state.actuations or rec[True]["readbacks"] - rec[False]["readbacks"] != epochs or launches \
+            or rec[False]["launches"]:
+        raise AssertionError(f"[mesh-control] armed idle differs in {diff}; actuations {plane.state.actuations}, "
+                             f"readbacks {rec[True]['readbacks']} against {rec[False]['readbacks']}, launches "
+                             f"{launches} armed, {rec[False]['launches']} unarmed")
+    if res["mesh"] != {"members": 1} or abs(res["phase_coverage"] - 1.0) > 0.2 or rec["profile"]["launches"]:
+        raise AssertionError(f"[mesh-profile] mesh {res['mesh']}, phase coverage {res['phase_coverage']}, "
+                             f"launches {rec['profile']['launches']}")
+    phase("mesh-control", f"N={n} sharded, {epochs} control epochs of step({per}): armed idle (rung "
+                          f"{plane.state.rung}, 0 actuations) bit-equal to the unarmed sharded driver, "
+                          f"{rec[True]['readbacks'] - rec[False]['readbacks']} more readbacks (one ring read per "
+                          f"epoch); delivery_combine launches {launches} (the armed driver's windows)")
+    top = sorted(res["phases_s"].items(), key=lambda kv: -kv[1])[:4]
+    phase("mesh-profile", f"profile_driver on the sharded N={n} driver between its windows ({res['ticks']} ticks + "
+                          f"1 warm-up, {rec['profile']['s']:.2f} s): mesh {res['mesh']}, phase coverage "
+                          f"{res['phase_coverage']}, wall {res['wall_s']:.4f} s (max over ranks "
+                          f"{res['wall_s_max_over_ranks']:.4f}), top phases "
+                          f"{', '.join(f'{k} {v:.4f} s' for k, v in top)}; the driver's trajectory untouched (its "
+                          f"end state is the armed twin's); delivery_combine launches {rec['profile']['launches']}")
+    profile_launches = rec["profile"]["launches"]
+    del drivers, rec
+    torch.cuda.empty_cache()
+    return {"mesh-control": launches, "mesh-profile": profile_launches}
+
+
+def run_mesh2(device, mesh, cpu_mesh) -> tuple:
+    """Phase 46, [mesh-2]: on the same world-size-1 group, the pview engine
+    whole on a member mesh."""
+    launches = run_mesh_delay(device, mesh)
+    launches.update(run_mesh_delay_starved(device, mesh, cpu_mesh))
+    fleet = run_mesh_fleet2d(device)
+    launches.update(run_mesh_scenario(device, mesh))
+    launches.update(run_mesh_control_profile(device, mesh))
+    launches["mesh-checkpoint"] = check_checkpoint(device, mesh=mesh)
+    return launches, fleet
+
+
+def run_mesh(device, marks=None) -> tuple:
     """Phase 45: a world-size-1 NCCL group (``file://`` init, the card as
     its device), a gloo group beside it for the CPU reference, the mesh
     phases, and the group destroyed at the end."""
@@ -4134,6 +4492,13 @@ def run_mesh(device) -> tuple:
         launches.update(run_mesh_starved(device, mesh, cpu_mesh))
         launches.update(run_mesh_driver(device, mesh))
         fleet = run_mesh_fleet(device)
+        if marks is not None:
+            marks.append(("phase 45 (mesh)", time.perf_counter()))
+        more, fleet2 = run_mesh2(device, mesh, cpu_mesh)
+        launches.update(more)
+        fleet.update(fleet2)
+        if marks is not None:
+            marks.append(("phase 46 (mesh-2)", time.perf_counter()))
     finally:
         dist.destroy_process_group()
     phase("mesh", "process group destroyed")
@@ -4149,13 +4514,13 @@ def run_phases_4_to_24(device, marks: list) -> dict:
     check_cross_device(device)
     main_run = run_main_path(device)
     st, gen, params = main_run["state"], main_run["gen"], main_run["params"]
-    profile_phases(lambda: PV.run_pview_ticks_fused(st, gen, 3, params), PHASES)
+    profile_phases(lambda: PV.run_pview_ticks_fused(st, gen, PROFILE_TICKS, params), PHASES)
     del main_run["state"], st
     torch.cuda.empty_cache()
 
     check_driver_window(device)
     driver_run = run_driver_path(device)
-    profile_phases(lambda: driver_run["driver"].step(3), PHASES, label="driver-profile")
+    profile_phases(lambda: driver_run["driver"].step(PROFILE_TICKS), PHASES, label="driver-profile")
     del driver_run["driver"]
     torch.cuda.empty_cache()
     check_checkpoint(device)
@@ -4228,7 +4593,11 @@ def main(argv=()) -> int:
         phase("build", f"ptxas delivery_combine_kernel {line}")
 
     if "--mesh-only" in argv:
-        run_mesh(device)
+        run_mesh(device, marks)
+        last = t_start
+        for what, at in marks:
+            phase("time", f"{what}: {at - last:.1f} s")
+            last = at
         phase("time", f"command time in all: {time.perf_counter() - t_start:.1f} s")
         return 0
     kern = check_kernels(device)
@@ -4283,10 +4652,9 @@ def main(argv=()) -> int:
     marks.append(("phase 43 (config15)", time.perf_counter()))
     _, launches["config17"], fleet_launches["config17"] = count_kernel_launches(lambda: run_config17(device))
     marks.append(("phase 44 (config17)", time.perf_counter()))
-    mesh_launches, mesh_fleet = run_mesh(device)
+    mesh_launches, mesh_fleet = run_mesh(device, marks)
     launches.update(mesh_launches)
     fleet_launches.update(mesh_fleet)
-    marks.append(("phase 45 (mesh)", time.perf_counter()))
 
     last = t_start
     for what, at in marks:

@@ -682,8 +682,7 @@ class DriverChaosRunner:
             # restart's convergence obligation must be judged against the
             # post-restart view, and the same-tick heal against the healed
             # links)
-            with d._lock:
-                d.state, labels = self.timeline.apply_due(d.state, t)
+            labels = self._apply_due(t)
             self.events_applied.extend((t, lab) for lab in labels)
             for lab in labels:
                 self._publish("event_applied", event=lab, rel_tick=t)
@@ -737,9 +736,28 @@ class DriverChaosRunner:
         if self._untraced_crash_rows:
             report["untraced_crash_rows"] = list(self._untraced_crash_rows)
 
+    def _apply_due(self, t: int) -> list:
+        """Apply the events due at ``t`` through the driver's host-mutation
+        path (on a mesh: the gathered state, each rank keeping its rows);
+        returns their labels. Nothing due, nothing touched."""
+        d = self.driver
+        nt = self.timeline.next_tick()
+        if nt is None or nt > t:
+            return []
+        box = {}
+
+        def fn(state):
+            state, box["labels"] = self.timeline.apply_due(state, t)
+            return state
+
+        with d._lock:
+            d._apply(fn)
+        return box["labels"]
+
     def _run_check(self) -> None:
         d = self.driver
-        with d._lock:
+        # on a mesh each rank checks its rows and the check combines them
+        with d._lock, d._mesh_ctx():
             self._sent = self._check(d.state, self._sent, self._spec_dev)
 
     # -- reporting (the readback sites) ---------------------------------------

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from ..dissemination.strategies import pull_salt
-from ._tensor import bytes64, host_flags, plane_chunks, row_chunks
+from . import sharding
+from ._tensor import bytes64, host_flags, maximum_into_, plane_chunks, row_chunks
 from .bitplane import pack_bits, unpack_bits
 from .pool import allocate
 from .rand import fetch_uniform
@@ -41,6 +42,13 @@ def count_i32(x) -> torch.Tensor:
     return x.sum().to(torch.int32) if x.dtype == torch.bool else x.to(torch.int32)
 
 
+def _rows_here(state) -> torch.Tensor:
+    """int32 global row ids of the state's rows (the rank's rows on a member
+    mesh)."""
+    ctx = sharding.active()
+    return rows_of(state) if ctx is None else ctx.rows(state.device)
+
+
 def pull_replies(state, ok_all, p_all, ym_p, yu_p, loss_at, recv_u, recv_src, recv_m_p):
     """The push-pull reply leg of the pview and sparse gossip phases
     (DZ-2): each sender whose undelayed contact in fanout slot s landed
@@ -50,27 +58,46 @@ def pull_replies(state, ok_all, p_all, ym_p, yu_p, loss_at, recv_u, recv_src, re
     (``ym_p``), its young user rumors (``yu_p``) less those the sender is
     known to hold. The peer rows are gathered from the three sender
     planes in place (plain tensor code; a sender has one target per slot,
-    so no inverse index is needed). ``recv_u``, ``recv_src`` and
+    so no inverse index is needed); on a member mesh they come back from
+    the peers' ranks in one exact request/reply exchange
+    (:func:`.ragged_a2a.fetch_rows`). ``recv_u``, ``recv_src`` and
     ``recv_m_p`` are folded in place. Returns (replies sent, rumor replies
-    sent) as int32 scalars."""
-    rows = rows_of(state)
+    sent) as int32 scalars, counted over this rank's rows."""
+    rows = _rows_here(state)
     R = state.infected_from.shape[1]
-    sent = torch.zeros((), dtype=torch.int32, device=state.device)
-    rumor_sent = torch.zeros((), dtype=torch.int32, device=state.device)
-    for s in range(p_all.shape[0]):
+    F = p_all.shape[0]
+    rev_ok = []
+    for s in range(F):
         p_s = p_all[s].long()
         rev_u = fetch_uniform(state.tick, pull_salt(s), rows, p_s)
-        rev_ok = ok_all[s] & (rev_u < (1.0 - loss_at(state, p_s, rows)))
+        rev_ok.append(ok_all[s] & (rev_u < (1.0 - loss_at(state, p_s, rows))))
+    ctx = sharding.active()
+    if ctx is not None:
+        Wm, Wu = ym_p.shape[1], yu_p.shape[1]
+        got = ctx.fetch_rows(torch.cat([ym_p, yu_p, state.infected_from], dim=1),
+                             torch.where(torch.stack(rev_ok), p_all, -1))
+
+        def peer(s):
+            return got[s, :, Wm : Wm + Wu], got[s, :, :Wm], got[s, :, Wm + Wu :]
+    else:
+        def peer(s):
+            p_s = p_all[s].long()
+            return yu_p[p_s], ym_p[p_s], state.infected_from[p_s]
+
+    sent = torch.zeros((), dtype=torch.int32, device=state.device)
+    rumor_sent = torch.zeros((), dtype=torch.int32, device=state.device)
+    for s in range(F):
+        yu_r, ym_r, from_r = peer(s)
         reply_u = (
-            unpack_bits(yu_p[p_s], R)
-            & rev_ok[:, None]
-            & (state.infected_from[p_s] != rows[:, None])
+            unpack_bits(yu_r, R)
+            & rev_ok[s][:, None]
+            & (from_r != rows[:, None])
             & (state.rumor_origin[None, :] != rows[:, None])
         )
         recv_u |= reply_u
-        torch.maximum(recv_src, torch.where(reply_u, p_all[s].to(torch.int32)[:, None], -1), out=recv_src)
-        recv_m_p |= ym_p[p_s].masked_fill_(~rev_ok[:, None], 0)
-        sent += count_i32(rev_ok)
+        maximum_into_(recv_src, recv_src, torch.where(reply_u, p_all[s].to(torch.int32)[:, None], -1))
+        recv_m_p |= torch.where(rev_ok[s][:, None], ym_r, 0)
+        sent += count_i32(rev_ok[s])
         rumor_sent += count_i32(reply_u)
     return sent, rumor_sent
 
@@ -287,6 +314,13 @@ def origin_words(state, n_words: int) -> torch.Tensor:
     return flat.view(n + 1, n_words)[:n]
 
 
+def origin_words_here(state, n_words: int) -> torch.Tensor:
+    """:func:`origin_words` over the state's rows (on a member mesh, each
+    pool column's origin bit at its local row on the rank that holds it)."""
+    ctx = sharding.active()
+    return origin_words(state if ctx is None else state.replace(mr_origin=state.mr_origin - ctx.lo), n_words)
+
+
 def late_deliveries_(state, D: int, ok_all, d_all, p_all, ym_p, yu_p, user: bool, member: bool) -> None:
     """The delayed contacts of the gossip phase into the rings, per fanout
     slot s: the highest-row sender whose contact is late reaches each
@@ -300,25 +334,39 @@ def late_deliveries_(state, D: int, ok_all, d_all, p_all, ym_p, yu_p, user: bool
     fanout slot are distinct, so a gather, an OR and a put are exact). The
     membership words are filtered packed, OR-ed per delay d over the fanout
     slots (a ring cell is the OR of every contribution, in any order), and
-    each d's words go into its ring slot in place."""
+    each d's words go into its ring slot in place.
+
+    On a member mesh the late contacts cross to their receivers' ranks in
+    one exact exchange (:func:`.ragged_a2a.late_exchange`), which elects the
+    same winners there; each rank writes its own rows of the rings."""
     n = state.capacity
-    rows = rows_of(state)
-    rows_l = rows.long()
+    rows = _rows_here(state)
+    rows_l = torch.arange(n, dtype=torch.int64, device=state.device)
     R = state.infected.shape[1]
-    late = []
-    for s in range(p_all.shape[0]):
-        ok_late = ok_all[s] & (d_all[s] > 0)
-        inv_l = torch.full((n,), -1, dtype=torch.int32, device=state.device)
-        inv_l.scatter_reduce_(0, p_all[s].long(), torch.where(ok_late, rows, -1), "amax", include_self=True)
-        jl = inv_l.clamp(min=0).long()
-        hasl = inv_l >= 0
-        d_row = d_all[s][jl]
-        late.append((jl, hasl, d_row))
-        if user:
+    ctx = sharding.active()
+    late = []  # per slot: (winner row, has one, its d, its yu / ym / infected_from rows)
+    if ctx is not None:
+        Wm, Wu = ym_p.shape[1], yu_p.shape[1]
+        sender, d_w, pl = ctx.late_exchange(torch.cat([ym_p, yu_p, state.infected_from], dim=1), p_all,
+                                            ok_all & (d_all > 0), d_all)
+        for s in range(p_all.shape[0]):
+            late.append((sender[s].clamp(min=0), sender[s] >= 0, d_w[s],
+                         lambda s=s: pl[s, :, Wm : Wm + Wu], lambda s=s: pl[s, :, :Wm],
+                         lambda s=s: pl[s, :, Wm + Wu :]))
+    else:
+        for s in range(p_all.shape[0]):
+            ok_late = ok_all[s] & (d_all[s] > 0)
+            inv_l = torch.full((n,), -1, dtype=torch.int32, device=state.device)
+            inv_l.scatter_reduce_(0, p_all[s].long(), torch.where(ok_late, rows, -1), "amax", include_self=True)
+            jl = inv_l.clamp(min=0).long()
+            late.append((jl, inv_l >= 0, d_all[s][jl], lambda jl=jl: yu_p[jl], lambda jl=jl: ym_p[jl],
+                         lambda jl=jl: state.infected_from[jl]))
+    if user:
+        for jl, hasl, d_row, yu_rows, _ym, from_rows in late:
             late_u = (
-                unpack_bits(yu_p[jl], R)
+                unpack_bits(yu_rows(), R)
                 & hasl[:, None]
-                & (state.infected_from[jl] != rows[:, None])
+                & (from_rows() != rows[:, None])
                 & (state.rumor_origin[None, :] != rows[:, None])
             )
             idx = (((state.tick + d_row) % D).long(), rows_l)
@@ -327,12 +375,12 @@ def late_deliveries_(state, D: int, ok_all, d_all, p_all, ym_p, yu_p, user: bool
             state.pending_src.index_put_(idx, torch.maximum(src, torch.where(late_u, jl.to(torch.int32)[:, None], -1)))
     if not member:
         return
-    not_origin = ~origin_words(state, ym_p.shape[1])
-    words = [torch.where(hasl[:, None], ym_p[jl] & not_origin, 0) for jl, hasl, _ in late]
+    not_origin = ~origin_words_here(state, ym_p.shape[1])
+    words = [torch.where(hasl[:, None], ym_rows() & not_origin, 0) for _jl, hasl, _d, _yu, ym_rows, _f in late]
     del not_origin
     for d in range(1, D):
         acc = torch.zeros_like(words[0])
-        for (_jl, _hasl, d_row), w in zip(late, words):
+        for (_jl, _hasl, d_row, *_), w in zip(late, words):
             acc |= torch.where((d_row == d)[:, None], w, 0)
         or_words_(state.pending_minf[(state.tick + d) % D], acc)
 

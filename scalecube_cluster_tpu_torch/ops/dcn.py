@@ -15,10 +15,12 @@ Usage (one process per device)::
     run = sharding.make_sharded_pview_run(mesh, params, n_ticks=100)
     state, metrics, _ = run(state, torch.Generator("cuda").manual_seed(0))
 
-:class:`LocalWorld` starts W such processes on this host (the CPU lane the
-tests use: gloo, one thread each) and runs a function on every rank.
+:class:`LocalWorld` starts W such processes on this host (``LocalWorld(W,
+"cpu")`` is the CPU lane the tests use: gloo, one thread each) and runs a
+function on every rank.
 
-The dense engine's ``make_global_state`` is not ported yet (ROADMAP A12).
+The dense engine's ``make_global_state`` is not ported yet (ROADMAP A12
+item 5).
 """
 
 from __future__ import annotations
@@ -116,7 +118,8 @@ def make_global_pview_state(params, n_initial: int, mesh, **init_kwargs):
 
 def make_global_state(params, n_initial: int, mesh, **init_kwargs):
     """Refused: the dense engine on a mesh is not ported yet."""
-    raise NotImplementedError("make_global_state (the dense engine on a mesh) is not ported yet (ROADMAP A12)")
+    raise NotImplementedError("make_global_state (the dense engine on a mesh) is not ported yet (ROADMAP A12 "
+                              "item 5)")
 
 
 # ---------------------------------------------------------------------------
@@ -145,14 +148,15 @@ def _serve(rank: int, world: int, init_file: str, device: str, tasks, results) -
 
 
 class LocalWorld:
-    """W processes on this host, each a rank of one process group (gloo for
-    ``device="cpu"``, NCCL for ``"cuda"``), serving calls until closed.
+    """W processes on this host, each a rank of one process group (NCCL for
+    ``device="cuda"``, the default as for every entry point of the port;
+    gloo for ``"cpu"``, the tests' lane), serving calls until closed.
 
     :meth:`run` calls ``fn(*args)`` on every rank and returns the W results
     in rank order; ``fn`` must be importable by name (a module-level
     function). A rank that raises fails the call with its traceback."""
 
-    def __init__(self, world: int, device: str = "cpu", timeout: float = 600.0):
+    def __init__(self, world: int, device: str = "cuda", timeout: float = 600.0):
         import multiprocessing
 
         ctx = multiprocessing.get_context("spawn")

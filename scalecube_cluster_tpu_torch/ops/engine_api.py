@@ -62,6 +62,9 @@ class EngineOps:
     make_sharded_traced_run: Callable = None
     shard_state: Callable = None
     gather_state: Callable = None
+    # (mesh2d, params, n_ticks) -> fleet window on a 2-D scenarios x members
+    # mesh, run(fleet_state, draws, watch_rows=None) over this rank's block
+    make_sharded_fleet_run: Callable = None
 
     @property
     def supports_mesh(self) -> bool:
@@ -221,6 +224,7 @@ def _pview_engine() -> EngineOps:
         make_sharded_traced_run=SH.make_sharded_pview_traced_run,
         shard_state=SH.shard_pview_state,
         gather_state=SH.gather_pview_state,
+        make_sharded_fleet_run=SH.make_sharded_pview_fleet_run,
     )
 
 

@@ -57,8 +57,16 @@ window runs each rank's scenarios with no collective inside: a generator
 wrapped by :func:`fleet_draws` draws the whole ``[S, ...]`` blocks on every
 rank and hands each rank its rows, so row s equals the one-process fleet's.
 The Monte Carlo folds are combined once at the end
-(:func:`fleet_fold_sum`, :func:`fleet_gather`). The 2-D scenarios x
-members mesh is refused by name (ROADMAP A12).
+(:func:`fleet_fold_sum`, :func:`fleet_gather`).
+
+**The 2-D scenarios x members mesh** (:func:`.sharding.make_pview_mesh2d`,
+the pview engine): each rank holds its scenarios' member rows, and the
+fleet tick is the member-sharded tick under the same vmap
+(:func:`.sharding.make_sharded_pview_fleet_run`). Its collectives are
+custom ops whose vmap rules carry the rank's whole scenario block in one
+collective on the member sub-group; the scenario axis carries none.
+:func:`fleet_draws` and :func:`fleet_gather` split and join the scenario
+axis of such a mesh as they do a 1-D scenario mesh's.
 """
 
 from __future__ import annotations
@@ -312,7 +320,9 @@ def fleet_mesh(devices=None):
 
 
 def _fleet_rows(mesh, s: int) -> tuple:
-    w = mesh.size()
+    """This rank's scenarios ``[lo, hi)`` of ``s``: the split of the
+    ``"scenarios"`` axis (dim 0; of a 2-D scenarios x members mesh too)."""
+    w = mesh.size(0)
     if s % w:
         raise ValueError(f"fleet size {s} does not divide over the {w}-device scenario mesh")
     per = s // w

@@ -50,7 +50,10 @@ each rank's rows: the seams below (``_grows``, ``_full``, ``_mine``,
 ``_reduce``, ``_capped``) are the identity on one device and the site's
 collective on a mesh, the delivery takes the ragged record exchange, and
 SYNC runs over the gathered tables (:func:`_sync_phase_sharded`). The
-fleet windows (``make_pview_fleet_run``, its fused name,
+delay rings' late contacts and the push-pull leg's peer rows cross in
+exact exchanges (:mod:`.ragged_a2a`); a rumor with a delivery in flight on
+any rank keeps its column on every rank; the chaos sentinels combine the
+ranks' per-subject tables and counts. The fleet windows (``make_pview_fleet_run``, its fused name,
 ``make_pview_fleet_adaptive_run``) run the fused tick under
 ``torch.func.vmap`` (:mod:`.fleet`).
 """
@@ -73,7 +76,7 @@ from ._tick import (  # the pending delivery rings
     clear_pending_rows_,
     delay_ticks,
     late_deliveries_,
-    origin_words,
+    origin_words_here,
     pending_now_flags,
     receive_pending,
 )
@@ -1019,8 +1022,7 @@ def _mr_apply_packed(state: PviewState, recv_m_p, zero_p, params: PviewParams, a
 
     # origin-row exclusion: column c's bit lands in row mr_origin[c] (on a
     # mesh, at its local row on the rank that holds it)
-    ctx = _shard()
-    excl_p = origin_words(state if ctx is None else state.replace(mr_origin=state.mr_origin - ctx.lo), W)
+    excl_p = origin_words_here(state, W)
     active_p = pack_bits(state.mr_active[None, :])[0]
     rem0 = recv_m_p & zero_p & ~excl_p & active_p[None, :]
     rem0 = torch.where(state.up[:, None], rem0, 0)
@@ -1193,7 +1195,8 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
     if spec.wants_pull:
         pulled, rumor_pulled = pull_replies(state, ok_now_all, p_all, ym_p, yu_p, _loss_at, recv_u, recv_src, recv_m_p)
         sent = sent + pulled
-        rumor_sent = rumor_sent + rumor_pulled
+        # on a mesh the exchange's rumor count is global already
+        rumor_sent = rumor_sent + _reduce(rumor_pulled, "sum")
     if D:
         late_deliveries_(state, D, ok_all, d_all, p_all, ym_p, yu_p, u_any, m_any)
 
@@ -1468,7 +1471,9 @@ def _rumor_sweeps_fused(state: PviewState, params: PviewParams, fwd_post_p) -> P
     keep_u = keep_u | forwarding_u
     D = params.delay_slots
     if D:
-        keep_u = keep_u | state.pending_inf.flatten(0, 1).any(dim=0)
+        # a rumor in flight on any rank stays on every rank (the pools are
+        # replicated)
+        keep_u = keep_u | _reduce(state.pending_inf.flatten(0, 1).any(dim=0), "max")
     state = state.replace(rumor_active=state.rumor_active & keep_u)
 
     (mr_any,) = host_flags(state.mr_active.any())
@@ -1478,7 +1483,7 @@ def _rumor_sweeps_fused(state: PviewState, params: PviewParams, fwd_post_p) -> P
     forwarding_m = _reduce(unpack_bits(fwd_words[None, :], m)[0], "max")
     keep_m = ((state.tick - state.mr_created) <= sweep) | forwarding_m
     # a rumor with deliveries in flight stays, and is not freed as covered
-    pending_m = state.pending_minf.flatten(0, 1).any(dim=0) if D else None
+    pending_m = _reduce(state.pending_minf.flatten(0, 1).any(dim=0), "max") if D else None
     if D:
         keep_m = keep_m | pending_m
     if params.early_free:
@@ -1730,8 +1735,10 @@ def sentinel_reduce(state: PviewState, sent: dict, spec: dict) -> dict:
     tables it non-DEAD; convergence once no up observer tables an up
     subject non-ALIVE; the view invariant (no duplicate subject and no
     self entry in a row's table), counted per check. Tensor reductions, no
-    transfer."""
-    n = state.capacity
+    transfer. On a member mesh each rank checks its observer rows: the
+    per-subject tables are combined with MAX, the counts summed in int64,
+    and ``prev_diag`` holds the rank's own rows."""
+    n = _gcap(state)
     dev = state.device
     keys = _keys_i32(state)
     sid = state.nbr_id
@@ -1739,23 +1746,28 @@ def sentinel_reduce(state: PviewState, sent: dict, spec: dict) -> dict:
     valid = sid >= 0
     rank = keys & 3
     rel = state.tick - spec["t0"]
+    up_all = _full(state.up)
+
+    def total(x) -> torch.Tensor:
+        """A count over the ranks' rows."""
+        return _reduce(x.sum(dtype=torch.int64), "sum").to(torch.int32)
 
     sent = dict(sent)
-    sent["key_regressions"] = sent["key_regressions"] + (state.self_key < sent["prev_diag"]).sum(dtype=torch.int32)
+    sent["key_regressions"] = sent["key_regressions"] + total(state.self_key < sent["prev_diag"])
     sent["prev_diag"] = state.self_key.clone()
 
     def subjects_of(edge) -> torch.Tensor:
         """[N] bool: the subjects of the ``edge`` [N, k] table entries."""
-        return scatter_reduce_1d(n, torch.where(edge, sid, n).reshape(-1), edge.reshape(-1), "amax", 0,
-                                 torch.int32) > 0
+        return _reduce(scatter_reduce_1d(n, torch.where(edge, sid, n).reshape(-1), edge.reshape(-1), "amax", 0,
+                                         torch.int32), "max") > 0
 
     tomb = valid & state.up[:, None] & (rank == RANK_DEAD)
-    nf_up = spec["never_faulted"] & state.up
+    nf_up = spec["never_faulted"] & up_all
     sent["false_dead_max"] = torch.maximum(
         sent["false_dead_max"], subjects_of(tomb & nf_up[sidc]).sum(dtype=torch.int32)
     )
     if "fp_watch" in spec:
-        fp_up = spec["fp_watch"] & state.up
+        fp_up = spec["fp_watch"] & up_all
         sent["fp_dead_max"] = torch.maximum(
             sent["fp_dead_max"], subjects_of(tomb & fp_up[sidc]).sum(dtype=torch.int32)
         )
@@ -1766,20 +1778,20 @@ def sentinel_reduce(state: PviewState, sent: dict, spec: dict) -> dict:
         active = (rel >= spec["crash_at"]) & (rel <= spec["crash_until"]) & (sent["detect_tick"] < 0)
         sent["detect_tick"] = torch.where(active & detected, rel, sent["detect_tick"]).to(torch.int32)
     if spec["conv_from"].shape[0]:
-        converged = ~(valid & state.up[:, None] & state.up[sidc] & (rank != RANK_ALIVE)).any()
+        converged = ~_reduce((valid & state.up[:, None] & up_all[sidc] & (rank != RANK_ALIVE)).any(), "max")
         active = (rel >= spec["conv_from"]) & (sent["conv_tick"] < 0)
         sent["conv_tick"] = torch.where(active & converged, rel, sent["conv_tick"]).to(torch.int32)
 
     k = sid.shape[1]
     off_diag = ~torch.eye(k, dtype=torch.bool, device=dev)
-    rows = torch.arange(n, device=dev)
-    breaks = torch.zeros((), dtype=torch.int32, device=dev)
-    for lo, hi in row_chunks(n):
+    rows = _grows(state)
+    breaks = torch.zeros((), dtype=torch.int64, device=dev)
+    for lo, hi in row_chunks(state.capacity):
         s, v = sid[lo:hi], valid[lo:hi]
         dup = (v[:, :, None] & v[:, None, :] & (s[:, :, None] == s[:, None, :]) & off_diag[None]).any(dim=(1, 2))
         self_entry = (v & (s == rows[lo:hi, None])).any(dim=1)
-        breaks += (dup | self_entry).sum(dtype=torch.int32)
-    sent["view_invariant_breaks"] = sent["view_invariant_breaks"] + breaks
+        breaks += (dup | self_entry).sum(dtype=torch.int64)
+    sent["view_invariant_breaks"] = sent["view_invariant_breaks"] + _reduce(breaks, "sum").to(torch.int32)
     return sent
 
 

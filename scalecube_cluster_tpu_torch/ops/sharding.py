@@ -33,14 +33,29 @@ the tick at each such site (``ops/pview.py``). The rules:
 Collectives cross as int32, int64, uint8 or float32 only (gloo and NCCL
 have no int16 or uint32): narrow keys and bool planes travel as bytes.
 
-Sharded windows (:func:`make_sharded_pview_run` and its fused, adaptive
-and traced twins) are bit-identical to the one-process port under the
-default exchange budget; a starved budget drops records as JAX's sharded
-run does and counts them in ``delivery_overflow``.
+* **Late and pulled rows** cross in exact exchanges (:mod:`.ragged_a2a`):
+  one ``all_to_all_single`` of the per-destination counts, then the
+  records with those splits. The delay rings' late contacts go to their
+  receivers' ranks (each rank writes its own rows of the rings), and the
+  push-pull leg's peer rows come back in request order. Neither drops a
+  record, as JAX's global gathers drop none.
+* **The 2-D mesh.** :func:`make_pview_mesh2d` composes the fleet's
+  ``"scenarios"`` axis with ``"members"``: each rank holds its scenarios'
+  rows, the scenario axis carries no collective, and every member
+  collective runs on the member sub-group. Every collective is a
+  ``torch.library.custom_op`` with a vmap rule, so a fleet tick under
+  ``torch.func.vmap`` makes one collective per site for all its
+  scenarios, as a serial tick does.
 
-Not ported yet, and refused by name (ROADMAP A12): the 2-D scenarios ×
-members mesh, the pview delay rings and the push-pull pull leg on a mesh,
-and the sparse and dense sharded windows.
+Sharded windows (:func:`make_sharded_pview_run` and its fused, adaptive
+and traced twins, and the fleet's :func:`make_sharded_pview_fleet_run`)
+are bit-identical to the one-process port under the default exchange
+budget, with and without the delay rings and the push-pull leg; a starved
+budget drops on-time records as JAX's sharded run does and counts them in
+``delivery_overflow``.
+
+Not ported yet, and refused by name: the sparse and dense sharded windows
+and states (ROADMAP A12 item 5).
 """
 
 from __future__ import annotations
@@ -60,7 +75,7 @@ ROW, RING, REPLICATED = 0, 1, None
 
 
 def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP A12)")
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP A12 item 5)")
 
 
 # ---------------------------------------------------------------------------
@@ -90,13 +105,31 @@ def member_mesh_size(mesh) -> int:
     return mesh.size()
 
 
-def _check_member_mesh(mesh) -> None:
-    """Only a 1-D ``"members"`` mesh is ported: a 2-D scenarios × members
-    mesh, or anything else passed as one, is refused by name."""
-    names = getattr(mesh, "mesh_dim_names", None) or (MEMBER_AXIS,)
-    if getattr(mesh, "ndim", None) != 1 or tuple(names) != (MEMBER_AXIS,):
-        _not_ported(f"a mesh with dimensions {getattr(mesh, 'mesh_dim_names', None)} (only a 1-D "
-                    f"'{MEMBER_AXIS}' mesh runs; the 2-D scenarios x members mesh)")
+def _is_mesh2d(mesh) -> bool:
+    from .fleet import FLEET_AXIS
+
+    return tuple(getattr(mesh, "mesh_dim_names", None) or ()) == (FLEET_AXIS, MEMBER_AXIS)
+
+
+def _check_member_mesh(mesh, fleet: bool = False) -> None:
+    """A serial window, state or driver takes a 1-D ``"members"`` mesh; with
+    ``fleet`` the 2-D scenarios x members mesh is taken too."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or (MEMBER_AXIS,))
+    if getattr(mesh, "ndim", None) == 1 and names == (MEMBER_AXIS,):
+        return
+    if fleet and _is_mesh2d(mesh):
+        return
+    raise ValueError(
+        f"a mesh with dimensions {getattr(mesh, 'mesh_dim_names', None)}: the serial sharded windows, states and "
+        f"drivers take a 1-D '{MEMBER_AXIS}' mesh (make_mesh); a 2-D scenarios x members mesh "
+        "(make_pview_mesh2d) runs the fleet (make_sharded_pview_fleet_run)")
+
+
+def mesh_axes(mesh) -> dict:
+    """``{axis name: size}`` of a mesh (the flight dump's and the profiler's
+    stamp)."""
+    names = mesh.mesh_dim_names or tuple(f"dim{i}" for i in range(mesh.ndim))
+    return {str(k): int(mesh.size(i)) for i, k in enumerate(names)}
 
 
 def mesh_device(mesh) -> torch.device:
@@ -120,14 +153,6 @@ def _check_pview_word_alignment(mesh, params) -> None:
             "with the row shards (pad capacity up and leave the extra rows "
             "up=False — masks make padding free)"
         )
-
-
-def _refuse_on_mesh(params) -> None:
-    """What the sharded pview windows do not run yet."""
-    if params.delay_slots > 0:
-        _not_ported("delay_slots > 0 on a mesh (late_deliveries_ writes into remote receivers' rings)")
-    if params.dissem.wants_pull:
-        _not_ported("the push-pull pull leg on a mesh (pull_replies is a reverse delivery)")
 
 
 # ---------------------------------------------------------------------------
@@ -226,39 +251,99 @@ def place_replicated(x, mesh):
 # ---------------------------------------------------------------------------
 # collectives (gloo and NCCL take int32, int64, uint8 and float32)
 # ---------------------------------------------------------------------------
+#
+# Each collective is a ``torch.library.custom_op`` whose vmap rule issues ONE
+# collective over the whole batch: under the fleet's ``torch.func.vmap`` a
+# member collective carries every scenario of the rank's block at once (the
+# scenario axis rides inside the rows), so a fleet tick makes as many
+# collectives as a serial tick. The ops take the group by a registry index.
 
 _WIRE = (torch.int32, torch.int64, torch.uint8, torch.float32)
+
+#: process groups the collective ops name by index
+_GROUPS: list = []
+
+
+def group_index(group) -> int:
+    """The registry index of ``group`` (registered on first use)."""
+    for i, g in enumerate(_GROUPS):
+        if g is group:
+            return i
+    _GROUPS.append(group)
+    return len(_GROUPS) - 1
+
+
+def group_of(index: int):
+    return _GROUPS[index]
+
+
+def _plain():
+    """Inside an op's body the tensors are whole: a factory makes one tensor,
+    not one per scenario."""
+    from ._tensor import fleet_scope
+
+    return fleet_scope(0)
+
+
+@torch.library.custom_op("scalecube_port::gather_rows", mutates_args=())
+def _gather_rows_op(x: torch.Tensor, group: int) -> torch.Tensor:
+    with _plain():
+        g = group_of(group)
+        world = dist.get_world_size(g)
+        x = x.contiguous()
+        wire = x if x.dtype in _WIRE else x.view(torch.uint8)
+        out = torch.empty((world * wire.shape[0],) + tuple(wire.shape[1:]), dtype=wire.dtype, device=x.device)
+        # the list form exists and is current on every torch the port runs on
+        dist.all_gather(list(out.view((world,) + tuple(wire.shape)).unbind(0)), wire, group=g)
+        if wire is x:
+            return out
+        return out.view(x.dtype).reshape((world * x.shape[0],) + tuple(x.shape[1:]))
+
+
+@_gather_rows_op.register_vmap
+def _gather_rows_vmap(info, in_dims, x, group):
+    """The batch rides behind the rows: ``[L, S, ...]`` gathers to ``[W·L,
+    S, ...]`` in one collective."""
+    (d, _g) = in_dims
+    if d is None:
+        return _gather_rows_op(x, group), None
+    return _gather_rows_op(x.movedim(d, 1), group), 1
 
 
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """``all_gather`` of each rank's ``[L, ...]`` rows into ``[W·L, ...]``
     in rank order. A dtype the collectives lack crosses as its bytes."""
-    world = dist.get_world_size(group)
-    x = x.contiguous()
-    wire = x if x.dtype in _WIRE else x.view(torch.uint8)
-    out = torch.empty((world * wire.shape[0],) + tuple(wire.shape[1:]), dtype=wire.dtype, device=x.device)
-    # the list form exists and is current on every torch the port runs on
-    dist.all_gather(list(out.view((world,) + tuple(wire.shape)).unbind(0)), wire, group=group)
-    if wire is x:
-        return out
-    return out.view(x.dtype).reshape((world * x.shape[0],) + tuple(x.shape[1:]))
+    return _gather_rows_op(x, group_index(group))
 
 
 _OPS = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN, "sum": dist.ReduceOp.SUM}
 
 
+@torch.library.custom_op("scalecube_port::all_reduce", mutates_args=())
+def _all_reduce_op(x: torch.Tensor, op: str, group: int) -> torch.Tensor:
+    with _plain():
+        g = group_of(group)
+        if x.dtype == torch.bool:
+            y = x.to(torch.uint8)
+            dist.all_reduce(y, op=_OPS[op], group=g)
+            return y.bool()
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=_OPS[op], group=g)
+        return y
+
+
+@_all_reduce_op.register_vmap
+def _all_reduce_vmap(info, in_dims, x, op, group):
+    """Elementwise: the batched tensor reduces whole, in one collective."""
+    return _all_reduce_op(x, op, group), in_dims[0]
+
+
 def all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
     """A reduced copy of ``x`` (``op``: max, min or sum); bools reduce as
     bytes (max = any, min = all)."""
-    if x.dtype == torch.bool:
-        y = x.to(torch.uint8)
-        dist.all_reduce(y, op=_OPS[op], group=group)
-        return y.bool()
-    if x.dtype not in _WIRE:
+    if x.dtype != torch.bool and x.dtype not in _WIRE:
         raise TypeError(f"all_reduce of {x.dtype}: widen it first")
-    y = x.clone()
-    dist.all_reduce(y, op=_OPS[op], group=group)
-    return y
+    return _all_reduce_op(x, op, group_index(group))
 
 
 class ShardContext:
@@ -267,9 +352,10 @@ class ShardContext:
     gathered tensors (each gathered once per tick)."""
 
     def __init__(self, mesh, capacity: int, budget: Optional[int] = None):
-        _check_member_mesh(mesh)
+        _check_member_mesh(mesh, fleet=True)
         self.mesh = mesh
         self.group = mesh.get_group(MEMBER_AXIS)
+        self.group_id = group_index(self.group)
         self.size = member_mesh_size(mesh)
         self.n = int(capacity)
         self.lo, self.hi = _rank_rows(mesh, self.n)
@@ -330,6 +416,21 @@ class ShardContext:
         so every rank takes the same branch."""
         return list(self.reduce(torch.stack([f.reshape(()) for f in flags]), "max").unbind(0))
 
+    # -- the exact exchanges ---------------------------------------------------
+    def late_exchange(self, payload, p_all, ok_late, d_all):
+        """The delay rings' late contacts, delivered where the receivers live
+        and elected there (:func:`.ragged_a2a.late_exchange`)."""
+        from .ragged_a2a import late_exchange
+
+        return late_exchange(payload, p_all, ok_late, d_all, self.lo, self.L, self.size, self.group_id)
+
+    def fetch_rows(self, table, want):
+        """Rows of the ``[L, C]`` member-axis ``table`` at the global ids
+        ``want`` (-1: none), wherever they live (:func:`.ragged_a2a.fetch_rows`)."""
+        from .ragged_a2a import fetch_rows
+
+        return fetch_rows(table, want, self.L, self.size, self.group_id)
+
 
 #: the armed context of the tick running here (None: unsharded)
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("member_mesh", default=None)
@@ -384,7 +485,6 @@ def _builder_checks(mesh, params, budget) -> None:
 
     _check_member_mesh(mesh)
     _check_pview_word_alignment(mesh, params)
-    _refuse_on_mesh(params)
     check_budget(params.fanout, params.capacity, member_mesh_size(mesh), budget)
 
 
@@ -469,20 +569,122 @@ def make_sharded_telemetry_row(mesh, row_fn):
 
 
 # ---------------------------------------------------------------------------
-# refused by name (ROADMAP A12)
+# the 2-D scenarios x members mesh (the fleet on row-sharded members)
 # ---------------------------------------------------------------------------
+
+_MESHES2D: dict = {}
 
 
 def make_pview_mesh2d(n_scenarios: int, devices=None):
-    _not_ported("make_pview_mesh2d (the 2-D scenarios x members mesh)")
+    """A 2-D ``("scenarios", "members")`` mesh over every rank of the default
+    process group: ``n_scenarios`` scenario rows of W / n_scenarios member
+    ranks each. The scenario axis carries no collective; the member
+    collectives run on each row's member sub-group. ``devices`` is the
+    device type (``"cuda"`` by default, or ``"cpu"``). Made once per device
+    type, world and row count (a mesh makes its sub-groups collectively)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from .fleet import FLEET_AXIS
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_pview_mesh2d needs a process group: call ops.dcn.initialize first")
+    world = dist.get_world_size()
+    if n_scenarios <= 0 or world % n_scenarios:
+        raise ValueError(f"{world} devices do not factor into {n_scenarios} scenario rows")
+    device_type = "cuda" if devices is None else torch.device(devices).type
+    key = (device_type, world, int(n_scenarios))
+    if key not in _MESHES2D:
+        _MESHES2D[key] = init_device_mesh(device_type, (n_scenarios, world // n_scenarios),
+                                          mesh_dim_names=(FLEET_AXIS, MEMBER_AXIS))
+    return _MESHES2D[key]
+
+
+def _check_mesh2d(mesh, what: str) -> None:
+    if not _is_mesh2d(mesh):
+        raise ValueError(f"{what} needs a 2-D scenarios x members mesh (make_pview_mesh2d); got axes "
+                         f"{getattr(mesh, 'mesh_dim_names', None)}")
 
 
 def shard_pview_fleet(fleet_state, mesh):
-    _not_ported("shard_pview_fleet (the 2-D scenarios x members mesh)")
+    """This rank's block of a whole ``[S, ...]`` pview fleet on a 2-D mesh:
+    its scenario rows on dim 0 of every leaf (the fleet's split), its member
+    rows on dim 1 of the member-axis leaves and on dim 2 of the ``[S, D, N,
+    ...]`` rings; the pools, the link scalars and the zero-size rings of a
+    fleet without delay whole per scenario."""
+    from .fleet import _fleet_rows, fleet_size
+
+    _check_mesh2d(mesh, "shard_pview_fleet")
+    tags = pview_state_shardings(mesh, False, fleet_state.pending_minf.shape[1])
+    s_lo, s_hi = _fleet_rows(mesh, fleet_size(fleet_state))
+    lo, hi = _rank_rows(mesh, fleet_state.up.shape[1])
+    dev = mesh_device(mesh)
+    out = {}
+    for f in dataclasses.fields(fleet_state):
+        leaf, tag = getattr(fleet_state, f.name), getattr(tags, f.name)
+        if not isinstance(leaf, torch.Tensor):
+            out[f.name] = leaf
+            continue
+        leaf = leaf[s_lo:s_hi]
+        if tag is not REPLICATED:
+            leaf = leaf[:, lo:hi] if tag == ROW else leaf[:, :, lo:hi]
+        out[f.name] = leaf.to(device=dev, memory_format=torch.contiguous_format, copy=True)
+    return type(fleet_state)(**out)
 
 
-def make_sharded_pview_fleet_run(mesh, params, n_ticks: int, a2a_budget=None):
-    _not_ported("make_sharded_pview_fleet_run (the 2-D scenarios x members mesh)")
+def gather_pview_fleet(fleet_state, mesh):
+    """The whole ``[S, ...]`` fleet from every rank's block (the inverse of
+    :func:`shard_pview_fleet`), identical on every rank."""
+    from .fleet import FLEET_AXIS
+
+    _check_mesh2d(mesh, "gather_pview_fleet")
+    members, scenarios = mesh.get_group(MEMBER_AXIS), mesh.get_group(FLEET_AXIS)
+    tags = pview_state_shardings(mesh, False, fleet_state.pending_minf.shape[1])
+    out = {}
+    for f in dataclasses.fields(fleet_state):
+        leaf, tag = getattr(fleet_state, f.name), getattr(tags, f.name)
+        if not isinstance(leaf, torch.Tensor):
+            out[f.name] = leaf
+            continue
+        if not leaf.numel():
+            out[f.name] = leaf.new_empty((leaf.shape[0] * mesh.size(0),) + tuple(leaf.shape[1:]))
+            continue
+        if tag is not REPLICATED:
+            dim = 1 if tag == ROW else 2
+            leaf = gather_rows(leaf.movedim(dim, 0), members).movedim(0, dim)
+        out[f.name] = gather_rows(leaf, scenarios).contiguous()
+    return type(fleet_state)(**out)
+
+
+def make_sharded_pview_fleet_run(mesh, params, n_ticks: int, a2a_budget: Optional[int] = None):
+    """The fleet window on a 2-D scenarios x members mesh: ``run(fleet_state,
+    draws, watch_rows=None) -> (fleet_state, metrics [S_r, T], watched)``
+    over this rank's block (:func:`shard_pview_fleet`) of S_r scenarios.
+    Each fleet tick is the sharded tick under ``torch.func.vmap`` over the
+    scenarios; every collective's vmap rule carries the whole block at
+    once, so the scenario axis adds none. ``draws`` gives each tick's full
+    ``[S_r, N, ...]`` blocks: ``fleet.fleet_draws(gen, mesh, S)`` (the
+    one-process fleet's draws, this rank's scenarios) or a per-tick
+    sequence. Row s equals scenario s's serial sharded window."""
+    from .fleet import run_fleet_window
+    from .pview import view_rows
+    from .rand import draw_sparse_tick
+    from .ragged_a2a import check_budget
+
+    _check_mesh2d(mesh, "make_sharded_pview_fleet_run")
+    _check_pview_word_alignment(mesh, params)
+    check_budget(params.fanout, params.capacity, member_mesh_size(mesh), a2a_budget)
+
+    def run(fleet_state, draws, watch_rows=None):
+        with ragged_delivery_context(mesh, params.capacity, a2a_budget):
+            return run_fleet_window(_sharded_tick, view_rows, draw_sparse_tick, fleet_state, draws, n_ticks,
+                                    params, watch_rows)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# refused by name (ROADMAP A12 item 5)
+# ---------------------------------------------------------------------------
 
 
 def state_shardings(mesh, dense_links: bool = True, delay_slots: int = 0):

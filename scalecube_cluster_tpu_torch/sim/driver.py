@@ -57,10 +57,18 @@ mutation runs on the whole state (gathered) and each rank keeps its rows,
 and a host read (views, statuses, events, coverage) returns the same whole
 value on every rank, with the readbacks of the unsharded driver.
 
-Not ported yet, and refused by name: the sparse and dense engines, the
-2-D scenarios x members mesh, and the control plane, ``run_scenario``, the
-profiler and checkpoints on a mesh (ROADMAP A12); the compile-cache audit
-(A13).
+The planes run on a sharded driver as on an unsharded one: the control
+plane (its sensor is the telemetry ring, whole on every rank; its actuators
+change the params, and the next step builds the sharded window from them),
+``run_scenario`` (the scenario's host events through :meth:`_apply`, the
+sentinels checked over each rank's rows and combined), the profiler
+(:func:`..trace.profile.profile_driver`) and checkpoints: every rank
+gathers the state, rank 0 writes the unsharded driver's archive, and a
+restore keeps each rank's rows of it, so an archive moves between a
+sharded and an unsharded driver either way.
+
+Not ported yet, and refused by name: the sparse and dense engines on a
+mesh (ROADMAP A12 item 5); the compile-cache audit (A13).
 """
 
 from __future__ import annotations
@@ -208,7 +216,7 @@ class SimDriver:
             from ..ops import sharding
 
             if not self._eng.supports_mesh:
-                _not_ported(f"a sharded {self.engine} driver (mesh=)", "A12")
+                _not_ported(f"a sharded {self.engine} driver (mesh=)", "A12 item 5")
             sharding._check_member_mesh(mesh)
             self.device = sharding.mesh_device(mesh)
             if torch.device(device).type != self.device.type:
@@ -348,10 +356,6 @@ class SimDriver:
 
             ad = shard_adaptive_state(ad, self.mesh)
         return ad
-
-    def _refuse_on_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            _not_ported(f"{what} on a mesh", "A12")
 
     def _window(self, n_ticks: int):
         """The window this step runs: traced, adaptive or plain, sharded on
@@ -1042,7 +1046,6 @@ class SimDriver:
         (certification arms only)."""
         from ..control import ControlPlane
 
-        self._refuse_on_mesh("the control plane")
         with self._lock:
             if self._control is not None:
                 return self._control
@@ -1093,7 +1096,6 @@ class SimDriver:
         untraced are named in ``untraced_crash_rows``)."""
         from ..chaos.engine import run_driver_scenario
 
-        self._refuse_on_mesh("run_scenario")
         if dissem is not None or strategy is not None or topology is not None:
             self.set_dissemination(dissem, strategy=strategy, topology=topology)
         if adaptive is not None:
@@ -1122,22 +1124,29 @@ class SimDriver:
         adds ``_framework``; :meth:`restore` checks them all. A driver fed
         by a caller's ``draws`` source cannot be checkpointed: that source's
         position is not the driver's to save."""
+        from ..ops.sharding import MEMBER_AXIS
+
         if self._draws is not None:
             raise ValueError("a driver with a caller-supplied draws source cannot be checkpointed")
-        self._refuse_on_mesh("a checkpoint")
         with self._lock:
             payload = self._checkpoint_payload_locked()
         target = os.path.abspath(path)
-        fd, tmp = tempfile.mkstemp(prefix=os.path.basename(target) + ".tmp-", dir=os.path.dirname(target))
-        try:
-            with os.fdopen(fd, "wb") as fh:
-                np.savez_compressed(fh, **payload)
-                fh.flush()
-                os.fsync(fh.fileno())
-            os.replace(tmp, target)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        if self.mesh is None or self.mesh.get_local_rank(MEMBER_AXIS) == 0:  # one writer
+            fd, tmp = tempfile.mkstemp(prefix=os.path.basename(target) + ".tmp-", dir=os.path.dirname(target))
+            try:
+                with os.fdopen(fd, "wb") as fh:
+                    np.savez_compressed(fh, **payload)
+                    fh.flush()
+                    os.fsync(fh.fileno())
+                os.replace(tmp, target)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        if self.mesh is not None:
+            # no rank returns (or restores) before the archive is whole
+            import torch.distributed as dist
+
+            dist.barrier(group=self.mesh.get_group(MEMBER_AXIS))
         self._publish("checkpoint", "saved", path=target)
 
     def _checkpoint_payload_locked(self) -> dict:
@@ -1161,8 +1170,11 @@ class SimDriver:
             # timeline; an optional key, so control-less archives still load
             host["control_state"] = self._control.state_dict()
         host_bytes = pickle.dumps(host)
+        # the unsharded driver's archive: on a mesh every rank gathers the
+        # whole state (the same on every rank)
+        whole = self.state if self.mesh is None else self._eng.gather_state(self.state, self.mesh)
         payload = dict(
-            self._ops.snapshot(self.state),
+            self._ops.snapshot(whole),
             _gen=self._gen.get_state().numpy(),
             _host=np.frombuffer(host_bytes, dtype=np.uint8),
             _schema=np.int32(CHECKPOINT_SCHEMA),
@@ -1173,9 +1185,11 @@ class SimDriver:
         if self._ad is not None:
             # the adaptive planes follow the timeline (optional members; a
             # static driver's restore ignores them)
-            from ..adaptive import adaptive_state_arrays
+            from ..adaptive import AdaptiveState, adaptive_state_arrays
 
-            payload.update(adaptive_state_arrays(self._ad))
+            ad = self._ad if self.mesh is None else AdaptiveState(
+                *(self._whole(getattr(self._ad, k)) for k in ("lh", "conf_key", "conf")))
+            payload.update(adaptive_state_arrays(ad))
         return payload
 
     def restore(self, path: str) -> None:
@@ -1184,8 +1198,8 @@ class SimDriver:
         JAX driver's, whose pickle would import the JAX package) is refused
         before anything is unpickled; so are a newer schema, another engine,
         a failed CRC, missing members, state planes of another shape and a
-        key dtype other than this driver's."""
-        self._refuse_on_mesh("a restore")
+        key dtype other than this driver's. On a mesh every rank reads the
+        archive and keeps its rows."""
         try:
             with self._lock:
                 self._restore_locked(path)
@@ -1241,7 +1255,8 @@ class SimDriver:
         # the adaptive planes are optional members, not engine state planes
         ad_arrays = {k: data.pop(k) for k in ("_ad_lh", "_ad_conf_key", "_ad_conf") if k in data}
         try:
-            state = self._ops.restore(data, device=self.device)
+            # the archive holds the whole state; a rank of a mesh keeps its rows
+            state = self._ops.restore(data, device=self.device if self.mesh is None else "cpu")
         except TypeError as exc:  # missing/extra planes: foreign or truncated
             raise CheckpointError(f"checkpoint {path!r} state planes do not match this engine: {exc}") from exc
         have = self._eng.key_plane(state).dtype
@@ -1256,6 +1271,8 @@ class SimDriver:
         except RuntimeError as exc:
             raise CheckpointError(f"checkpoint {path!r} holds another device's generator state: {exc}") from exc
 
+        if self.mesh is not None:
+            state = self._eng.shard_state(state, self.mesh)
         self.state = state
         self._gen = gen
         if self._control is not None:
@@ -1270,11 +1287,14 @@ class SimDriver:
             # an adaptive driver restoring a static checkpoint starts fresh
             from ..adaptive import init_adaptive_state, restore_adaptive_state
 
-            self._ad = (
-                restore_adaptive_state(ad_arrays, device=self.device)
-                if len(ad_arrays) == 3
-                else init_adaptive_state(self.params.capacity, device=self.device)
-            )
+            if len(ad_arrays) == 3:
+                self._ad = restore_adaptive_state(ad_arrays, device=self.device if self.mesh is None else "cpu")
+                if self.mesh is not None:
+                    from ..ops.sharding import shard_adaptive_state
+
+                    self._ad = shard_adaptive_state(self._ad, self.mesh)
+            else:
+                self._ad = self._init_adaptive()
         self.members = host["members"]
         self._rumor_payloads = host["rumor_payloads"]
         self._next_member_ordinal = host["next_member_ordinal"]

@@ -212,13 +212,15 @@ def driver_families(driver, plane) -> List[dict]:
         ),
     ]
     if driver.mesh is not None:
+        from ..ops.sharding import mesh_axes
+
         fams.append(
             family(
                 f"{PREFIX}_mesh_devices", "gauge",
                 "Devices in the driver's mesh, by axis.",
                 [
                     (f"{PREFIX}_mesh_devices", {**base, "axis": str(ax)}, int(sz))
-                    for ax, sz in sorted(dict(driver.mesh.shape).items())
+                    for ax, sz in sorted(mesh_axes(driver.mesh).items())
                 ],
             )
         )

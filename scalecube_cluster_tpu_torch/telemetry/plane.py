@@ -164,6 +164,7 @@ class TelemetryPlane:
         if runner is None:
             return None
         from ..chaos.events import scenario_to_dict
+        from ..ops.sharding import mesh_axes
 
         d = self.driver
         last = runner.last_report
@@ -188,7 +189,9 @@ class TelemetryPlane:
             "ticks_run": int(runner.rel_tick),
             "sentinels_armed": runner._sent is not None,
             "verdict": verdict,
-            "mesh_axes": None,
+            # a sibling of params, never a field of it; replay rebuilds the
+            # incident unsharded (the sharded trajectory is the unsharded one)
+            "mesh_axes": None if d.mesh is None else mesh_axes(d.mesh),
         }
 
     def flight_record(self, reason: str, context: Optional[dict] = None,

@@ -19,6 +19,14 @@ The phase times sum to within 20% of the split window's wall time (the
 coverage check), and the ``timeline`` renders through
 :func:`.export.profile_to_events`. The port of the JAX package's
 ``trace/profile.py``, whose result dict this keeps key for key.
+
+On a mesh (``mesh=``) the phases are the member-sharded tick's
+(:func:`..ops.sharding.ragged_delivery_context` armed), so the final state
+equals the sharded window's; a 2-D scenarios x members mesh profiles the
+sharded fleet. Each rank times its own phases: the result carries rank 0's
+times (the same dict on every rank), the maximum over the ranks beside
+them (``phases_s_max_over_ranks``, ``wall_s_max_over_ranks``), and
+``"mesh": {axis: size}``.
 """
 
 from __future__ import annotations
@@ -110,14 +118,20 @@ def _run(step: Callable, draw: Callable, params, state, draws, n_ticks: int, war
          lead=None):
     """Warm-up ticks with a throwaway timer, then the measured ticks:
     ``step(state, fd, round, timer) -> state``, its draws from ``draw`` on
-    a generator or from the sequence ``draws``."""
-    seq = _draw_source(draws, warmup_ticks + n_ticks)
+    a generator, from a sharded fleet's draw source, or from the sequence
+    ``draws``."""
+    from ..ops.fleet import ScenarioDraws
+
+    scen = draws if isinstance(draws, ScenarioDraws) else None
+    seq = None if scen is not None else _draw_source(draws, warmup_ticks + n_ticks)
     timer = _Timer(device)
 
     def one(state, t, tm):
         tm.tick = t
         with tm.phase("rand"):
-            if seq is None:
+            if scen is not None:
+                fd, rd = scen.draw(draw, params, (state.tick + 1) % params.fd_every == 0)
+            elif seq is None:
                 fd, rd = draw(draws, params, (state.tick + 1) % params.fd_every == 0, **(lead or {}))
             else:
                 fd, rd = seq[t]
@@ -135,13 +149,41 @@ def _run(step: Callable, draw: Callable, params, state, draws, n_ticks: int, war
     return state, timer, time.perf_counter() - wall0
 
 
-def _result(engine: str, n: int, n_ticks: int, warmup_ticks: int, wall: float, timer: _Timer, **extra) -> Dict:
+def _over_ranks(mesh, timer: _Timer, wall: float, phases) -> tuple:
+    """Rank 0's phase totals and wall time, and the maxima over the ranks
+    (int64 nanoseconds gathered over the member axis, then the scenario
+    axis of a 2-D mesh)."""
+    from ..ops.fleet import FLEET_AXIS
+    from ..ops.sharding import MEMBER_AXIS, _is_mesh2d, gather_rows, mesh_device
+
+    mine = torch.tensor([[round(timer.totals.get(k, 0.0) * 1e9) for k in phases] + [round(wall * 1e9)]],
+                        dtype=torch.int64, device=mesh_device(mesh))
+    every = gather_rows(mine, mesh.get_group(MEMBER_AXIS))
+    if _is_mesh2d(mesh):
+        every = gather_rows(every, mesh.get_group(FLEET_AXIS))
+    every = every.cpu().double() / 1e9
+    first, top = every[0].tolist(), every.max(dim=0).values.tolist()
+    return dict(zip(phases, first[:-1])), first[-1], dict(zip(phases, top[:-1])), top[-1]
+
+
+def _result(engine: str, n: int, n_ticks: int, warmup_ticks: int, wall: float, timer: _Timer, mesh=None,
+            **extra) -> Dict:
+    mesh_extra = {}
+    if mesh is not None:
+        from ..ops.sharding import mesh_axes
+
+        phases = sorted(timer.totals)
+        totals, wall, top, top_wall = _over_ranks(mesh, timer, wall, phases)
+        timer.totals = totals
+        mesh_extra = {"phases_s_max_over_ranks": {k: round(v, 6) for k, v in top.items()},
+                      "wall_s_max_over_ranks": round(top_wall, 6)}
     phase_sum = sum(timer.totals.values())
     return {
         "engine": engine,
         "n": n,
-        "mesh": None,
+        "mesh": None if mesh is None else mesh_axes(mesh),
         **extra,
+        **mesh_extra,
         "ticks": n_ticks,
         "warmup_ticks": warmup_ticks,
         "wall_s": round(wall, 6),
@@ -158,46 +200,90 @@ def _result(engine: str, n: int, n_ticks: int, warmup_ticks: int, wall: float, t
     }
 
 
-def profile_ticks(params, state, draws, n_ticks: int, warmup_ticks: int = 1, mesh=None) -> Tuple[object, Dict]:
+def _mesh_checks(mesh, params, a2a_budget, fleet: bool = False) -> None:
+    """The sharded window builders' preconditions (the pview engine on a
+    mesh; a 2-D mesh for a fleet)."""
+    from ..ops import sharding as SH
+    from ..ops.pview import PviewParams
+    from ..ops.ragged_a2a import check_budget
+
+    if not isinstance(params, PviewParams):
+        SH._not_ported(f"profiling the {type(params).__name__} engine on a mesh (its sharded tick)")
+    if fleet:
+        SH._check_mesh2d(mesh, "profile_fleet_ticks(mesh=)")
+    else:
+        SH._check_member_mesh(mesh)
+    SH._check_pview_word_alignment(mesh, params)
+    check_budget(params.fanout, params.capacity, SH.member_mesh_size(mesh), a2a_budget)
+
+
+def _mesh_scope(mesh, params, a2a_budget):
+    if mesh is None:
+        return contextlib.nullcontext()
+    from ..ops.sharding import ragged_delivery_context
+
+    return ragged_delivery_context(mesh, params.capacity, a2a_budget)
+
+
+def profile_ticks(params, state, draws, n_ticks: int, warmup_ticks: int = 1, mesh=None,
+                  a2a_budget=None) -> Tuple[object, Dict]:
     """Run ``warmup_ticks + n_ticks`` ticks phase by phase; returns
     ``(state, result)``. ``draws`` is a ``torch.Generator`` on the state's
     device (advanced as a window advances it) or a sequence of
     ``warmup_ticks + n_ticks`` per-tick ``(fd, round)`` pairs. The state
     equals the window's over the same draws; the warm-up ticks are left out
-    of the phase totals and the wall time. Consumes ``state``. A ``mesh``
-    is refused (ROADMAP A12)."""
-    if mesh is not None:
-        raise NotImplementedError("profile_ticks on a mesh is not ported yet (ROADMAP A12)")
+    of the phase totals and the wall time. Consumes ``state``. With
+    ``mesh`` (and ``a2a_budget``) ``state`` is this rank's shard and the
+    ticks are the sharded window's (:func:`..ops.sharding.make_sharded_pview_run`)."""
     engine, tick, draw = _engine_of(params)
+    if mesh is not None:
+        from ..ops.sharding import _sharded_tick
+
+        _mesh_checks(mesh, params, a2a_budget)
+        tick = _sharded_tick
 
     def step(st, fd, rd, timer):
         return tick(st, fd, rd, params, timer=timer)[0]
 
-    state, timer, wall = _run(step, draw, params, state, draws, n_ticks, warmup_ticks, state.device)
-    return state, _result(engine, params.capacity, n_ticks, warmup_ticks, wall, timer)
+    with _mesh_scope(mesh, params, a2a_budget):
+        state, timer, wall = _run(step, draw, params, state, draws, n_ticks, warmup_ticks, state.device)
+        result = _result(engine, params.capacity, n_ticks, warmup_ticks, wall, timer, mesh=mesh)
+    return state, result
 
 
-def profile_fleet_ticks(params, fleet_state, draws, n_ticks: int, warmup_ticks: int = 1) -> Tuple[object, Dict]:
+def profile_fleet_ticks(params, fleet_state, draws, n_ticks: int, warmup_ticks: int = 1, mesh=None,
+                        a2a_budget=None) -> Tuple[object, Dict]:
     """Phase-split profile of a FLEET window (:mod:`..ops.fleet`): each
     fleet tick is the serial tick under ``vmap``, its phases timed once per
     fleet tick. ``draws`` is a generator on the fleet's device or a
     sequence of per-tick pairs with [S, ...] leaves. Same result schema as
     :func:`profile_ticks` plus the scenario count ``s``; the engine name is
-    suffixed ``-fleet``. Returns ``(fleet_state, result)``."""
+    suffixed ``-fleet``. With ``mesh`` (a 2-D scenarios x members mesh)
+    ``fleet_state`` is this rank's block and the fleet tick is the sharded
+    fleet window's (:func:`..ops.sharding.make_sharded_pview_fleet_run`);
+    ``draws`` is then ``fleet.fleet_draws(gen, mesh, S)`` or a sequence of
+    this rank's scenarios' full draws. Returns ``(fleet_state, result)``."""
     from ..ops.engine_api import plane_view_rows
     from ..ops.fleet import fleet_size, fleet_tick
     from ..ops.pview import view_rows as pview_rows
 
     engine, tick, draw = _engine_of(params)
+    if mesh is not None:
+        from ..ops.sharding import _sharded_tick
+
+        _mesh_checks(mesh, params, a2a_budget, fleet=True)
+        tick = _sharded_tick
     s = fleet_size(fleet_state)
     rows_fn = pview_rows if engine == "pview" else plane_view_rows
 
     def step(fs, fd, rd, timer):
         return fleet_tick(functools.partial(tick, timer=timer), fs, fd, rd, params, None, rows_fn, None)[0]
 
-    fleet_state, timer, wall = _run(step, draw, params, fleet_state, draws, n_ticks, warmup_ticks,
-                                    fleet_state.up.device, lead={"lead": (s,)})
-    return fleet_state, _result(f"{engine}-fleet", params.capacity, n_ticks, warmup_ticks, wall, timer, s=s)
+    with _mesh_scope(mesh, params, a2a_budget):
+        fleet_state, timer, wall = _run(step, draw, params, fleet_state, draws, n_ticks, warmup_ticks,
+                                        fleet_state.up.device, lead={"lead": (s,)})
+        result = _result(f"{engine}-fleet", params.capacity, n_ticks, warmup_ticks, wall, timer, mesh=mesh, s=s)
+    return fleet_state, result
 
 
 def profile_driver(driver, n_ticks: int = 32, warmup_ticks: int = 1) -> Dict:
@@ -205,13 +291,13 @@ def profile_driver(driver, n_ticks: int = 32, warmup_ticks: int = 1) -> Dict:
     state and the generator are copied and the phase-split run happens on
     the copies. Returns the result dict. A driver fed by a caller's draw
     source is refused (that source's position is not the driver's to
-    copy)."""
+    copy). On a sharded driver each rank copies its shard (the copy is the
+    live state re-sharded, without the gather) and the profile runs the
+    sharded ticks on the driver's mesh."""
     import dataclasses
 
     if driver._draws is not None:
         raise ValueError("profile_driver needs the driver's own generator, not a caller-supplied draws source")
-    if getattr(driver, "mesh", None) is not None:
-        raise NotImplementedError("profile_driver on a mesh is not ported yet (ROADMAP A12)")
     with driver._lock:
         st = driver.state
         state = st.replace(**{
@@ -221,5 +307,5 @@ def profile_driver(driver, n_ticks: int = 32, warmup_ticks: int = 1) -> Dict:
         gen = torch.Generator(device=driver.device)
         gen.set_state(driver._gen.get_state())
         params = driver.params
-    _st, result = profile_ticks(params, state, gen, n_ticks, warmup_ticks=warmup_ticks)
+    _st, result = profile_ticks(params, state, gen, n_ticks, warmup_ticks=warmup_ticks, mesh=driver.mesh)
     return result

@@ -29,7 +29,7 @@ PARAMS = TPV.PviewParams(capacity=128, view_slots=8, active_slots=4, fanout=2, r
 
 @pytest.fixture(scope="module")
 def info():
-    with dcn.LocalWorld(2) as lw:
+    with dcn.LocalWorld(2, "cpu") as lw:
         yield lw.run(RK.dcn_info, PARAMS, 120)
 
 
@@ -102,7 +102,7 @@ def test_outside_a_group():
 
 
 def test_a_failing_rank_fails_the_call():
-    with dcn.LocalWorld(2) as lw:
+    with dcn.LocalWorld(2, "cpu") as lw:
         with pytest.raises(RuntimeError, match="ZeroDivisionError"):
             lw.run(divmod, 1, 0)
         assert lw.run(divmod, 7, 2) == [(3, 1), (3, 1)]

@@ -312,16 +312,18 @@ def test_refused_surfaces_raise_not_implemented():
         "jit_cache_audit": lambda: d.jit_cache_audit(),
         "EmulatorChaosRunner": lambda: EmulatorChaosRunner(_idle_scenario(), [], []),
         "transport": lambda: SimCluster(d).node(1).transport(),
-        # the member mesh is ported (tests/test_torch_sharding.py); a 2-D
-        # scenarios x members mesh stays refused
-        "mesh": lambda: SimDriver(d.params, 8, mesh=_Mesh2d(), device="cpu"),
         "compile_cache_dir": lambda: SimDriver(d.params, 8, compile_cache_dir="x", device="cpu"),
     }
-    items = {"EmulatorChaosRunner": "A13", "jit_cache_audit": "A13", "transport": "A13", "mesh": "A12",
+    items = {"EmulatorChaosRunner": "A13", "jit_cache_audit": "A13", "transport": "A13",
              "compile_cache_dir": "A13"}
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match=items[name]):
             call()
+    # the member mesh and the 2-D scenarios x members mesh are ported
+    # (tests/test_torch_sharding.py, tests/test_torch_mesh_delay.py); a
+    # driver runs one cluster, so it takes the 1-D member mesh only
+    with pytest.raises(ValueError, match="2-D"):
+        SimDriver(d.params, 8, mesh=_Mesh2d(), device="cpu")
     # the telemetry plane and the sparse delay rings are ported
     # (tests/test_torch_telemetry.py, tests/test_torch_delay_rings.py)
     plane = d.arm_telemetry()

@@ -447,9 +447,9 @@ def test_fleet_folds_match_jax():
 
 
 def test_fleet_refusals_by_name():
-    """Unequal ticks do not stack; the 2-D scenarios x members mesh and a
-    default adaptive spec are refused by name; a bus takes the Monte Carlo
-    records."""
+    """Unequal ticks do not stack; a fleet shards only on a 2-D scenarios x
+    members mesh, made in a process group; a default adaptive spec is
+    refused by name; a bus takes the Monte Carlo records."""
     from scalecube_cluster_tpu_torch.dissemination import certify as TC
 
     p = TS.SimParams(capacity=8, rumor_slots=4)
@@ -457,13 +457,14 @@ def test_fleet_refusals_by_name():
     b = a.replace(tick=3)
     with pytest.raises(ValueError, match="ticks differ"):
         TFL.fleet_stack([a, b])
-    # the scenario mesh is ported (tests/test_torch_sharding.py); the 2-D
-    # scenarios x members mesh is not
+    # the scenario mesh and the 2-D scenarios x members mesh are ported
+    # (tests/test_torch_sharding.py, tests/test_torch_mesh_delay.py): a
+    # fleet shards on a 2-D mesh only, and the mesh needs a process group
     from scalecube_cluster_tpu_torch.ops import sharding as TSH
 
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="2-D"):
         TSH.shard_pview_fleet(TFL.fleet_broadcast(a, 2), None)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(RuntimeError, match="process group"):
         TSH.make_pview_mesh2d(2)
     # the telemetry bus is ported: each Monte Carlo cell leaves its record
     from scalecube_cluster_tpu_torch.telemetry import TelemetryBus

@@ -13,7 +13,9 @@ boundaries. A starved exchange budget is held against JAX's sharded fused
 window at the same budget on two virtual devices; the sharded driver
 (adaptive, telemetry and trace armed) against the unsharded driver; the
 fleet on a 2-rank scenario mesh against the one-process fleet; and every
-part still to port is refused by name.
+part still to port is refused by name (the delay rings, the pull leg, the
+2-D mesh and the driver's planes on a mesh are held in
+``test_torch_mesh_delay.py`` and ``test_torch_mesh_planes.py``).
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ AD_SPEC = dict(enabled=True, lh_max=4, min_mult=2, max_mult=6, conf_target=3)
 
 @pytest.fixture(scope="module")
 def lane2():
-    with dcn.LocalWorld(2) as lw:
+    with dcn.LocalWorld(2, "cpu") as lw:
         yield lw
 
 
@@ -230,7 +232,7 @@ def test_sharded_window_w2_equals_port_and_jax(lane2, kind):
 
 
 def test_sharded_fused_window_w4_equals_port_and_jax():
-    with dcn.LocalWorld(4) as lane4:
+    with dcn.LocalWorld(4, "cpu") as lane4:
         busy = _check_windows(lane4, "fused", _params())
     assert all(v > 0 for v in busy.values()), busy
 
@@ -321,22 +323,30 @@ def test_fleet_on_a_scenario_mesh_equals_one_process_fleet(lane2):
 
 
 def test_refusals_by_name(lane2):
-    """Each part still to port raises NotImplementedError naming ROADMAP
-    A12; the alignment and fleet-size rules raise JAX's ValueErrors."""
+    """What a mesh still refuses: the sparse and dense engines' sharded
+    windows, states and drivers raise NotImplementedError naming ROADMAP
+    A12 item 5, the compile cache, the audit and the scalar engine's
+    transports name A13; the alignment, fleet-size and 2-D mesh rules raise
+    JAX's ValueErrors (a 2-D mesh runs only the fleet)."""
     got = lane2.run(RK.refusals)
+    value_errors = {"misaligned capacity", "fleet of 3", "2-D mesh driver", "2-D mesh window", "2-D factoring",
+                    "2-D fleet on a 1-D mesh"}
+    a13 = {"compile cache", "cache audit", "sim transport", "emulator chaos"}
     for rank in got:
         for what, (kind, msg) in rank.items():
-            want = "ValueError" if what in ("misaligned capacity", "fleet of 3") else "NotImplementedError"
+            want = "ValueError" if what in value_errors else "NotImplementedError"
             assert kind == want, (what, kind, msg)
-            if want == "NotImplementedError":
-                assert "ROADMAP A12" in msg, (what, msg)
-    assert set(got[0]) >= {"misaligned capacity", "delay_slots", "pull leg", "2-D mesh driver", "mesh2d",
-                           "shard_pview_fleet", "fleet run", "control", "profile", "run_scenario",
-                           "sparse driver", "dense driver", "sparse window", "dense window", "fleet of 3",
-                           "checkpoint"}
-    for fn in (lambda: TSH.make_pview_mesh2d(2), lambda: TSH.make_sharded_sparse_run(None, None, 1),
-               lambda: TSH.make_sharded_run(None, None, 1), lambda: dcn.make_global_state(None, 1, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+            if what in a13:
+                assert "ROADMAP A13" in msg, (what, msg)
+            elif want == "NotImplementedError":
+                assert "ROADMAP A12 item 5" in msg, (what, msg)
+        assert "factor" in rank["2-D factoring"][1] and "2-D" in rank["2-D fleet on a 1-D mesh"][1]
+    assert set(got[0]) >= {"misaligned capacity", "2-D mesh driver", "2-D mesh window", "sparse driver",
+                           "dense driver", "sparse window", "sparse tick", "sparse state", "dense window",
+                           "dense tick", "dense state", "sparse profile", "fleet of 3"} | a13
+    for fn in (lambda: TSH.make_sharded_sparse_run(None, None, 1), lambda: TSH.make_sharded_run(None, None, 1),
+               lambda: dcn.make_global_state(None, 1, None)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A12 item 5"):
             fn()
 
 
