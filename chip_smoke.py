@@ -13,8 +13,10 @@ certification sweep and config7's armed-idle overhead, and the fleet engine
 (S clusters per window: its kernel, its windows, config14's Monte Carlo
 workload and its full-width path), the delay rings of the sparse and
 partial-view engines (their windows, config3's published delay run, both
-main paths under delay) and the telemetry plane on every engine's driver —
-on the card, and fails (non-zero exit, no result line) unless every phase
+main paths under delay), the telemetry plane on every engine's driver and
+the serving path (config18: a real ``Cluster`` member bridged into a
+4,096-member sparse driver, under load and monitor scrapes) — on the
+card, and fails (non-zero exit, no result line) unless every phase
 passes:
 
 1. device   — a CUDA device is present; prints its name and power limit;
@@ -279,11 +281,38 @@ passes:
    sharded 65,536-member driver, its archive also restored into an
    unsharded driver; then the group is destroyed. ``python3 chip_smoke.py
    --mesh-only`` runs the build and phases 45 and 46 alone.
+47. serve — ``benchmarks/config18_serve.py``'s four sections at its
+   published widths: a sparse driver at 4,096 members (config18's
+   ``SparseParams``, dense links, telemetry and trace armed) with a real
+   ``Cluster`` member joined over ``TpuSimTransport``: the initial SYNC
+   hands it the whole table, its row ALIVE in every sampled view, a
+   partition healed with 0 sentinel violations and the row ALIVE after;
+   the load generator (4 s of join/leave/metadata/rumor operations, 3
+   churn workers, with ``/metrics``, ``/trace`` and ``/whatif`` scraped
+   from a ``MonitorServer`` on 127.0.0.1 serving the same driver): 0
+   operation and 0 scrape errors, ops/s and scrape p99 beside config18's
+   gates (reported, not failed); 128 liveness trials, Wilson lower bound
+   >= 0.95; the kernel on the bridged driver's own planes (one gossip
+   tick's, captured) bit-equal to its plain version; the bridged
+   driver's ms/tick beside a plain twin's; the armed-idle overhead at 512
+   members (30 interleaved reps) beside its 1.5 budget (reported), with 0
+   readbacks of the bridge's own; the kernel's launches on the bridged
+   driver (> 0), on the twin and on the idle pair, each counted apart.
+   ``python3 chip_smoke.py --serve-only`` runs the build and phase 47
+   alone, with two readings of what holds the serving lanes back: the
+   scrapes beside the stepper alone, and one operation's cost alone.
 
 The dense paths launch no hand-written kernel; their launch counts
 stand in the kernels line as measured. Every path's count is zeroed just
 before it runs and read just after, in the worker processes too.
-The worker pool's processes end with phase 23. The line before the last is a JSON object with one entry per kernel; the
+
+Order of the run: phases 1-3; then one pool of 8 worker processes on the
+card runs the CPU-vs-card windows of phases 4, 7, 10, 13, 15, 16, 19,
+22, 25, 27, 32, 35 and 39 (equality checks, nothing timed; their lines
+printed by phase when the pool ends) and the Monte Carlo tasks of phases
+23, 29, 33 and 43, while the main process waits; the pool's processes
+end before any timed phase; then the timed phases in their order.
+The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -310,8 +339,10 @@ KERNEL_SHAPES = (65_536, 100_003, N_MAIN)  # the slice's N, one with N % 32 != 0
 # ym_offset > 0 starts ym_p that many words into its rows
 N_SPARSE = 49_152
 SPARSE_CASE = (N_SPARSE, 3, 2, 96, 0)  # the sparse path: 2 rumors, a 3,072-slot pool
+SERVE_CASE = (4160, 3, 16, 8, 0)  # the serving path (phase 47): capacity 4,160, 16 rumors, a 256-slot pool
 KERNEL_CASES = tuple((n, 3, 8, 64, 0, ("vector", 3)) for n in KERNEL_SHAPES) + (
     SPARSE_CASE + (("vector", 3),),
+    SERVE_CASE + (("vector", 3),),
     (100_003, 1, 33, 5, 0, ("scalar", 1)),  # Wm % 4 != 0, R > 32
     (65_536, 6, 8, 64, 0, ("vector", 0)),   # F above the templates
     (65_536, 3, 8, 64, 1, ("scalar", 3)),   # ym_p's base off 16 bytes
@@ -1976,8 +2007,8 @@ POOL_WORKERS = 8  # the one-card machine's CPU cores
 
 def pool_task(task) -> tuple:
     """One task of the shared worker pool, in a worker process: ``task`` is
-    (kind, argument), kind one of "config15", "c14-sweep", "certify",
-    "c14-fp", "c14-mc" and "config13". Returns (kind, result, the
+    (kind, argument), kind one of "config15", "window", "c14-sweep",
+    "certify", "c14-fp", "c14-mc" and "config13". Returns (kind, result, the
     delivery_combine launches and the delivery_combine_fleet launches the
     task made, both counts zeroed just before it, its wall seconds)."""
     from scalecube_cluster_tpu_torch.ops import delivery
@@ -1988,21 +2019,68 @@ def pool_task(task) -> tuple:
     delivery.delivery_combine_fleet.launches = 0
     t0 = time.perf_counter()
     out = {"certify": certify_entry, "config13": config13_entry, "config15": config15_cell, "c14-mc": c14_mc_cell,
-           "c14-fp": c14_fp_arm, "c14-sweep": c14_sweep}[kind](arg)
+           "c14-fp": c14_fp_arm, "c14-sweep": c14_sweep, "window": pool_window}[kind](arg)
     return (kind, out, delivery.delivery_combine.launches, delivery.delivery_combine_fleet.launches,
             time.perf_counter() - t0)
 
 
+# the CPU-vs-card windows run as tasks of the worker pool, by phase, the
+# longest first: each an equality check with nothing timed
+POOL_WINDOWS = (27, 35, 39, 32, 22, 19, 15, 25, 10, 7, 13, 4, 16)
+
+
+def window_check(number: int, device) -> dict:
+    """Phase ``number``'s CPU-vs-card windows on ``device``. Returns the
+    card's launches per window where the phase counts them, else {}."""
+    sparse_driver = config5_params(4096, fd_every=2, suspicion_mult=1, sync_every=20)
+    checks = {
+        4: lambda: check_cross_device(device),
+        7: lambda: check_driver_window(device),
+        10: lambda: check_sparse_window(device),
+        13: lambda: check_driver_window(device, params=sparse_driver, label="sparse-driver-window",
+                                        dense_links=True),
+        15: lambda: check_dense_window(device),
+        16: lambda: check_dense_delay_window(device),
+        19: lambda: check_driver_window(device, params=config9_dense_params(4096), label="dense-driver-window",
+                                        dense_links=True),
+    }
+    if number in checks:
+        checks[number]()
+        return {}
+    return {22: check_dissem_windows, 25: check_adaptive_windows, 27: check_chaos_windows,
+            32: check_fleet_windows, 35: check_delay_windows, 39: check_trace_windows}[number](device)
+
+
+def pool_window(arg) -> tuple:
+    """One phase's CPU-vs-card windows in a worker process: ``arg`` is
+    (phase, device, the main process's start on ``time.perf_counter``,
+    one monotonic clock across processes, so the report lines carry the
+    script's own times). Returns (the launches per window, the phase's
+    report lines, printed by the main process)."""
+    import contextlib
+    import io
+
+    global _T0
+    number, device, _T0 = arg
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launches = window_check(number, torch.device(device))
+    return launches, buf.getvalue()
+
+
 def run_worker_pool(device) -> dict:
-    """The Monte Carlo tasks of phases 23, 29, 33 and 43 in one pool of
-    POOL_WORKERS processes on the one card, the longest first: config15's
-    three certification cells, config14's ``adaptive_knob_sweep``,
-    config12's certification matrix (entries by their bounds), config14's
-    ``fp_rate_mc`` arms and Monte Carlo cells, config13's 18 entries. Their
-    ticks are small (N = 48 to 256; S up to 1,024) and bound by the host's
-    dispatch, so one pool keeps every core busy where running them in turn
-    left most idle. The main process waits for the pool: no timed phase
-    runs beside it. Returns, per kind, the (result, launches, fleet
+    """The Monte Carlo tasks of phases 23, 29, 33 and 43 and the CPU-vs-card
+    windows of phases 4, 7, 10, 13, 15, 16, 19, 22, 25, 27, 32, 35 and 39
+    in one pool of POOL_WORKERS processes on the one card, the longest
+    first: config15's three certification cells, the windows, config14's
+    ``adaptive_knob_sweep``, config12's certification matrix (entries by
+    their bounds), config14's ``fp_rate_mc`` arms and Monte Carlo cells,
+    config13's 18 entries. The Monte Carlo ticks are small (N = 48 to 256;
+    S up to 1,024) and bound by the host's dispatch, and a window's ops
+    gain little past one host thread, so one pool keeps every core busy
+    where running them in turn left most idle. The main process waits for
+    the pool: no timed phase runs beside it. Prints the windows' report
+    lines by phase. Returns, per kind, the (result, launches, fleet
     launches) of each task in submission order, and the pool's wall
     time."""
     import multiprocessing
@@ -2019,6 +2097,7 @@ def run_worker_pool(device) -> dict:
     dev = str(device)
     order = sorted(range(len(DEFAULT_MATRIX)), key=lambda i: -cost(DEFAULT_MATRIX[i]))
     tasks = [("config15", (i, C15_N, C15_SEEDS, dev)) for i in range(len(SH.SHIFTING_FAMILY))]
+    tasks += [("window", (number, dev, _T0)) for number in POOL_WINDOWS]
     tasks += [("c14-sweep", (C14_SWEEP_SEEDS, dev))]
     tasks += [("certify", (DEFAULT_MATRIX[i], dev, CERTIFY_KW)) for i in order]
     tasks += [("c14-fp", (arm, dev)) for arm in ("static", "adaptive")]
@@ -2035,17 +2114,26 @@ def run_worker_pool(device) -> dict:
     for kind, res, serial, fleet, task_s in done:
         out.setdefault(kind, []).append((res, serial, fleet))
         walls[kind] = walls.get(kind, 0.0) + task_s
+    windows = dict(zip(POOL_WINDOWS, out.pop("window")))
+    out["window_launches"], out["window_fleet_launches"] = {}, {}
+    for number in sorted(windows):
+        (launches, text), _, _ = windows[number]
+        print(text, end="", flush=True)
+        for k, v in launches.items():  # phase 32's fleets, and phase 35's two
+            fleet = number == 32 or k in ("delay-fleet-sparse", "delay-fleet-pview")
+            out["window_fleet_launches" if fleet else "window_launches"][k] = v
     phase("worker-pool", f"{len(tasks)} tasks in {POOL_WORKERS} worker processes on {device}: {wall:.1f} s; "
                          f"task seconds by kind {({k: round(v, 1) for k, v in walls.items()})} "
                          f"({sum(walls.values()) / (POOL_WORKERS * wall):.2f} of the pool's process-seconds); "
-                         "their verdicts are printed by phases 23, 29, 33 and 43")
+                         "the windows' lines are above, the Monte Carlo verdicts are printed by phases 23, 29, "
+                         "33 and 43")
     return out
 
 
 def run_dissem_certify(device, pooled: dict) -> dict:
     """config12's certification matrix on the card (DEFAULT_MATRIX at the
     published N = 256, seeds 0-4, fanout 3, 8 rumor slots, geo WAN delay 2,
-    pipeline budget 2), run by ``run_worker_pool``: every entry and the
+    pipeline budget 2), run by the worker pool (``run_worker_pool``): every entry and the
     pipelined steady state must be certified. Then config12's default-spec
     control at dense N = 4,096 beside two armed spellings of it."""
     order = pooled["certify_order"]
@@ -2463,7 +2551,7 @@ def config13_entry(task) -> dict:
 def run_config13(pooled: dict) -> dict:
     """config13's full sweep at its published widths (N = 48, seeds 0-2,
     loss floors 0/10/20%, both arms: 18 entries), run by
-    ``run_worker_pool`` on the card, each entry beside
+    the worker pool (``run_worker_pool``) on the card, each entry beside
     ``ADAPTIVE_BENCH_r14.json``'s (the JAX package's run: protocol
     outcomes, compared by verdict — the port draws from torch's
     generator). Fails unless config13's own ``certified`` holds. Returns
@@ -2962,7 +3050,7 @@ def run_config14(device, pooled: dict, ladder_start=C14_LADDER_START,
                  ladder_gib: float = C14_LADDER_GIB) -> dict:
     """Phase 33: config14 (``benchmarks/config14_fleet.py``) at its published
     widths: the batched-vs-serial cells (timed here), then from
-    ``run_worker_pool`` ``mc_spread_certifier``'s cells over
+    the worker pool (``run_worker_pool``) ``mc_spread_certifier``'s cells over
     ``DEFAULT_MC_MATRIX`` (n = 64, 1,024 seeds, every cell certified; the
     pview and sparse cells launch the kernel at most once per tick),
     ``fp_rate_mc`` both arms (config14's rule) and ``adaptive_knob_sweep``;
@@ -3795,7 +3883,7 @@ def run_config15(device, pooled: dict) -> dict:
     N = 48, 512 seeds per cell, 8-tick windows, storm floors 20/24/28%,
     every arm's fleet drawing from the JAX package's own key chains
     (``ops/keychain.py``: ``PRNGKey(1000 + s)`` per scenario, as JAX's
-    harness seeds them), one cell per task of ``run_worker_pool`` on the
+    harness seeds them), one cell per task of the worker pool (``run_worker_pool``) on the
     card: every cell's controlled arm certified with 0 false-DEAD, the
     blind and unclamped controllers failing, and every arm's SLO, failure
     and false-DEAD counts and actuations equal to the JAX package's record
@@ -4505,44 +4593,416 @@ def run_mesh(device, marks=None) -> tuple:
     return launches, fleet
 
 
-def run_phases_4_to_24(device, marks: list) -> dict:
-    """Phases 4-24, as PRs 1-6 left them. Returns the kernel's launches on
-    each of their paths, and under "unarmed" the unarmed main paths'
-    ms/tick, flag reads and dense outcomes for the armed phases after."""
+# -- phase 47: config18's serving path -----------------------------------------
+
+SERVE_N = 4096  # config18's simulated members (benchmarks/config18_serve.py:320)
+SERVE_TRIALS = 128  # config18's liveness trials: 64 of 64 green bound at 0.943, under the floor
+SERVE_LOADGEN_S = 4.0  # config18's load generator seconds
+SERVE_OVERHEAD = (512, 30)  # config18's armed-idle N and repetitions
+SERVE_MIN_OPS = 1000.0  # config18's member-facing ops/s floor
+SERVE_SCRAPE_SLO_MS = 600.0  # config18's scrape p99 budget at N > 1,024 (250 + one mega-window collision)
+SERVE_LIVENESS_FLOOR = 0.95
+SERVE_OVERHEAD_BUDGET = 1.5
+SERVE_CONVERGE_S = 60.0
+SERVE_TWIN_REPS = 16  # timed step(4) windows of the bridged driver and of its plain twin
+
+
+def serve_params(capacity: int):
+    """config18's sparse parameters (``config18_serve.py:_sparse_params``)."""
+    from scalecube_cluster_tpu_torch.ops.sparse import SparseParams
+
+    return SparseParams(capacity=capacity, fanout=3, ping_req_k=2, fd_every=2, sync_every=24, suspicion_mult=3,
+                        sweep_every=4, rumor_slots=16, mr_slots=256, announce_slots=64, seed_rows=(0, 1))
+
+
+def serve_config(seeds=("sim://0",)):
+    """config18's real member (``config18_serve.py:_serve_config``)."""
+    from scalecube_cluster_tpu_torch.config import ClusterConfig
+
+    return (ClusterConfig.default_local()
+            .with_membership(lambda m: m.replace(seed_members=list(seeds), sync_interval=2.0, sync_timeout=3.0))
+            .with_failure_detector(lambda f: f.replace(ping_interval=0.5, ping_timeout=0.4, ping_req_members=1))
+            .with_gossip(lambda g: g.replace(gossip_interval=0.2)))
+
+
+def alive_in_views(d, row: int, sample_rows) -> bool:
+    from scalecube_cluster_tpu_torch.models.member import MemberStatus
+
+    return all(d.status_of(r, row) == MemberStatus.ALIVE for r in sample_rows if r != row and d.is_up(r))
+
+
+async def serve_drive(d, predicate, timeout: float, window: int = 8) -> bool:
+    import asyncio
+
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + timeout
+    while loop.time() < deadline:
+        if predicate():
+            return True
+        await loop.run_in_executor(None, d.step, window)
+        await asyncio.sleep(0)
+    return predicate()
+
+
+def timed(d, fn) -> float:
+    """Wall seconds of ``fn()`` and the device work it queued on ``d``."""
+    t0 = time.perf_counter()
+    fn()
+    d.sync()
+    return time.perf_counter() - t0
+
+
+def check_driver_planes(d, row: int, window: int = 4, tries: int = 8) -> dict:
+    """The bridged driver's own kernel call: a metadata bump of ``row`` (a
+    member-facing operation, so the next gossip ticks are not quiet), then
+    its windows of ``window`` ticks stepped (up to ``tries``) until a gossip
+    tick launches the kernel, that tick's planes and the kernel's outputs
+    kept, and the outputs held bit-equal to the plain version on those
+    planes. The capture wraps the wrapper's operator and launches nothing
+    of its own."""
+    from scalecube_cluster_tpu_torch.ops import delivery
+
+    op, seen = delivery._delivery_op, []
+
+    def capture(*planes):
+        got = op(*planes)
+        if not seen:
+            ym_p, F = planes[0], planes[3].shape[0]
+            variant = delivery.instantiation(ym_p.shape[1], F, ym_p.data_ptr(), ym_p.stride(0))
+            seen.append(([t.clone() for t in planes], [t.clone() for t in got], variant))
+        return got
+
+    delivery._delivery_op = capture
+    try:
+        d.update_metadata(row)
+        steps = 0
+        while not seen and steps < tries:
+            d.step(window)
+            steps += 1
+    finally:
+        delivery._delivery_op = op
+    if not seen:
+        raise AssertionError(f"[serve] {tries} windows of {window} ticks launched delivery_combine no time")
+    (ym_p, yu_p, infected_from, inv, origin), got, variant = seen[0]
+    F, n = inv.shape
+    Wm, R = ym_p.shape[1], infected_from.shape[1]
+    ref = delivery.delivery_combine_ref(torch.cat([ym_p, yu_p, infected_from], dim=1), inv, origin, Wm, R)
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, ref))
+    label = f"N={n} F={F} R={R} Wm={Wm}, {variant[0]} path, F template {variant[1]}"
+    if err != 0:
+        raise AssertionError(f"[serve] delivery_combine on the bridged driver's planes ({label}) differs from "
+                             f"its plain version: max abs err {err}")
+    valid = int((inv >= 0).sum())
+    phase("serve", f"delivery_combine on the bridged driver's own planes ({label}; {valid} of {inv.numel()} "
+                   f"slots valid, captured in its window {steps}): bit-equal to the plain version")
+    return {"n": n, "F": F, "R": R, "Wm": Wm, "path": variant[0], "max_abs_err": err}
+
+
+async def serve_hybrid(device, n: int, trials: int, loadgen_s: float, out: dict, diagnose: bool = False) -> None:
+    """config18's sections 1-3 on one sparse driver and one bridged member:
+    the hybrid join and a partition healed, the load generator against a
+    live monitor, the liveness trials, the kernel on the driver's own
+    planes; then the bridged driver's windows against a plain twin's. The
+    kernel's launches on the bridged driver are read into
+    ``out["launches"]`` (the caller zeroes the count first), the twin's
+    into ``out["launches_twin"]``. ``diagnose`` adds the scrapes beside the
+    stepper alone and one operation's cost alone (``--serve-only``)."""
+    import asyncio
+
+    from scalecube_cluster_tpu_torch.bridge import LoadGenerator, SimBridge
+    from scalecube_cluster_tpu_torch.chaos.events import Partition, Scenario
+    from scalecube_cluster_tpu_torch.cluster import new_cluster
+    from scalecube_cluster_tpu_torch.config import TelemetryConfig
+    from scalecube_cluster_tpu_torch.dissemination.certify import wilson_interval
+    from scalecube_cluster_tpu_torch.monitor import MonitorServer
+    from scalecube_cluster_tpu_torch.ops import delivery
+    from scalecube_cluster_tpu_torch.replay import WhatifService
+    from scalecube_cluster_tpu_torch.sim.driver import SimDriver
+
+    params = serve_params(n + 64)  # headroom: the bridged row and the churn pool
+    loop = asyncio.get_running_loop()
+    t0 = time.perf_counter()
+    d = SimDriver(params, n, warm=True, seed=19, dense_links=True, device=device)
+    d.arm_telemetry(TelemetryConfig(ring_len=64))
+    d.arm_trace()
+    bridge = SimBridge(d, seed_rows=params.seed_rows)
+    mon = MonitorServer()  # 127.0.0.1, a free port
+    mon.register_telemetry(d)
+    mon.register_whatif(WhatifService())
+    await mon.start()
+    phase("serve", f"sparse driver N={n} (capacity {params.capacity}, dense links, telemetry and trace armed) and "
+                   f"a monitor at {mon.url}: {time.perf_counter() - t0:.2f} s")
+    sample_rows = sorted({0, 1, n // 3, n // 2, (2 * n) // 3, n - 1})
+    try:
+        t_join = time.perf_counter()
+        a = await new_cluster(serve_config()).transport_factory(bridge.transport_factory("real-0")).start()
+        try:
+            ep = bridge._endpoints["real-0"]
+            table = len(a.members())
+            phase("serve", f"bridged member joined on row {ep.row}: its table holds {table} members "
+                           f"({time.perf_counter() - t_join:.2f} s)")
+            if table < n - 1:
+                raise AssertionError(f"[serve] the initial SYNC handed {table} members, not the sim's {n}")
+            converged = await serve_drive(d, lambda: alive_in_views(d, ep.row, sample_rows), SERVE_CONVERGE_S)
+            join_s = time.perf_counter() - t_join
+            if not converged:
+                raise AssertionError(f"[serve] the bridged row is not ALIVE in every sampled view "
+                                     f"after {SERVE_CONVERGE_S} s")
+            phase("serve", f"bridged row ALIVE in the sampled views {sample_rows}: {join_s:.2f} s from the join")
+            half = n // 2
+            scenario = Scenario(name="serve-partition-heal",
+                                events=[Partition(groups=[range(0, half), range(half, n)], at=8, heal_at=40)],
+                                horizon=120, detect_budget=100, converge_budget=120, check_interval=8)
+            t1 = time.perf_counter()
+            report = await loop.run_in_executor(None, lambda: d.run_scenario(scenario, max_window=8))
+            violations = report.get("violations") or []
+            if violations:
+                raise AssertionError(f"[serve] the partition scenario violated its sentinels: {violations}")
+            healed = await serve_drive(d, lambda: alive_in_views(d, ep.row, sample_rows), SERVE_CONVERGE_S)
+            if not healed:
+                raise AssertionError("[serve] the bridged row is not ALIVE in every sampled view after the heal")
+            phase("serve", f"partition {half}/{n - half} at tick 8 healed at 40, 120 ticks: green, 0 violations "
+                           f"({time.perf_counter() - t1:.2f} s); the bridged row ALIVE after the heal")
+            out["hybrid"] = {"table": table, "join_s": join_s, "partition_green": True, "alive_after_heal": True}
+
+            # -- the load generator against the live monitor ------------------
+            gen = LoadGenerator(d, monitor_url=mon.url, seed=7, seed_rows=params.seed_rows, max_churn_pool=32)
+            step_window, step_interval = (4, 0.1) if n <= 1024 else (1, 0.5)
+            await gen.warmup(step_window=step_window)
+            rep = await gen.run(duration_s=loadgen_s, churn_workers=3, scrape_workers=2,
+                                step_window=step_window, step_interval_s=step_interval)
+            lg = rep.as_dict()
+            phase("serve", f"load generator {lg['duration_s']} s: {lg['ops']} operations, {rep.ops_per_s:.1f} "
+                           f"ops/s, {lg['windows_stepped']} windows, {rep.op_errors} operation errors, "
+                           f"{rep.scrape_errors} scrape errors")
+            for kind, h in sorted(rep.op_latency.items()):
+                phase("serve", f"operation {kind}: {h['count']} calls, p50 {h['p50_ms']} ms, p99 {h['p99_ms']} ms")
+            for path, h in sorted(rep.scrapes.items()):
+                phase("serve", f"scrape {path}: {h['count']} requests, p50 {h['p50_ms']} ms, p99 {h['p99_ms']} ms")
+            if rep.op_errors or rep.scrape_errors:
+                raise AssertionError(f"[serve] {rep.op_errors} operation errors, {rep.scrape_errors} scrape errors")
+            ops_ok = rep.ops_per_s >= SERVE_MIN_OPS
+            slo_ok = all(h["p99_ms"] <= SERVE_SCRAPE_SLO_MS for h in rep.scrapes.values() if h["count"])
+            phase("serve", f"config18's throughput gates: {rep.ops_per_s:.1f} ops/s against >= {SERVE_MIN_OPS:.0f}: "
+                           f"{'met' if ops_ok else 'MISSED'}; scrape p99 against {SERVE_SCRAPE_SLO_MS:.0f} ms: "
+                           f"{'met' if slo_ok else 'MISSED'}")
+            out["loadgen"] = {**lg, "ops_ok": ops_ok, "slo_ok": slo_ok}
+            if diagnose:
+                await serve_diagnostics(d, gen, params, step_window, step_interval, out)
+
+            # -- liveness trials -----------------------------------------------
+            green = 0
+            t1 = time.perf_counter()
+            for _ in range(trials):
+                await loop.run_in_executor(None, d.step, 4)
+                green += bool(alive_in_views(d, ep.row, sample_rows)
+                              and any(m.address == "sim://0" for m in a.members()))
+            lo, hi = wilson_interval(green, trials, 0.95)
+            phase("serve", f"liveness: {green} of {trials} trials green, Wilson 95% [{lo:.4f}, {hi:.4f}] against "
+                           f"the floor {SERVE_LIVENESS_FLOOR} ({time.perf_counter() - t1:.2f} s)")
+            if lo < SERVE_LIVENESS_FLOOR:
+                raise AssertionError(f"[serve] liveness Wilson lower bound {lo:.4f} < {SERVE_LIVENESS_FLOOR}")
+            out["liveness"] = {"trials": trials, "green": green, "wilson": [lo, hi]}
+            out["planes"] = await loop.run_in_executor(None, check_driver_planes, d, params.seed_rows[0])
+            k = delivery.delivery_combine
+            out["launches"] = k.launches  # the bridged driver's, before the twin is built
+
+            # -- the bridged driver's windows against a plain twin's ------------
+            twin_launches = k.launches
+            twin = SimDriver(params, n, warm=True, seed=19, dense_links=True, device=device)
+            twin.arm_telemetry(TelemetryConfig(ring_len=64))
+            twin.arm_trace()
+            twin.step(4)
+            out["launches_twin"] = k.launches - twin_launches
+            tb, tt = [], []
+            for _ in range(SERVE_TWIN_REPS):
+                c = k.launches
+                tb.append(await loop.run_in_executor(None, timed, d, lambda: d.step(4)))
+                out["launches"] += k.launches - c
+                c = k.launches
+                tt.append(timed(twin, lambda: twin.step(4)))
+                out["launches_twin"] += k.launches - c
+            ms_b, ms_t = statistics.median(tb) / 4 * 1e3, statistics.median(tt) / 4 * 1e3
+            phase("serve", f"sparse tick at N={n} (telemetry and trace armed): {ms_b:.3f} ms/tick with the bridged "
+                           f"member attached, {ms_t:.3f} ms/tick on a plain twin (median of {SERVE_TWIN_REPS} "
+                           f"step(4) windows, interleaved)")
+            out["tick_ms"] = {"bridged": ms_b, "plain": ms_t}
+            del twin
+        finally:
+            await a.shutdown()
+    finally:
+        await mon.stop()
+
+
+async def serve_diagnostics(d, gen, params, step_window: int, step_interval: float, out: dict) -> None:
+    """What holds the serving lanes back (``--serve-only``): the scrapes
+    with the stepper alone (no churn lane), and what one member-facing
+    operation costs alone, the serial ceiling of the churn lanes."""
+    from scalecube_cluster_tpu_torch.bridge import LoadGenerator
+    from scalecube_cluster_tpu_torch.ops import _tensor
+
+    quiet = await gen.run(duration_s=1.0, churn_workers=0, scrape_workers=2,
+                          step_window=step_window, step_interval_s=step_interval)
+    phase("serve", "scrapes beside the stepper alone, 1 s: " + ", ".join(
+        f"{path} p50 {h['p50_ms']} ms, p99 {h['p99_ms']} ms ({h['count']})"
+        for path, h in sorted(quiet.scrapes.items())) + f"; {quiet.scrape_errors} scrape errors")
+    if quiet.scrape_errors:
+        raise AssertionError(f"[serve] {quiet.scrape_errors} scrape errors beside the stepper alone")
+    out["quiet_scrapes"] = quiet.scrapes
+    batch = [params.seed_rows[0]] * LoadGenerator.METADATA_BATCH
+    solo, flags = [], _tensor.HOST_SYNCS.count
+    for _ in range(5):
+        solo.append(timed(d, lambda: d.update_metadata_batch(batch)))
+    flags = (_tensor.HOST_SYNCS.count - flags) / (5 * len(batch))
+    t_join = timed(d, lambda: d.leave(d.join(params.seed_rows)))
+    ms_batch = statistics.median(solo) * 1e3
+    phase("serve", f"alone: a {len(batch)}-row metadata batch {ms_batch:.2f} ms ({ms_batch / len(batch):.3f} "
+                   f"ms and {flags:.1f} branch-flag reads a bump; a ceiling of "
+                   f"{len(batch) / ms_batch * 1e3:.0f} ops/s on one lane), a join and a leave "
+                   f"{t_join * 1e3:.2f} ms")
+    out["solo"] = {"batch_ms": ms_batch, "flags_per_bump": flags, "join_leave_ms": t_join * 1e3}
+
+
+async def serve_overhead(device, n: int, reps: int, out: dict):
+    """config18's section 4: the median window of a driver with an attached,
+    idle bridged member against a plain twin, interleaved; the bridge's own
+    readbacks over the idle span counted (the watch's one per window is the
+    sim -> real fold's, which a plain driver does not pay). Returns the idle
+    member, still running: its graceful shutdown waits out two of its 5 s
+    gossip periods, which the caller overlaps with the next sections."""
+    import asyncio
+
+    from scalecube_cluster_tpu_torch.bridge import SimBridge
+    from scalecube_cluster_tpu_torch.cluster import new_cluster
+    from scalecube_cluster_tpu_torch.config import ClusterConfig
+    from scalecube_cluster_tpu_torch.sim.driver import SimDriver
+
+    loop = asyncio.get_running_loop()
+    plain = SimDriver(serve_params(n + 8), n, warm=True, seed=3, device=device)
+    armed = SimDriver(serve_params(n + 8), n, warm=True, seed=3, device=device)
+    bridge = SimBridge(armed)
+    idle_cfg = (ClusterConfig.default_local()
+                .with_membership(lambda m: m.replace(seed_members=["sim://0"], sync_interval=30.0))
+                .with_failure_detector(lambda f: f.replace(ping_interval=30.0))
+                .with_gossip(lambda g: g.replace(gossip_interval=5.0)))
+    a = await new_cluster(idle_cfg).transport_factory(bridge.transport_factory("idle")).start()
+
+    def interleaved():
+        tp, ta = [], []
+        rb0 = (plain.dispatch_stats["readbacks"], armed.dispatch_stats["readbacks"])
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            plain.step(8)
+            plain.flush()
+            tp.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            armed.step(8)
+            armed.flush()
+            ta.append(time.perf_counter() - t0)
+        rb = (plain.dispatch_stats["readbacks"] - rb0[0], armed.dispatch_stats["readbacks"] - rb0[1])
+        return statistics.median(tp), statistics.median(ta), rb
+
+    try:
+        await asyncio.sleep(1.0)  # join-time traffic drains
+        plain.step(8)
+        armed.step(8)
+        t_plain, t_armed, (rb_plain, rb_armed) = await loop.run_in_executor(None, interleaved)
+    except BaseException:
+        await a.shutdown()
+        raise
+    ratio = t_armed / t_plain
+    extra = rb_armed - rb_plain - reps  # beyond the watch's one stacked readback per window
+    phase("serve", f"armed-idle overhead at N={n}, {reps} interleaved step(8)+flush: plain {t_plain * 1e3:.3f} ms, "
+                   f"bridge attached {t_armed * 1e3:.3f} ms, ratio {ratio:.4f} against the {SERVE_OVERHEAD_BUDGET} "
+                   f"budget: {'met' if ratio <= SERVE_OVERHEAD_BUDGET else 'MISSED'}; readbacks plain {rb_plain}, "
+                   f"attached {rb_armed} ({reps} the watch's, {extra} of the bridge's own)")
+    if extra != 0:
+        raise AssertionError(f"[serve] the attached, idle bridge made {extra} driver readbacks of its own")
+    out["overhead"] = {"n": n, "reps": reps, "plain_ms": t_plain * 1e3, "armed_ms": t_armed * 1e3, "ratio": ratio,
+                       "ok": ratio <= SERVE_OVERHEAD_BUDGET, "readbacks": [rb_plain, rb_armed]}
+    return a
+
+
+async def serve_sections(device, n: int, trials: int, loadgen_s: float, overhead, out: dict,
+                         diagnose: bool = False) -> None:
+    """The armed-idle pair first, then the bridged driver's sections while
+    the idle member shuts down; the kernel's launches counted around each
+    (the count set to 0 just before, read just after; ``serve_hybrid``
+    reads the bridged driver's and the twin's apart)."""
+    import asyncio
+
+    from scalecube_cluster_tpu_torch.ops import delivery
+
+    k = delivery.delivery_combine
+    k.launches = 0
+    idle = await serve_overhead(device, *overhead, out)
+    out["launches_overhead"] = k.launches
+    shutdown = asyncio.ensure_future(idle.shutdown())
+    k.launches = 0
+    try:
+        await serve_hybrid(device, n, trials, loadgen_s, out, diagnose)
+    finally:
+        await shutdown
+    k.launches = out["launches"] + out["launches_twin"] + out["launches_overhead"]
+
+
+def run_serve(device, n: int = SERVE_N, trials: int = SERVE_TRIALS, loadgen_s: float = SERVE_LOADGEN_S,
+              overhead=SERVE_OVERHEAD, diagnose: bool = False) -> dict:
+    """Phase 47, [serve]: config18's four sections on the card at its
+    published widths. The kernel's launches are counted on the bridged
+    driver, on its plain twin and on the armed-idle pair, each apart; the
+    gate holds the bridged driver's. ``diagnose`` adds the bottleneck
+    readings of ``serve_diagnostics``."""
+    import asyncio
+
+    out: dict = {}
+    live = 0.0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        live = torch.cuda.memory_allocated(device) / 2**30  # what earlier phases still hold
+    count_launches(lambda: asyncio.run(serve_sections(device, n, trials, loadgen_s, overhead, out, diagnose)))
+    if out["launches"] <= 0:
+        raise AssertionError("[serve] the bridged driver launched delivery_combine no time")
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else 0.0
+    phase("serve", f"delivery_combine launches: {out['launches']} on the bridged driver's sections, "
+                   f"{out['launches_twin']} on its plain twin, {out['launches_overhead']} on the armed-idle pair; "
+                   f"peak allocated {peak:.3f} GiB, {peak - live:.3f} above the {live:.3f} GiB the phase found "
+                   f"allocated")
+    out["peak_gib"] = peak
+    return out
+
+
+def run_phases_4_to_24(device, marks: list, pooled: dict) -> dict:
+    """The timed paths of phases 5-24, as PRs 1-6 left them (their
+    CPU-vs-card windows ran in the worker pool). Returns the kernel's
+    launches on each of their paths, and under "unarmed" the unarmed main
+    paths' ms/tick, flag reads and dense outcomes for the armed phases
+    after."""
     from scalecube_cluster_tpu_torch.ops import pview as PV
 
-    check_cross_device(device)
     main_run = run_main_path(device)
     st, gen, params = main_run["state"], main_run["gen"], main_run["params"]
     profile_phases(lambda: PV.run_pview_ticks_fused(st, gen, PROFILE_TICKS, params), PHASES)
     del main_run["state"], st
     torch.cuda.empty_cache()
 
-    check_driver_window(device)
     driver_run = run_driver_path(device)
     profile_phases(lambda: driver_run["driver"].step(PROFILE_TICKS), PHASES, label="driver-profile")
     del driver_run["driver"]
     torch.cuda.empty_cache()
     check_checkpoint(device)
-    marks.append(("phases 1-9 (build, kernels, pview)", time.perf_counter()))
+    marks.append(("phases 5-9 (pview)", time.perf_counter()))
 
-    check_sparse_window(device)
     sparse_run = run_sparse_main_path(device)
     profile_sparse(sparse_run)
     sparse_run.pop("state")
     torch.cuda.empty_cache()
-    check_driver_window(device, params=config5_params(4096, fd_every=2, suspicion_mult=1, sync_every=20),
-                        label="sparse-driver-window", dense_links=True)
     sparse_driver_run = run_sparse_driver_path(device)
     torch.cuda.empty_cache()
-    marks.append(("phases 10-14 (sparse)", time.perf_counter()))
+    marks.append(("phases 11-14 (sparse)", time.perf_counter()))
 
-    check_dense_window(device)
-    check_dense_delay_window(device)
     dense_run = run_dense_main(device)
     torch.cuda.empty_cache()
-    check_driver_window(device, params=config9_dense_params(4096), label="dense-driver-window",
-                        dense_links=True)
     dense_driver_run = run_dense_driver(device)
     phase("dense-driver", f"driver {dense_driver_run['ms_tick']:.2f} ms/tick against the window's "
                           f"partitioned {dense_run['ms_part']:.2f} ({dense_driver_run['ms_tick'] / dense_run['ms_part'] - 1:+.1%})")
@@ -4551,17 +5011,14 @@ def run_phases_4_to_24(device, marks: list) -> dict:
     phase("dense", "the dense paths run plain PyTorch tensor ops only: the JAX dense engine reaches no "
                    "pl.pallas_call, and delivery_combine's fold is not their delivery")
     torch.cuda.empty_cache()
-    marks.append(("phases 15-21 (dense)", time.perf_counter()))
+    marks.append(("phases 17-21 (dense)", time.perf_counter()))
 
-    dissem_launches = check_dissem_windows(device)
-    marks.append(("phase 22 (dissem-windows)", time.perf_counter()))
-    pooled = run_worker_pool(device)
     certify_run = run_dissem_certify(device, pooled)
-    marks.append(("phase 23 (dissem-certify, with the worker pool of phases 29 and 43)", time.perf_counter()))
+    marks.append(("phase 23 (dissem-certify)", time.perf_counter()))
     unarmed = {"pview": main_run["ms_tick"], "sparse": sparse_run["ms_tick"], "dense_part": dense_run["ms_part"],
                "dense_heal": dense_run["ms_heal"],
                "dense_ticks": (dense_run["detected"], dense_run["bulk"], dense_run["full"])}
-    dissem_launches.update(run_dissem_main(device, unarmed))
+    dissem_launches = run_dissem_main(device, unarmed)
     dissem_launches["dissem-certify"] = certify_run["launches"]
     marks.append(("phase 24 (dissem-main)", time.perf_counter()))
     unarmed["pview_flags"] = main_run["flags"]
@@ -4569,7 +5026,7 @@ def run_phases_4_to_24(device, marks: list) -> dict:
     return {"window": main_run["launches"], "driver": driver_run["launches"],
             "sparse-window": sparse_run["launches"], "sparse-driver": sparse_driver_run["launches"],
             "dense-main": dense_run["launches"], "dense-driver": dense_driver_run["launches"],
-            "dense-delay": dense_delay_run["launches"], **dissem_launches, "unarmed": unarmed, "pooled": pooled}
+            "dense-delay": dense_delay_run["launches"], **dissem_launches, "unarmed": unarmed}
 
 
 def main(argv=()) -> int:
@@ -4592,6 +5049,10 @@ def main(argv=()) -> int:
     for line in ptxas_report(_build.build_log("delivery_combine")):
         phase("build", f"ptxas delivery_combine_kernel {line}")
 
+    if "--serve-only" in argv:
+        run_serve(device, diagnose=True)
+        phase("time", f"phase 47 (serve) alone, the build included: {time.perf_counter() - t_start:.1f} s")
+        return 0
     if "--mesh-only" in argv:
         run_mesh(device, marks)
         last = t_start
@@ -4602,15 +5063,15 @@ def main(argv=()) -> int:
         return 0
     kern = check_kernels(device)
     kern_structured = check_structured_kernel(device)
-    launches = run_phases_4_to_24(device, marks)
+    marks.append(("phases 1-3 (build, kernels)", time.perf_counter()))
+    pooled = run_worker_pool(device)
+    marks.append(("the worker pool: the CPU-vs-card windows and the Monte Carlo tasks", time.perf_counter()))
+    launches = run_phases_4_to_24(device, marks, pooled)
     unarmed = launches.pop("unarmed")
-    pooled = launches.pop("pooled")
-    new = check_adaptive_windows(device)
-    marks.append(("phase 25 (adaptive-windows)", time.perf_counter()))
-    new.update(run_adaptive_main(device, unarmed))
+    launches.update(pooled["window_launches"])
+    fleet_launches = dict(pooled["window_fleet_launches"])
+    new = run_adaptive_main(device, unarmed)
     marks.append(("phase 26 (adaptive-main)", time.perf_counter()))
-    new.update(check_chaos_windows(device))
-    marks.append(("phase 27 (chaos-windows)", time.perf_counter()))
     new.update(run_chaos_main(device, unarmed))
     marks.append(("phase 28 (chaos-main)", time.perf_counter()))
     c13 = run_config13(pooled)
@@ -4620,26 +5081,18 @@ def main(argv=()) -> int:
     launches.update(new, config13=c13["launches"], config7=c7_launches)
     fleet_kern = check_fleet_kernel(device)
     marks.append(("phase 31 (fleet-kernel)", time.perf_counter()))
-    fleet_launches = check_fleet_windows(device)
-    marks.append(("phase 32 (fleet-windows)", time.perf_counter()))
     c14 = run_config14(device, pooled)
     fleet_launches.update(c14["launches"])
     marks.append(("phase 33 (config14)", time.perf_counter()))
     fleet_main = run_fleet_main(device)
     fleet_launches.update({f"fleet-main-{k}": v["launches"] for k, v in fleet_main.items()})
     marks.append(("phase 34 (fleet-main)", time.perf_counter()))
-    delay = check_delay_windows(device)
-    fleet_launches.update({k: delay.pop(k) for k in ("delay-fleet-sparse", "delay-fleet-pview")})
-    launches.update(delay)
-    marks.append(("phase 35 (delay-windows)", time.perf_counter()))
     launches["config3-delay"] = run_config3_delay(device)["launches"]
     marks.append(("phase 36 (config3-delay)", time.perf_counter()))
     launches.update(run_delay_main(device, unarmed))
     marks.append(("phase 37 (delay-main)", time.perf_counter()))
     launches.update(run_telemetry(device))
     marks.append(("phase 38 (telemetry)", time.perf_counter()))
-    launches.update(check_trace_windows(device))
-    marks.append(("phase 39 (trace-windows)", time.perf_counter()))
     launches.update(run_trace_main(device))
     marks.append(("phase 40 (trace-main)", time.perf_counter()))
     launches.update(run_trace_scenario(device))
@@ -4655,6 +5108,10 @@ def main(argv=()) -> int:
     mesh_launches, mesh_fleet = run_mesh(device, marks)
     launches.update(mesh_launches)
     fleet_launches.update(mesh_fleet)
+    serve = run_serve(device)
+    launches.update({"serve": serve["launches"], "serve-twin": serve["launches_twin"],
+                     "serve-overhead": serve["launches_overhead"]})
+    marks.append(("phase 47 (serve)", time.perf_counter()))
 
     last = t_start
     for what, at in marks:
@@ -4664,6 +5121,7 @@ def main(argv=()) -> int:
 
     k1m = kern[(N_MAIN, 3, 8, 64, 0)]
     ksp = kern[SPARSE_CASE]
+    ksv = kern[SERVE_CASE]
     print(json.dumps({"kernels": [{
         "name": "delivery_combine",
         "route": "cuda",
@@ -4671,7 +5129,8 @@ def main(argv=()) -> int:
         "replaces": "scalecube_cluster_tpu/ops/pallas_delivery.py:251 and :282",
         "launches": sum(launches.values()),
         "launches_by_path": launches,
-        "max_abs_err": max([r["max_abs_err"] for r in kern.values()] + [kern_structured["max_abs_err"]]),
+        "max_abs_err": max([r["max_abs_err"] for r in kern.values()]
+                           + [kern_structured["max_abs_err"], serve["planes"]["max_abs_err"]]),
         "ms": k1m["ms"],
         "plain_ms": k1m["plain_ms"],
         "bound_ms": k1m["bound_ms"],
@@ -4679,6 +5138,9 @@ def main(argv=()) -> int:
         "library_ms": None,
         "at_sparse_widths": {"n": N_SPARSE, "ms": ksp["ms"], "plain_ms": ksp["plain_ms"],
                              "bound_ms": ksp["bound_ms"], "max_abs_err": ksp["max_abs_err"]},
+        "at_serving_widths": {"n": SERVE_CASE[0], "ms": ksv["ms"], "plain_ms": ksv["plain_ms"],
+                              "bound_ms": ksv["bound_ms"], "max_abs_err": ksv["max_abs_err"],
+                              "driver_planes_max_abs_err": serve["planes"]["max_abs_err"]},
         "at_structured_inv": {"spec": "/".join(STRUCTURED_SPEC.values()), **kern_structured},
     }, fleet_kernel_entry(fleet_kern, fleet_launches)]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,8 @@ no false positive; they accumulate on the device and are read at the
 final report.
 
 ``run_scenario(trace=True)`` attaches the causal trace plane's detection
-span trees to the report. Not ported yet, and refused by name:
-:class:`EmulatorChaosRunner` (ROADMAP A13).
+span trees to the report. :class:`EmulatorChaosRunner` replays a
+scenario onto the scalar engine's network emulators.
 """
 
 from .engine import (

@@ -21,9 +21,12 @@ applied events go onto its bus, and the final report feeds the plane
 
 ``run_driver_scenario(trace=True)`` arms the causal trace plane on the
 scenario's crashed rows and attaches their detection span trees to the
-report (``trace_spans``). Not ported yet, and refused by name:
-``EmulatorChaosRunner`` (the scalar engine's network emulators, ROADMAP
-A13).
+report (``trace_spans``).
+
+:class:`EmulatorChaosRunner` (copied as it is) replays the same schedule
+onto the scalar engine's :class:`..transport.emulator.NetworkEmulator`
+instances (crash = total network isolation, the reference testlib idiom
+for killing a node without stopping its process).
 """
 
 from __future__ import annotations
@@ -822,12 +825,194 @@ def run_driver_scenario(
 
 
 class EmulatorChaosRunner:
-    """The JAX package's runner of a scenario over the scalar engine's
-    network emulators: not ported yet (ROADMAP A13, with the transports it
-    drives)."""
+    """Replays the same scenario schedule onto per-node
+    :class:`..transport.emulator.NetworkEmulator` instances.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "EmulatorChaosRunner drives the scalar engine's network emulators, which are not "
-            "ported yet (ROADMAP A13)"
-        )
+    ``emulators[i]`` and ``addresses[i]`` are row ``i``'s emulator and wire
+    address (the scenario's integer rows index this list). The caller owns
+    time: call :meth:`advance_to` with the current scenario-relative tick
+    (``elapsed_seconds / tick_interval`` for wall-clock engines) and every
+    due action is applied. Crash maps to total network isolation and
+    Restart to unblocking — the reference testlib's member-kill idiom for a
+    process that stays alive."""
+
+    def __init__(self, scenario: Scenario, emulators: Sequence,
+                 addresses: Sequence[str], horizon: Optional[int] = None):
+        if len(emulators) != len(addresses):
+            raise ScenarioError("emulators and addresses must align by row")
+        scenario.validate_rows(len(emulators))  # groups/pairs/rows/seeds
+        # r14: the emulator's ONE default-outbound-settings slot per node
+        # cannot stash/restore the way the device StateTimeline's storm
+        # stash does, so a LossStorm overlapping a degraded event would
+        # clobber whichever wrote the slot last — refuse loudly (the device
+        # engines compose these correctly; run composed scenarios there)
+        from .events import DEGRADED_EVENT_TYPES
+
+        for ev in scenario.events:
+            if isinstance(ev, DroppedRefute):
+                raise ScenarioError(
+                    "DroppedRefute manipulates the device view planes "
+                    "(refute squashing); the emulator runner's members own "
+                    "their real gossip state — run the scenario on the "
+                    "dense engine"
+                )
+        deg = [e for e in scenario.events
+               if isinstance(e, (SlowEpoch,) + DEGRADED_EVENT_TYPES)]
+        storms = [e for e in scenario.events if isinstance(e, LossStorm)]
+        for d in deg:
+            d0, d1 = _window(d, "until")
+            for s in storms:
+                s0, s1 = _window(s, "until")
+                if d0 < s1 and s0 < d1:
+                    raise ScenarioError(
+                        f"{type(d).__name__}{list(getattr(d, 'rows', ()))} "
+                        "overlaps a LossStorm: the emulator runner's single "
+                        "default-outbound slot cannot hold both — stagger "
+                        "them, or run the composed scenario on a device "
+                        "engine"
+                    )
+        self.scenario = scenario
+        self._emus = list(emulators)
+        self._addrs = list(addresses)
+        self._steps = schedule(scenario, horizon=horizon)
+        self._i = 0
+        self.events_applied: List[Tuple[int, str]] = []
+
+    def next_tick(self) -> Optional[int]:
+        return self._steps[self._i].tick if self._i < len(self._steps) else None
+
+    def advance_to(self, tick: int) -> List[str]:
+        labels: List[str] = []
+        while self._i < len(self._steps) and self._steps[self._i].tick <= tick:
+            step = self._steps[self._i]
+            self._i += 1
+            self._apply(step)
+            self.events_applied.append((step.tick, step.label))
+            labels.append(step.label)
+        return labels
+
+    def report(self) -> dict:
+        return {
+            "scenario": self.scenario.name,
+            "engine": "emulator",
+            "events_applied": [
+                {"tick": t, "event": lab} for t, lab in self.events_applied
+            ],
+            "pending": len(self._steps) - self._i,
+        }
+
+    def _apply(self, step: _Step) -> None:
+        if step.kind == "partition_block":
+            (groups,) = step.payload
+            for a, b in itertools.combinations(groups, 2):
+                self._block(a, b)
+        elif step.kind == "partition_heal":
+            (groups,) = step.payload
+            for a, b in itertools.combinations(groups, 2):
+                self._unblock(a, b)
+        elif step.kind == "storm_start":
+            (pct,) = step.payload
+            for emu in self._emus:
+                emu.set_default_outbound_settings(pct, 0.0)
+        elif step.kind == "storm_end":
+            for emu in self._emus:
+                emu.set_default_outbound_settings(0.0, 0.0)
+        elif step.kind == "flap_down":
+            (pairs,) = step.payload
+            for s, d in pairs:
+                self._emus[s].block_outbound([self._addrs[d]])
+        elif step.kind == "flap_up":
+            (pairs,) = step.payload
+            for s, d in pairs:
+                self._emus[s].unblock_outbound([self._addrs[d]])
+        elif step.kind == "slow_start":
+            # NOTE (r14): the emulator maps degraded events COARSELY — a
+            # per-destination entry overrides the node's default settings
+            # entirely (loss AND delay travel together), so a flaky
+            # member's sends toward a concurrently slow member carry the
+            # slow delay at full reliability. Intersecting-cohort overlaps
+            # are refused by schedule(); disjoint-cohort residue is this
+            # documented approximation. The device engines model the loss
+            # and delay planes independently.
+            rows, delay = step.payload
+            for r in rows:
+                self._emus[r].set_default_outbound_settings(0.0, delay)
+            for i, emu in enumerate(self._emus):
+                if i not in rows:
+                    for r in rows:
+                        emu.set_outbound_settings(self._addrs[r], 0.0, delay)
+        elif step.kind == "slow_end":
+            (rows,) = step.payload
+            for r in rows:
+                self._emus[r].set_default_outbound_settings(0.0, 0.0)
+            for i, emu in enumerate(self._emus):
+                if i not in rows:
+                    for r in rows:
+                        emu.unblock_outbound([self._addrs[r]])
+        elif step.kind == "asym_start":
+            rows, pct, direction = step.payload
+            if direction in ("in", "both"):
+                for i, emu in enumerate(self._emus):
+                    if i not in rows:
+                        for r in rows:
+                            emu.set_outbound_settings(self._addrs[r], pct, 0.0)
+            if direction in ("out", "both"):
+                for r in rows:
+                    self._emus[r].set_default_outbound_settings(pct, 0.0)
+        elif step.kind == "asym_end":
+            rows, direction = step.payload
+            if direction in ("in", "both"):
+                for i, emu in enumerate(self._emus):
+                    if i not in rows:
+                        for r in rows:
+                            emu.unblock_outbound([self._addrs[r]])
+            if direction in ("out", "both"):
+                for r in rows:
+                    self._emus[r].set_default_outbound_settings(0.0, 0.0)
+        elif step.kind == "zone_down":
+            (rows,) = step.payload
+            rest = [i for i in range(len(self._emus)) if i not in set(rows)]
+            if rest:
+                self._block(list(rows), rest)
+        elif step.kind == "zone_up":
+            (rows,) = step.payload
+            rest = [i for i in range(len(self._emus)) if i not in set(rows)]
+            if rest:
+                self._unblock(list(rows), rest)
+        elif step.kind == "slow_epoch_start":
+            (delay,) = step.payload
+            for emu in self._emus:
+                emu.set_default_outbound_settings(0.0, delay)
+        elif step.kind == "slow_epoch_end":
+            for emu in self._emus:
+                emu.set_default_outbound_settings(0.0, 0.0)
+        elif step.kind == "crash":
+            (rows,) = step.payload
+            for r in rows:
+                self._emus[r].block_all_outbound()
+                self._emus[r].block_all_inbound()
+        elif step.kind == "restart":
+            rows, _seeds = step.payload
+            for r in rows:
+                self._emus[r].unblock_all_outbound()
+                self._emus[r].unblock_all_inbound()
+
+    def _block(self, a, b) -> None:
+        addrs_a = [self._addrs[r] for r in a]
+        addrs_b = [self._addrs[r] for r in b]
+        for r in a:
+            self._emus[r].block_outbound(addrs_b)
+            self._emus[r].block_inbound(addrs_b)
+        for r in b:
+            self._emus[r].block_outbound(addrs_a)
+            self._emus[r].block_inbound(addrs_a)
+
+    def _unblock(self, a, b) -> None:
+        addrs_a = [self._addrs[r] for r in a]
+        addrs_b = [self._addrs[r] for r in b]
+        for r in a:
+            self._emus[r].unblock_outbound(addrs_b)
+            self._emus[r].unblock_inbound(addrs_b)
+        for r in b:
+            self._emus[r].unblock_outbound(addrs_a)
+            self._emus[r].unblock_inbound(addrs_a)

@@ -158,9 +158,10 @@ class SimConfig:
     view_slots: int = 24
     active_slots: int = 8
     seed: int = 0
-    # Persistent compilation-cache directory of the JAX package (None =
-    # disabled); the port has no counterpart yet, and ``auto_params``
-    # refuses a configured one (ROADMAP A13).
+    # Build-cache directory (None = the checkout's build/; the
+    # SCALECUBE_COMPILE_CACHE_DIR env var is the non-config fallback): the
+    # port's CUDA kernels build into <dir>/torch_kernels/, keyed on their
+    # source and flags (see scalecube_cluster_tpu_torch.compile_cache).
     compile_cache_dir: Optional[str] = None
 
     def replace(self, **kw) -> "SimConfig":

@@ -154,7 +154,10 @@ class LocalWorld:
 
     :meth:`run` calls ``fn(*args)`` on every rank and returns the W results
     in rank order; ``fn`` must be importable by name (a module-level
-    function). A rank that raises fails the call with its traceback."""
+    function). A rank that raises fails the call with its traceback; a rank
+    that dies fails it within :attr:`POLL_S` seconds."""
+
+    POLL_S = 1.0  # how often a waiting call looks for dead ranks
 
     def __init__(self, world: int, device: str = "cuda", timeout: float = 600.0):
         import multiprocessing
@@ -162,6 +165,7 @@ class LocalWorld:
         ctx = multiprocessing.get_context("spawn")
         self.world = int(world)
         self.timeout = timeout
+        self._broken = ""
         self._dir = tempfile.mkdtemp(prefix="pg-")
         init_file = os.path.join(self._dir, "init")
         self._tasks = [ctx.Queue() for _ in range(self.world)]
@@ -180,28 +184,53 @@ class LocalWorld:
             raise
 
     def _collect(self, what: str) -> list:
+        """The W results of one call, in rank order. It polls the ranks while
+        it waits: a rank that has exited without its result fails the call
+        within a poll (its exit code in the message), and the world is then
+        broken — every later call fails at once, and :meth:`close` kills the
+        ranks still waiting for the dead one in a collective."""
         import queue
+        import time
 
         out: list = [None] * self.world
+        got: set = set()
         errors = []
-        for _ in range(self.world):
-            # once a rank failed, the others may wait in a collective for it
-            wait = self.timeout if not errors else 10.0
+        deadline = time.monotonic() + self.timeout
+        grace = None  # once a rank failed, the others may wait in a collective for it
+        seen_dead = False
+        while len(got) < self.world:
             try:
-                rank, ok, value = self._results.get(timeout=wait)
+                rank, ok, value = self._results.get(timeout=self.POLL_S)
             except queue.Empty:
-                if errors:
+                dead = [(r, p.exitcode) for r, p in enumerate(self._procs)
+                        if r not in got and p.exitcode is not None]
+                if dead and not seen_dead:
+                    seen_dead = True  # one more poll: a result it sent as it exited may be in the pipe
+                    continue
+                if dead:
+                    errors += [f"rank {r}: exited with code {code} without a result" for r, code in dead]
+                    self._broken = "rank " + ", ".join(str(r) for r, _ in dead) + " exited"
                     break
-                raise TimeoutError(f"LocalWorld: {what} timed out after {self.timeout} s") from None
+                now = time.monotonic()
+                if grace is not None and now >= grace:
+                    break
+                if grace is None and now >= deadline:
+                    raise TimeoutError(f"LocalWorld: {what} timed out after {self.timeout} s") from None
+                continue
+            got.add(rank)
             if ok:
                 out[rank] = value
             else:
                 errors.append(f"rank {rank}:\n{value}")
+                if grace is None:
+                    grace = time.monotonic() + 10.0
         if errors:
             raise RuntimeError(f"LocalWorld: {what} failed\n" + "\n".join(errors))
         return out
 
     def run(self, fn, *args, **kwargs) -> list:
+        if self._broken:
+            raise RuntimeError(f"LocalWorld: the world is broken ({self._broken})")
         for q in self._tasks:
             q.put((fn, args, kwargs))
         return self._collect(getattr(fn, "__name__", "call"))
@@ -211,9 +240,11 @@ class LocalWorld:
             if p.is_alive():
                 q.put(None)
         for p in self._procs:
-            p.join(timeout=30)
+            # the survivors of a dead rank wait in a collective: no join
+            p.join(timeout=0 if self._broken else 30)
             if p.is_alive():
                 p.kill()
+                p.join(timeout=5)
         import shutil
 
         shutil.rmtree(self._dir, ignore_errors=True)

@@ -6,11 +6,13 @@
   metrics history, checkpoint/resume.
 * :class:`SimCluster` / :class:`SimNode` — ``Cluster``-facade-shaped handles
   over individual simulated members.
-
-The sim transport (``SimTransport``) is not ported yet (ROADMAP A13).
+* :class:`SimTransport` — the 4-method Transport SPI (send/request_response/
+  listen/stop) between simulated members, honoring the sim's link-loss
+  plane.
 """
 
 from .cluster import SimCluster, SimNode
 from .driver import CheckpointError, SimDriver
+from .transport import SimTransport
 
-__all__ = ["SimDriver", "SimCluster", "SimNode", "CheckpointError"]
+__all__ = ["SimDriver", "SimCluster", "SimNode", "CheckpointError", "SimTransport"]

@@ -4,8 +4,8 @@ A port of the JAX package's ``sim/cluster.py``: ``SimCluster`` drives the
 members of one :class:`.SimDriver` from one object, and ``SimNode`` mirrors
 the reference ``Cluster`` surface (member/members/otherMembers/
 member(id|addr)/updateMetadata/spreadGossip/listenMembership/shutdown) for
-one row. Messaging (``transport()``) comes with the sim transport, which is
-not ported yet (ROADMAP A13).
+one row. Messaging (``send``/``request_response``) is provided by
+:class:`.transport.SimTransport`, reachable via :meth:`SimNode.transport`.
 """
 
 from __future__ import annotations
@@ -84,7 +84,12 @@ class SimNode:
 
     # -- messaging ----------------------------------------------------------
     def transport(self):
-        raise NotImplementedError("the sim transport is not ported yet (ROADMAP A13)")
+        """The 4-method Transport SPI bound to this row (lazy singleton)."""
+        from .transport import SimTransport
+
+        if self.row not in self._d._transports:
+            self._d._transports[self.row] = SimTransport(self._d, self.row)
+        return self._d._transports[self.row]
 
     # -- lifecycle ----------------------------------------------------------
     @property

@@ -10,7 +10,10 @@ the JAX package's engine policy). The driver owns:
   and its randomness: a ``torch.Generator`` on the driver's device,
   seeded with ``seed``, that each window draws its per-tick uniforms from
   (the JAX driver's key chain plays this part there);
-* the id↔row mapping (``Member`` handles with ``sim://row`` addresses);
+* the id↔row mapping (``Member`` handles with ``sim://row`` addresses),
+  the rows' transports (``_transports``: a :class:`.transport.SimTransport`
+  or a bridged endpoint, :mod:`..bridge`) and the host generator their
+  delivery draws from (``_rng``, seeded as the JAX driver seeds its own);
 * membership-event extraction for *watched* rows — per-tick host diffs of
   those rows' synthesized views, emitting ADDED / LEAVING / REMOVED /
   UPDATED;
@@ -48,7 +51,10 @@ data-keyed branch; :data:`..ops._tensor.HOST_SYNCS` counts those.
 
 The driver builds its window from ``params`` at every step (a window is a
 Python loop over the tick, not a compiled program), so it keeps no window
-cache: a knob swap is a replacement of ``params``.
+cache: a knob swap is a replacement of ``params``. :meth:`jit_cache_audit`
+reports the window functions it ran, keyed as the JAX driver keys its
+compiled programs, with the kernels' build directory
+(:mod:`..compile_cache`; ``compile_cache_dir`` points it elsewhere).
 
 On a member mesh (``mesh=``, :mod:`..ops.sharding`; the pview engine only)
 the driver is SPMD: every rank runs the same script with the same seed and
@@ -68,7 +74,7 @@ restore keeps each rank's rows of it, so an archive moves between a
 sharded and an unsharded driver either way.
 
 Not ported yet, and refused by name: the sparse and dense engines on a
-mesh (ROADMAP A12 item 5); the compile-cache audit (A13).
+mesh (ROADMAP A12 item 5).
 """
 
 from __future__ import annotations
@@ -140,8 +146,9 @@ def auto_params(
     :class:`SimDriver` resolves to its engine. ``config`` (a
     :class:`..config.ClusterConfig`) goes through the class's
     ``from_config`` with the overrides it takes; the remaining overrides
-    replace fields of the result. A configured ``compile_cache_dir``
-    raises (ROADMAP A13), as the driver's argument does."""
+    replace fields of the result. A configured compile-cache directory
+    (``config`` or ``SCALECUBE_COMPILE_CACHE_DIR``) points the kernel builds
+    at it (:func:`..compile_cache.enable_persistent_compile_cache`)."""
     import dataclasses
     import inspect
 
@@ -149,8 +156,10 @@ def auto_params(
     from ..ops.sparse import SparseParams
     from ..ops.state import SimParams
 
-    if config is not None and config.sim.compile_cache_dir:
-        _not_ported("the compile-cache directory", "A13")
+    if config is not None:
+        from .. import compile_cache
+
+        compile_cache.enable_persistent_compile_cache(config=config)
     force_sparse = overrides.pop("force_sparse", False)
     force_pview = overrides.pop("force_pview", False)
     use_dense = ((per_link_fidelity or link_delay) and capacity <= dense_threshold) or capacity <= 512
@@ -204,9 +213,13 @@ class SimDriver:
         ``draws``, when given, replaces the generator as the windows' draw
         source: a callable that takes a window's tick count and returns that
         many per-tick ``(fd, round)`` draw pairs (the parity tests replay
-        the JAX driver's own key chain through it)."""
+        the JAX driver's own key chain through it). ``compile_cache_dir``
+        points the kernel builds at ``<dir>/torch_kernels/``
+        (:mod:`..compile_cache`)."""
         if compile_cache_dir:
-            _not_ported("the compile-cache directory", "A13")
+            from .. import compile_cache
+
+            compile_cache.enable_persistent_compile_cache(compile_cache_dir)
         self.params = params
         self._eng = engine_api.resolve(params)
         self.engine = self._eng.name
@@ -254,7 +267,11 @@ class SimDriver:
         self._lay = layout_for(self._key_dtype)
         self.seed = int(seed)
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        self._rng = np.random.default_rng(self.seed ^ 0x5EED)  # host-side (transport) draws
         self._draws = draws
+        # per-window-function stats for jit_cache_audit(): calls and the
+        # first call's wall time, keyed as the JAX driver keys its programs
+        self._step_stats: Dict[tuple, dict] = {}
         self.n_initial = n_initial
         self.members: Dict[int, Member] = {
             r: Member(id=f"sim-{r}", address=row_address(r)) for r in range(n_initial)
@@ -266,6 +283,7 @@ class SimDriver:
         self._watches: Dict[int, _Watch] = {}
         self._rumor_payloads: Dict[int, object] = {}
         self._next_member_ordinal = n_initial
+        self._transports: Dict[int, object] = {}  # row -> SimTransport / bridged endpoint
         # engine-health accumulators: per-window sums/maxima accumulate ON
         # DEVICE (the _win_* fields) and fold into these host values at a
         # flush() sync point — reading the public properties flushes
@@ -396,6 +414,10 @@ class SimDriver:
         rows = sorted(self._watches)
         watch_arr = torch.tensor(rows, dtype=torch.int64, device=self.device) if rows else None
         source = self._gen if self._draws is None else self._draws(n_ticks)
+        stats = self._step_stats.setdefault(
+            (n_ticks, len(rows), self._trace is not None, self._ad is not None),
+            {"calls": 0, "first_dispatch_s": None},
+        )
         t0 = time.perf_counter()
         step = self._window(n_ticks)
         if self._trace is not None:
@@ -408,6 +430,11 @@ class SimDriver:
         else:
             self.state, ms, watched = step(self.state, source, watch_rows=watch_arr)
         dispatch_s = time.perf_counter() - t0
+        if stats["calls"] == 0:
+            # the first call builds the window (and, on the card, loads or
+            # compiles the kernel's library)
+            stats["first_dispatch_s"] = round(dispatch_s, 4)
+        stats["calls"] += 1
         ds = self.dispatch_stats
         ds["windows_dispatched"] += 1
         ds["ticks_dispatched"] += n_ticks
@@ -567,8 +594,11 @@ class SimDriver:
 
     # -- membership events (host-side diff of watched rows) ----------------
     def _view_row_host(self, row: int) -> np.ndarray:
+        """A host copy of ``row``'s view keys (on the CPU the engine's row may
+        be a view of the live plane, which the next window updates in place:
+        a watch's baseline must not move with it)."""
         with self._mesh_ctx():
-            return self._eng.view_row(self.state, row).cpu().numpy()
+            return self._eng.view_row(self.state, row).cpu().numpy().copy()
 
     def watch(self, row: int) -> EventStream:
         """Start emitting MembershipEvents as observed by node ``row``."""
@@ -864,9 +894,23 @@ class SimDriver:
         join() pool probe."""
         self._health_interest = True
 
-    # -- surfaces still to port ---------------------------------------------
     def jit_cache_audit(self) -> dict:
-        _not_ported("the compile-cache audit", "A13")
+        """The window functions this driver ran and the kernels' build
+        cache: one line per (ticks, watched rows, traced, adaptive) — the
+        JAX driver's program key — with its engine, calls and the first
+        call's wall time, and :func:`..compile_cache.compile_cache_report`."""
+        from .. import compile_cache
+
+        with self._lock:  # _step_stats mutates under the lock in step()
+            programs = [
+                {
+                    "n_ticks": k[0], "n_watch": k[1], "traced": k[2], "adaptive": k[3],
+                    "engine": self.engine, "calls": v["calls"],
+                    "first_dispatch_s": v["first_dispatch_s"],
+                }
+                for k, v in sorted(self._step_stats.items())
+            ]
+        return {"programs": programs, "persistent_cache": compile_cache.compile_cache_report()}
 
     def arm_telemetry(self, config=None, bus=None):
         """Arm the telemetry plane on this driver; returns the
@@ -1164,6 +1208,7 @@ class SimDriver:
             "free_rumor_slots": (
                 list(self._free_rumor_slots) if self._free_rumor_slots is not None else None
             ),
+            "rng": self._rng.bit_generator.state,
         }
         if self._control is not None:
             # controller memory (rung, dwell, decision log) follows the
@@ -1311,6 +1356,9 @@ class SimDriver:
         self._pool_high_water = host["pool_high_water"]
         self._segmentation_warnings = host["segmentation_warnings"]
         self._recent_joins = [tuple(j) for j in host["recent_joins"]]
+        if "rng" in host:  # archives written before the sim transport lack it
+            self._rng = np.random.default_rng()
+            self._rng.bit_generator.state = host["rng"]
         if self._trace is not None:
             # clear the ring (records of the abandoned timeline would sew
             # into the restored one) and re-baseline the column mirror

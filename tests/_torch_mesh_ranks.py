@@ -174,9 +174,10 @@ def fleet_window(params, fleet_np: dict, seed: int, n_ticks: int) -> dict:
 
 def refusals() -> dict:
     """What a mesh still refuses, tried on this rank: the exception's type
-    and message by name. The sparse and dense engines on a mesh wait for
-    ROADMAP A12 item 5; the compile cache, the audit and the scalar
-    engine's transports for A13; a 2-D mesh runs only the fleet."""
+    and message by name ("none" where the call went through). The sparse
+    and dense engines on a mesh wait for ROADMAP A12 item 5; the compile
+    cache, the audit, the sim transport and the emulator runner run on a
+    sharded driver; a 2-D mesh runs only the fleet."""
     from scalecube_cluster_tpu_torch.chaos.engine import EmulatorChaosRunner
     from scalecube_cluster_tpu_torch.ops import fleet as FL
     from scalecube_cluster_tpu_torch.ops import sparse as SP
@@ -211,11 +212,20 @@ def refusals() -> dict:
     attempt("dense tick", lambda: SH.make_sharded_tick(mesh, ST.SimParams(capacity=64)))
     attempt("dense state", lambda: dcn.make_global_state(ST.SimParams(capacity=64), 64, mesh))
     attempt("sparse profile", lambda: PR.profile_ticks(sp, None, torch.Generator(), 1, mesh=mesh))
-    attempt("compile cache", lambda: SimDriver(p, 200, mesh=mesh, device="cpu", compile_cache_dir="unused"))
+    import tempfile
+
+    from scalecube_cluster_tpu_torch import compile_cache
+    from scalecube_cluster_tpu_torch.chaos.events import Scenario
+    from scalecube_cluster_tpu_torch.ops import _build
+
+    keep = _build.BUILD_DIR, compile_cache._enabled_dir
+    with tempfile.TemporaryDirectory() as tmp:
+        attempt("compile cache", lambda: SimDriver(p, 200, mesh=mesh, device="cpu", compile_cache_dir=tmp))
+    _build.BUILD_DIR, compile_cache._enabled_dir = keep
     d = SimDriver(p, 200, mesh=mesh, device="cpu")
     attempt("cache audit", d.jit_cache_audit)
     attempt("sim transport", lambda: SimNode(d, 0).transport())
-    attempt("emulator chaos", lambda: EmulatorChaosRunner())
+    attempt("emulator chaos", lambda: EmulatorChaosRunner(Scenario(name="idle", events=(), horizon=4), [], []))
     attempt("fleet of 3", lambda: FL.shard_fleet(torch.zeros(3), FL.fleet_mesh("cpu")))
     attempt("2-D factoring", lambda: SH.make_pview_mesh2d(world + 1, "cpu"))
     attempt("2-D fleet on a 1-D mesh", lambda: SH.make_sharded_pview_fleet_run(mesh, p, 1))
@@ -506,3 +516,17 @@ def profile_fleet2d(params, fleet_np: dict, seed: int, n_rows: int, n_ticks: int
     res.pop("timeline")
     return {"profiled": convert.fleet_to_numpy(SH.gather_pview_fleet(got, mesh)),
             "window": convert.fleet_to_numpy(SH.gather_pview_fleet(ref, mesh)), "result": res}
+
+
+def exit_on_rank(rank_to_exit: int, code: int) -> int:
+    """Rank ``rank_to_exit`` dies at once with exit code ``code``; every other
+    rank waits for it in a barrier that never completes."""
+    import os
+
+    import torch.distributed as dist
+
+    rank = dcn.process_info()[0]
+    if rank == rank_to_exit:
+        os._exit(code)
+    dist.barrier()
+    return rank

@@ -228,8 +228,10 @@ def test_scenarios_the_jax_package_refuses_are_refused():
         TE.schedule(TEV.Scenario(name="x", events=[
             TEV.AsymmetricLoss(rows=[2], pct=50.0, at=1, until=5),
             TEV.Partition(groups=[[0], [1]], at=2, heal_at=6)]))
-    with pytest.raises(NotImplementedError, match="A13"):
-        TCH.EmulatorChaosRunner(drop, [], [])
+    # the emulator runner refuses what JAX's refuses (tests/test_torch_scalar.py
+    # holds its replay against JAX's)
+    with pytest.raises(TEV.ScenarioError, match="DroppedRefute"):
+        TCH.EmulatorChaosRunner(drop, [None] * 16, [f"a{i}" for i in range(16)])
 
 
 def _spec_dicts(spec):

@@ -106,3 +106,24 @@ def test_a_failing_rank_fails_the_call():
         with pytest.raises(RuntimeError, match="ZeroDivisionError"):
             lw.run(divmod, 1, 0)
         assert lw.run(divmod, 7, 2) == [(3, 1), (3, 1)]
+
+
+def test_a_dead_rank_fails_the_call_within_seconds():
+    """A rank that exits mid-call (rank 0 waiting for it in a barrier)
+    fails the call within a few polls, not after the 600 s timeout, with
+    its exit code in the message; the broken world refuses later calls at
+    once and closes without waiting for the stuck survivor."""
+    import time
+
+    lw = dcn.LocalWorld(2, "cpu")
+    try:
+        t0 = time.monotonic()
+        with pytest.raises(RuntimeError, match="rank 1: exited with code 3"):
+            lw.run(RK.exit_on_rank, 1, 3)
+        assert time.monotonic() - t0 < 10.0
+        with pytest.raises(RuntimeError, match="broken"):
+            lw.run(divmod, 7, 2)
+    finally:
+        t0 = time.monotonic()
+        lw.close()
+        assert time.monotonic() - t0 < 10.0

@@ -10,6 +10,8 @@ class's ``from_config``. The windows themselves are held in
 from __future__ import annotations
 
 import dataclasses
+import pathlib
+import tempfile
 
 import jax.numpy as jnp
 import numpy as np
@@ -273,8 +275,18 @@ def test_config_path_with_overrides():
         got = dataclasses.asdict(auto_params(*args, config=cfg, **kw))
         ref.pop("delivery_kernel", None)  # the adaptive spec rides the params and is compared
         assert got == ref, (args, kw)
-    with pytest.raises(NotImplementedError, match="A13"):
-        auto_params(64, config=cfg.with_sim(lambda s: s.replace(compile_cache_dir="x")))
+    # a configured compile-cache directory points the kernel builds there
+    # (tests/test_torch_monitor.py holds the redirection)
+    from scalecube_cluster_tpu_torch import compile_cache
+    from scalecube_cluster_tpu_torch.ops import _build
+
+    keep = _build.BUILD_DIR, compile_cache._enabled_dir
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            p = auto_params(64, config=cfg.with_sim(lambda s: s.replace(compile_cache_dir=tmp)))
+            assert isinstance(p, TS.SimParams) and _build.BUILD_DIR == pathlib.Path(tmp) / "torch_kernels"
+    finally:
+        _build.BUILD_DIR, compile_cache._enabled_dir = keep
 
 
 def test_driver_selects_engine_from_auto_params():

@@ -306,19 +306,22 @@ class _Mesh2d:
     mesh_dim_names = ("scenarios", "members")
 
 
-def test_refused_surfaces_raise_not_implemented():
+def test_refused_surfaces_raise_not_implemented(monkeypatch, tmp_path):
+    from scalecube_cluster_tpu_torch import compile_cache
+    from scalecube_cluster_tpu_torch.ops import _build
+    from scalecube_cluster_tpu_torch.sim.transport import SimTransport
+
     d = _generator_driver()
-    calls = {
-        "jit_cache_audit": lambda: d.jit_cache_audit(),
-        "EmulatorChaosRunner": lambda: EmulatorChaosRunner(_idle_scenario(), [], []),
-        "transport": lambda: SimCluster(d).node(1).transport(),
-        "compile_cache_dir": lambda: SimDriver(d.params, 8, compile_cache_dir="x", device="cpu"),
-    }
-    items = {"EmulatorChaosRunner": "A13", "jit_cache_audit": "A13", "transport": "A13",
-             "compile_cache_dir": "A13"}
-    for name, call in calls.items():
-        with pytest.raises(NotImplementedError, match=items[name]):
-            call()
+    # what A13 refused is ported (tests/test_torch_monitor.py,
+    # tests/test_torch_bridge.py, tests/test_torch_scalar.py): the audit,
+    # the emulator runner, the sim transport and the build-cache directory
+    assert set(d.jit_cache_audit()) == {"programs", "persistent_cache"}
+    assert EmulatorChaosRunner(_idle_scenario(), [], []).report()["pending"] == 0
+    assert isinstance(SimCluster(d).node(1).transport(), SimTransport)
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    monkeypatch.setattr(compile_cache, "_enabled_dir", None)
+    SimDriver(d.params, 8, compile_cache_dir=str(tmp_path), device="cpu")
+    assert _build.BUILD_DIR == tmp_path / "torch_kernels"
     # the member mesh and the 2-D scenarios x members mesh are ported
     # (tests/test_torch_sharding.py, tests/test_torch_mesh_delay.py); a
     # driver runs one cluster, so it takes the 1-D member mesh only

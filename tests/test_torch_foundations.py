@@ -142,8 +142,21 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "trace/__init__.py", "trace/schema.py", "trace/spans.py", "trace/export.py",
                    "trace/rings.py", "trace/capture.py", "trace/plane.py", "trace/profile.py",
                    "control.py", "replay.py", "ops/keychain.py", "ops/dcn.py", "ops/sharding.py",
-                   "ops/ragged_a2a.py"):
+                   "ops/ragged_a2a.py", "utils/intervals.py", "models/__init__.py", "models/message.py",
+                   "models/record.py", "transport/__init__.py", "transport/api.py", "transport/codecs.py",
+                   "transport/native_codec.py", "transport/stream_base.py", "transport/tcp.py",
+                   "transport/websocket.py", "transport/local.py", "transport/emulator.py",
+                   "native/__init__.py", "cluster/__init__.py", "cluster/metadata.py",
+                   "cluster/failure_detector.py", "cluster/gossip.py", "cluster/membership.py",
+                   "cluster/cluster.py", "sim/transport.py", "bridge/__init__.py", "bridge/transport.py",
+                   "bridge/loadgen.py", "monitor.py", "compile_cache.py"):
         assert f"scalecube_cluster_tpu_torch/{module}" in walked, module
+    # the native codec's loader builds the port's own copy of codec.c into
+    # the checkout's build/ tree, never beside the JAX package's
+    from scalecube_cluster_tpu_torch import native
+
+    assert (pathlib.Path(REPO) / "scalecube_cluster_tpu_torch/native/codec.c").is_file()
+    assert native.BUILD_DIR == pathlib.Path(REPO).resolve() / "build" / "native"
     bad = [
         f"{p.relative_to(REPO)}:{line}: import {name}"
         for p in files
