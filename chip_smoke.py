@@ -301,6 +301,21 @@ passes:
    ``python3 chip_smoke.py --serve-only`` runs the build and phase 47
    alone, with two readings of what holds the serving lanes back: the
    scrapes beside the stepper alone, and one operation's cost alone.
+48. audit — the program-audit plane (``scalecube_cluster_tpu_torch/
+   audit/``) over the whole matrix at JAX's audit shapes on the card, as
+   tasks of the worker pool (the dense, the sparse, two pview slices, and
+   pview's member-mesh programs on a one-rank NCCL group): every window
+   recorded under the dispatch recorder and run again under the card's
+   instruments (storage identity, the sync-debug waits equal to the
+   sanctioned host reads, ``max_memory_allocated`` against each engine's
+   budget, the recorded shapes); every program clean or the phase fails;
+   ``fused-pallas`` must launch the kernel (its launches are the kernels
+   line's ``audit`` path); then two seeded violations caught on the card
+   (an unsanctioned ``.item()``, a second state copy), so the card's
+   instruments are shown live. Phases 5, 11 and 17 print their timed
+   window's peak over its state beside the engine's declared factor
+   (reported, not gated). ``python3 chip_smoke.py --audit-only`` runs
+   phases 1-3 and 48 alone.
 
 The dense paths launch no hand-written kernel; their launch counts
 stand in the kernels line as measured. Every path's count is zeroed just
@@ -309,8 +324,9 @@ before it runs and read just after, in the worker processes too.
 Order of the run: phases 1-3; then one pool of 8 worker processes on the
 card runs the CPU-vs-card windows of phases 4, 7, 10, 13, 15, 16, 19,
 22, 25, 27, 32, 35 and 39 (equality checks, nothing timed; their lines
-printed by phase when the pool ends) and the Monte Carlo tasks of phases
-23, 29, 33 and 43, while the main process waits; the pool's processes
+printed by phase when the pool ends), the Monte Carlo tasks of phases
+23, 29, 33 and 43 and phase 48's audit slices (reported after phase 47),
+while the main process waits; the pool's processes
 end before any timed phase; then the timed phases in their order.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -733,6 +749,7 @@ def run_main_path(device, params=None, label: str = "main", delay: float = 0.0) 
 
     ticks = 10
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     delivery.delivery_combine.launches = 0
     _tensor.HOST_SYNCS.count = 0
     t0 = time.perf_counter()
@@ -779,6 +796,7 @@ def run_main_path(device, params=None, label: str = "main", delay: float = 0.0) 
                   f"syncs {syncs} ({syncs / ticks:.1f}/tick), final coverage {cov[-1].cpu().tolist()}")
     phase(label, f"2 more ticks: {flag_reads} branch-flag reads, {device_waits} operations "
                   "waited for the device")
+    peak_over_state(label, "pview", st, peak, base)
     return {"launches": launches, "state": st, "gen": gen, "params": params, "ms_tick": wall / ticks * 1e3,
             "peak": peak, "flags": syncs / ticks, "ms": ms}
 
@@ -1276,6 +1294,7 @@ def run_sparse_main_path(device, params=None, label: str = "sparse-main", delay:
 
     ticks = timed_s * TICKS_PER_SECOND
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     delivery.delivery_combine.launches = 0
     _tensor.HOST_SYNCS.count = 0
     t0 = time.perf_counter()
@@ -1310,6 +1329,7 @@ def run_sparse_main_path(device, params=None, label: str = "sparse-main", delay:
                          f"refute {int(ms['announce_dropped_refute'].sum())}, sync "
                          f"{int(ms['announce_dropped_sync'].sum())}), evicted {int(ms['pool_evicted'].sum())}, "
                          f"new suspects {int(ms['fd_new_suspects'].sum())}, mr_accepts {int(ms['mr_accepts'].sum())}")
+    peak_over_state(label, "sparse", st, peak, base)
     return {"launches": launches, "state": st, "gen": gen, "params": params, "ms_tick": ms_tick, "peak": peak,
             "flags": flags / ticks, "ms": ms}
 
@@ -1631,6 +1651,7 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
     watch = torch.tensor([n - 1], device=device)
     launches0 = dense_launch_count()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     _tensor.HOST_SYNCS.count = 0
     timed = {"part": [0, 0.0], "heal": [0, 0.0]}  # ticks, seconds (the first window is warm-up)
     flags_timed = 0
@@ -1717,6 +1738,7 @@ def run_dense_main(device, n: int = N_DENSE, window: int = 25, profile_at: int =
                         f"rerun of the detection window and the profiled ticks untimed), peak allocated "
                         f"{peak / 2 ** 30:.2f} GiB, branch-flag reads {flags_timed} "
                         f"({flags_timed / ticks_t:.2f}/tick), delivery_combine launches {launches}")
+    peak_over_state(label, "dense", st, peak, base)
     if launches:
         raise AssertionError(f"the dense main path launched delivery_combine {launches} times")
     if not ok:
@@ -2007,8 +2029,8 @@ POOL_WORKERS = 8  # the one-card machine's CPU cores
 
 def pool_task(task) -> tuple:
     """One task of the shared worker pool, in a worker process: ``task`` is
-    (kind, argument), kind one of "config15", "window", "c14-sweep",
-    "certify", "c14-fp", "c14-mc" and "config13". Returns (kind, result, the
+    (kind, argument), kind one of "config15", "audit", "window",
+    "c14-sweep", "certify", "c14-fp", "c14-mc" and "config13". Returns (kind, result, the
     delivery_combine launches and the delivery_combine_fleet launches the
     task made, both counts zeroed just before it, its wall seconds)."""
     from scalecube_cluster_tpu_torch.ops import delivery
@@ -2019,7 +2041,7 @@ def pool_task(task) -> tuple:
     delivery.delivery_combine_fleet.launches = 0
     t0 = time.perf_counter()
     out = {"certify": certify_entry, "config13": config13_entry, "config15": config15_cell, "c14-mc": c14_mc_cell,
-           "c14-fp": c14_fp_arm, "c14-sweep": c14_sweep, "window": pool_window}[kind](arg)
+           "c14-fp": c14_fp_arm, "c14-sweep": c14_sweep, "window": pool_window, "audit": audit_task}[kind](arg)
     return (kind, out, delivery.delivery_combine.launches, delivery.delivery_combine_fleet.launches,
             time.perf_counter() - t0)
 
@@ -2069,10 +2091,11 @@ def pool_window(arg) -> tuple:
 
 
 def run_worker_pool(device) -> dict:
-    """The Monte Carlo tasks of phases 23, 29, 33 and 43 and the CPU-vs-card
+    """The Monte Carlo tasks of phases 23, 29, 33 and 43, the CPU-vs-card
     windows of phases 4, 7, 10, 13, 15, 16, 19, 22, 25, 27, 32, 35 and 39
-    in one pool of POOL_WORKERS processes on the one card, the longest
-    first: config15's three certification cells, the windows, config14's
+    and phase 48's audit slices in one pool of POOL_WORKERS processes on
+    the one card, the longest first: config15's three certification cells,
+    the audit slices, the windows, config14's
     ``adaptive_knob_sweep``, config12's certification matrix (entries by
     their bounds), config14's ``fp_rate_mc`` arms and Monte Carlo cells,
     config13's 18 entries. The Monte Carlo ticks are small (N = 48 to 256;
@@ -2097,6 +2120,7 @@ def run_worker_pool(device) -> dict:
     dev = str(device)
     order = sorted(range(len(DEFAULT_MATRIX)), key=lambda i: -cost(DEFAULT_MATRIX[i]))
     tasks = [("config15", (i, C15_N, C15_SEEDS, dev)) for i in range(len(SH.SHIFTING_FAMILY))]
+    tasks += [("audit", (engine, variants, dev)) for engine, variants in AUDIT_TASKS]
     tasks += [("window", (number, dev, _T0)) for number in POOL_WINDOWS]
     tasks += [("c14-sweep", (C14_SWEEP_SEEDS, dev))]
     tasks += [("certify", (DEFAULT_MATRIX[i], dev, CERTIFY_KW)) for i in order]
@@ -5029,6 +5053,141 @@ def run_phases_4_to_24(device, marks: list, pooled: dict) -> dict:
             "dense-delay": dense_delay_run["launches"], **dissem_launches, "unarmed": unarmed}
 
 
+# Phase 48: the audit matrix in slices, one worker-pool task each (the
+# pview windows record ~40,000 operations each, so pview takes three)
+AUDIT_TASKS = (
+    ("pview", ("unarmed", "traced", "telemetry", "bridge", "strategy", "adaptive")),
+    ("pview", ("fleet", "replay", "fused")),
+    ("pview", ("sharded",)),
+    ("dense", None),
+    ("sparse", None),
+)
+
+
+def audit_task(arg) -> dict:
+    """One slice of phase 48's audit matrix in a worker process on the card:
+    ``arg`` is (engine, its variants or None for all, device). Returns the
+    verdict (``audit/report.py``); the member-mesh slice starts its own
+    one-rank NCCL group and ends it."""
+    from scalecube_cluster_tpu_torch.audit import audit_all
+
+    engine, variants, device = arg
+    return audit_all(engines=[engine], variants=list(variants) if variants else None, device=device)
+
+
+def run_audit_pool(device) -> list:
+    """Phase 48's slices alone, in a pool of their own (``--audit-only``)."""
+    import multiprocessing
+
+    tasks = [("audit", (engine, variants, str(device))) for engine, variants in AUDIT_TASKS]
+    with multiprocessing.get_context("spawn").Pool(len(tasks)) as pool:
+        done = pool.map(pool_task, tasks, chunksize=1)
+    return [(res, serial, fleet) for _, res, serial, fleet, _ in done]
+
+
+def audit_seeds(device) -> None:
+    """Two seeded violations caught with the card's instruments: the pview
+    fused window with one unsanctioned ``.item()`` (the recorder's read and
+    the sync-debug mode's extra wait), and a window that keeps a second
+    copy of its state past a tight budget (``max_memory_allocated``)."""
+    from scalecube_cluster_tpu_torch.audit import AuditProgram, check_memory_budget, check_transfer_free
+    from scalecube_cluster_tpu_torch.audit.programs import _audit_params, _gen, start_state, tree_bytes
+    from scalecube_cluster_tpu_torch.ops import engine_api
+    from scalecube_cluster_tpu_torch.ops.engine_api import EngineContracts
+
+    eng = engine_api.engine("pview")
+    params = _audit_params("pview", 128, "i32")
+    run = eng.make_fused_run(params, 4)
+
+    def peeking(state, gen):
+        out = run(state, gen)
+        out[1]["peek"] = torch.full((), out[0].up.sum().item(), device=state.up.device)
+        return out
+
+    def program(name, fn, make_args, contracts=None, basis=1):
+        return AuditProgram(name=name, engine="seeded", variant="seeded", key_dtype="i32", capacity=128, n_ticks=4,
+                            fn=fn, make_args=make_args, inplace=((0, None),) if contracts else (),
+                            outputs=lambda args, out: ((out[0],), [(k, v) for k, v in out[1].items()]),
+                            contracts=contracts or eng.contracts, budget_basis_bytes=basis, wide_threshold=128,
+                            device=str(device))
+
+    seed = program("seeded/unsanctioned-item", peeking, lambda: (start_state(eng, params, device), _gen(device)))
+    mem = seed.memory()
+    found = check_transfer_free(seed)
+    if len(found) != 2 or "Tensor.item" not in found[0].message or "device wait" not in found[1].message:
+        raise AssertionError(f"[audit] the unsanctioned .item() was not caught twice on the card: {found}")
+    phase("audit", f"seeded unsanctioned .item(): caught by the recorder ({found[0].where}) and by the sync-debug "
+                   f"mode ({mem['device_waits']} waits against {mem['device_waits'] - 1} sanctioned reads)")
+
+    shape = (128, 128)
+
+    def copying(state, key):
+        state[0].add_(1.0)
+        return state, {"copy": state * 3.0 + key}
+
+    tight = EngineContracts(memory_factor=1.2, memory_overhead_mib=1 / 16)
+    seed = program("seeded/second-copy", copying,
+                   lambda: (torch.zeros(shape, device=device), torch.ones((), device=device)), tight,
+                   tree_bytes(torch.zeros(shape)))
+    found = check_memory_budget(seed)
+    if not found or "max_memory_allocated" not in found[0].message:
+        raise AssertionError(f"[audit] the second state copy was not caught on the card: {found}")
+    phase("audit", f"seeded second state copy: caught, peak {seed.memory()['peak_live_bytes']} B against the "
+                   f"budget {seed.memory()['budget_bytes']} B (max_memory_allocated)")
+
+
+def run_audit(device, slices: list) -> dict:
+    """Phase 48's report: every slice's verdict (any violation fails the
+    phase), ``fused-pallas``'s kernel launches (> 0), then the card's two
+    seeded violations. Returns the launches for the kernels line."""
+    t0 = time.perf_counter()
+    bad, n_programs, launches, fleet_launches = [], 0, {}, 0
+    for verdict, _, _ in slices:
+        if verdict["device"] != str(device) or verdict["instrument"] != "torch.cuda.max_memory_allocated":
+            raise AssertionError(f"[audit] a slice ran on {verdict['device']} with {verdict['instrument']}")
+        for e in verdict["programs"]:
+            n_programs += 1
+            mem = e["memory"]
+            marks = " ".join(f"{c}={'ok' if v['ok'] else 'VIOLATED'}" for c, v in e["contracts"].items())
+            phase("audit", f"{e['program']}: {marks}; peak {mem['peak_live_bytes']} B / budget {mem['budget_bytes']} "
+                           f"B ({mem['peak_live_bytes'] / e['budget_basis_bytes']:.2f} x basis), waits "
+                           f"{mem['device_waits']}, launches {mem['kernel_launches']} + fleet "
+                           f"{mem['fleet_kernel_launches']}, in-place leaves {e['donated_leaves']}")
+            launches[e["program"]] = mem["kernel_launches"]
+            fleet_launches += mem["fleet_kernel_launches"]
+            bad += [f"{e['program']}: {c}: {v['message']} [{v['where']}]" for c, cv in e["contracts"].items()
+                    for v in cv["violations"]]
+        bad += [f"restore seam {v['engine']}: {v['message']} [{v['where']}]"
+                for v in verdict["restore_seams"]["violations"]]
+        for miss in verdict["not_ported"]:
+            phase("audit", f"{miss['program']}: not ported ({miss['reason']})")
+    if bad:
+        raise AssertionError("[audit] violations on the card:\n" + "\n".join(bad))
+    if launches.get("pview/i32/fused-pallas", 0) <= 0:
+        raise AssertionError("[audit] fused-pallas launched no delivery_combine kernel on the card")
+    phase("audit", f"{n_programs} programs clean on {torch.cuda.get_device_name(device)} ({nvidia_smi()}); "
+                   f"fused-pallas launched delivery_combine {launches['pview/i32/fused-pallas']} times; the "
+                   f"fleet programs launched delivery_combine_fleet {fleet_launches} times")
+    audit_seeds(device)
+    phase("audit", f"report and seeds: {time.perf_counter() - t0:.1f} s")
+    return {"audit": launches["pview/i32/fused-pallas"], "fleet": fleet_launches}
+
+
+def peak_over_state(label: str, engine: str, st, peak: int, base: int) -> None:
+    """A timed window's peak live bytes over its state — the state plus the
+    peak above the pre-window baseline, as the audit counts it — beside the
+    engine's declared memory factor: reported, not gated."""
+    from scalecube_cluster_tpu_torch.audit.programs import tree_bytes
+    from scalecube_cluster_tpu_torch.ops import engine_api
+
+    state = tree_bytes(st)
+    factor = engine_api.engine(engine).contracts.memory_factor
+    ratio = (state + peak - base) / state
+    phase(label, f"peak / state {ratio:.3f} (state {state / 2 ** 30:.3f} GiB, {(peak - base) / 2 ** 30:.3f} GiB above "
+                 f"the pre-window baseline) beside the declared memory_factor {factor}: "
+                 f"{'within' if ratio <= factor else 'ABOVE'} (reported, not gated)")
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5052,6 +5211,15 @@ def main(argv=()) -> int:
     if "--serve-only" in argv:
         run_serve(device, diagnose=True)
         phase("time", f"phase 47 (serve) alone, the build included: {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--audit-only" in argv:
+        check_kernels(device)
+        check_structured_kernel(device)
+        phase("time", f"phases 1-3: {time.perf_counter() - t_start:.1f} s")
+        t0 = time.perf_counter()
+        run_audit(device, run_audit_pool(device))
+        phase("time", f"phase 48 (audit) alone: {time.perf_counter() - t0:.1f} s; the command: "
+                      f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if "--mesh-only" in argv:
         run_mesh(device, marks)
@@ -5112,6 +5280,10 @@ def main(argv=()) -> int:
     launches.update({"serve": serve["launches"], "serve-twin": serve["launches_twin"],
                      "serve-overhead": serve["launches_overhead"]})
     marks.append(("phase 47 (serve)", time.perf_counter()))
+    audited = run_audit(device, pooled["audit"])
+    launches["audit"] = audited["audit"]
+    fleet_launches["audit"] = audited["fleet"]
+    marks.append(("phase 48 (audit: its report and seeds; its slices ran in the pool)", time.perf_counter()))
 
     last = t_start
     for what, at in marks:

@@ -37,9 +37,12 @@ Deviations from the cited papers, stated once:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from ..ops._tensor import host_constant
 from ..ops.rand import SALT_PULL, SALT_PULL_STRIDE
 from . import topology
 
@@ -48,6 +51,14 @@ def pull_salt(s: int) -> int:
     """Per-fanout-slot salt of the pull-reply delivery draw (slots must
     not share draws; see the salt-spacing rule in ops/rand.py)."""
     return SALT_PULL + s * SALT_PULL_STRIDE
+
+
+@functools.lru_cache(maxsize=None)
+def _chords_tensor(ch: tuple, device: torch.device) -> torch.Tensor:
+    """The chord offsets as an int32 tensor on ``device``, made once per
+    (chords, device) and copied without a wait: a copy from the host each
+    tick waits for the device."""
+    return host_constant(ch, torch.int32, device)
 
 
 def structured_peers(spec, n: int, tick: int, u_sel: torch.Tensor):
@@ -63,7 +74,7 @@ def structured_peers(spec, n: int, tick: int, u_sel: torch.Tensor):
     F = u_sel.shape[1]
     dev = u_sel.device
     rows = torch.arange(n, dtype=torch.int32, device=dev)
-    ch_arr = torch.tensor(ch, dtype=torch.int32, device=dev)
+    ch_arr = _chords_tensor(tuple(int(c) for c in ch), dev)
     cols = []
     for s in range(F):
         if spec.strategy in ("push", "push_pull"):

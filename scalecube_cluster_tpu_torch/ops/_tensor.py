@@ -9,7 +9,8 @@
   (``.at[...].max/min(mode="drop")``): ``scatter_reduce_`` with amax/amin is
   deterministic whatever the duplicates, which ``index_put_`` is not;
 * the host decisions the JAX tick takes with ``lax.cond`` on data: each
-  costs one device-to-host read, counted in :data:`HOST_SYNCS`;
+  costs one device-to-host read, counted in :data:`HOST_SYNCS`; host
+  constants reach the card without a wait (:func:`host_constant`);
 * row chunks for reductions over the [N, M] membership planes, so that no
   [N, M] temporary wider than a byte exists at a million rows; and row
   chunks bounded by a cell count for passes over the sparse engine's
@@ -143,6 +144,19 @@ def host_flags(*flags: torch.Tensor) -> list:
     if len(flags) == 1:
         return [bool(flags[0])]
     return [bool(v) for v in torch.stack(flags).tolist()]
+
+
+def host_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """Host data (a tuple of numbers) as a tensor on ``device``, without the
+    host waiting for the card: a copy from pageable host memory waits for
+    the stream, so on a card the values go through pinned memory and an
+    asynchronous copy (the caching host allocator keeps the pinned block
+    until the copy is done). Callers cache the result per (values,
+    device)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return torch.tensor(values, dtype=dtype)
+    return torch.tensor(values, dtype=dtype, pin_memory=True).to(dev, non_blocking=True)
 
 
 def maximum_into_(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,14 @@
 """The engine-interface spelling the driver resolves through.
 
 A port of the JAX package's ``ops/engine_api.py``, cut to the fields the
-driver, the chaos runner, the telemetry and the trace planes read (the
-member-mesh fields are filled for pview, the one engine on a mesh): an
-engine is one :class:`EngineOps` descriptor, and :func:`resolve` picks it
-by the params type. All three engines are ported: dense (``SimParams``), sparse (``SparseParams``) and
+driver, the chaos runner, the telemetry and the trace planes and the audit
+plane read (the member-mesh fields are filled for pview, the one engine on
+a mesh): an engine is one :class:`EngineOps` descriptor, and
+:func:`resolve` picks it by the params type. Each engine declares the
+contracts the audit plane (:mod:`..audit`) holds its windows to
+(:class:`EngineContracts`, JAX's fields and values) and the leaves its
+windows update in place (``inplace_leaves``, the torch spelling of JAX's
+donated window arguments). All three engines are ported: dense (``SimParams``), sparse (``SparseParams``) and
 partial-view (``PviewParams``). The seams over the one [N, N] view plane
 that dense and sparse share (``plane_*``, the sentinel initialiser) are
 written once here.
@@ -13,9 +17,51 @@ written once here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineContracts:
+    """One engine's program contracts: the JAX package's ``EngineContracts``
+    field for field, which the audit plane (:mod:`..audit`) witnesses over
+    the operations each window dispatches (:mod:`..audit.contracts` says
+    what each one checks in torch):
+
+    * ``donation_alias`` — each in-place leaf keeps its storage across a
+      window, no operation copies it whole, and no non-state output shares
+      its storage;
+    * ``transfer_free`` — every host read in a window is a sanctioned,
+      counted one (``_tensor.host_flags``, the exact exchanges' split read);
+    * ``no_plane_materialization`` — no gather of a wide ([N, N]-scaled)
+      plane feeds only a window's metrics or watched rows;
+    * ``forbid_wide_values`` — pview: no tensor of the window has two
+      capacity-scaled dims;
+    * ``memory_factor`` / ``memory_overhead_mib`` — a window's peak live
+      bytes stay within ``factor x`` one state copy ``+ overhead``;
+      ``fleet_memory_factor`` replaces the factor for fleets (None: the
+      serial one);
+    * ``restore_module`` — the module where the engine's checkpoint restore
+      copies the archive's arrays (the restore lint's target);
+    * ``key_dtypes`` / ``strategy_variants`` — what the audit matrix
+      covers."""
+
+    donation_alias: bool = True
+    transfer_free: bool = True
+    no_plane_materialization: bool = True
+    forbid_wide_values: bool = False
+    memory_factor: float = 3.0
+    memory_overhead_mib: float = 2.0
+    restore_module: Optional[str] = None
+    key_dtypes: tuple = ("i32",)
+    strategy_variants: tuple = ()
+    fleet_memory_factor: Optional[float] = None
+
+
+#: where every engine's ``restore`` copies: each delegates to
+#: ``convert.state_from_numpy``
+_RESTORE_MODULE = "scalecube_cluster_tpu_torch.convert"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,9 +90,11 @@ class EngineOps:
     # run(fleet_state, ad, draws, watch_rows=None); the fused name is the same
     make_fleet_run: Callable = None
     make_fleet_adaptive_run: Callable = None
-    #: a fleet window's peak-memory budget factor, peak / (S x one state);
-    #: None inherits the serial budget (the JAX engines' declared values)
-    fleet_memory_factor: float | None = None
+    #: the program contracts the audit plane holds this engine's windows to
+    contracts: EngineContracts = EngineContracts()
+    #: the state leaves a window updates in place (its other leaves are
+    #: replaced): what a JAX window donates, in torch
+    inplace_leaves: tuple = ()
     # (params, n_ticks, TraceSpec) -> traced window run(state, ring, draws,
     # watch_rows=None): the trace ring appended in place each tick
     make_traced_run: Callable = None
@@ -65,6 +113,8 @@ class EngineOps:
     # (mesh2d, params, n_ticks) -> fleet window on a 2-D scenarios x members
     # mesh, run(fleet_state, draws, watch_rows=None) over this rank's block
     make_sharded_fleet_run: Callable = None
+    # (mesh) -> the metric ring's append on a mesh, (ring, row) -> None
+    make_sharded_telemetry_append: Callable = None
 
     @property
     def supports_mesh(self) -> bool:
@@ -80,6 +130,11 @@ class EngineOps:
     def has_pool(self) -> bool:
         """Whether the engine carries a membership-rumor pool."""
         return self.pool_slots is not None
+
+    @property
+    def make_fused_run(self) -> Callable:
+        """The JAX name of the fused window: the same window."""
+        return self.make_run
 
     @property
     def make_fused_adaptive_run(self) -> Callable:
@@ -178,6 +233,13 @@ def _dense_engine() -> EngineOps:
         make_fleet_adaptive_run=K.make_fleet_adaptive_run,
         make_traced_run=K.make_traced_run,
         tracer_view_cols=K.tracer_view_cols,
+        contracts=EngineContracts(
+            memory_factor=2.5,
+            restore_module=_RESTORE_MODULE,
+            key_dtypes=("i32", "i16"),
+            strategy_variants=(("push_pull", "expander"), ("accelerated", "ring"), ("tuneable", "expander")),
+        ),
+        inplace_leaves=("view_key", "changed_at", "pending_key", "pending_inf", "pending_src"),
     )
 
 
@@ -216,7 +278,15 @@ def _pview_engine() -> EngineOps:
         telemetry_window_vector=PV.telemetry_window_vector,
         make_fleet_run=PV.make_pview_fleet_run,
         make_fleet_adaptive_run=PV.make_pview_fleet_adaptive_run,
-        fleet_memory_factor=5.5,
+        contracts=EngineContracts(
+            forbid_wide_values=True,
+            memory_factor=4.5,
+            restore_module=_RESTORE_MODULE,
+            key_dtypes=("i32", "i16"),
+            fleet_memory_factor=5.5,
+            strategy_variants=(("accelerated", "expander"), ("push_pull", "ring")),
+        ),
+        inplace_leaves=("pending_minf", "pending_inf", "pending_src"),
         make_traced_run=PV.make_pview_traced_run,
         tracer_view_cols=PV.tracer_view_cols,
         make_sharded_run=_sharded,
@@ -225,6 +295,7 @@ def _pview_engine() -> EngineOps:
         shard_state=SH.shard_pview_state,
         gather_state=SH.gather_pview_state,
         make_sharded_fleet_run=SH.make_sharded_pview_fleet_run,
+        make_sharded_telemetry_append=SH.make_sharded_metric_append,
     )
 
 
@@ -252,7 +323,13 @@ def _sparse_engine() -> EngineOps:
         telemetry_window_vector=SP.telemetry_window_vector,
         make_fleet_run=SP.make_sparse_fleet_run,
         make_fleet_adaptive_run=SP.make_sparse_fleet_adaptive_run,
-        fleet_memory_factor=6.0,
+        contracts=EngineContracts(
+            memory_factor=5.0,
+            restore_module=_RESTORE_MODULE,
+            strategy_variants=(("pipelined", "expander"),),
+            fleet_memory_factor=6.0,
+        ),
+        inplace_leaves=("view_key", "pending_minf", "pending_inf", "pending_src"),
         make_traced_run=SP.make_sparse_traced_run,
         tracer_view_cols=SP.tracer_view_cols,
     )

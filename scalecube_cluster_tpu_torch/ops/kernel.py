@@ -471,21 +471,23 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
     del klw
     piggyback = vk.masked_fill(~young, NOC)
     del young
-    # buf = max(own, every delivered candidate) cellwise; row n is a spare
-    # that takes the rows delivering nothing now
+    # buf = max(every delivered candidate) cellwise, NOC where none: a cell
+    # is accepted only where its candidate beats the own record, so buf
+    # never holds a copy of the view plane; row n is a spare that takes the
+    # rows delivering nothing now
     buf = vk.new_empty((n + 1, n))
     buf[n] = NOC
     recv_inf = vk.new_zeros((n + 1, R), dtype=torch.uint8)
     recv_src = vk.new_full((n + 1, R), -1, dtype=torch.int32)
     if D:
-        maximum_into_(buf[:n], vk, arriving_key)
+        buf[:n] = arriving_key
         recv_inf[:n] = arriving_inf
         recv_src[:n] = state.pending_src[slot_now]
         pend_key = state.pending_key.view(D * n, n)
         pend_inf = bp.unpack_bits(state.pending_inf, R).to(torch.uint8).view(D * n, R)
         pend_src = state.pending_src.view(D * n, R)
     else:
-        buf[:n] = vk
+        buf[:n] = NOC
     sent = torch.zeros((), dtype=torch.int32, device=dev)
     rumor_sent = torch.zeros((), dtype=torch.int32, device=dev)
     for s in range(F):
@@ -561,7 +563,7 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
         state.pending_key[slot_now] = NOC
         pend_inf.view(D, n, R)[slot_now] = 0
         state.pending_src[slot_now] = -1
-        state = state.replace(pending_inf=bp.pack_bits(pend_inf.view(D, n, R).bool()))
+        state.pending_inf.copy_(bp.pack_bits(pend_inf.view(D, n, R).bool()))
     m = {"gossip_msgs": sent, "rumor_sends": rumor_sent, "rumor_deliveries": _i32(newly)}
     if adaptive:
         m.update(ev)

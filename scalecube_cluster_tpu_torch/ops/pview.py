@@ -39,6 +39,9 @@ sentinels' table-edge twins of the dense check.
 land D - 1 ticks ahead at most, the FD probes and the SYNC round trip are
 gated on their timeouts, and the adaptive plane stretches the direct
 probe's (``scaled_timely_rt``). A per-link delay stays refused, as in JAX.
+The rings are the leaves the tick updates IN PLACE (a state handed to a
+window is consumed, as a JAX window consumes its donated state); the
+O(N·k) tables and the small leaves are replaced each tick.
 :func:`telemetry_window_vector` is the telemetry plane's per-window row.
 
 The causal trace capture (``pview_tick(trace=...)``,

@@ -41,6 +41,13 @@ SENTINEL_SERIES = ("sentinel_false_dead_max", "sentinel_key_regressions")
 TICK_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
 
+def window_row(vector_fn, ms, state, false_dead, key_regr) -> torch.Tensor:
+    """One window's ring row: the engine's ``vector_fn(ms, state)`` and the
+    two sentinel columns, as f32."""
+    sent = torch.stack([false_dead.to(torch.int32), key_regr.to(torch.int32)]).to(torch.float32)
+    return torch.cat([vector_fn(ms, state), sent])
+
+
 def state_footprint_mb(state) -> float:
     """Bytes of every leaf of an engine state, in MiB, from shapes and
     dtypes alone (never a device read); the host-int ``tick`` counts as the
@@ -86,8 +93,7 @@ class TelemetryPlane:
         self._vector_fn = vector_fn
 
     def _row(self, ms, state, false_dead, key_regr) -> torch.Tensor:
-        sent = torch.stack([false_dead.to(torch.int32), key_regr.to(torch.int32)]).to(torch.float32)
-        return torch.cat([self._vector_fn(ms, state), sent])
+        return window_row(self._vector_fn, ms, state, false_dead, key_regr)
 
     # -- the per-window device path (called under the driver lock) -----------
     def on_window(self, ms, state, n_ticks: int, dispatch_s: float) -> None:

@@ -32,6 +32,7 @@ import functools
 
 import torch
 
+from ..ops._tensor import host_constant
 from ..ops.lattice import RANK_ALIVE, RANK_DEAD, RANK_SUSPECT
 from .schema import (
     FLAG_FD_ROUND,
@@ -51,13 +52,13 @@ _I32 = torch.int32
 
 @functools.lru_cache(maxsize=None)
 def _rows_tensor(rows: tuple, device) -> torch.Tensor:
-    return torch.tensor(rows, dtype=torch.int64, device=device)
+    return host_constant(rows, torch.int64, device)
 
 
 def tracer_index(spec_or_rows, device) -> torch.Tensor:
     """The tracer rows as an int64 [K] tensor on ``device``, made once per
-    (rows, device): a copy from the host each tick would wait for the
-    device. ``spec_or_rows`` is a :class:`.schema.TraceSpec` or a row
+    (rows, device) and copied without a wait (``_tensor.host_constant``):
+    a copy from the host each tick would wait for the device. ``spec_or_rows`` is a :class:`.schema.TraceSpec` or a row
     sequence."""
     rows = spec_or_rows.tracer_rows if isinstance(spec_or_rows, TraceSpec) else spec_or_rows
     return _rows_tensor(tuple(int(r) for r in rows), torch.device(device))

@@ -484,7 +484,7 @@ def test_fleet_refusals_by_name():
     from scalecube_cluster_tpu_torch.ops import engine_api as TEA
 
     for name in ("dense", "sparse", "pview"):
-        assert TEA.engine(name).fleet_memory_factor == JEA.engine(name).contracts.fleet_memory_factor
+        assert TEA.engine(name).contracts.fleet_memory_factor == JEA.engine(name).contracts.fleet_memory_factor
 
 
 def test_fleet_scope_batching_rules():

@@ -149,7 +149,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "native/__init__.py", "cluster/__init__.py", "cluster/metadata.py",
                    "cluster/failure_detector.py", "cluster/gossip.py", "cluster/membership.py",
                    "cluster/cluster.py", "sim/transport.py", "bridge/__init__.py", "bridge/transport.py",
-                   "bridge/loadgen.py", "monitor.py", "compile_cache.py"):
+                   "bridge/loadgen.py", "monitor.py", "compile_cache.py", "audit/__init__.py",
+                   "audit/__main__.py", "audit/contracts.py", "audit/dispatch_walk.py", "audit/programs.py",
+                   "audit/report.py", "audit/restore_lint.py"):
         assert f"scalecube_cluster_tpu_torch/{module}" in walked, module
     # the native codec's loader builds the port's own copy of codec.c into
     # the checkout's build/ tree, never beside the JAX package's
