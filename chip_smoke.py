@@ -5173,10 +5173,11 @@ def run_audit(device, slices: list) -> dict:
     return {"audit": launches["pview/i32/fused-pallas"], "fleet": fleet_launches}
 
 
-def peak_over_state(label: str, engine: str, st, peak: int, base: int) -> None:
+def peak_over_state(label: str, engine: str, st, peak: int, base: int) -> float:
     """A timed window's peak live bytes over its state — the state plus the
     peak above the pre-window baseline, as the audit counts it — beside the
-    engine's declared memory factor: reported, not gated."""
+    engine's declared memory factor. Gated: the phase fails above it.
+    Returns the ratio."""
     from scalecube_cluster_tpu_torch.audit.programs import tree_bytes
     from scalecube_cluster_tpu_torch.ops import engine_api
 
@@ -5185,7 +5186,11 @@ def peak_over_state(label: str, engine: str, st, peak: int, base: int) -> None:
     ratio = (state + peak - base) / state
     phase(label, f"peak / state {ratio:.3f} (state {state / 2 ** 30:.3f} GiB, {(peak - base) / 2 ** 30:.3f} GiB above "
                  f"the pre-window baseline) beside the declared memory_factor {factor}: "
-                 f"{'within' if ratio <= factor else 'ABOVE'} (reported, not gated)")
+                 f"{'within' if ratio <= factor else 'ABOVE'}")
+    if ratio > factor:
+        raise AssertionError(f"[{label}] the window's peak over its state {ratio:.3f} is above the {engine} "
+                             f"engine's declared memory_factor {factor}")
+    return ratio
 
 
 def main(argv=()) -> int:

@@ -44,7 +44,7 @@ def _need_and_cover(state):
     return need_m, cov_m
 
 
-def allocate(state, subj_p, key_p, orig_p, got, prio):
+def allocate(state, subj_p, key_p, orig_p, got, prio, owned: bool = False):
     """Allocate/supersede membership rumors for E compacted proposals.
 
     Pool invariant: active slots carry unique subjects. A proposal about an
@@ -54,6 +54,9 @@ def allocate(state, subj_p, key_p, orig_p, got, prio):
     finds no free slot evicts the active rumor with the fewest
     still-uncovered needing members (ties to the lowest slot), among slots
     with a covered majority.
+
+    ``owned``: the caller's tick made ``state.minf_age`` itself (no caller
+    of the window holds it), so its columns are cleared and set in place.
 
     Returns (state, allocated_count, no_slot_mask, evicted_count)."""
     E = subj_p.shape[0]
@@ -122,7 +125,10 @@ def allocate(state, subj_p, key_p, orig_p, got, prio):
     # through an index copies it from the host, which waits for the device
     clear = torch.zeros((M + E,), dtype=torch.bool, device=dev)
     clear.index_fill_(0, clear_slot, True)
-    age = state.minf_age.masked_fill(clear[None, :M], 0)
+    if owned:
+        age = state.minf_age.masked_fill_(clear[None, :M], 0)
+    else:
+        age = state.minf_age.masked_fill(clear[None, :M], 0)
     if D and (need_any or replace_any):
         keep_columns_(state.pending_minf, ~clear[:M])
     # on a member mesh, the origin's cell on the rank that holds its row
@@ -163,10 +169,11 @@ _ALLOC_METRICS = (
 )
 
 
-def alloc_phase(state, proposals, params):
+def alloc_phase(state, proposals, params, owned: bool = False):
     """Turn the tick's accepted-change proposals — (subject, key, origin,
     valid) from FD verdicts, suspicion expiries, refutations and SYNC
-    re-gossip, in that order — into new membership rumors."""
+    re-gossip, in that order — into new membership rumors. ``owned``: as
+    :func:`allocate`'s."""
     E = params.announce_slots
     ctx = _shard()
     n = state.capacity if ctx is None else ctx.n  # the proposals name global rows
@@ -194,7 +201,7 @@ def alloc_phase(state, proposals, params):
     idx = idx.clamp(max=L - 1)
     prio = got & (idx < int(seg_ends[2]))
     st, allocated, no_slot, evicted = allocate(
-        state, subject[idx], key[idx], origin[idx], got, prio=prio
+        state, subject[idx], key[idx], origin[idx], got, prio=prio, owned=owned
     )
     rank = torch.cumsum(valid, 0) - 1
     over = valid & (rank >= E)

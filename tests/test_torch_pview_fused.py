@@ -231,3 +231,49 @@ def test_port_refuses_what_it_does_not_run():
     with pytest.raises(ValueError, match="uniform delay only"):
         TPV.set_link_delay(TPV.init_pview_state(TPV.PviewParams(capacity=33, delay_slots=2), 33, device="cpu"),
                            [0], [1], 2.0)
+
+
+def test_fused_window_peak_within_the_declared_memory_factor(monkeypatch):
+    """The fused window at a width where the [N, 2,048] ``minf_age`` plane
+    dominates the state (config16's knobs, a 2,048-slot pool): its peak live
+    bytes over its state, the audit's CPU instrument (``torch.profiler``
+    memory events), stay within the engine's declared ``memory_factor``
+    (4.5, JAX's ``EngineContracts``), and the window stays bit-equal to the
+    JAX package's. The row chunks are set to the fractions of the plane
+    they are at 1,048,576 members (``ROW_CHUNK`` 1/16 of the rows,
+    ``PLANE_CHUNK_CELLS`` 1/32 of the plane), so the temporaries scale as
+    on the card."""
+    from scalecube_cluster_tpu_torch.audit import programs as AP
+    from scalecube_cluster_tpu_torch.ops import engine_api
+
+    n, ticks = 4096, 5
+    monkeypatch.setattr(_tensor, "ROW_CHUNK", n // 16)
+    monkeypatch.setattr(_tensor, "PLANE_CHUNK_CELLS", n * 2048 // 32)
+    params = JPV.PviewParams(
+        capacity=n, view_slots=24, active_slots=8, fanout=3, repeat_mult=3, ping_req_k=3, fd_every=5,
+        sync_every=150, suspicion_mult=5, rumor_slots=8, seed_rows=(0,), key_dtype="i16", mr_slots=2048,
+    )
+    tparams = convert.params_from_dict(dataclasses.asdict(params))
+    jst = JPV.init_pview_state(params, n, warm=True)
+    for s in range(params.rumor_slots):
+        jst = JPV.spread_rumor(jst, s, (s * 997) % n)
+    jst = JPV.crash_rows(jst, list(range(n // 2, n // 2 + 4)))
+    tst = convert.state_from_numpy(JPV.snapshot(jst), device="cpu")
+    key = jax.random.PRNGKey(11)
+    for w in range(2):
+        jst, key_after, jms, _ = _jax_window(params, ticks)(jst, key)
+        key, draws = _jax_draws(key, ticks, params)
+        if w == 0:
+            tst, tms, _ = TPV.run_pview_ticks_fused(tst, draws, ticks, tparams)
+            continue
+        # the measured window, from a busy state (an active pool ages)
+        assert bool(tst.mr_active.any())
+        state_bytes = AP.tree_bytes(tst)
+        prof = AP._cpu_memory_profile()
+        with prof:
+            tst, tms, _ = TPV.run_pview_ticks_fused(tst, draws, ticks, tparams)
+        ratio = (state_bytes + AP._cpu_peak(prof)) / state_bytes
+        factor = engine_api.engine("pview").contracts.memory_factor
+        assert ratio <= factor, f"peak over state {ratio:.3f} above the declared memory_factor {factor}"
+    _assert_state_equal(jst, tst, "the measured window")
+    _assert_metrics_equal(jms, tms, "the measured window")
