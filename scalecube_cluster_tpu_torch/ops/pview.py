@@ -94,7 +94,7 @@ from ._tick import rows_of as _rows
 from ._tick import seed_rows_tensor as _seed_rows_tensor
 from ._tick import set_at as _set
 from ._tick import sync_trace as _sync_trace
-from ._tensor import first_true, host_flags, keep_columns_, nonzero_fixed, plane_chunks, put_drop_, row_chunks, scatter_, scatter_reduce_1d
+from ._tensor import first_true, host_flags, keep_columns_, nonzero_fixed, put_drop_, row_chunks, scatter_, scatter_reduce_1d
 from .kernel import _f32, _fold_evidence, _no_evidence, _timely_rt, telemetry_window_core
 from .sparse import _trace_rows as _sparse_trace_rows
 from .sparse import TELEMETRY_SERIES as _SPARSE_TELEMETRY_SERIES
@@ -1075,6 +1075,13 @@ def _count_confirmations(ad_cnt, accept, subj, cand) -> None:
 _GOSSIP_METRICS = ("gossip_msgs", "rumor_sends", "rumor_deliveries", "mr_deliveries", "mr_accepts")
 
 
+#: row chunks of the gossip phase's aging pass over the [N, M] ``minf_age``
+#: plane: each chunk's temporaries are 1/8 of a plane (0.25 GiB at a million
+#: rows), and the pass launches ~40 operations a chunk, which the host pays
+#: for on a host-bound tick
+AGE_CHUNKS = 8
+
+
 def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewParams,
                         adaptive: bool = False, minf_owned: bool = False):
     """Infection-style dissemination, fused: aging + packing of the
@@ -1136,7 +1143,9 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
         age = state.minf_age if minf_owned else torch.empty_like(state.minf_age)
         fwd_p = torch.empty((n, W), dtype=torch.int32, device=dev)
         zero_p = torch.empty((n, W), dtype=torch.int32, device=dev)
-        for lo, hi in plane_chunks(n, m):
+        step = -(-n // AGE_CHUNKS)
+        for lo in range(0, n, step):
+            hi = min(n, lo + step)
             a = age[lo:hi]
             if minf_owned:
                 a.clamp_(max=254)
