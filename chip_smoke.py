@@ -279,8 +279,9 @@ passes:
    between its windows: bit-equal, one ring read per control epoch, phase
    coverage within 20%; ``[mesh-checkpoint]`` the checkpoint script on a
    sharded 65,536-member driver, its archive also restored into an
-   unsharded driver; then the group is destroyed. ``python3 chip_smoke.py
-   --mesh-only`` runs the build and phases 45 and 46 alone.
+   unsharded driver; then phase 49 on the same group, and the group is
+   destroyed. ``python3 chip_smoke.py --mesh-only`` runs the build and
+   phases 45, 46 and 49 alone.
 47. serve — ``benchmarks/config18_serve.py``'s four sections at its
    published widths: a sparse driver at 4,096 members (config18's
    ``SparseParams``, dense links, telemetry and trace armed) with a real
@@ -312,10 +313,23 @@ passes:
    ``fused-pallas`` must launch the kernel (its launches are the kernels
    line's ``audit`` path); then two seeded violations caught on the card
    (an unsanctioned ``.item()``, a second state copy), so the card's
-   instruments are shown live. Phases 5, 11 and 17 print their timed
-   window's peak over its state beside the engine's declared factor
-   (reported, not gated). ``python3 chip_smoke.py --audit-only`` runs
-   phases 1-3 and 48 alone.
+   instruments are shown live; the dense engine's four member-mesh
+   programs must be among the clean ones, with 0 launches. Phases 5, 11
+   and 17 (and their armed twins) print their timed window's peak over
+   its state beside the engine's declared factor and fail above it.
+   ``python3 chip_smoke.py --audit-only`` runs phases 1-3 and 48 alone.
+49. mesh-dense — the dense engine on a member mesh, on phase 45's
+   world-size-1 NCCL group (run after phase 46): config4's partition at
+   10,000 members (its 1,000 / 9,000 split, ``MESH_DENSE_TICKS``
+   partitioned ticks, the heal through the gathered state, then the
+   healed ticks) and config3's delay regime at 8,192 (loss 0.05, mean
+   delay 1.5, D = 6), each sharded (``make_sharded_run``) against
+   unsharded from one start state and the same draws: every leaf, metric
+   and the telemetry row bit-equal, 0 delivery-kernel launches on both
+   sides (counted), the exact exchanges' bytes per tick (sent equal to
+   received: none dropped), ms/tick sharded vs unsharded and the peak,
+   stamped with the card's name and power limit. ``python3 chip_smoke.py
+   --mesh-dense-only`` runs the build and phase 49 alone.
 
 The dense paths launch no hand-written kernel; their launch counts
 stand in the kernels line as measured. Every path's count is zeroed just
@@ -4570,6 +4584,119 @@ def run_mesh_control_profile(device, mesh, n: int = N_MAIN, shape=MESH_CONTROL) 
     return {"mesh-control": launches, "mesh-profile": profile_launches}
 
 
+MESH_DENSE_TICKS = (10, 6)  # phase 49: config4's partitioned ticks, then healed ticks, each path
+MESH_DENSE_DELAY_TICKS = 10  # phase 49: config3's delay regime (D = 6), past the ring's wrap
+
+
+def dense_mesh_draws(params, ticks: int, device, seed: int) -> list:
+    """``ticks`` full per-tick dense (fd, round) draw pairs from one
+    generator on ``device``, shared by a sharded window and its unsharded
+    twin."""
+    from scalecube_cluster_tpu_torch.ops import rand as PR
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [PR.draw_dense_tick(gen, params, (t + 1) % params.fd_every == 0) for t in range(ticks)]
+
+
+def dense_mesh_pair(device, mesh, label: str, params, start, segments) -> dict:
+    """The dense sharded window against the unsharded one from copies of
+    ``start`` over the same full draws. ``segments`` is a list of ``(ticks,
+    mutation or None)``: the mutation (``state -> state``) runs before its
+    segment, on the sharded side on the gathered state re-sharded (the
+    driver's host path). In each segment tick 1 runs untimed (it grows the
+    allocator's pools) and the rest are timed. Every leaf, metric and
+    telemetry row must be bit-equal, and neither side may launch the
+    delivery kernel. Returns the ms/tick of each side by segment, the
+    sharded side's exchange bytes per tick and its peak."""
+    from scalecube_cluster_tpu_torch.ops import delivery, ragged_a2a
+    from scalecube_cluster_tpu_torch.ops import kernel as K
+    from scalecube_cluster_tpu_torch.ops import sharding as SH
+
+    draws = [dense_mesh_draws(params, t, device, seed=40 + i) for i, (t, _) in enumerate(segments)]
+
+    def run(make, st, sharded):
+        walls, mss = [], []
+        for (ticks, mutate), dr in zip(segments, draws):
+            if mutate is not None:
+                st = SH.shard_state(mutate(SH.gather_state(st, mesh)), mesh) if sharded else mutate(st)
+            st, first, _ = make(1)(st, dr[:1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, rest, _ = make(ticks - 1)(st, dr[1:])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / (ticks - 1) * 1e3)
+            mss.append({k: torch.cat([first[k], rest[k]]) for k in first})
+        return st, mss, walls
+
+    delivery.delivery_combine.launches = 0
+    st, ms_u, wall_u = run(lambda t: K.make_run(params, t), copy_state(start, device), False)
+    launches_u = delivery.delivery_combine.launches
+    mine = SH.shard_state(start, mesh)
+    del start
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()  # the unsharded result and what earlier phases hold
+    torch.cuda.reset_peak_memory_stats()
+    delivery.delivery_combine.launches = 0
+    ragged_a2a.TRAFFIC.sent = ragged_a2a.TRAFFIC.received = 0
+    mine, ms_s, wall_s = run(lambda t: SH.make_sharded_run(mesh, params, t), mine, True)
+    launches = delivery.delivery_combine.launches
+    sent, received = ragged_a2a.TRAFFIC.sent, ragged_a2a.TRAFFIC.received
+    peak = torch.cuda.max_memory_allocated()
+    ticks = sum(t for t, _ in segments)
+    row_u = K.telemetry_window_vector(ms_u[-1], st)
+    row_s = SH.make_sharded_telemetry_row(mesh, K.telemetry_window_vector)(ms_s[-1], mine)
+    whole = SH.gather_state(mine, mesh)
+    diff = device_state_differences(st, whole)
+    for a, b in zip(ms_u, ms_s):
+        diff += metric_differences(a, b)
+    if not torch.equal(row_u, row_s):
+        diff.append("telemetry row")
+    if diff:
+        raise AssertionError(f"[{label}] the sharded dense window differs from the unsharded one in {diff}")
+    if launches or launches_u or sent != received:
+        raise AssertionError(f"[{label}] delivery_combine launches sharded {launches}, unsharded {launches_u}; "
+                             f"exchange bytes sent {sent}, received {received}")
+    walls = ", ".join(f"segment {i + 1} ({t} ticks) sharded {ws:.2f} ms/tick against unsharded {wu:.2f} "
+                      f"({ws / wu - 1:+.1%})" for i, ((t, _), ws, wu) in enumerate(zip(segments, wall_s, wall_u)))
+    phase(label, f"N={params.capacity}, {ticks} ticks from one start state and draws on {nvidia_smi()}: every leaf, "
+                 f"metric and the telemetry row bit-equal; {walls}; exchange {sent / ticks / 2 ** 20:.2f} MiB sent "
+                 f"and {received / ticks / 2 ** 20:.2f} MiB received per tick (the exact exchanges: no record "
+                 f"dropped, delivery_overflow 0); peak allocated {peak / 2 ** 30:.2f} GiB, "
+                 f"{(peak - live) / 2 ** 30:.2f} GiB above the {live / 2 ** 30:.2f} live before the sharded run; "
+                 f"delivery_combine launches 0 sharded and 0 unsharded")
+    del st, mine, whole, draws
+    torch.cuda.empty_cache()
+    return {"ms_sharded": wall_s, "ms_unsharded": wall_u, "bytes_per_tick": sent / ticks, "peak": peak,
+            "launches": launches}
+
+
+def run_mesh_dense(device, mesh) -> dict:
+    """Phase 49, [mesh-dense]: on the same world-size-1 group, the dense
+    engine on a member mesh. config4's partition at 10,000 (its 1,000 /
+    9,000 split, healed after the partitioned segment) and config3's delay
+    regime at 8,192 (loss 0.05, mean delay 1.5 ticks, D = 6), each sharded
+    against unsharded."""
+    from scalecube_cluster_tpu_torch.ops import state as S
+
+    n = N_DENSE
+    split = n // 10
+    minority, majority = list(range(split)), list(range(split, n))
+    params = config4_params(n)
+    start = S.block_partition(S.init_state(params, n, warm=True, dense_links=True, device=device),
+                              minority, majority)
+    part, healed = MESH_DENSE_TICKS
+    out = {"mesh-dense": dense_mesh_pair(device, mesh, "mesh-dense", params, start,
+                                         [(part, None),
+                                          (healed, lambda st: S.heal_partition(st, minority, majority))])}
+    n = N_DELAY
+    params = config4_params(n, **CONFIG3_KNOBS)
+    st = S.init_state(params, n, warm=True, dense_links=True, device=device)
+    st = S.set_link_delay(S.set_uniform_loss(st, CONFIG3_LOSS), range(n), range(n), CONFIG3_DELAY_MEAN)
+    out["mesh-dense-delay"] = dense_mesh_pair(device, mesh, "mesh-dense-delay", params, st,
+                                              [(MESH_DENSE_DELAY_TICKS, None)])
+    return {k: v["launches"] for k, v in out.items()}
+
+
 def run_mesh2(device, mesh, cpu_mesh) -> tuple:
     """Phase 46, [mesh-2]: on the same world-size-1 group, the pview engine
     whole on a member mesh."""
@@ -4582,10 +4709,11 @@ def run_mesh2(device, mesh, cpu_mesh) -> tuple:
     return launches, fleet
 
 
-def run_mesh(device, marks=None) -> tuple:
+def run_mesh(device, marks=None, dense_only: bool = False) -> tuple:
     """Phase 45: a world-size-1 NCCL group (``file://`` init, the card as
     its device), a gloo group beside it for the CPU reference, the mesh
-    phases, and the group destroyed at the end."""
+    phases (``dense_only``: phase 49 alone), and the group destroyed at
+    the end."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -4600,6 +4728,8 @@ def run_mesh(device, marks=None) -> tuple:
         cpu_mesh = DeviceMesh.from_group(dist.new_group(backend="gloo"), "cpu", mesh_dim_names=(SH.MEMBER_AXIS,))
         phase("mesh", f"process group: backend {dist.get_backend()}, world {dist.get_world_size()}, mesh "
                       f"{mesh.mesh_dim_names} on {SH.mesh_device(mesh)}; started in {time.perf_counter() - t0:.2f} s")
+        if dense_only:
+            return run_mesh_dense(device, mesh), {}
         launches = run_mesh_window(device, mesh)
         launches.update(run_mesh_starved(device, mesh, cpu_mesh))
         launches.update(run_mesh_driver(device, mesh))
@@ -4611,6 +4741,9 @@ def run_mesh(device, marks=None) -> tuple:
         fleet.update(fleet2)
         if marks is not None:
             marks.append(("phase 46 (mesh-2)", time.perf_counter()))
+        launches.update(run_mesh_dense(device, mesh))
+        if marks is not None:
+            marks.append(("phase 49 (mesh-dense)", time.perf_counter()))
     finally:
         dist.destroy_process_group()
     phase("mesh", "process group destroyed")
@@ -5165,6 +5298,11 @@ def run_audit(device, slices: list) -> dict:
         raise AssertionError("[audit] violations on the card:\n" + "\n".join(bad))
     if launches.get("pview/i32/fused-pallas", 0) <= 0:
         raise AssertionError("[audit] fused-pallas launched no delivery_combine kernel on the card")
+    dense_mesh = [f"dense/{p}" for p in ("i32/sharded", "i16/sharded", "i32/sharded-telemetry-row",
+                                         "i32/sharded-telemetry-append")]
+    if any(launches.get(p) != 0 for p in dense_mesh):
+        raise AssertionError(f"[audit] the dense member-mesh programs are missing or launched the kernel: "
+                             f"{ {p: launches.get(p) for p in dense_mesh} }")
     phase("audit", f"{n_programs} programs clean on {torch.cuda.get_device_name(device)} ({nvidia_smi()}); "
                    f"fused-pallas launched delivery_combine {launches['pview/i32/fused-pallas']} times; the "
                    f"fleet programs launched delivery_combine_fleet {fleet_launches} times")
@@ -5225,6 +5363,10 @@ def main(argv=()) -> int:
         run_audit(device, run_audit_pool(device))
         phase("time", f"phase 48 (audit) alone: {time.perf_counter() - t0:.1f} s; the command: "
                       f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--mesh-dense-only" in argv:
+        run_mesh(device, dense_only=True)
+        phase("time", f"phase 49 (mesh-dense) alone, the build included: {time.perf_counter() - t_start:.1f} s")
         return 0
     if "--mesh-only" in argv:
         run_mesh(device, marks)

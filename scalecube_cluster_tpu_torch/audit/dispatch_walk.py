@@ -26,7 +26,8 @@ window under two modes at once:
   CPU a no-op, logged all the same). The dispatch mode adds the
   operations that wait for the device without being a read
   (:data:`SYNC_OPS`, an index by a bool mask, a blocking copy between the
-  host and the device).
+  host and the device), and one read of its splits for each exact
+  exchange (:data:`EXCHANGE_OPS`), which reads them inside the op.
 
 Every read carries the chain of the port's functions it ran under, so
 :mod:`.contracts` can tell the sanctioned, counted sites from the rest.
@@ -219,6 +220,10 @@ def _tensors(values, out: list) -> list:
 
 
 _SYNC_KIND: Dict[object, int] = {}
+#: the exact exchanges (``ops/ragged_a2a.py``): custom ops that each read
+#: their splits to the host once (``_splits``)
+EXCHANGE_OPS = frozenset({"scalecube_port::late_exchange", "scalecube_port::fetch_rows",
+                          "scalecube_port::row_exchange", "scalecube_port::fetch_points"})
 _INDEX_OPS = frozenset({"aten::index", "aten::index_put_", "aten::index_put", "aten::_index_put_impl_"})
 
 
@@ -356,6 +361,11 @@ class Recorder:
             _SYNC_KIND[func] = kind
         if kind and _waits(kind, ins, outs, args, kwargs):
             self.reads.append(HostRead(name, format_site(site), port_chain()))
+        if name in EXCHANGE_OPS:
+            # the op's one host read of its splits, made inside the op where
+            # no mode sees it
+            self.reads.append(HostRead(f"{name} splits", format_site(site),
+                                       (("ops/ragged_a2a.py", "_splits"),) + port_chain()))
 
     # -- host reads -------------------------------------------------------------
     def _read(self, kind: str) -> None:

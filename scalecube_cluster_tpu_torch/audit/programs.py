@@ -29,9 +29,9 @@ length and field count, scenarios) is kept STRICTLY below ``capacity``,
 so "dim >= capacity" is exactly "capacity-scaled dim" for the wide-plane
 checks; :func:`_assert_audit_shape` asserts it.
 
-The dense and sparse engines do not run on a member mesh yet (ROADMAP A12
-item 5): their sharded programs are not built, and :func:`not_ported`
-names them.
+The sparse engine does not run on a member mesh yet (ROADMAP A12 item
+5): its sharded programs are not built, and :func:`not_ported` names
+them.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ SEED = 12
 MIB = 1 << 20
 
 #: why a JAX program has no counterpart in the port yet
-NOT_PORTED = "ROADMAP A12 item 5: the dense and sparse engines on a member mesh are not ported yet"
+NOT_PORTED = "ROADMAP A12 item 5: the sparse engine on a member mesh is not ported yet"
 
 VARIANTS = ("unarmed", "traced", "telemetry", "sharded", "strategy", "adaptive", "fleet", "control", "fused",
             "replay", "bridge")
@@ -662,11 +662,12 @@ def _telemetry_programs(eng, params, dev, capacity, n_ticks, contracts, state_by
 
 
 def _sharded_programs(eng, kd, dev, capacity, n_ticks, contracts, mesh, first: bool) -> List[AuditProgram]:
-    """The member-mesh programs of pview on ``mesh`` (this rank's view):
-    the sharded window and its fused name for every key dtype; for the
-    primary dtype the fleet on the 2-D scenarios x members mesh (two
-    ranks or more, as JAX), the sharded telemetry row and append, and the
-    gossip phase the mesh profiler times. Budgets are per rank."""
+    """The member-mesh programs of an engine on ``mesh`` (this rank's
+    view), as JAX registers them: the sharded window for every key dtype
+    and, for the primary dtype, the sharded telemetry row and append; for
+    pview also the window's fused name, the fleet on the 2-D scenarios x
+    members mesh (two ranks or more) and the gossip phase the mesh
+    profiler times. Budgets are per rank."""
     from ..ops import sharding as SH
     from ..ops.fleet import fleet_stack
     from ..telemetry.plane import SENTINEL_SERIES, window_row
@@ -690,14 +691,16 @@ def _sharded_programs(eng, kd, dev, capacity, n_ticks, contracts, mesh, first: b
             budget_basis_bytes=basis, wide_threshold=capacity, is_window=is_window, mesh_size=mesh_size,
             device=str(dev)))
 
+    pview = name == "pview"
     sharded_run = eng.make_sharded_run(mesh, params, n_ticks)
     add("sharded", sharded_run, lambda: (shard(), _gen(dev)), leaves, _window_out, shard_bytes)
-    add("sharded-fused", eng.make_sharded_fused_run(mesh, params, n_ticks), lambda: (shard(), _gen(dev)), leaves,
-        _window_out, shard_bytes)
+    if pview:
+        add("sharded-fused", eng.make_sharded_fused_run(mesh, params, n_ticks), lambda: (shard(), _gen(dev)),
+            leaves, _window_out, shard_bytes)
     if not first:
         return out
 
-    if world >= 2:
+    if pview and world >= 2:
         s_sc = 2
         _assert_audit_shape(f"{name}/{kd}/sharded-mesh2d", capacity, {"fleet_scenarios": s_sc})
         mesh2d = SH.make_pview_mesh2d(s_sc, dev.type)
@@ -725,6 +728,8 @@ def _sharded_programs(eng, kd, dev, capacity, n_ticks, contracts, mesh, first: b
     add("sharded-telemetry-append", append,
         lambda: (MetricRing(names, 64, device=dev), torch.ones((len(names),), dtype=torch.float32, device=dev)),
         ((0, None),), lambda args, o: ((args[0],), []), 64 * len(names) * 4, is_window=False)
+    if not pview:
+        return out
 
     def gossip(state, rd):
         from ..ops import pview as PV
@@ -746,7 +751,7 @@ def _sharded_programs(eng, kd, dev, capacity, n_ticks, contracts, mesh, first: b
 
 def not_ported(engines: Optional[Sequence[str]] = None, variants: Optional[Sequence[str]] = None) -> List[Dict]:
     """The JAX programs with no counterpart in the port yet, by name: the
-    dense and sparse engines' sharded programs (:data:`NOT_PORTED`)."""
+    sparse engine's sharded programs (:data:`NOT_PORTED`)."""
     want = set(variants) if variants else set(VARIANTS)
     if "sharded" not in want:
         return []

@@ -635,7 +635,9 @@ class DriverChaosRunner:
         # sentinel init + reduce through the engine interface: dense/
         # sparse run the shared view-plane core, pview its table-edge twin
         eng = driver._eng
-        self._sent = eng.sentinel_init(arm_state, self.spec) if sentinels else None
+        # on a mesh each rank baselines its own rows
+        with driver._mesh_ctx():
+            self._sent = eng.sentinel_init(arm_state, self.spec) if sentinels else None
         self._spec_dev = self.spec.device_arrays(self.t0, device=driver.device)
         self._check = eng.sentinel_reduce
         self.events_applied: List[Tuple[int, str]] = []

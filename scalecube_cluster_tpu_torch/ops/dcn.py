@@ -17,10 +17,8 @@ Usage (one process per device)::
 
 :class:`LocalWorld` starts W such processes on this host (``LocalWorld(W,
 "cpu")`` is the CPU lane the tests use: gloo, one thread each) and runs a
-function on every rank.
-
-The dense engine's ``make_global_state`` is not ported yet (ROADMAP A12
-item 5).
+function on every rank. The dense engine's twin is
+:func:`make_global_state` with :func:`.sharding.make_sharded_run`.
 """
 
 from __future__ import annotations
@@ -117,9 +115,14 @@ def make_global_pview_state(params, n_initial: int, mesh, **init_kwargs):
 
 
 def make_global_state(params, n_initial: int, mesh, **init_kwargs):
-    """Refused: the dense engine on a mesh is not ported yet."""
-    raise NotImplementedError("make_global_state (the dense engine on a mesh) is not ported yet (ROADMAP A12 "
-                              "item 5)")
+    """The initial dense ``SimState`` on a mesh (JAX's ``make_global_state``):
+    every process builds the same host init (a pure function of the params,
+    on the CPU) and moves only its own rows onto its device
+    (:func:`.sharding.shard_state`)."""
+    from .sharding import shard_state
+    from .state import init_state
+
+    return shard_state(init_state(params, n_initial, device="cpu", **init_kwargs), mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,8 @@
 
 A port of the JAX package's ``ops/engine_api.py``, cut to the fields the
 driver, the chaos runner, the telemetry and the trace planes and the audit
-plane read (the member-mesh fields are filled for pview, the one engine on
-a mesh): an engine is one :class:`EngineOps` descriptor, and
+plane read (the member-mesh fields are filled for pview and dense, the
+engines on a mesh): an engine is one :class:`EngineOps` descriptor, and
 :func:`resolve` picks it by the params type. Each engine declares the
 contracts the audit plane (:mod:`..audit`) holds its windows to
 (:class:`EngineContracts`, JAX's fields and values) and the leaves its
@@ -115,6 +115,8 @@ class EngineOps:
     make_sharded_fleet_run: Callable = None
     # (mesh) -> the metric ring's append on a mesh, (ring, row) -> None
     make_sharded_telemetry_append: Callable = None
+    # (mesh, dense_links, delay_slots) -> the state's leaf placements
+    state_shardings: Callable = None
 
     @property
     def supports_mesh(self) -> bool:
@@ -152,15 +154,19 @@ class EngineOps:
 
 
 def plane_view_rows(state, rows) -> torch.Tensor:
-    """[W, N] view rows of ``rows``, in the plane's key dtype."""
+    """[W, N] view rows of ``rows``, in the plane's key dtype (on a member
+    mesh, fetched from the ranks that hold them: the same on every rank)."""
+    from . import sharding
     from ._tick import row_index
 
-    return state.view_key[row_index(rows, state.device)]
+    idx = row_index(rows, state.device)
+    ctx = sharding.active()
+    return state.view_key[idx] if ctx is None else ctx.fetch_rows(state.view_key, idx)
 
 
 def plane_view_row(state, row: int) -> torch.Tensor:
     """[N] int32 view row of ``row``."""
-    return state.view_key[row].to(torch.int32)
+    return plane_view_rows(state, [row])[0].to(torch.int32)
 
 
 def plane_tracer_view_cols(state, tracer_rows) -> torch.Tensor:
@@ -202,13 +208,24 @@ def _plane_sentinel_init(sparse: bool) -> Callable:
     """The sentinel initialiser of the two view-plane engines (``sparse``
     adds the ``n_live`` drift counter)."""
     from ..chaos.sentinels import init_sentinel_state
+    from . import sharding
 
-    return lambda state, spec: init_sentinel_state(state.view_key, spec, sparse=sparse)
+    def init(state, spec):
+        sent = init_sentinel_state(state.view_key, spec, sparse=sparse)
+        ctx = sharding.active()
+        if ctx is not None:
+            # a rank's baseline is its own rows' self records
+            sent["prev_diag"] = ctx.diagonal(state.view_key).clone()
+        return sent
+
+    return init
 
 
 def _dense_engine() -> EngineOps:
     from . import kernel as K
     from . import state as S
+
+    from . import sharding as SH
 
     def _init(p, n, warm, dense_links, device):
         return S.init_state(p, n, warm=warm, dense_links=dense_links, device=device)
@@ -240,6 +257,13 @@ def _dense_engine() -> EngineOps:
             strategy_variants=(("push_pull", "expander"), ("accelerated", "ring"), ("tuneable", "expander")),
         ),
         inplace_leaves=("view_key", "changed_at", "pending_key", "pending_inf", "pending_src"),
+        # the member mesh: JAX's dense engine registers the sharded window,
+        # state and ring append only (no adaptive, traced or fleet window)
+        make_sharded_run=SH.make_sharded_run,
+        shard_state=SH.shard_state,
+        gather_state=SH.gather_state,
+        state_shardings=SH.state_shardings,
+        make_sharded_telemetry_append=SH.make_sharded_metric_append,
     )
 
 
@@ -296,6 +320,7 @@ def _pview_engine() -> EngineOps:
         gather_state=SH.gather_pview_state,
         make_sharded_fleet_run=SH.make_sharded_pview_fleet_run,
         make_sharded_telemetry_append=SH.make_sharded_metric_append,
+        state_shardings=SH.pview_state_shardings,
     )
 
 

@@ -74,6 +74,7 @@ import torch
 from .. import adaptive as _adp
 from ..dissemination import strategies as dz
 from . import bitplane as bp
+from . import sharding
 from ._tensor import first_true, host_flags, index_amax_, maximum_into_, nonzero_fixed, plane_chunks, scatter_reduce_1d
 from ._tick import count_i32 as _i32
 from ._tick import fd_trace as _fd_trace
@@ -109,15 +110,90 @@ def _noc(params: SimParams) -> int:
 
 
 def _rows(state: SimState) -> torch.Tensor:
+    """int64 local row indices of the state's rows."""
     return torch.arange(state.capacity, device=state.device)
+
+
+# -- the member-mesh seams (identities off a mesh; ops/sharding.py) ------------
+
+
+def _gcap(state: SimState) -> int:
+    """N, the global capacity (a shard holds L = N / W rows, each [N] wide)."""
+    return state.view_key.shape[-1]
+
+
+def _grows(state: SimState) -> torch.Tensor:
+    """int64 global row ids of the state's rows."""
+    ctx = sharding.active()
+    return _rows(state) if ctx is None else _rows(state) + ctx.lo
+
+
+def _full(x: torch.Tensor) -> torch.Tensor:
+    """All N rows of a member-axis vector (read at other members' rows)."""
+    ctx = sharding.active()
+    return x if ctx is None else ctx.full(x)
+
+
+def _reduce(x: torch.Tensor, op: str) -> torch.Tensor:
+    """A value reduced over the ranks (max, min or sum)."""
+    ctx = sharding.active()
+    return x if ctx is None else ctx.reduce(x, op)
+
+
+def _diag(plane: torch.Tensor) -> torch.Tensor:
+    """The cells (i, i) of the state's rows of an [N, N] plane (a view)."""
+    ctx = sharding.active()
+    return plane.diagonal() if ctx is None else ctx.diagonal(plane)
+
+
+def _link_at_rows(plane: torch.Tensor, i, j) -> torch.Tensor:
+    """``plane[i, j]`` at global rows ``i`` of any rank (a scalar link
+    broadcasts); on a mesh the cells are point reads
+    (:func:`.ragged_a2a.fetch_points`)."""
+    if plane.dim() == 0:
+        return plane
+    ctx = sharding.active()
+    return plane[i, j] if ctx is None else ctx.points(plane, i, j)
+
+
+def _words(x: torch.Tensor) -> torch.Tensor:
+    """A key plane as collective-safe words (i16 keys pair into int32)."""
+    return x.view(torch.int32) if x.dtype == torch.int16 else x
+
+
+def _rows_at(plane: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Rows ``plane[want]`` at global row ids; on a mesh fetched from their
+    ranks in request order (:func:`.ragged_a2a.fetch_rows`)."""
+    ctx = sharding.active()
+    return plane[want] if ctx is None else ctx.fetch_rows(plane, want)
+
+
+def _write_rows_amax_(plane: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor, none) -> None:
+    """``plane`` cellwise max ``vals`` at global ``rows`` (a row scatter-max);
+    on a mesh each rank writes the rows it holds, the rest redirected to
+    its first row as ``none``, the max's identity."""
+    ctx = sharding.active()
+    if ctx is not None:
+        here = (rows >= ctx.lo) & (rows < ctx.hi)
+        rows = torch.where(here, rows - ctx.lo, 0)
+        vals = torch.where(here[:, None], vals, none)
+    index_amax_(plane, rows, vals)
 
 
 def _live_view_mask(state: SimState) -> torch.Tensor:
     """bool [N, N]: j is in i's member list (known, not DEAD, not self).
     The unknown key -1 reads rank 3 too."""
     live = (state.view_key & 3) != RANK_DEAD
-    live.diagonal().fill_(False)
+    _diag(live).fill_(False)
     return live
+
+
+def _diag_words(state: SimState) -> torch.Tensor:
+    """The packed self bits of the state's rows (:func:`.bitplane.diag_words`)."""
+    n = _gcap(state)
+    words = bp.diag_words(n, state.device)
+    ctx = sharding.active()
+    return words if ctx is None else words[ctx.lo:ctx.hi]
 
 
 def _known_live_words(state: SimState) -> torch.Tensor:
@@ -130,7 +206,7 @@ def _cluster_size(state: SimState) -> torch.Tensor:
     over row chunks."""
     n = state.capacity
     out = state.view_key.new_empty((n,), dtype=torch.int32)
-    for lo, hi in plane_chunks(n, n):
+    for lo, hi in plane_chunks(n, _gcap(state)):
         out[lo:hi] = ((state.view_key[lo:hi] & 3) != RANK_DEAD).sum(dim=1, dtype=torch.int32)
     return out
 
@@ -227,19 +303,21 @@ def _timely_rt(q1: torch.Tensor, q2: torch.Tensor, t: int) -> torch.Tensor:
     return (1.0 - q1) * (1.0 - q2) * acc
 
 
-def _edge_ok(state: SimState, src, dst, draw) -> torch.Tensor:
-    """Delivery of a message src -> dst: both up, one Bernoulli draw on the
-    outbound loss."""
-    return state.up[src] & state.up[dst] & (draw < (1.0 - _loss_at(state, src, dst)))
+def _edge_ok(state: SimState, src, dst, draw, up_all) -> torch.Tensor:
+    """Delivery of a message from the state's rows ``src`` to ``dst``
+    (global): both up (``up_all``: every member's flag), one Bernoulli draw
+    on the outbound loss."""
+    return state.up[src] & up_all[dst] & (draw < (1.0 - _loss_at(state, src, dst)))
 
 
-def _fetch_gate(state: SimState, salt: int, i, j, cand_key, p_fetch) -> torch.Tensor:
+def _fetch_gate(state: SimState, salt: int, i, j, cand_key, p_fetch, up_all) -> torch.Tensor:
     """ALIVE-rank candidates about subject j are applied at receiver i only
     if the metadata-fetch round trip succeeds (subject up, one hashed draw
-    against ``p_fetch``); other ranks pass."""
+    against ``p_fetch``); other ranks pass. ``up_all``: every member's up
+    flag (on a mesh, gathered)."""
     needs = (cand_key & 3) == RANK_ALIVE
     u = fetch_uniform(state.tick, salt, i, j)
-    return ~needs | (state.up[j] & (u < p_fetch))
+    return ~needs | (up_all[j] & (u < p_fetch))
 
 
 # -- phases ----------------------------------------------------------------------
@@ -256,41 +334,47 @@ def _fd_phase(state: SimState, r: FdRandoms, params: SimParams, ad=None, trace: 
     (``trace_fd``: values the phase computed anyway)."""
     n = state.capacity
     rows = _rows(state)
+    grows = _grows(state)
     if _packed(params):
-        selw = bp.word_andnot(_known_live_words(state), bp.diag_words(n, state.device))
-        sel_idx, sel_valid = _sample_distinct_words(selw, n, r.fd_sel)
+        selw = bp.word_andnot(_known_live_words(state), _diag_words(state))
+        sel_idx, sel_valid = _sample_distinct_words(selw, _gcap(state), r.fd_sel)
     else:
         sel_idx, sel_valid = _sample_distinct(_live_view_mask(state), r.fd_sel)
     sel_idx = sel_idx.long()
     tgt = sel_idx[:, 0]
     has_tgt = sel_valid[:, 0] & state.up
+    up_all = _full(state.up)
+    # the link cells at other members' rows (point reads on a mesh)
+    dq = state.delay_q
 
     p_direct = _rt_at(state, rows, tgt)
     if params.delay_slots and ad is not None:
         p_direct = p_direct * _adp.scaled_timely_rt(
-            _delay_q_at(state, rows, tgt), _delay_q_at(state, tgt, rows),
+            _delay_q_at(state, rows, tgt), _link_at_rows(dq, tgt, grows),
             params.fd_direct_timeout_ticks, ad.lh, params.adaptive.lh_max,
         )
     elif params.delay_slots:
-        p_direct = p_direct * _timely_rt(_delay_q_at(state, rows, tgt), _delay_q_at(state, tgt, rows),
+        p_direct = p_direct * _timely_rt(_delay_q_at(state, rows, tgt), _link_at_rows(dq, tgt, grows),
                                          params.fd_direct_timeout_ticks)
-    direct_ok = has_tgt & state.up[tgt] & (r.fd_direct < p_direct)
+    direct_ok = has_tgt & up_all[tgt] & (r.fd_direct < p_direct)
 
     relays = sel_idx[:, 1:]
     relay_valid = sel_valid[:, 1:]
     tgt_b = tgt[:, None]
     rows_b = rows[:, None]
-    p_relay = _rt_at(state, rows_b, relays) * _rt_at(state, relays, tgt_b)
+    p_relay = _rt_at(state, rows_b, relays) * _link_at_rows(state.fetch_rt, relays, tgt_b)
     if params.delay_slots:
         leg = params.fd_leg_timeout_ticks
-        p_relay = p_relay * _timely_rt(_delay_q_at(state, rows_b, relays), _delay_q_at(state, relays, rows_b), leg)
-        p_relay = p_relay * _timely_rt(_delay_q_at(state, relays, tgt_b), _delay_q_at(state, tgt_b, relays), leg)
-    relay_ok = relay_valid & state.up[relays] & state.up[tgt_b] & (r.fd_relay < p_relay)
+        p_relay = p_relay * _timely_rt(_delay_q_at(state, rows_b, relays),
+                                       _link_at_rows(dq, relays, grows[:, None]), leg)
+        p_relay = p_relay * _timely_rt(_link_at_rows(dq, relays, tgt_b), _link_at_rows(dq, tgt_b, relays), leg)
+    relay_ok = relay_valid & up_all[relays] & up_all[tgt_b] & (r.fd_relay < p_relay)
     ack = direct_ok | relay_ok.any(dim=1)
 
     vk = state.view_key
     own_key = vk[rows, tgt]
-    alive_key = (vk[tgt, tgt] >> 2) << 2
+    # the target's own record: its diagonal cell (gathered on a mesh)
+    alive_key = (_full(_diag(vk).contiguous())[tgt] >> 2) << 2
     suspect_key = ((own_key >> 2) << 2) | RANK_SUSPECT
     cand = torch.where(ack, alive_key, suspect_key)
     accept = has_tgt & (cand > own_key)
@@ -340,12 +424,12 @@ def _gate_flags(state: SimState, params: SimParams):
     (``repeat_mult * ceil_log2(N)``), a live rumor infection as recent,
     or a message arriving from the rings."""
     vk, ca = state.view_key, state.changed_at
-    n = state.capacity
+    n = _gcap(state)
     dev = state.device
     horizon = state.tick - params.repeat_mult * int(n).bit_length()
     sus = torch.zeros((), dtype=torch.bool, device=dev)
     young = torch.zeros((), dtype=torch.bool, device=dev)
-    for lo, hi in plane_chunks(n, n):
+    for lo, hi in plane_chunks(state.capacity, n):
         blk = vk[lo:hi]
         sus = sus | ((blk & 3) == RANK_SUSPECT).any()
         young = young | ((blk >= 0) & (ca[lo:hi] > horizon)).any()
@@ -385,7 +469,7 @@ def _expire_chunks(state: SimState, params: SimParams, ad, trace_acc) -> None:
         aspec = params.adaptive
         L = aspec.levels
         num_conf = _adp.conf_mult_num(aspec, ad.conf)  # [N]
-    for lo, hi in plane_chunks(n, n):
+    for lo, hi in plane_chunks(n, _gcap(state)):
         blk = vk[lo:hi]
         rank = blk & 3
         # the row's cluster size before any of its cells expire
@@ -430,13 +514,20 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
     each undelayed contact answers with the peer's young records and
     rumors, the peer's rows gathered in row chunks. ``adaptive`` adds the
     confirmation evidence: every accepted SUSPECT record counts one
-    believer of its subject (AD-1, AD-2)."""
+    believer of its subject (AD-1, AD-2).
+
+    On a member mesh each message's row crosses to its receiver's rank
+    (:func:`_deliver_rows`), where it folds into ``buf`` or the rings as the
+    one-device scatter folds it, and the reply leg fetches the peers' rows
+    (:func:`_pull_reply`)."""
     n = state.capacity
+    N = _gcap(state)
     R = params.rumor_slots
     F = params.fanout
     D = params.delay_slots
     NOC = _noc(params)
     dev = state.device
+    ctx = sharding.active()
     if not busy:
         z = torch.zeros((), dtype=torch.int32, device=dev)
         m = {k: z for k in _GOSSIP_METRICS}
@@ -444,7 +535,9 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
             m.update(_no_evidence(n, dev))
         return state, m
     rows = _rows(state)
-    rows32 = rows.to(torch.int32)
+    grows = _grows(state)
+    grows32 = grows.to(torch.int32)
+    up_all = _full(state.up)
     vk, ca = state.view_key, state.changed_at
     klw = _known_live_words(state) if _packed(params) else None
     sizes = bp.popcount_rows(klw) if klw is not None else _cluster_size(state)
@@ -462,10 +555,15 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
         arriving_inf = bp.unpack_bits(state.pending_inf[slot_now], R)
     if not spec.uniform_selection:
         # the strategy's circulant targets (DZ-1: sends gate on up[src] &
-        # up[dst], not on the sender's view of the neighbor)
-        peers, peer_valid = dz.structured_peers(spec, n, state.tick, r.gossip_sel)
+        # up[dst], not on the sender's view of the neighbor); on a mesh
+        # every row's, and each rank keeps its rows
+        if ctx is None:
+            peers, peer_valid = dz.structured_peers(spec, n, state.tick, r.gossip_sel)
+        else:
+            peers, peer_valid = dz.structured_peers(spec, N, state.tick, ctx.draws[1].gossip_sel)
+            peers, peer_valid = ctx.mine(peers), ctx.mine(peer_valid)
     elif klw is not None:
-        peers, peer_valid = _sample_distinct_words(bp.word_andnot(klw, bp.diag_words(n, dev)), n, r.gossip_sel)
+        peers, peer_valid = _sample_distinct_words(bp.word_andnot(klw, _diag_words(state)), N, r.gossip_sel)
     else:
         peers, peer_valid = _sample_distinct(_live_view_mask(state), r.gossip_sel)
     del klw
@@ -475,17 +573,20 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
     # is accepted only where its candidate beats the own record, so buf
     # never holds a copy of the view plane; row n is a spare that takes the
     # rows delivering nothing now
-    buf = vk.new_empty((n + 1, n))
+    buf = vk.new_empty((n + 1, N))
     buf[n] = NOC
     recv_inf = vk.new_zeros((n + 1, R), dtype=torch.uint8)
     recv_src = vk.new_full((n + 1, R), -1, dtype=torch.int32)
+    pend = None
     if D:
         buf[:n] = arriving_key
         recv_inf[:n] = arriving_inf
         recv_src[:n] = state.pending_src[slot_now]
-        pend_key = state.pending_key.view(D * n, n)
-        pend_inf = bp.unpack_bits(state.pending_inf, R).to(torch.uint8).view(D * n, R)
-        pend_src = state.pending_src.view(D * n, R)
+        pend = (
+            state.pending_key.view(D * n, N),
+            bp.unpack_bits(state.pending_inf, R).to(torch.uint8).view(D * n, R),
+            state.pending_src.view(D * n, R),
+        )
     else:
         buf[:n] = NOC
     sent = torch.zeros((), dtype=torch.int32, device=dev)
@@ -495,11 +596,13 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
         # the known-infected filter: not back to the peer that delivered a
         # rumor here, nor to its origin
         payload_r = rumor_pay & (state.infected_from != p[:, None]) & (state.rumor_origin[None, :] != p[:, None])
-        ok = peer_valid[:, s] & (young_any | payload_r.any(dim=1)) & _edge_ok(state, rows, p, r.gossip_edge[:, s])
+        ok = peer_valid[:, s] & (young_any | payload_r.any(dim=1)) & _edge_ok(state, rows, p, r.gossip_edge[:, s],
+                                                                              up_all)
         sent = sent + _i32(ok)
         send_r = payload_r & ok[:, None]
         rumor_sent = rumor_sent + _i32(send_r)
-        src_r = torch.where(send_r, rows32[:, None], -1)
+        src_r = torch.where(send_r, grows32[:, None], -1)
+        d = None
         if D:
             # per-edge delay d, P(d >= k) = q^k, capped at D - 1: sequential
             # f32 powers, no transcendental
@@ -510,37 +613,43 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
                 d = d + (r.gossip_delay[:, s] < qpow)
                 qpow = qpow * qd
             ok_now = ok & (d == 0)
-            ok_late = ok & (d > 0)
-            # a late message lands in slot (tick + d) % D, never the current
-            # one; the other rows go to the current slot, cleared below
-            late_idx = torch.where(ok_late, ((state.tick + d) % D) * n + p, slot_now * n + p)
-            index_amax_(pend_key, late_idx, piggyback)
-            index_amax_(pend_inf, late_idx, send_r.to(torch.uint8))
-            index_amax_(pend_src, late_idx, src_r)
         else:
             ok_now = ok
-        now_idx = torch.where(ok_now, p, n)
-        index_amax_(buf, now_idx, piggyback)
-        index_amax_(recv_inf, now_idx, send_r.to(torch.uint8))
-        index_amax_(recv_src, now_idx, src_r)
+        if ctx is not None:
+            _deliver_rows(ctx, state, ok, p, d, piggyback, send_r, src_r, buf, recv_inf, recv_src, pend)
+        else:
+            if D:
+                ok_late = ok & (d > 0)
+                # a late message lands in slot (tick + d) % D, never the
+                # current one; the other rows go to the current slot,
+                # cleared below
+                late_idx = torch.where(ok_late, ((state.tick + d) % D) * n + p, slot_now * n + p)
+                index_amax_(pend[0], late_idx, piggyback)
+                index_amax_(pend[1], late_idx, send_r.to(torch.uint8))
+                index_amax_(pend[2], late_idx, src_r)
+            now_idx = torch.where(ok_now, p, n)
+            index_amax_(buf, now_idx, piggyback)
+            index_amax_(recv_inf, now_idx, send_r.to(torch.uint8))
+            index_amax_(recv_src, now_idx, src_r)
         if spec.wants_pull:
             s_m, r_m = _pull_reply(state, s, p, ok_now, piggyback, rumor_pay, buf, recv_inf, recv_src, NOC)
             sent = sent + s_m
             rumor_sent = rumor_sent + r_m
     del piggyback
 
-    cols = rows[None, :]
+    cols = torch.arange(N, device=dev)[None, :]
     dense_rt = state.fetch_rt.dim() != 0
+    ns_all = _full(state.ns_id) if params.namespace_gate else None
     if adaptive:
         ev = _no_evidence(n, dev)
-    for lo, hi in plane_chunks(n, n):
+    for lo, hi in plane_chunks(n, N):
         own = vk[lo:hi]
         b = buf[lo:hi]
         accept = (b > own) & ((own >= 0) | ((b & 3) <= RANK_LEAVING)) & state.up[lo:hi, None]
-        accept &= _fetch_gate(state, SALT_GOSSIP, rows[lo:hi, None], cols, b,
-                              state.fetch_rt[lo:hi] if dense_rt else state.fetch_rt)
+        accept &= _fetch_gate(state, SALT_GOSSIP, grows[lo:hi, None], cols, b,
+                              state.fetch_rt[lo:hi] if dense_rt else state.fetch_rt, up_all)
         if params.namespace_gate:
-            accept &= state.ns_rel[state.ns_id[lo:hi, None].long(), state.ns_id[None, :].long()]
+            accept &= state.ns_rel[state.ns_id[lo:hi, None].long(), ns_all[None, :].long()]
         if adaptive:
             sus_acc = accept & ((b & 3) == RANK_SUSPECT)
             ev["_ad_cnt"] = ev["_ad_cnt"] + sus_acc.sum(dim=0, dtype=torch.int32)
@@ -561,6 +670,7 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
     if D:
         # the current slot is consumed
         state.pending_key[slot_now] = NOC
+        pend_inf = pend[1]
         pend_inf.view(D, n, R)[slot_now] = 0
         state.pending_src[slot_now] = -1
         state.pending_inf.copy_(bp.pack_bits(pend_inf.view(D, n, R).bool()))
@@ -570,28 +680,75 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
     return state, m
 
 
+def _deliver_rows(ctx, state: SimState, ok, p, d, piggyback, send_r, src_r, buf, recv_inf, recv_src, pend) -> None:
+    """One fanout slot's messages on a member mesh: each sending row's record
+    (its delay, ``piggyback`` row, rumor bits and sources) crosses to its
+    receiver's rank in a row exchange per row chunk
+    (:func:`.ragged_a2a.row_exchange`); there an on-time record folds into
+    ``buf`` / ``recv_inf`` / ``recv_src`` and a late one into the rings'
+    slot ``(tick + d) % D`` by the same scatter-max as on one device (the
+    on-time rows into the current slot, cleared after, and the late rows
+    into ``buf``'s spare row, as there)."""
+    n, N = state.capacity, _gcap(state)
+    R = send_r.shape[1]
+    D = 0 if pend is None else pend[0].shape[0] // n
+    keys = _words(piggyback)
+    nw = keys.shape[1]
+    delay = torch.zeros((n,), dtype=torch.int32, device=state.device) if d is None else d
+    for lo, hi in plane_chunks(n, N):
+        rec = torch.cat([delay[lo:hi, None], keys[lo:hi], send_r[lo:hi].to(torch.int32), src_r[lo:hi]], dim=1)
+        row, got = ctx.row_exchange(rec, torch.where(ok[lo:hi], p[lo:hi], -1))
+        del rec
+        dd = got[:, 0]
+        cand = got[:, 1:1 + nw].contiguous().view(piggyback.dtype)
+        inf = got[:, 1 + nw:1 + nw + R].to(torch.uint8)
+        src = got[:, 1 + nw + R:].contiguous()
+        del got
+        now_idx = torch.where(dd == 0, row, n)
+        index_amax_(buf, now_idx, cand)
+        index_amax_(recv_inf, now_idx, inf)
+        index_amax_(recv_src, now_idx, src)
+        if D:
+            late_idx = torch.where(dd > 0, ((state.tick + dd) % D) * n + row, (state.tick % D) * n + row)
+            index_amax_(pend[0], late_idx, cand)
+            index_amax_(pend[1], late_idx, inf)
+            index_amax_(pend[2], late_idx, src)
+
+
 def _pull_reply(state: SimState, s: int, p, ok_now, piggyback, rumor_pay, buf, recv_inf, recv_src, NOC: int):
     """The push-pull reply of fanout slot ``s`` (DZ-2): each undelayed
     contact (``ok_now``) answers over the same round trip, gated on one
     hashed draw on the reverse link, with the peer's young records (its
-    ``piggyback`` row, gathered over row chunks) and its budgeted young
-    rumors less those the sender is known to hold. Folded into ``buf``,
-    ``recv_inf`` and ``recv_src`` in place, as the forward deliveries are
-    (cellwise max and OR, so the order is moot). Returns (replies sent,
-    rumor replies sent)."""
+    ``piggyback`` row, gathered over row chunks; on a mesh fetched from the
+    peer's rank) and its budgeted young rumors less those the sender is
+    known to hold. Folded into ``buf``, ``recv_inf`` and ``recv_src`` in
+    place, as the forward deliveries are (cellwise max and OR, so the order
+    is moot). Returns (replies sent, rumor replies sent)."""
     n = state.capacity
-    rows = _rows(state)
-    rows32 = rows.to(torch.int32)
-    rev_u = fetch_uniform(state.tick, dz.pull_salt(s), rows, p)
-    rev_ok = ok_now & (rev_u < (1.0 - _loss_at(state, p, rows)))
-    for lo, hi in plane_chunks(n, n):
-        got = piggyback.index_select(0, p[lo:hi]).masked_fill_(~rev_ok[lo:hi, None], NOC)
+    grows = _grows(state)
+    grows32 = grows.to(torch.int32)
+    rev_u = fetch_uniform(state.tick, dz.pull_salt(s), grows, p)
+    rev_ok = ok_now & (rev_u < (1.0 - _link_at_rows(state.loss, p, grows)))
+    ctx = sharding.active()
+    for lo, hi in plane_chunks(n, _gcap(state)):
+        if ctx is None:
+            got = piggyback.index_select(0, p[lo:hi])
+        else:
+            got = _rows_at(piggyback, torch.where(rev_ok[lo:hi], p[lo:hi], -1))
+        got.masked_fill_(~rev_ok[lo:hi, None], NOC)
         maximum_into_(buf[lo:hi], buf[lo:hi], got)
         del got
+    if ctx is None:
+        pay_p, from_p = rumor_pay[p], state.infected_from[p]
+    else:
+        R = rumor_pay.shape[1]
+        small = _rows_at(torch.cat([rumor_pay.to(torch.int32), state.infected_from], dim=1),
+                         torch.where(rev_ok, p, -1))
+        pay_p, from_p = small[:, :R].bool(), small[:, R:]
     reply_r = (
-        rumor_pay[p]
-        & (state.infected_from[p] != rows32[:, None])
-        & (state.rumor_origin[None, :] != rows32[:, None])
+        pay_p
+        & (from_p != grows32[:, None])
+        & (state.rumor_origin[None, :] != grows32[:, None])
         & rev_ok[:, None]
     )
     recv_inf[:n] |= reply_r.to(torch.uint8)
@@ -654,7 +811,7 @@ def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams, adaptive: b
         & ((own_p >= 0) | ((buf_p & 3) <= RANK_LEAVING))
         & state.up[peer][:, None]
         & _fetch_gate(state, SALT_SYNC_REQ, peer[:, None], cols, buf_p,
-                      state.fetch_rt[peer] if dense_rt else state.fetch_rt)
+                      state.fetch_rt[peer] if dense_rt else state.fetch_rt, state.up)
     )
     if params.namespace_gate:
         acc &= state.ns_rel[state.ns_id[peer][:, None].long(), state.ns_id[None, :].long()]
@@ -677,7 +834,7 @@ def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams, adaptive: b
         & ((own_rows >= 0) | ((ack_cand & 3) <= RANK_LEAVING))
         & state.up[caller][:, None]
         & _fetch_gate(state, SALT_SYNC_ACK, caller[:, None], cols, ack_cand,
-                      state.fetch_rt[caller] if dense_rt else state.fetch_rt)
+                      state.fetch_rt[caller] if dense_rt else state.fetch_rt, state.up)
     )
     if params.namespace_gate:
         accept &= state.ns_rel[state.ns_id[caller][:, None].long(), state.ns_id[None, :].long()]
@@ -701,13 +858,101 @@ def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams, adaptive: b
     return state, metrics
 
 
+def _sync_phase_sharded(state: SimState, r: RoundRandoms, params: SimParams):
+    """:func:`_sync_phase` on a member mesh. The due callers are compacted
+    over all N rows (the gathered ``due`` flags), so every rank runs the
+    same K slots: the callers' and peers' [K, N] rows are fetched from
+    their ranks (never the whole plane), the link cells are point reads,
+    the draws the full blocks' callers' rows, and each rank writes the
+    merged rows it holds. The same cells as one device."""
+    ctx = sharding.active()
+    n = ctx.n
+    dev = state.device
+    NOC = _noc(params)
+    cols = torch.arange(n, device=dev)[None, :]
+    rd = ctx.draws[1]
+    K = min(n, params.sync_slots or (n // params.sync_every + 32))
+    due = ((state.tick + _grows(state) * params.sync_stagger) % params.sync_every) == 0
+    due = ctx.full((due | state.force_sync) & state.up)
+    caller = nonzero_fixed(due, K, n)
+    valid_c = caller < n
+    caller = caller.clamp(max=n - 1)
+    up_all = ctx.full(state.up)
+
+    vk, ca = state.view_key, state.changed_at
+    caller_tables = _rows_at(vk, caller)  # [K, N]
+    cand = (caller_tables & 3) != RANK_DEAD
+    if params.seed_rows:
+        seeds = _seed_rows_tensor(tuple(params.seed_rows), dev).long()
+        cand |= torch.zeros((n,), dtype=torch.bool, device=dev).index_fill_(0, seeds, True)[None, :]
+    cand &= cols != caller[:, None]
+    u = rd.sync_sel[caller][:, None]
+    if _packed(params):
+        peer_idx, peer_valid = _sample_distinct_words(bp.pack_bits(cand), n, u)
+    else:
+        peer_idx, peer_valid = _sample_distinct(cand, u)
+    peer = peer_idx[:, 0].long()
+    p_rt = _link_at_rows(state.fetch_rt, caller, peer)
+    if params.delay_slots:
+        p_rt = p_rt * _timely_rt(_link_at_rows(state.delay_q, caller, peer), _link_at_rows(state.delay_q, peer, caller),
+                                 params.sync_timeout_ticks)
+    ok = valid_c & peer_valid[:, 0] & up_all[peer] & (rd.sync_edge[caller] < p_rt)
+    dense_rt = state.fetch_rt.dim() != 0
+    rt_rows = _rows_at(state.fetch_rt, torch.cat([peer, caller])) if dense_rt else None
+    ns_all = ctx.full(state.ns_id) if params.namespace_gate else None
+
+    # SYNC request: each peer row merges the max of its callers' rows
+    own_p = _rows_at(vk, peer)
+    dup_to_first = first_true(peer[:, None] == peer[None, :], 1)
+    merged = caller_tables.new_full((K, n), NOC)
+    index_amax_(merged, dup_to_first, caller_tables.masked_fill(~ok[:, None], NOC))
+    del caller_tables
+    buf_p = torch.maximum(own_p, merged[dup_to_first])
+    del merged
+    acc = (
+        (buf_p > own_p)
+        & ((own_p >= 0) | ((buf_p & 3) <= RANK_LEAVING))
+        & up_all[peer][:, None]
+        & _fetch_gate(state, SALT_SYNC_REQ, peer[:, None], cols, buf_p,
+                      rt_rows[:K] if dense_rt else state.fetch_rt, up_all)
+    )
+    if params.namespace_gate:
+        acc &= state.ns_rel[ns_all[peer][:, None].long(), ns_all[None, :].long()]
+    _write_rows_amax_(vk, peer, torch.where(acc, buf_p, own_p), NOC)
+    _write_rows_amax_(ca, peer, torch.where(acc, state.tick, NEVER).to(torch.int32), NEVER)
+    del buf_p, own_p, acc
+
+    # SYNC_ACK: the peer's merged row back into the caller's
+    both = _rows_at(vk, torch.cat([peer, caller]))
+    ack_cand = both[:K].masked_fill(~ok[:, None], NOC)
+    own_rows = both[K:]
+    del both
+    accept = (
+        (ack_cand > own_rows)
+        & ((own_rows >= 0) | ((ack_cand & 3) <= RANK_LEAVING))
+        & up_all[caller][:, None]
+        & _fetch_gate(state, SALT_SYNC_ACK, caller[:, None], cols, ack_cand,
+                      rt_rows[K:] if dense_rt else state.fetch_rt, up_all)
+    )
+    if params.namespace_gate:
+        accept &= state.ns_rel[ns_all[caller][:, None].long(), ns_all[None, :].long()]
+    _write_rows_amax_(vk, caller, torch.where(accept, ack_cand, own_rows), NOC)
+    _write_rows_amax_(ca, caller, torch.where(accept, state.tick, NEVER).to(torch.int32), NEVER)
+
+    # a joiner's bootstrap SYNC retries every tick until a round trip lands
+    ok_full = scatter_reduce_1d(n, caller, ok, "amax", 0, torch.int32) > 0
+    state = state.replace(force_sync=state.force_sync & ~ctx.mine(ok_full))
+    # the K slots are the same on every rank: the count is global already
+    return state, {"sync_roundtrips": _i32(ok)}
+
+
 def _refute_phase(state: SimState):
     """An up node that finds itself SUSPECT or DEAD (or whose leave intent
     was overwritten) re-announces ALIVE (LEAVING for a leaver) at the next
     incarnation, saturating in the narrow layout; written on the diagonal
     in place, re-stamped. Returns (state, the refuting rows) — the
     adaptive plane's lh evidence."""
-    diag_view = state.view_key.diagonal()
+    diag_view = _diag(state.view_key)
     diag = diag_view.clone()
     rank = diag & 3
     need = state.up & (
@@ -715,7 +960,7 @@ def _refute_phase(state: SimState):
     )
     announce_rank = torch.where(state.leaving, RANK_LEAVING, RANK_ALIVE)
     diag_view.copy_(torch.where(need, bump_inc(diag, announce_rank), diag))
-    stamp = state.changed_at.diagonal()
+    stamp = _diag(state.changed_at)
     stamp.copy_(torch.where(need, state.tick, stamp))
     return state, need
 
@@ -728,9 +973,12 @@ def _rumor_sweep(state: SimState, params: SimParams, inf_b: torch.Tensor, n_up: 
     sweep = 2 * (params.repeat_mult * ceil_log2(n_up) + 1)
     keep = (state.tick - state.rumor_created) <= sweep
     spread = params.repeat_mult * ceil_log2(_sizes(state, params))
-    keep |= (inf_b & state.up[:, None] & ((state.tick - state.infected_at) < spread[:, None])).any(dim=0)
+    # on a mesh a rumor some rank still forwards, or holds in flight, stays
+    # on every rank (the slots are replicated)
+    keep |= _reduce((inf_b & state.up[:, None] & ((state.tick - state.infected_at) < spread[:, None])).any(dim=0),
+                    "max")
     if params.delay_slots:
-        keep |= bp.unpack_bits(state.pending_inf, params.rumor_slots).flatten(0, 1).any(dim=0)
+        keep |= _reduce(bp.unpack_bits(state.pending_inf, params.rumor_slots).flatten(0, 1).any(dim=0), "max")
     return state.replace(rumor_active=state.rumor_active & keep)
 
 
@@ -739,22 +987,27 @@ def state_metrics(state: SimState, params: SimParams, inf_b: torch.Tensor, n_up:
     false-suspect pairs over up pairs (``full_metrics``; over row chunks,
     int32), per-rumor coverage, the worst gossip segmentation."""
     n = state.capacity
+    N = _gcap(state)
     dev = state.device
     if params.full_metrics:
-        cols = torch.arange(n, device=dev)
+        cols = torch.arange(N, device=dev)
+        grows = _grows(state)
+        up_all = _full(state.up)
         alive = torch.zeros((), dtype=torch.int32, device=dev)
         suspect = torch.zeros((), dtype=torch.int32, device=dev)
-        for lo, hi in plane_chunks(n, n):
+        for lo, hi in plane_chunks(n, N):
             rank = state.view_key[lo:hi] & 3
-            pair = state.up[lo:hi, None] & state.up[None, :] & (cols[lo:hi, None] != cols[None, :])
+            pair = state.up[lo:hi, None] & up_all[None, :] & (grows[lo:hi, None] != cols[None, :])
             alive = alive + (pair & (rank == RANK_ALIVE)).sum(dtype=torch.int32)
             suspect = suspect + (pair & (rank == RANK_SUSPECT)).sum(dtype=torch.int32)
+        if sharding.active() is not None:
+            alive, suspect = _reduce(torch.stack([alive, suspect]).to(torch.int64), "sum").to(torch.int32).unbind(0)
         pairs = (n_up * n_up - n_up).clamp(min=1)
         alive_frac = alive.to(torch.float32) / pairs.to(torch.float32)
     else:
         alive_frac = torch.zeros((), dtype=torch.float32, device=dev)
         suspect = torch.zeros((), dtype=torch.int32, device=dev)
-    coverage = (inf_b & state.up[:, None]).sum(dim=0, dtype=torch.int32).to(torch.float32) / (
+    coverage = _reduce((inf_b & state.up[:, None]).sum(dim=0, dtype=torch.int32), "sum").to(torch.float32) / (
         n_up.clamp(min=1).to(torch.float32)
     )
     newest = torch.where(inf_b, state.rumor_created[None, :], NEVER).amax(dim=1)
@@ -769,7 +1022,7 @@ def state_metrics(state: SimState, params: SimParams, inf_b: torch.Tensor, n_up:
         "alive_view_fraction": alive_frac,
         "false_suspect_pairs": suspect,
         "rumor_coverage": coverage,
-        "gossip_segmentation": seg.max(),
+        "gossip_segmentation": _reduce(seg.max(), "max"),
     }
 
 
@@ -777,6 +1030,9 @@ def state_metrics(state: SimState, params: SimParams, inf_b: torch.Tensor, n_up:
 
 
 _FD_METRICS = ("fd_probes", "fd_failed_probes", "fd_new_suspects")
+
+#: the per-row counts a member mesh sums over its ranks
+_ROW_SUMS = _FD_METRICS + _GOSSIP_METRICS
 
 
 def tick(state: SimState, fd_r, round_r: RoundRandoms, params: SimParams, trace=None, ad=None, timer=None):
@@ -801,6 +1057,10 @@ def tick(state: SimState, fd_r, round_r: RoundRandoms, params: SimParams, trace=
     ``timer`` (the phase-split profiler's, :mod:`..trace.profile`) scopes
     each phase."""
     armed = ad is not None
+    ctx = sharding.active()
+    if ctx is not None and (armed or trace is not None):
+        raise ValueError("the dense engine's sharded tick runs unarmed: JAX has no sharded adaptive or traced "
+                         "dense window (make_sharded_adaptive_run, make_sharded_traced_run)")
     if armed and trace is not None:
         raise ValueError(
             "trace-armed adaptive windows are not supported — run the trace plane on a "
@@ -842,12 +1102,15 @@ def tick(state: SimState, fd_r, round_r: RoundRandoms, params: SimParams, trace=
     with _phase(timer, "gossip"):
         state, g_m = _gossip_phase(state, round_r, params, busy, adaptive=armed)
     with _phase(timer, "sync"):
-        state, s_m = _sync_phase(state, round_r, params, adaptive=armed, trace=traced)
+        if ctx is None:
+            state, s_m = _sync_phase(state, round_r, params, adaptive=armed, trace=traced)
+        else:
+            state, s_m = _sync_phase_sharded(state, round_r, params)
     with _phase(timer, "refute"):
         state, refuted = _refute_phase(state)
     with _phase(timer, "sweep"):
         inf_b = bp.unpack_bits(state.infected, params.rumor_slots)
-        n_up = _i32(state.up)
+        n_up = _i32(state.up) if ctx is None else _reduce(state.up.sum(), "sum").to(torch.int32)
         state = _rumor_sweep(state, params, inf_b, n_up)
     trace_fd = fd_m.pop("trace_fd", None)
     trace_sync = s_m.pop("trace_sync", None)
@@ -855,6 +1118,10 @@ def tick(state: SimState, fd_r, round_r: RoundRandoms, params: SimParams, trace=
         if armed:
             ad = _fold_evidence(params, ad, fd_m, g_m, s_m, refuted, state.up)
         metrics = {**fd_m, **g_m, **s_m, **state_metrics(state, params, inf_b, n_up)}
+        if ctx is not None:
+            # the rows' counts, summed over the ranks in one collective
+            total = _reduce(torch.stack([metrics[k].to(torch.int64) for k in _ROW_SUMS]), "sum")
+            metrics.update(zip(_ROW_SUMS, total.to(torch.int32).unbind(0)))
         if armed:
             metrics["adaptive_lh_high"] = ad.lh.max()
             metrics["adaptive_conf_high"] = ad.conf.max()
@@ -1082,29 +1349,36 @@ def sentinel_core(view_key: torch.Tensor, up: torch.Tensor, tick: int, sent: dic
     crashed row's first tick seen DEAD by every up observer, each recovery
     boundary's first tick with every up pair ALIVE. Tensor reductions over
     row chunks, no transfer; ``tick`` is the state's host int. Returns the
-    updated accumulators (a new dict)."""
-    n = view_key.shape[0]
+    updated accumulators (a new dict). On a member mesh each rank checks
+    its observer rows and the checks combine over the ranks (per-subject
+    tables by MAX, the all-of tests by MIN, the counts summed); ``prev_diag``
+    holds the rank's own rows."""
+    ctx = sharding.active()
+    rows, n = view_key.shape
     dev = view_key.device
     rel = tick - spec["t0"]  # scenario-relative (a host int or a 0-d tensor)
-    diag = view_key.diagonal().clone()
+    diag = _diag(view_key).clone()
     sent = dict(sent)
-    sent["key_regressions"] = sent["key_regressions"] + (diag < sent["prev_diag"]).sum(dtype=torch.int32)
+    sent["key_regressions"] = sent["key_regressions"] + _reduce(
+        (diag < sent["prev_diag"]).sum(dtype=torch.int32), "sum")
     sent["prev_diag"] = diag
 
-    watch = {"false_dead_max": spec["never_faulted"] & up}
+    up_all = _full(up)
+    watch = {"false_dead_max": spec["never_faulted"] & up_all}
     if "fp_watch" in spec:
-        watch["fp_dead_max"] = spec["fp_watch"] & up
+        watch["fp_dead_max"] = spec["fp_watch"] & up_all
     dead_of = {k: torch.zeros((n,), dtype=torch.bool, device=dev) for k in watch}
     crash_rows = spec["crash_rows"]
     has_crash = crash_rows.shape[0] > 0
     has_conv = spec["conv_from"].shape[0] > 0
     ids = torch.arange(n, device=dev)
+    gids = ids[:rows] if ctx is None else ids[ctx.lo:ctx.hi]
     if has_crash:
         crash_l = crash_rows.long()
         detected = torch.ones(crash_rows.shape, dtype=torch.bool, device=dev)
     if has_conv:
         converged = torch.ones((), dtype=torch.bool, device=dev)
-    for lo, hi in plane_chunks(n, n):
+    for lo, hi in plane_chunks(rows, n):
         blk = view_key[lo:hi]
         rank = blk & 3  # UNKNOWN (-1) reads rank 3
         up_r = up[lo:hi, None]
@@ -1113,13 +1387,17 @@ def sentinel_core(view_key: torch.Tensor, up: torch.Tensor, tick: int, sent: dic
             dead_of[k] |= (tomb & w[None, :]).any(dim=0)
         del tomb
         if has_crash:
-            others_up = up_r & (ids[lo:hi, None] != crash_l[None, :])
+            others_up = up_r & (gids[lo:hi, None] != crash_l[None, :])
             detected &= (~others_up | (rank[:, crash_l] == RANK_DEAD)).all(dim=0)
         if has_conv:
-            up2 = up_r & up[None, :] & (ids[lo:hi, None] != ids[None, :])
+            up2 = up_r & up_all[None, :] & (gids[lo:hi, None] != ids[None, :])
             converged &= (~up2 | (rank == RANK_ALIVE)).all()
+    if has_crash:
+        detected = _reduce(detected, "min")
+    if has_conv:
+        converged = _reduce(converged, "min")
     for k in watch:
-        sent[k] = torch.maximum(sent[k], dead_of[k].sum(dtype=torch.int32))
+        sent[k] = torch.maximum(sent[k], _reduce(dead_of[k], "max").sum(dtype=torch.int32))
     if has_crash:
         active = (rel >= spec["crash_at"]) & (rel <= spec["crash_until"]) & (sent["detect_tick"] < 0)
         sent["detect_tick"] = torch.where(active & detected, rel, sent["detect_tick"]).to(torch.int32)

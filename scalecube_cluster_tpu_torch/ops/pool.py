@@ -44,6 +44,15 @@ def _need_and_cover(state):
     return need_m, cov_m
 
 
+def zero_columns(minf_age, cols, owned: bool):
+    """``minf_age`` with the pool columns ``cols`` zeroed: in place when
+    ``owned`` (the caller's tick made the plane, which no caller of the
+    window holds), else a new plane."""
+    if owned:
+        return minf_age.masked_fill_(cols[None, :], 0)
+    return minf_age.masked_fill(cols[None, :], 0)
+
+
 def allocate(state, subj_p, key_p, orig_p, got, prio, owned: bool = False):
     """Allocate/supersede membership rumors for E compacted proposals.
 
@@ -125,10 +134,7 @@ def allocate(state, subj_p, key_p, orig_p, got, prio, owned: bool = False):
     # through an index copies it from the host, which waits for the device
     clear = torch.zeros((M + E,), dtype=torch.bool, device=dev)
     clear.index_fill_(0, clear_slot, True)
-    if owned:
-        age = state.minf_age.masked_fill_(clear[None, :M], 0)
-    else:
-        age = state.minf_age.masked_fill(clear[None, :M], 0)
+    age = zero_columns(state.minf_age, clear[:M], owned)
     if D and (need_any or replace_any):
         keep_columns_(state.pending_minf, ~clear[:M])
     # on a member mesh, the origin's cell on the rank that holds its row

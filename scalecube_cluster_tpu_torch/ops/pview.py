@@ -111,7 +111,7 @@ from .lattice import (
     key_dtype,
     precedence_key,
 )
-from .pool import alloc_phase, allocate
+from .pool import alloc_phase, allocate, zero_columns
 from .sharding import active as _shard
 from .sharding import unsharded as _unsharded
 from .rand import (
@@ -1477,15 +1477,6 @@ def _refute_phase(state: PviewState, params: PviewParams):
     return state.replace(self_key=new_diag), (rows, new_diag, rows, eff)
 
 
-def _masked_zero(minf_age, cols, owned: bool):
-    """``minf_age`` with the pool columns ``cols`` zeroed: in place when
-    ``owned`` (the gossip phase aged a new plane this tick, which no caller
-    holds), else a new plane."""
-    if owned:
-        return minf_age.masked_fill_(cols[None, :], 0)
-    return minf_age.masked_fill(cols[None, :], 0)
-
-
 def _rumor_sweeps_fused(state: PviewState, params: PviewParams, fwd_post_p, owned: bool = False) -> PviewState:
     """Slot reclamation with the static windows (P2). The membership
     forwarding test reads the packed forwarding plane the gossip phase
@@ -1527,7 +1518,7 @@ def _rumor_sweeps_fused(state: PviewState, params: PviewParams, fwd_post_p, owne
     return state.replace(
         mr_active=keep_m,
         mr_subject=torch.where(freed, -1, state.mr_subject),
-        minf_age=_masked_zero(state.minf_age, freed, owned),
+        minf_age=zero_columns(state.minf_age, freed, owned),
     )
 
 

@@ -45,6 +45,7 @@ B, ...]``.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -277,17 +278,32 @@ def _splits(key: torch.Tensor, W: int, group):
     """Send order and splits of the records whose destination rank is
     ``key`` (W: not sent). Returns ``(order int64 [K], send [W], recv [W])``:
     the kept records' indices, destination-major and in record order within
-    a destination, and the host split lists. One host read."""
-    counts = torch.bincount(key, minlength=W + 1)
-    if counts.shape[0] != W + 1:
-        raise ExchangeError(f"exact exchange: a destination outside the {W} ranks of the group")
+    a destination, and the host split lists. One host read (a count by
+    ``index_add_``: ``bincount`` would wait for the device to size its
+    output); a destination outside the group rides the same read."""
+    outside = (key < 0) | (key > W)
+    counts = torch.zeros((W + 2,), dtype=torch.int64, device=key.device)
+    counts.index_add_(0, torch.where(outside, W + 1, key), torch.ones_like(key, dtype=torch.int64))
     send = counts[:W].contiguous()
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
-    host = torch.cat([send, recv]).tolist()
-    send_l, recv_l = host[:W], host[W:]
+    host = torch.cat([send, recv, counts[W + 1:]]).tolist()
+    if host[-1]:
+        raise ExchangeError(f"exact exchange: a destination outside the {W} ranks of the group")
+    send_l, recv_l = host[:W], host[W:2 * W]
     order = torch.argsort(key, stable=True)[: sum(send_l)]
     return order, send_l, recv_l
+
+
+class Traffic:
+    """Host counts of the exact exchanges' payload: bytes sent and received
+    by this rank, from the host splits (no device read). Zeroed by whoever
+    measures."""
+
+    sent = received = 0
+
+
+TRAFFIC = Traffic()
 
 
 def _a2a(x: torch.Tensor, send_l: list, recv_l: list, group) -> torch.Tensor:
@@ -295,6 +311,9 @@ def _a2a(x: torch.Tensor, send_l: list, recv_l: list, group) -> torch.Tensor:
     out = x.new_empty((sum(recv_l),) + tuple(x.shape[1:]))
     dist.all_to_all_single(out, x.contiguous(), output_split_sizes=recv_l, input_split_sizes=send_l,
                            group=group)
+    row = x.element_size() * math.prod(x.shape[1:])
+    TRAFFIC.sent += sum(send_l) * row
+    TRAFFIC.received += sum(recv_l) * row
     return out
 
 
@@ -392,3 +411,78 @@ def fetch_rows(table, want, L: int, W: int, group: int):
     holders' ranks, the rows come back in request order (zeros where
     ``want`` is -1). Exact: every request is answered."""
     return _fetch_op(table, want, L, W, group)
+
+
+# ---------------------------------------------------------------------------
+# the dense engine's exact exchanges: whole rows to their receivers, and
+# point reads of a member-sharded plane
+# ---------------------------------------------------------------------------
+#
+# The dense tick (``ops/kernel.py``) writes each gossip message's whole [N]
+# key row into its receiver's row and reads single cells of the [N, N] link
+# planes at other members' rows; JAX's GSPMD makes both global scatters and
+# gathers, which lose nothing. Here each is an exact exchange as above. The
+# dense engine runs no fleet on a member mesh (JAX's registers no sharded
+# fleet builder for it), so these two ops take no scenario axis.
+
+
+def _row_exchange_s(payload, dest, L: int, W: int, group: int):
+    from .sharding import group_of
+
+    g = group_of(group)
+    d = dest.to(torch.int64)
+    order, send_l, recv_l = _splits(torch.where(d >= 0, d.clamp(min=0) // L, W), W, g)
+    rows = _a2a(d[order] % L, send_l, recv_l, g)
+    return rows, _a2a(payload[order], send_l, recv_l, g)
+
+
+@torch.library.custom_op("scalecube_port::row_exchange", mutates_args=())
+def _row_exchange_op(payload: torch.Tensor, dest: torch.Tensor, L: int, W: int,
+                     group: int) -> tuple[torch.Tensor, torch.Tensor]:
+    with _plain():
+        return _row_exchange_s(payload, dest, L, W, group)
+
+
+def row_exchange(payload, dest, L: int, W: int, group: int):
+    """Whole rows to their receivers' ranks. ``payload`` [L, C] (int32,
+    int64, uint8 or float32) holds one record per local sender row and
+    ``dest`` [L] its global receiver row (-1: not sent). Returns what this
+    rank received: ``(row int64 [K], payload [K, C])``, ``row`` the local
+    receiver row of each record, in source-rank order. The receiver folds
+    the records as the one-device scatter does. Exact: nothing is
+    dropped."""
+    return _row_exchange_op(payload.contiguous(), dest, L, W, group)
+
+
+def _points_s(table, rows, cols, L: int, W: int, group: int):
+    from .sharding import group_of
+
+    g = group_of(group)
+    C = table.shape[1]
+    r = rows.reshape(-1).to(torch.int64)
+    c = cols.reshape(-1).to(torch.int64)
+    order, send_l, recv_l = _splits(torch.where(r >= 0, r.clamp(min=0) // L, W), W, g)
+    # a request names the cell in the holder's flattened [L·C] table
+    asked = _a2a((r[order] % L) * C + c[order], send_l, recv_l, g)
+    back = _a2a(table.reshape(-1)[asked], recv_l, send_l, g)
+    out = torch.zeros((r.shape[0],), dtype=table.dtype, device=table.device)
+    out.index_copy_(0, order, back)
+    return out.view(rows.shape)
+
+
+@torch.library.custom_op("scalecube_port::fetch_points", mutates_args=())
+def _points_op(table: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, L: int, W: int,
+               group: int) -> torch.Tensor:
+    with _plain():
+        return _points_s(table, rows, cols, L, W, group)
+
+
+def fetch_points(table, rows, cols, L: int, W: int, group: int):
+    """Cells ``table[rows, cols]`` of a member-sharded ``table`` [L, C]
+    (int32, int64, uint8 or float32) at the global ``rows`` (any shape, -1:
+    none) and the columns ``cols`` (the same shape), wherever the rows
+    live: the requests go to the holders' ranks, the cells come back in
+    request order (0 where ``rows`` is -1). Exact: every request is
+    answered."""
+    rows, cols = torch.broadcast_tensors(rows, cols)
+    return _points_op(table.contiguous(), rows.contiguous(), cols.contiguous(), L, W, group)

@@ -1,8 +1,9 @@
-"""Member-axis sharding of the partial-view engine over ``torch.distributed``.
+"""Member-axis sharding of the partial-view and dense engines over
+``torch.distributed``.
 
-A port of the JAX package's ``ops/sharding.py`` for the pview engine. JAX
-row-shards every ``[N, ...]`` state tensor over a ``"members"`` mesh axis
-and lets GSPMD insert the collectives. PyTorch has no GSPMD: here each rank
+A port of the JAX package's ``ops/sharding.py`` for the pview and dense
+engines. JAX row-shards every ``[N, ...]`` state tensor over a
+``"members"`` mesh axis and lets GSPMD insert the collectives. PyTorch has no GSPMD: here each rank
 of a process group holds its own rows, and every access across rows is an
 explicit collective, spelled once in :class:`ShardContext` and called from
 the tick at each such site (``ops/pview.py``). The rules:
@@ -54,8 +55,19 @@ budget, with and without the delay rings and the push-pull leg; a starved
 budget drops on-time records as JAX's sharded run does and counts them in
 ``delivery_overflow``.
 
-Not ported yet, and refused by name: the sparse and dense sharded windows
-and states (ROADMAP A12 item 5).
+The dense engine (:func:`state_shardings`, :func:`shard_state`,
+:func:`make_sharded_tick`, :func:`make_sharded_run`) takes the same rules
+over its ``[N, N]`` planes (``ops/kernel.py``): the link planes are rows
+with ``dense_links`` and replicated scalars without; each gossip message's
+whole key row crosses to its receiver's rank in a row exchange, one per
+fanout slot and row chunk, and lands in its ``buf`` or ring row there;
+the link planes' cells at other members' rows are point reads; SYNC
+fetches its K callers' and peers' rows (never the whole plane) and each
+rank writes its own rows of the merge. The dense engine has no kernel,
+and, as in JAX, no sharded adaptive, traced or fleet window.
+
+Not ported yet, and refused by name: the sparse sharded windows and states
+(ROADMAP A12 item 5).
 """
 
 from __future__ import annotations
@@ -194,19 +206,7 @@ def shard_pview_state(state, mesh):
     every member-axis leaf, the replicated leaves whole, all copied onto
     the mesh's device."""
     _check_member_mesh(mesh)
-    tags = pview_state_shardings(mesh, False, state.pending_minf.shape[0])
-    lo, hi = _rank_rows(mesh, state.capacity)
-    dev = mesh_device(mesh)
-    out = {}
-    for f in dataclasses.fields(state):
-        leaf, tag = getattr(state, f.name), getattr(tags, f.name)
-        if not isinstance(leaf, torch.Tensor):
-            out[f.name] = leaf
-            continue
-        if tag is not REPLICATED:
-            leaf = leaf[lo:hi] if tag == ROW else leaf[:, lo:hi]
-        out[f.name] = leaf.to(device=dev, memory_format=torch.contiguous_format, copy=True)
-    return type(state)(**out)
+    return _shard_by(state, mesh, pview_state_shardings(mesh, False, state.pending_minf.shape[0]))
 
 
 def gather_pview_state(state, mesh):
@@ -214,18 +214,7 @@ def gather_pview_state(state, mesh):
     ``all_gather`` per member-axis leaf): what the driver's host mutators
     and host reads run on."""
     _check_member_mesh(mesh)
-    group = mesh.get_group(MEMBER_AXIS)
-    tags = pview_state_shardings(mesh, False, state.pending_minf.shape[0])
-    out = {}
-    for f in dataclasses.fields(state):
-        leaf, tag = getattr(state, f.name), getattr(tags, f.name)
-        if tag is REPLICATED or not isinstance(leaf, torch.Tensor):
-            out[f.name] = leaf
-        elif tag == ROW:
-            out[f.name] = gather_rows(leaf, group)
-        else:
-            out[f.name] = gather_rows(leaf.transpose(0, 1), group).transpose(0, 1).contiguous()
-    return type(state)(**out)
+    return _gather_by(state, mesh, pview_state_shardings(mesh, False, state.pending_minf.shape[0]))
 
 
 def shard_adaptive_state(ad, mesh):
@@ -426,10 +415,32 @@ class ShardContext:
 
     def fetch_rows(self, table, want):
         """Rows of the ``[L, C]`` member-axis ``table`` at the global ids
-        ``want`` (-1: none), wherever they live (:func:`.ragged_a2a.fetch_rows`)."""
+        ``want`` (-1: none), wherever they live (:func:`.ragged_a2a.fetch_rows`;
+        a dtype the collectives lack crosses as its bytes)."""
         from .ragged_a2a import fetch_rows
 
-        return fetch_rows(table, want, self.L, self.size, self.group_id)
+        if table.dtype in _WIRE:
+            return fetch_rows(table, want, self.L, self.size, self.group_id)
+        wire = table.contiguous().view(torch.uint8)
+        return fetch_rows(wire, want, self.L, self.size, self.group_id).view(table.dtype)
+
+    def row_exchange(self, payload, dest):
+        """Whole rows to their receivers' ranks (:func:`.ragged_a2a.row_exchange`)."""
+        from .ragged_a2a import row_exchange
+
+        return row_exchange(payload, dest, self.L, self.size, self.group_id)
+
+    def points(self, table, rows, cols):
+        """Cells of the ``[L, C]`` member-axis ``table`` at global ``rows``
+        and ``cols``, wherever they live (:func:`.ragged_a2a.fetch_points`)."""
+        from .ragged_a2a import fetch_points
+
+        return fetch_points(table, rows, cols, self.L, self.size, self.group_id)
+
+    def diagonal(self, plane: torch.Tensor) -> torch.Tensor:
+        """The cells (i, i) of this rank's rows of an ``[L, N]`` plane (a
+        view)."""
+        return plane[:, self.lo:self.hi].diagonal()
 
 
 #: the armed context of the tick running here (None: unsharded)
@@ -683,24 +694,149 @@ def make_sharded_pview_fleet_run(mesh, params, n_ticks: int, a2a_budget: Optiona
 
 
 # ---------------------------------------------------------------------------
-# refused by name (ROADMAP A12 item 5)
+# the dense engine on a member mesh
 # ---------------------------------------------------------------------------
 
 
+def _check_dense_word_alignment(mesh, params) -> None:
+    """Dense mesh preconditions, as JAX states them: plain row
+    divisibility always, and in the packed mode (``key_dtype="i16"``) the
+    32-row word rule of the sparse word builders."""
+    size = member_mesh_size(mesh)
+    if params.capacity % size != 0:
+        raise ValueError(f"capacity {params.capacity} not divisible by mesh size {size}")
+    if params.key_dtype == "i16" and params.capacity % (32 * size) != 0:
+        raise ValueError(
+            f"capacity {params.capacity} must be divisible by 32 * mesh size "
+            f"({32 * size}) in packed (plane_dtype='i16') mode — same "
+            "word-alignment rule as the sparse word builders (pad capacity "
+            "up and leave the extra rows up=False; masks make padding free)"
+        )
+
+
 def state_shardings(mesh, dense_links: bool = True, delay_slots: int = 0):
-    _not_ported("the dense engine's sharded state (state_shardings)")
+    """A ``SimState``-shaped record of each leaf's placement (JAX's
+    ``state_shardings``): :data:`ROW` for every ``[N, ...]`` leaf, the
+    ``[N, N]`` link planes with ``dense_links`` (replicated scalars
+    without), :data:`RING` for the ``[D, N, ...]`` rings (replicated when
+    ``delay_slots`` is 0: they are empty), :data:`REPLICATED` for the tick,
+    the namespace table and the rumor slots."""
+    from .state import SimState
+
+    ring = RING if delay_slots else REPLICATED
+    link = ROW if dense_links else REPLICATED
+    tags = {f.name: ROW for f in dataclasses.fields(SimState)}
+    for name in ("tick", "ns_rel", "rumor_active", "rumor_origin", "rumor_created"):
+        tags[name] = REPLICATED
+    for name in ("loss", "fetch_rt", "delay_q"):
+        tags[name] = link
+    for name in ("pending_key", "pending_inf", "pending_src"):
+        tags[name] = ring
+    return SimState(**tags)
+
+
+def _dense_tags(state, mesh):
+    return state_shardings(mesh, state.loss.dim() != 0, state.pending_key.shape[0])
+
+
+def _shard_by(state, mesh, tags):
+    lo, hi = _rank_rows(mesh, state.capacity)
+    dev = mesh_device(mesh)
+    out = {}
+    for f in dataclasses.fields(state):
+        leaf, tag = getattr(state, f.name), getattr(tags, f.name)
+        if not isinstance(leaf, torch.Tensor):
+            out[f.name] = leaf
+            continue
+        if tag is not REPLICATED:
+            leaf = leaf[lo:hi] if tag == ROW else leaf[:, lo:hi]
+        out[f.name] = leaf.to(device=dev, memory_format=torch.contiguous_format, copy=True)
+    return type(state)(**out)
+
+
+def _gather_by(state, mesh, tags):
+    group = mesh.get_group(MEMBER_AXIS)
+    out = {}
+    for f in dataclasses.fields(state):
+        leaf, tag = getattr(state, f.name), getattr(tags, f.name)
+        if tag is REPLICATED or not isinstance(leaf, torch.Tensor):
+            out[f.name] = leaf
+        elif tag == ROW:
+            out[f.name] = gather_rows(leaf, group)
+        else:
+            out[f.name] = gather_rows(leaf.transpose(0, 1), group).transpose(0, 1).contiguous()
+    return type(state)(**out)
 
 
 def shard_state(state, mesh):
-    _not_ported("the dense engine's sharded state (shard_state)")
+    """This rank's shard of a whole dense state (on any device; JAX's
+    ``shard_state``): its rows of every member-axis leaf, the replicated
+    leaves whole, all copied onto the mesh's device."""
+    _check_member_mesh(mesh)
+    return _shard_by(state, mesh, _dense_tags(state, mesh))
+
+
+def gather_state(state, mesh):
+    """The whole dense state from its shards, identical on every rank: what
+    the driver's host mutators and checkpoints run on."""
+    _check_member_mesh(mesh)
+    return _gather_by(state, mesh, _dense_tags(state, mesh))
+
+
+def _dense_sharded_tick(state, fd, rd, params, **kw):
+    """The dense tick on this rank's rows: the full draws go to the context
+    (SYNC reads its callers' rows of them, the structured peers every
+    row's), the rows' slices to the tick."""
+    from .kernel import tick
+
+    ctx = active()
+    ctx.begin_tick(fd, rd)
+    return tick(state, ctx.local_draws(fd), ctx.local_draws(rd), params, **kw)
 
 
 def make_sharded_tick(mesh, params, dense_links: bool = True):
-    _not_ported("the dense engine's sharded tick (make_sharded_tick)")
+    """The dense tick over ``mesh`` (JAX's ``make_sharded_tick``):
+    ``step(state, fd, rd) -> (state, metrics)``, ``state`` this rank's
+    shard (:func:`shard_state`), ``fd`` / ``rd`` the tick's full draws,
+    the same on every rank (``fd`` None off FD ticks). Metrics come out
+    whole and identical on every rank. Consumes ``state``, as the
+    one-device tick does. ``dense_links`` is the state's link layout (the
+    shard carries it; kept for JAX's signature)."""
+    _check_member_mesh(mesh)
+    _check_dense_word_alignment(mesh, params)
+
+    def step(state, fd, rd):
+        with ragged_delivery_context(mesh, params.capacity):
+            return _dense_sharded_tick(state, fd, rd, params)
+
+    return step
 
 
 def make_sharded_run(mesh, params, n_ticks: int, dense_links: bool = True):
-    _not_ported("the dense engine's sharded window (make_sharded_run)")
+    """The dense window over ``mesh`` (JAX's ``make_sharded_run``): ``run(
+    state, draws, watch_rows=None) -> (state, metrics, watched)``, ``state``
+    this rank's shard, ``draws`` the generator every rank seeds alike or
+    the per-tick full draws; metrics and watched rows come out whole and
+    identical on every rank. The window consumes its state, as JAX's
+    donated one does: its [N, N] planes and rings update in place."""
+    from ._tick import run_window
+    from .engine_api import plane_view_rows
+    from .rand import draw_dense_tick
+
+    _check_member_mesh(mesh)
+    _check_dense_word_alignment(mesh, params)
+
+    def run(state, draws, watch_rows=None):
+        with ragged_delivery_context(mesh, params.capacity):
+            return run_window(_dense_sharded_tick, plane_view_rows, draw_dense_tick, state, draws, n_ticks,
+                              params, watch_rows)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# refused by name (ROADMAP A12 item 5)
+# ---------------------------------------------------------------------------
 
 
 def sparse_state_shardings(mesh, dense_links: bool = False, delay_slots: int = 0):

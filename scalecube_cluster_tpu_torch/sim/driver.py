@@ -56,9 +56,9 @@ reports the window functions it ran, keyed as the JAX driver keys its
 compiled programs, with the kernels' build directory
 (:mod:`..compile_cache`; ``compile_cache_dir`` points it elsewhere).
 
-On a member mesh (``mesh=``, :mod:`..ops.sharding`; the pview engine only)
-the driver is SPMD: every rank runs the same script with the same seed and
-holds its rows of the state; the windows are the sharded ones, a host
+On a member mesh (``mesh=``, :mod:`..ops.sharding`; the pview and dense
+engines) the driver is SPMD: every rank runs the same script with the same
+seed and holds its rows of the state; the windows are the sharded ones, a host
 mutation runs on the whole state (gathered) and each rank keeps its rows,
 and a host read (views, statuses, events, coverage) returns the same whole
 value on every rank, with the readbacks of the unsharded driver.
@@ -73,8 +73,12 @@ gathers the state, rank 0 writes the unsharded driver's archive, and a
 restore keeps each rank's rows of it, so an archive moves between a
 sharded and an unsharded driver either way.
 
-Not ported yet, and refused by name: the sparse and dense engines on a
-mesh (ROADMAP A12 item 5).
+On a dense mesh, as in JAX, the trace plane and the adaptive plane are
+refused (the dense engine has no sharded traced or adaptive window), and
+so is a control ladder whose rungs arm adaptive FD; a static ladder arms.
+
+Not ported yet, and refused by name: the sparse engine on a mesh (ROADMAP
+A12 item 5).
 """
 
 from __future__ import annotations
@@ -255,6 +259,11 @@ class SimDriver:
         # driver owns its state and threads it through the adaptive window
         self._ad = None
         if not params.adaptive.is_default:
+            if mesh is not None and self._eng.make_sharded_adaptive_run is None:
+                raise ValueError(
+                    f"adaptive failure detection is single-device for the {self.engine} engine — construct "
+                    "without mesh= or use the default AdaptiveSpec"
+                )
             self._ad = self._init_adaptive()
         self._chaos = None  # the armed DriverChaosRunner, if any
         # the armed telemetry plane (a pure consumer: arming never changes
@@ -351,10 +360,12 @@ class SimDriver:
 
     def _whole_state(self, *names):
         """The state with the member-axis leaves ``names`` whole (on a mesh;
-        the rest stay this rank's rows)."""
+        the rest stay this rank's rows). A name the engine's state lacks is
+        skipped: the callers name what either engine on a mesh reads."""
         if self.mesh is None:
             return self.state
-        return self.state.replace(**{k: self._whole(getattr(self.state, k)) for k in names})
+        return self.state.replace(**{k: self._whole(getattr(self.state, k)) for k in names
+                                     if hasattr(self.state, k)})
 
     def _apply(self, fn) -> None:
         """A host mutation ``fn(state) -> state``. On a mesh it runs on the
@@ -670,7 +681,7 @@ class SimDriver:
             return self._join_locked(seed_rows)
 
     def _join_locked(self, seed_rows: Sequence[int]) -> int:
-        whole = self._whole_state("up", "nbr_id")
+        whole = self._whole_state("up", "nbr_id", "view_key")
         up = whole.up.cpu().numpy()
         free = np.nonzero(~up)[0]
         if len(free) == 0:
@@ -833,7 +844,7 @@ class SimDriver:
     def _health_snapshot_locked(self) -> dict:
         self._health_interest = True
         self._flush_locked()
-        whole = self._whole_state("up", "nbr_id", "nbr_key", "self_key")
+        whole = self._whole_state("up", "nbr_id", "nbr_key", "self_key", "view_key")
         stale, n_up = self._eng.staleness(whole)
         stale = stale.cpu().numpy()
         n_up = int(n_up)
@@ -981,6 +992,11 @@ class SimDriver:
                     "trace capture and the control plane cannot share a driver (the controller "
                     "may arm adaptive FD)"
                 )
+            if self.mesh is not None and self._eng.make_sharded_traced_run is None:
+                raise ValueError(
+                    f"trace capture is single-device for the {self.engine} engine — arm on an unsharded "
+                    "driver (the ring append is row-global)"
+                )
             if isinstance(config, ClusterConfig):
                 config = config.trace
             self._trace = TracePlane(self, config=config, tracer_rows=tracer_rows, rumor_slots=rumor_slots)
@@ -1044,6 +1060,8 @@ class SimDriver:
                 spec = dataclasses.replace(cur, **overrides) if overrides else AdaptiveSpec()
             if spec == cur and (self._ad is not None) == (not spec.is_default):
                 return
+            if not spec.is_default and self.mesh is not None and self._eng.make_sharded_adaptive_run is None:
+                raise ValueError(f"adaptive failure detection is single-device for the {self.engine} engine")
             if not spec.is_default and self._trace is not None:
                 raise ValueError("trace capture and adaptive failure detection cannot share a driver yet")
             self.params = dataclasses.replace(self.params, adaptive=spec)
@@ -1098,6 +1116,20 @@ class SimDriver:
                     "trace capture and the control plane cannot share a driver (the controller may "
                     "arm adaptive FD, which traced windows do not support yet)"
                 )
+            if self.mesh is not None and self._eng.make_sharded_adaptive_run is None:
+                from ..config import ClusterConfig
+                from ..control import ControlSpec
+
+                resolved = spec
+                if resolved is None:
+                    resolved = ControlSpec.from_config(config) if isinstance(config, ClusterConfig) else ControlSpec()
+                if any(r.adaptive for r in resolved.ladder):
+                    raise ValueError(
+                        "this ladder's rungs arm adaptive FD, and the "
+                        f"{self.engine} engine has no sharded adaptive "
+                        "window builder (make_sharded_adaptive_run) — use "
+                        "a static-rung ladder or an unsharded driver"
+                    )
             self._control = ControlPlane(self, spec=spec, config=config)
             return self._control
 

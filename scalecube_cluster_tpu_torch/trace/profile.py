@@ -200,21 +200,31 @@ def _result(engine: str, n: int, n_ticks: int, warmup_ticks: int, wall: float, t
     }
 
 
-def _mesh_checks(mesh, params, a2a_budget, fleet: bool = False) -> None:
-    """The sharded window builders' preconditions (the pview engine on a
-    mesh; a 2-D mesh for a fleet)."""
+def _mesh_checks(mesh, params, a2a_budget, fleet: bool = False):
+    """The sharded window builders' preconditions (the pview and dense
+    engines on a 1-D mesh; pview's fleet on a 2-D one). Returns the sharded
+    tick."""
     from ..ops import sharding as SH
     from ..ops.pview import PviewParams
     from ..ops.ragged_a2a import check_budget
+    from ..ops.sparse import SparseParams
 
-    if not isinstance(params, PviewParams):
+    if isinstance(params, SparseParams):
         SH._not_ported(f"profiling the {type(params).__name__} engine on a mesh (its sharded tick)")
+    if not isinstance(params, PviewParams):
+        if fleet:
+            raise ValueError("the dense engine has no fleet on a member mesh (as in JAX: no sharded dense fleet "
+                             "window)")
+        SH._check_member_mesh(mesh)
+        SH._check_dense_word_alignment(mesh, params)
+        return SH._dense_sharded_tick
     if fleet:
         SH._check_mesh2d(mesh, "profile_fleet_ticks(mesh=)")
     else:
         SH._check_member_mesh(mesh)
     SH._check_pview_word_alignment(mesh, params)
     check_budget(params.fanout, params.capacity, SH.member_mesh_size(mesh), a2a_budget)
+    return SH._sharded_tick
 
 
 def _mesh_scope(mesh, params, a2a_budget):
@@ -237,10 +247,7 @@ def profile_ticks(params, state, draws, n_ticks: int, warmup_ticks: int = 1, mes
     ticks are the sharded window's (:func:`..ops.sharding.make_sharded_pview_run`)."""
     engine, tick, draw = _engine_of(params)
     if mesh is not None:
-        from ..ops.sharding import _sharded_tick
-
-        _mesh_checks(mesh, params, a2a_budget)
-        tick = _sharded_tick
+        tick = _mesh_checks(mesh, params, a2a_budget)
 
     def step(st, fd, rd, timer):
         return tick(st, fd, rd, params, timer=timer)[0]
@@ -269,10 +276,7 @@ def profile_fleet_ticks(params, fleet_state, draws, n_ticks: int, warmup_ticks: 
 
     engine, tick, draw = _engine_of(params)
     if mesh is not None:
-        from ..ops.sharding import _sharded_tick
-
-        _mesh_checks(mesh, params, a2a_budget, fleet=True)
-        tick = _sharded_tick
+        tick = _mesh_checks(mesh, params, a2a_budget, fleet=True)
     s = fleet_size(fleet_state)
     rows_fn = pview_rows if engine == "pview" else plane_view_rows
 

@@ -22,15 +22,15 @@ def matrix_listing() -> list:
     return [(p.name, p.variant, tuple(applicable_contracts(p))) for p in build_matrix(device="cpu", mesh=mesh)]
 
 
-def sharded_verdict(programs=None, key_dtypes=("i32",)) -> dict:
-    """The audit verdict of pview's sharded programs (``programs``: their
-    names, or all) on this group's member mesh."""
+def sharded_verdict(programs=None, key_dtypes=("i32",), engine: str = "pview") -> dict:
+    """The audit verdict of ``engine``'s sharded programs (``programs``:
+    their names, or all) on this group's member mesh."""
     mesh = sharding.make_mesh("cpu")
-    progs = build_engine_programs("pview", device="cpu", variants=["sharded"], key_dtypes=list(key_dtypes),
+    progs = build_engine_programs(engine, device="cpu", variants=["sharded"], key_dtypes=list(key_dtypes),
                                   mesh=mesh)
     if programs is not None:
         progs = [p for p in progs if p.name in programs]
-    return audit_programs(progs, device="cpu", engine_names=["pview"])
+    return audit_programs(progs, device="cpu", engine_names=[engine])
 
 
 def sharded_dropped_inplace() -> tuple:

@@ -175,9 +175,11 @@ def fleet_window(params, fleet_np: dict, seed: int, n_ticks: int) -> dict:
 def refusals() -> dict:
     """What a mesh still refuses, tried on this rank: the exception's type
     and message by name ("none" where the call went through). The sparse
-    and dense engines on a mesh wait for ROADMAP A12 item 5; the compile
-    cache, the audit, the sim transport and the emulator runner run on a
-    sharded driver; a 2-D mesh runs only the fleet."""
+    engine on a mesh waits for ROADMAP A12 item 5; the dense engine runs
+    there, without the trace plane or an adaptive ladder (JAX refuses
+    both); the compile cache, the audit, the sim transport and the
+    emulator runner run on a sharded driver; a 2-D mesh runs only the
+    fleet."""
     from scalecube_cluster_tpu_torch.chaos.engine import EmulatorChaosRunner
     from scalecube_cluster_tpu_torch.ops import fleet as FL
     from scalecube_cluster_tpu_torch.ops import sparse as SP
@@ -211,6 +213,9 @@ def refusals() -> dict:
     attempt("dense window", lambda: SH.make_sharded_run(mesh, ST.SimParams(capacity=64), 1))
     attempt("dense tick", lambda: SH.make_sharded_tick(mesh, ST.SimParams(capacity=64)))
     attempt("dense state", lambda: dcn.make_global_state(ST.SimParams(capacity=64), 64, mesh))
+    dense = SimDriver(ST.SimParams(capacity=64), 48, mesh=mesh, device="cpu")
+    attempt("dense trace capture", dense.arm_trace)
+    attempt("dense adaptive ladder", dense.arm_control)
     attempt("sparse profile", lambda: PR.profile_ticks(sp, None, torch.Generator(), 1, mesh=mesh))
     import tempfile
 

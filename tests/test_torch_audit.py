@@ -94,19 +94,18 @@ def port_listing():
 def test_matrix_names_variants_and_contracts_equal_jax(port_listing):
     """JAX's ``build_matrix()`` on its 8 virtual devices against the port's
     on two gloo ranks: the same programs, variants and contract sets. Set
-    aside: the dense and sparse sharded programs (``dense/i32/sharded``,
-    ``dense/i16/sharded``, ``dense/i32/sharded-telemetry-row``/``-append``
-    and the sparse three), which the port reports as ``not_ported``
-    (ROADMAP A12 item 5)."""
+    aside: the sparse sharded programs (``sparse/i32/sharded``,
+    ``sparse/i32/sharded-telemetry-row``/``-append``), which the port
+    reports as ``not_ported`` (ROADMAP A12 item 5); the dense four are
+    built and held."""
     from scalecube_cluster_tpu.audit import build_matrix as jax_matrix
     from scalecube_cluster_tpu.audit.contracts import applicable_contracts as jax_applicable
 
     from scalecube_cluster_tpu_torch.audit import not_ported
 
     missing = {m["program"] for m in not_ported()}
-    assert missing == {"dense/i32/sharded", "dense/i16/sharded", "dense/i32/sharded-telemetry-row",
-                       "dense/i32/sharded-telemetry-append", "sparse/i32/sharded",
-                       "sparse/i32/sharded-telemetry-row", "sparse/i32/sharded-telemetry-append"}
+    assert missing == {"sparse/i32/sharded", "sparse/i32/sharded-telemetry-row",
+                       "sparse/i32/sharded-telemetry-append"}
     assert all("ROADMAP A12 item 5" in m["reason"] for m in not_ported())
     jax_rows = {(p.name, p.variant, tuple(jax_applicable(p))) for p in jax_matrix()}
     port_rows = set(port_listing)

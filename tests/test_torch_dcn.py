@@ -20,6 +20,7 @@ from scalecube_cluster_tpu_torch.ops import dcn
 from scalecube_cluster_tpu_torch.ops import pview as TPV
 from scalecube_cluster_tpu_torch.ops import ragged_a2a as TRA
 from scalecube_cluster_tpu_torch.ops import sharding as TSH
+from scalecube_cluster_tpu_torch.ops import state as TS
 
 torch.set_num_threads(1)
 
@@ -97,8 +98,9 @@ def test_outside_a_group():
     assert dcn.cpu_collectives_available()
     with pytest.raises(RuntimeError, match="process group"):
         TSH.make_mesh("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        dcn.make_global_state(None, 8, None)
+    # the dense engine's global state needs a member mesh to shard onto
+    with pytest.raises(ValueError, match="1-D 'members' mesh"):
+        dcn.make_global_state(TS.SimParams(capacity=8), 8, None)
 
 
 def test_a_failing_rank_fails_the_call():

@@ -151,7 +151,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "cluster/cluster.py", "sim/transport.py", "bridge/__init__.py", "bridge/transport.py",
                    "bridge/loadgen.py", "monitor.py", "compile_cache.py", "audit/__init__.py",
                    "audit/__main__.py", "audit/contracts.py", "audit/dispatch_walk.py", "audit/programs.py",
-                   "audit/report.py", "audit/restore_lint.py"):
+                   "audit/report.py", "audit/restore_lint.py", "__init__.py", "version.py"):
         assert f"scalecube_cluster_tpu_torch/{module}" in walked, module
     # the native codec's loader builds the port's own copy of codec.c into
     # the checkout's build/ tree, never beside the JAX package's
@@ -206,3 +206,21 @@ def test_key_chain_matches_jax(engine):
         assert np.array_equal(np.asarray(key).astype(np.int64), chain.keys[s].numpy())
     serial = KC.KeyChain([seeds[0]], "cpu", serial=True)(1, convert.params_from_dict(dataclasses.asdict(params)))
     assert torch.equal(serial[0][1].sync_edge, got[0][1].sync_edge[0])
+
+
+def test_top_level_names_are_the_jax_packages():
+    """The package's public surface is the JAX package's: the same
+    ``__all__`` in the same order, the same version, and each name bound to
+    the port's own class or function of that name (none from the JAX
+    package)."""
+    import scalecube_cluster_tpu as J
+    import scalecube_cluster_tpu_torch as T
+
+    assert T.__all__ == J.__all__
+    assert T.__version__ == J.__version__
+    for name in T.__all__:
+        obj = getattr(T, name)
+        if name == "__version__":
+            continue
+        assert obj.__module__.startswith("scalecube_cluster_tpu_torch."), (name, obj.__module__)
+        assert obj.__name__ == getattr(J, name).__name__, name

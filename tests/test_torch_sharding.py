@@ -323,29 +323,35 @@ def test_fleet_on_a_scenario_mesh_equals_one_process_fleet(lane2):
 
 
 def test_refusals_by_name(lane2):
-    """What a mesh still refuses: the sparse and dense engines' sharded
-    windows, states and drivers raise NotImplementedError naming ROADMAP
-    A12 item 5; the compile cache, the audit, the sim transport and the
-    emulator runner (once refused as A13) now go through on a sharded
-    driver; the alignment, fleet-size and 2-D mesh rules raise JAX's
-    ValueErrors (a 2-D mesh runs only the fleet)."""
+    """What a mesh still refuses: the sparse engine's sharded windows,
+    states and drivers raise NotImplementedError naming ROADMAP A12 item
+    5; the dense engine's (A12 item 5(a)) go through, and a dense sharded
+    driver refuses the trace plane and an adaptive ladder with JAX's
+    ValueErrors; the compile cache, the audit, the sim transport and the
+    emulator runner (once refused as A13) go through on a sharded driver;
+    the alignment, fleet-size and 2-D mesh rules raise JAX's ValueErrors
+    (a 2-D mesh runs only the fleet)."""
     got = lane2.run(RK.refusals)
     value_errors = {"misaligned capacity", "fleet of 3", "2-D mesh driver", "2-D mesh window", "2-D factoring",
-                    "2-D fleet on a 1-D mesh"}
-    a13 = {"compile cache", "cache audit", "sim transport", "emulator chaos"}
+                    "2-D fleet on a 1-D mesh", "dense trace capture", "dense adaptive ladder"}
+    through = {"compile cache", "cache audit", "sim transport", "emulator chaos", "dense driver", "dense window",
+               "dense tick", "dense state"}
     for rank in got:
         for what, (kind, msg) in rank.items():
-            want = "ValueError" if what in value_errors else "none" if what in a13 else "NotImplementedError"
+            want = "ValueError" if what in value_errors else "none" if what in through else "NotImplementedError"
             assert kind == want, (what, kind, msg)
             if want == "NotImplementedError":
-                assert "ROADMAP A12 item 5" in msg, (what, msg)
+                assert "ROADMAP A12 item 5" in msg and "sparse" in msg.lower(), (what, msg)
         assert "factor" in rank["2-D factoring"][1] and "2-D" in rank["2-D fleet on a 1-D mesh"][1]
+        assert "trace capture is single-device for the dense engine" in rank["dense trace capture"][1]
+        assert "make_sharded_adaptive_run" in rank["dense adaptive ladder"][1]
     assert set(got[0]) >= {"misaligned capacity", "2-D mesh driver", "2-D mesh window", "sparse driver",
-                           "dense driver", "sparse window", "sparse tick", "sparse state", "dense window",
-                           "dense tick", "dense state", "sparse profile", "fleet of 3"} | a13
-    for fn in (lambda: TSH.make_sharded_sparse_run(None, None, 1), lambda: TSH.make_sharded_run(None, None, 1),
-               lambda: dcn.make_global_state(None, 1, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12 item 5"):
+                           "sparse window", "sparse tick", "sparse state", "sparse profile",
+                           "fleet of 3"} | value_errors | through
+    with pytest.raises(NotImplementedError, match="ROADMAP A12 item 5"):
+        TSH.make_sharded_sparse_run(None, None, 1)
+    for fn in (lambda: TSH.make_sharded_run(None, None, 1), lambda: TSH.make_sharded_tick(None, None)):
+        with pytest.raises(ValueError, match="1-D 'members' mesh"):
             fn()
 
 
