@@ -1653,7 +1653,7 @@ def window_ticks(tick=None):
     sharded tick that calls it): from its second tick on, the [N, M]
     ``minf_age`` plane the previous tick of the window made is updated in
     place (``minf_owned``), so a window holds the caller's plane and its
-    own, not a third (PERF.md §6, PR 16)."""
+    own, not a third."""
     tick = tick or pview_tick_fused
     made = []
 
