@@ -140,6 +140,19 @@ def _reduce(x: torch.Tensor, op: str) -> torch.Tensor:
     return x if ctx is None else ctx.reduce(x, op)
 
 
+def _mine(x: torch.Tensor) -> torch.Tensor:
+    """The state's rows of a member-axis vector computed over all N rows."""
+    ctx = sharding.active()
+    return x if ctx is None else ctx.mine(x)
+
+
+def _full_draws(r):
+    """The tick's round draws over all N rows (read at other members' rows):
+    on a mesh the full block every rank draws alike."""
+    ctx = sharding.active()
+    return r if ctx is None else ctx.draws[1]
+
+
 def _diag(plane: torch.Tensor) -> torch.Tensor:
     """The cells (i, i) of the state's rows of an [N, N] plane (a view)."""
     ctx = sharding.active()
@@ -557,11 +570,8 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
         # the strategy's circulant targets (DZ-1: sends gate on up[src] &
         # up[dst], not on the sender's view of the neighbor); on a mesh
         # every row's, and each rank keeps its rows
-        if ctx is None:
-            peers, peer_valid = dz.structured_peers(spec, n, state.tick, r.gossip_sel)
-        else:
-            peers, peer_valid = dz.structured_peers(spec, N, state.tick, ctx.draws[1].gossip_sel)
-            peers, peer_valid = ctx.mine(peers), ctx.mine(peer_valid)
+        peers, peer_valid = dz.structured_peers(spec, N, state.tick, _full_draws(r).gossip_sel)
+        peers, peer_valid = _mine(peers), _mine(peer_valid)
     elif klw is not None:
         peers, peer_valid = _sample_distinct_words(bp.word_andnot(klw, _diag_words(state)), N, r.gossip_sel)
     else:
@@ -615,22 +625,12 @@ def _gossip_phase(state: SimState, r: RoundRandoms, params: SimParams, busy: boo
             ok_now = ok & (d == 0)
         else:
             ok_now = ok
-        if ctx is not None:
-            _deliver_rows(ctx, state, ok, p, d, piggyback, send_r, src_r, buf, recv_inf, recv_src, pend)
+        if ctx is None:
+            # the unsent rows fold into the spare row and the current slot
+            dd = torch.where(ok, 0 if d is None else d, -1)
+            _fold_rows(state, p, dd, piggyback, send_r.to(torch.uint8), src_r, buf, recv_inf, recv_src, pend)
         else:
-            if D:
-                ok_late = ok & (d > 0)
-                # a late message lands in slot (tick + d) % D, never the
-                # current one; the other rows go to the current slot,
-                # cleared below
-                late_idx = torch.where(ok_late, ((state.tick + d) % D) * n + p, slot_now * n + p)
-                index_amax_(pend[0], late_idx, piggyback)
-                index_amax_(pend[1], late_idx, send_r.to(torch.uint8))
-                index_amax_(pend[2], late_idx, src_r)
-            now_idx = torch.where(ok_now, p, n)
-            index_amax_(buf, now_idx, piggyback)
-            index_amax_(recv_inf, now_idx, send_r.to(torch.uint8))
-            index_amax_(recv_src, now_idx, src_r)
+            _deliver_rows(ctx, state, ok, p, d, piggyback, send_r, src_r, buf, recv_inf, recv_src, pend)
         if spec.wants_pull:
             s_m, r_m = _pull_reply(state, s, p, ok_now, piggyback, rumor_pay, buf, recv_inf, recv_src, NOC)
             sent = sent + s_m
@@ -684,14 +684,10 @@ def _deliver_rows(ctx, state: SimState, ok, p, d, piggyback, send_r, src_r, buf,
     """One fanout slot's messages on a member mesh: each sending row's record
     (its delay, ``piggyback`` row, rumor bits and sources) crosses to its
     receiver's rank in a row exchange per row chunk
-    (:func:`.ragged_a2a.row_exchange`); there an on-time record folds into
-    ``buf`` / ``recv_inf`` / ``recv_src`` and a late one into the rings'
-    slot ``(tick + d) % D`` by the same scatter-max as on one device (the
-    on-time rows into the current slot, cleared after, and the late rows
-    into ``buf``'s spare row, as there)."""
+    (:func:`.ragged_a2a.row_exchange`) and folds in there as on one device
+    (:func:`_fold_rows`)."""
     n, N = state.capacity, _gcap(state)
     R = send_r.shape[1]
-    D = 0 if pend is None else pend[0].shape[0] // n
     keys = _words(piggyback)
     nw = keys.shape[1]
     delay = torch.zeros((n,), dtype=torch.int32, device=state.device) if d is None else d
@@ -704,15 +700,25 @@ def _deliver_rows(ctx, state: SimState, ok, p, d, piggyback, send_r, src_r, buf,
         inf = got[:, 1 + nw:1 + nw + R].to(torch.uint8)
         src = got[:, 1 + nw + R:].contiguous()
         del got
-        now_idx = torch.where(dd == 0, row, n)
-        index_amax_(buf, now_idx, cand)
-        index_amax_(recv_inf, now_idx, inf)
-        index_amax_(recv_src, now_idx, src)
-        if D:
-            late_idx = torch.where(dd > 0, ((state.tick + dd) % D) * n + row, (state.tick % D) * n + row)
-            index_amax_(pend[0], late_idx, cand)
-            index_amax_(pend[1], late_idx, inf)
-            index_amax_(pend[2], late_idx, src)
+        _fold_rows(state, row, dd, cand, inf, src, buf, recv_inf, recv_src, pend)
+
+
+def _fold_rows(state: SimState, row, dd, cand, inf, src, buf, recv_inf, recv_src, pend) -> None:
+    """Messages into their receivers' ``row`` by scatter-max: an on-time one
+    (``dd`` 0) into ``buf`` / ``recv_inf`` / ``recv_src``, a late one into the
+    rings' slot ``(tick + dd) % D``, never the current one. The other rows
+    take ``buf``'s spare row n and the current slot, cleared after."""
+    n = state.capacity
+    now_idx = torch.where(dd == 0, row, n)
+    index_amax_(buf, now_idx, cand)
+    index_amax_(recv_inf, now_idx, inf)
+    index_amax_(recv_src, now_idx, src)
+    if pend is not None:
+        D = pend[0].shape[0] // n
+        late_idx = torch.where(dd > 0, ((state.tick + dd) % D) * n + row, (state.tick % D) * n + row)
+        index_amax_(pend[0], late_idx, cand)
+        index_amax_(pend[1], late_idx, inf)
+        index_amax_(pend[2], late_idx, src)
 
 
 def _pull_reply(state: SimState, s: int, p, ok_now, piggyback, rumor_pay, buf, recv_inf, recv_src, NOC: int):
@@ -729,22 +735,17 @@ def _pull_reply(state: SimState, s: int, p, ok_now, piggyback, rumor_pay, buf, r
     grows32 = grows.to(torch.int32)
     rev_u = fetch_uniform(state.tick, dz.pull_salt(s), grows, p)
     rev_ok = ok_now & (rev_u < (1.0 - _link_at_rows(state.loss, p, grows)))
-    ctx = sharding.active()
+    # the rows without a reply ask for none (-1; on one device the last
+    # row), and what they get is masked out
+    want = torch.where(rev_ok, p, -1)
     for lo, hi in plane_chunks(n, _gcap(state)):
-        if ctx is None:
-            got = piggyback.index_select(0, p[lo:hi])
-        else:
-            got = _rows_at(piggyback, torch.where(rev_ok[lo:hi], p[lo:hi], -1))
+        got = _rows_at(piggyback, want[lo:hi])
         got.masked_fill_(~rev_ok[lo:hi, None], NOC)
         maximum_into_(buf[lo:hi], buf[lo:hi], got)
         del got
-    if ctx is None:
-        pay_p, from_p = rumor_pay[p], state.infected_from[p]
-    else:
-        R = rumor_pay.shape[1]
-        small = _rows_at(torch.cat([rumor_pay.to(torch.int32), state.infected_from], dim=1),
-                         torch.where(rev_ok, p, -1))
-        pay_p, from_p = small[:, :R].bool(), small[:, R:]
+    R = rumor_pay.shape[1]
+    small = _rows_at(torch.cat([rumor_pay.to(torch.int32), state.infected_from], dim=1), want)
+    pay_p, from_p = small[:, :R].bool(), small[:, R:]
     reply_r = (
         pay_p
         & (from_p != grows32[:, None])
@@ -766,129 +767,37 @@ def _sync_phase(state: SimState, r: RoundRandoms, params: SimParams, adaptive: b
     caller's. ``adaptive`` adds the accepted SUSPECT records of both
     directions as confirmation evidence; slots naming one peer recompute
     the same row, so the request side counts the first slot per peer.
-    ``trace`` adds the compacted callers' outcomes (``trace_sync``)."""
-    n = state.capacity
+    ``trace`` adds the compacted callers' outcomes (``trace_sync``).
+
+    On a member mesh the callers are compacted over all N rows (the
+    gathered ``due`` flags), so every rank runs the same K slots: the
+    callers' and peers' [K, N] rows are fetched from their ranks (never the
+    whole plane), the link cells are point reads, the draws the full
+    blocks' callers' rows, and each rank writes the merged rows it holds.
+    The K slots are the same on every rank, so the count is global."""
+    N = _gcap(state)
     dev = state.device
     NOC = _noc(params)
-    rows = _rows(state)
-    cols = rows[None, :]
-    K = min(n, params.sync_slots or (n // params.sync_every + 32))
-    due = ((state.tick + rows * params.sync_stagger) % params.sync_every) == 0
-    due = (due | state.force_sync) & state.up
-    caller = nonzero_fixed(due, K, n)
-    valid_c = caller < n
-    caller = caller.clamp(max=n - 1)
-
-    vk, ca = state.view_key, state.changed_at
-    caller_tables = vk[caller]  # [K, N]
-    cand = (caller_tables & 3) != RANK_DEAD
-    if params.seed_rows:
-        seeds = _seed_rows_tensor(tuple(params.seed_rows), dev).long()
-        cand |= torch.zeros((n,), dtype=torch.bool, device=dev).index_fill_(0, seeds, True)[None, :]
-    cand &= cols != caller[:, None]
-    u = r.sync_sel[caller][:, None]
-    if _packed(params):
-        peer_idx, peer_valid = _sample_distinct_words(bp.pack_bits(cand), n, u)
-    else:
-        peer_idx, peer_valid = _sample_distinct(cand, u)
-    peer = peer_idx[:, 0].long()
-    p_rt = _rt_at(state, caller, peer)
-    if params.delay_slots:
-        p_rt = p_rt * _timely_rt(_delay_q_at(state, caller, peer), _delay_q_at(state, peer, caller),
-                                 params.sync_timeout_ticks)
-    ok = valid_c & peer_valid[:, 0] & state.up[peer] & (r.sync_edge[caller] < p_rt)
-    dense_rt = state.fetch_rt.dim() != 0
-
-    # SYNC request: each peer row merges the max of its callers' rows; slots
-    # naming one peer compute the same row, so the row write is exact
-    own_p = vk[peer]
-    dup_to_first = first_true(peer[:, None] == peer[None, :], 1)
-    merged = caller_tables.new_full((K, n), NOC)
-    index_amax_(merged, dup_to_first, caller_tables.masked_fill(~ok[:, None], NOC))
-    buf_p = torch.maximum(own_p, merged[dup_to_first])
-    acc = (
-        (buf_p > own_p)
-        & ((own_p >= 0) | ((buf_p & 3) <= RANK_LEAVING))
-        & state.up[peer][:, None]
-        & _fetch_gate(state, SALT_SYNC_REQ, peer[:, None], cols, buf_p,
-                      state.fetch_rt[peer] if dense_rt else state.fetch_rt, state.up)
-    )
-    if params.namespace_gate:
-        acc &= state.ns_rel[state.ns_id[peer][:, None].long(), state.ns_id[None, :].long()]
-    index_amax_(vk, peer, torch.where(acc, buf_p, own_p))
-    index_amax_(ca, peer, torch.where(acc, state.tick, NEVER).to(torch.int32))
-    if adaptive:
-        karange = torch.arange(K, device=dev)
-        peer_eff = torch.where(ok, peer, -1 - karange)
-        first_p = ok & (first_true(peer_eff[:, None] == peer_eff[None, :], 1) == karange)
-        m_req = acc & first_p[:, None] & ((buf_p & 3) == RANK_SUSPECT)
-        req_key = torch.where(m_req, buf_p.to(torch.int32), NO_CANDIDATE_I32).amax(dim=0)
-        ad_cnt = m_req.sum(dim=0, dtype=torch.int32)
-        del m_req
-
-    # SYNC_ACK: the peer's merged row back into the caller's
-    ack_cand = vk[peer].masked_fill(~ok[:, None], NOC)
-    own_rows = vk[caller]
-    accept = (
-        (ack_cand > own_rows)
-        & ((own_rows >= 0) | ((ack_cand & 3) <= RANK_LEAVING))
-        & state.up[caller][:, None]
-        & _fetch_gate(state, SALT_SYNC_ACK, caller[:, None], cols, ack_cand,
-                      state.fetch_rt[caller] if dense_rt else state.fetch_rt, state.up)
-    )
-    if params.namespace_gate:
-        accept &= state.ns_rel[state.ns_id[caller][:, None].long(), state.ns_id[None, :].long()]
-    index_amax_(vk, caller, torch.where(accept, ack_cand, own_rows))
-    index_amax_(ca, caller, torch.where(accept, state.tick, NEVER).to(torch.int32))
-
-    # a joiner's bootstrap SYNC retries every tick until a round trip lands
-    ok_full = scatter_reduce_1d(n, caller, ok, "amax", 0, torch.int32) > 0
-    state = state.replace(force_sync=state.force_sync & ~ok_full)
-    metrics = {"sync_roundtrips": _i32(ok)}
-    if adaptive:
-        m_ack = accept & ((ack_cand & 3) == RANK_SUSPECT)
-        metrics["_ad_cnt"] = ad_cnt + m_ack.sum(dim=0, dtype=torch.int32)
-        metrics["_ad_key"] = torch.maximum(
-            req_key, torch.where(m_ack, ack_cand.to(torch.int32), NO_CANDIDATE_I32).amax(dim=0)
-        )
-    if trace:
-        metrics["trace_sync"] = _sync_trace(
-            caller, valid_c, peer, ok, acc.sum(dim=1, dtype=torch.int32), accept.sum(dim=1, dtype=torch.int32)
-        )
-    return state, metrics
-
-
-def _sync_phase_sharded(state: SimState, r: RoundRandoms, params: SimParams):
-    """:func:`_sync_phase` on a member mesh. The due callers are compacted
-    over all N rows (the gathered ``due`` flags), so every rank runs the
-    same K slots: the callers' and peers' [K, N] rows are fetched from
-    their ranks (never the whole plane), the link cells are point reads,
-    the draws the full blocks' callers' rows, and each rank writes the
-    merged rows it holds. The same cells as one device."""
-    ctx = sharding.active()
-    n = ctx.n
-    dev = state.device
-    NOC = _noc(params)
-    cols = torch.arange(n, device=dev)[None, :]
-    rd = ctx.draws[1]
-    K = min(n, params.sync_slots or (n // params.sync_every + 32))
+    cols = torch.arange(N, device=dev)[None, :]
+    rf = _full_draws(r)
+    K = min(N, params.sync_slots or (N // params.sync_every + 32))
     due = ((state.tick + _grows(state) * params.sync_stagger) % params.sync_every) == 0
-    due = ctx.full((due | state.force_sync) & state.up)
-    caller = nonzero_fixed(due, K, n)
-    valid_c = caller < n
-    caller = caller.clamp(max=n - 1)
-    up_all = ctx.full(state.up)
+    due = _full((due | state.force_sync) & state.up)
+    caller = nonzero_fixed(due, K, N)
+    valid_c = caller < N
+    caller = caller.clamp(max=N - 1)
+    up_all = _full(state.up)
 
     vk, ca = state.view_key, state.changed_at
     caller_tables = _rows_at(vk, caller)  # [K, N]
     cand = (caller_tables & 3) != RANK_DEAD
     if params.seed_rows:
         seeds = _seed_rows_tensor(tuple(params.seed_rows), dev).long()
-        cand |= torch.zeros((n,), dtype=torch.bool, device=dev).index_fill_(0, seeds, True)[None, :]
+        cand |= torch.zeros((N,), dtype=torch.bool, device=dev).index_fill_(0, seeds, True)[None, :]
     cand &= cols != caller[:, None]
-    u = rd.sync_sel[caller][:, None]
+    u = rf.sync_sel[caller][:, None]
     if _packed(params):
-        peer_idx, peer_valid = _sample_distinct_words(bp.pack_bits(cand), n, u)
+        peer_idx, peer_valid = _sample_distinct_words(bp.pack_bits(cand), N, u)
     else:
         peer_idx, peer_valid = _sample_distinct(cand, u)
     peer = peer_idx[:, 0].long()
@@ -896,15 +805,16 @@ def _sync_phase_sharded(state: SimState, r: RoundRandoms, params: SimParams):
     if params.delay_slots:
         p_rt = p_rt * _timely_rt(_link_at_rows(state.delay_q, caller, peer), _link_at_rows(state.delay_q, peer, caller),
                                  params.sync_timeout_ticks)
-    ok = valid_c & peer_valid[:, 0] & up_all[peer] & (rd.sync_edge[caller] < p_rt)
+    ok = valid_c & peer_valid[:, 0] & up_all[peer] & (rf.sync_edge[caller] < p_rt)
     dense_rt = state.fetch_rt.dim() != 0
     rt_rows = _rows_at(state.fetch_rt, torch.cat([peer, caller])) if dense_rt else None
-    ns_all = ctx.full(state.ns_id) if params.namespace_gate else None
+    ns_all = _full(state.ns_id) if params.namespace_gate else None
 
-    # SYNC request: each peer row merges the max of its callers' rows
+    # SYNC request: each peer row merges the max of its callers' rows; slots
+    # naming one peer compute the same row, so the row write is exact
     own_p = _rows_at(vk, peer)
     dup_to_first = first_true(peer[:, None] == peer[None, :], 1)
-    merged = caller_tables.new_full((K, n), NOC)
+    merged = caller_tables.new_full((K, N), NOC)
     index_amax_(merged, dup_to_first, caller_tables.masked_fill(~ok[:, None], NOC))
     del caller_tables
     buf_p = torch.maximum(own_p, merged[dup_to_first])
@@ -920,6 +830,15 @@ def _sync_phase_sharded(state: SimState, r: RoundRandoms, params: SimParams):
         acc &= state.ns_rel[ns_all[peer][:, None].long(), ns_all[None, :].long()]
     _write_rows_amax_(vk, peer, torch.where(acc, buf_p, own_p), NOC)
     _write_rows_amax_(ca, peer, torch.where(acc, state.tick, NEVER).to(torch.int32), NEVER)
+    if adaptive:
+        karange = torch.arange(K, device=dev)
+        peer_eff = torch.where(ok, peer, -1 - karange)
+        first_p = ok & (first_true(peer_eff[:, None] == peer_eff[None, :], 1) == karange)
+        m_req = acc & first_p[:, None] & ((buf_p & 3) == RANK_SUSPECT)
+        req_key = torch.where(m_req, buf_p.to(torch.int32), NO_CANDIDATE_I32).amax(dim=0)
+        ad_cnt = m_req.sum(dim=0, dtype=torch.int32)
+        del m_req
+    req_n = acc.sum(dim=1, dtype=torch.int32) if trace else None
     del buf_p, own_p, acc
 
     # SYNC_ACK: the peer's merged row back into the caller's
@@ -940,10 +859,18 @@ def _sync_phase_sharded(state: SimState, r: RoundRandoms, params: SimParams):
     _write_rows_amax_(ca, caller, torch.where(accept, state.tick, NEVER).to(torch.int32), NEVER)
 
     # a joiner's bootstrap SYNC retries every tick until a round trip lands
-    ok_full = scatter_reduce_1d(n, caller, ok, "amax", 0, torch.int32) > 0
-    state = state.replace(force_sync=state.force_sync & ~ctx.mine(ok_full))
-    # the K slots are the same on every rank: the count is global already
-    return state, {"sync_roundtrips": _i32(ok)}
+    ok_full = scatter_reduce_1d(N, caller, ok, "amax", 0, torch.int32) > 0
+    state = state.replace(force_sync=state.force_sync & ~_mine(ok_full))
+    metrics = {"sync_roundtrips": _i32(ok)}
+    if adaptive:
+        m_ack = accept & ((ack_cand & 3) == RANK_SUSPECT)
+        metrics["_ad_cnt"] = ad_cnt + m_ack.sum(dim=0, dtype=torch.int32)
+        metrics["_ad_key"] = torch.maximum(
+            req_key, torch.where(m_ack, ack_cand.to(torch.int32), NO_CANDIDATE_I32).amax(dim=0)
+        )
+    if trace:
+        metrics["trace_sync"] = _sync_trace(caller, valid_c, peer, ok, req_n, accept.sum(dim=1, dtype=torch.int32))
+    return state, metrics
 
 
 def _refute_phase(state: SimState):
@@ -1102,10 +1029,7 @@ def tick(state: SimState, fd_r, round_r: RoundRandoms, params: SimParams, trace=
     with _phase(timer, "gossip"):
         state, g_m = _gossip_phase(state, round_r, params, busy, adaptive=armed)
     with _phase(timer, "sync"):
-        if ctx is None:
-            state, s_m = _sync_phase(state, round_r, params, adaptive=armed, trace=traced)
-        else:
-            state, s_m = _sync_phase_sharded(state, round_r, params)
+        state, s_m = _sync_phase(state, round_r, params, adaptive=armed, trace=traced)
     with _phase(timer, "refute"):
         state, refuted = _refute_phase(state)
     with _phase(timer, "sweep"):

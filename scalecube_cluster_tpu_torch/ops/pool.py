@@ -44,16 +44,7 @@ def _need_and_cover(state):
     return need_m, cov_m
 
 
-def zero_columns(minf_age, cols, owned: bool):
-    """``minf_age`` with the pool columns ``cols`` zeroed: in place when
-    ``owned`` (the caller's tick made the plane, which no caller of the
-    window holds), else a new plane."""
-    if owned:
-        return minf_age.masked_fill_(cols[None, :], 0)
-    return minf_age.masked_fill(cols[None, :], 0)
-
-
-def allocate(state, subj_p, key_p, orig_p, got, prio, owned: bool = False):
+def allocate(state, subj_p, key_p, orig_p, got, prio):
     """Allocate/supersede membership rumors for E compacted proposals.
 
     Pool invariant: active slots carry unique subjects. A proposal about an
@@ -63,9 +54,6 @@ def allocate(state, subj_p, key_p, orig_p, got, prio, owned: bool = False):
     finds no free slot evicts the active rumor with the fewest
     still-uncovered needing members (ties to the lowest slot), among slots
     with a covered majority.
-
-    ``owned``: the caller's tick made ``state.minf_age`` itself (no caller
-    of the window holds it), so its columns are cleared and set in place.
 
     Returns (state, allocated_count, no_slot_mask, evicted_count)."""
     E = subj_p.shape[0]
@@ -134,7 +122,7 @@ def allocate(state, subj_p, key_p, orig_p, got, prio, owned: bool = False):
     # through an index copies it from the host, which waits for the device
     clear = torch.zeros((M + E,), dtype=torch.bool, device=dev)
     clear.index_fill_(0, clear_slot, True)
-    age = zero_columns(state.minf_age, clear[:M], owned)
+    age = state.minf_age.masked_fill(clear[None, :M], 0)
     if D and (need_any or replace_any):
         keep_columns_(state.pending_minf, ~clear[:M])
     # on a member mesh, the origin's cell on the rank that holds its row
@@ -175,11 +163,10 @@ _ALLOC_METRICS = (
 )
 
 
-def alloc_phase(state, proposals, params, owned: bool = False):
+def alloc_phase(state, proposals, params):
     """Turn the tick's accepted-change proposals — (subject, key, origin,
     valid) from FD verdicts, suspicion expiries, refutations and SYNC
-    re-gossip, in that order — into new membership rumors. ``owned``: as
-    :func:`allocate`'s."""
+    re-gossip, in that order — into new membership rumors."""
     E = params.announce_slots
     ctx = _shard()
     n = state.capacity if ctx is None else ctx.n  # the proposals name global rows
@@ -207,7 +194,7 @@ def alloc_phase(state, proposals, params, owned: bool = False):
     idx = idx.clamp(max=L - 1)
     prio = got & (idx < int(seg_ends[2]))
     st, allocated, no_slot, evicted = allocate(
-        state, subject[idx], key[idx], origin[idx], got, prio=prio, owned=owned
+        state, subject[idx], key[idx], origin[idx], got, prio=prio
     )
     rank = torch.cumsum(valid, 0) - 1
     over = valid & (rank >= E)

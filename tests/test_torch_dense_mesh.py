@@ -7,8 +7,9 @@ and driver of ``ops/sharding.py``; every rank returns the whole state
 for bit, the one-process port on the same draws, and the JAX package's
 single-device tick fed the same key chain (the two f32 metrics against JAX
 within 2 ulp, as every dense parity test holds them): with and without
-the delay rings, with i16 keys, with the push-pull reply leg, with dense
-and scalar links, and over several row chunks. The scenario puts its
+the delay rings, with i16 keys, with the push-pull reply leg, with the
+structured peer selections, with the namespace gate, with dense and
+scalar links, and over several row chunks. The scenario puts its
 rumors, crashes, a join and a leave on the rank boundaries. Held against
 JAX's ``tests/test_sharding.py`` (sharded = one device, with delay, the
 capacity rule), ``test_dcn.py`` (``make_global_state`` then
@@ -54,7 +55,15 @@ CASES = {
     "push_pull": ({"dissem": DissemSpec(strategy="push_pull")}, True, 0.0, None),
     "scalar": ({}, False, 0.0, None),
     "chunks": ({"delay_slots": 4, "dissem": DissemSpec(strategy="push_pull")}, True, 1.5, 16 * N),
+    # structured peer selection over all N rows, the deterministic chords
+    # and the drawn ones, each rank keeping its rows' picks
+    "ring": ({"dissem": DissemSpec(strategy="accelerated", topology="ring")}, True, 0.0, None),
+    "tuneable": ({"dissem": DissemSpec(strategy="tuneable", topology="expander", tuneable_mix=0.5)}, True, 0.0,
+                 None),
+    # the gossip and SYNC gates on the gathered namespace ids
+    "namespaces": ({"namespace_gate": True, "sync_every": 4}, True, 0.0, None),
 }
+_NAMESPACES = ("a", "a/x", "a/y", "b")
 # the mutation batch before window 1, on the 2- and 4-rank boundaries
 MUTATE = {1: [("crash_rows", ([63, 96],)), ("join_row", (121, (0, 1))), ("begin_leave", (33,)),
               ("spread_rumor", (2, 95))]}
@@ -77,6 +86,8 @@ def _lane(request, world: int):
 
 
 def _start(mod, params, dense_links: bool, delay: float, **kw):
+    if params.namespace_gate:
+        kw["namespaces"] = [_NAMESPACES[r % 4] for r in range(params.capacity)]
     st = mod.init_state(params, N_INITIAL, warm=True, dense_links=dense_links, uniform_delay=delay, **kw)
     if dense_links:
         st = mod.set_uniform_loss(st, 0.05)
