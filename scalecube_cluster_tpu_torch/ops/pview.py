@@ -111,7 +111,7 @@ from .lattice import (
     key_dtype,
     precedence_key,
 )
-from .pool import alloc_phase, allocate, zero_columns
+from .pool import alloc_phase, allocate
 from .sharding import active as _shard
 from .sharding import unsharded as _unsharded
 from .rand import (
@@ -1083,7 +1083,7 @@ AGE_CHUNKS = 8
 
 
 def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewParams,
-                        adaptive: bool = False, minf_owned: bool = False):
+                        adaptive: bool = False):
     """Infection-style dissemination, fused: aging + packing of the
     membership planes, active-view peer sampling, the per-fanout-slot
     inverse-sender election, the delivery combine (:mod:`.delivery` — the
@@ -1092,8 +1092,7 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
     ``params.dissem`` swaps in the strategy's circulant peers, its user-
     rumor budget and, for ``push_pull``, the reply leg
     (:func:`._tick.pull_replies`); the kernel sees only their ``inv``.
-    ``adaptive`` adds the membership apply's confirmation evidence;
-    ``minf_owned``: the window made ``state.minf_age``, so it ages in place.
+    ``adaptive`` adds the membership apply's confirmation evidence.
 
     On a mesh the delivery is the ragged record exchange
     (:mod:`.ragged_a2a`; no kernel launch), and the metrics carry its
@@ -1136,21 +1135,17 @@ def _gossip_phase_fused(state: PviewState, r: SparseRoundRandoms, params: PviewP
     if bmask is not None:
         young_u &= bmask[None, :]
     if mr_any:
-        # [N, M] u8 planes are 2 GiB each at a million rows: age the plane
-        # over row chunks, each chunk's masks packed as it goes, in place
-        # when the window's previous tick made it (``minf_owned``), else
-        # into the one new plane (the caller may still hold the input)
-        age = state.minf_age if minf_owned else torch.empty_like(state.minf_age)
+        # [N, M] u8 planes are 2 GiB each at a million rows: age into one
+        # new plane (the caller may still hold the input) over row chunks,
+        # each chunk's masks packed as it goes
+        age = torch.empty_like(state.minf_age)
         fwd_p = torch.empty((n, W), dtype=torch.int32, device=dev)
         zero_p = torch.empty((n, W), dtype=torch.int32, device=dev)
         step = -(-n // AGE_CHUNKS)
         for lo in range(0, n, step):
             hi = min(n, lo + step)
             a = age[lo:hi]
-            if minf_owned:
-                a.clamp_(max=254)
-            else:
-                a.copy_(state.minf_age[lo:hi].clamp(max=254))
+            a.copy_(state.minf_age[lo:hi].clamp(max=254))
             a += a > 0
             # 0 < age <= spread in one uint8 compare: age 0 wraps to 255
             fwd_p[lo:hi] = pack_bits((a - 1) < min(spread, 255))
@@ -1477,11 +1472,10 @@ def _refute_phase(state: PviewState, params: PviewParams):
     return state.replace(self_key=new_diag), (rows, new_diag, rows, eff)
 
 
-def _rumor_sweeps_fused(state: PviewState, params: PviewParams, fwd_post_p, owned: bool = False) -> PviewState:
+def _rumor_sweeps_fused(state: PviewState, params: PviewParams, fwd_post_p) -> PviewState:
     """Slot reclamation with the static windows (P2). The membership
     forwarding test reads the packed forwarding plane the gossip phase
-    handed over, OR-reduced over the up rows. ``owned``: the tick made
-    ``state.minf_age`` itself, so the freed columns clear in place."""
+    handed over, OR-reduced over the up rows."""
     sweep = params.sweep_ticks
     m = params.mr_pool
     keep_u = (state.tick - state.rumor_created) <= sweep
@@ -1518,7 +1512,7 @@ def _rumor_sweeps_fused(state: PviewState, params: PviewParams, fwd_post_p, owne
     return state.replace(
         mr_active=keep_m,
         mr_subject=torch.where(freed, -1, state.mr_subject),
-        minf_age=zero_columns(state.minf_age, freed, owned),
+        minf_age=state.minf_age.masked_fill(freed[None, :], 0),
     )
 
 
@@ -1554,7 +1548,7 @@ _ROW_SUMS = _FD_METRICS + ("gossip_msgs", "rumor_deliveries", "mr_deliveries", "
 
 
 def pview_tick_fused(state: PviewState, fd_r, round_r: SparseRoundRandoms, params: PviewParams,
-                     ad=None, trace=None, timer=None, minf_owned: bool = False):
+                     ad=None, trace=None, timer=None):
     """One gossip period for all N members (the JAX ``pview_tick_fused``):
     FD → maintenance sweep → gossip → SYNC → refute → rumor sweeps → pool
     allocation → metrics. ``fd_r`` is read only on FD ticks
@@ -1564,11 +1558,7 @@ def pview_tick_fused(state: PviewState, fd_r, round_r: SparseRoundRandoms, param
     (a TraceSpec) adds the ``_trace_rows`` record block the JAX unfused
     tick builds (the fused phases compute the same state, and the records
     need only the per-row accept counts the compact SYNC merge returns);
-    ``timer`` scopes each phase for the phase-split profiler.
-    ``minf_owned``: an earlier tick of the window made ``state.minf_age``
-    (:func:`window_ticks`), so no caller holds it and the tick updates it
-    in place; otherwise the tick makes its own [N, M] plane once and
-    updates that in place."""
+    ``timer`` scopes each phase for the phase-split profiler."""
     armed = ad is not None
     traced = trace is not None
     if armed and traced:
@@ -1577,7 +1567,6 @@ def pview_tick_fused(state: PviewState, fd_r, round_r: SparseRoundRandoms, param
         raise ValueError("adaptive tick needs an enabled AdaptiveSpec on params")
     state = state.replace(tick=state.tick + 1)
     n = state.capacity
-    minf_in = state.minf_age
     fd_ran = state.tick % params.fd_every == 0
     with _phase(timer, "fd"):
         if fd_ran:
@@ -1599,7 +1588,7 @@ def pview_tick_fused(state: PviewState, fd_r, round_r: SparseRoundRandoms, param
         else:
             state, props_exp = _maintenance_sweep(state, params, keys_h, ad=ad)
     with _phase(timer, "gossip"):
-        state, g_m, fwd_post_p = _gossip_phase_fused(state, round_r, params, adaptive=armed, minf_owned=minf_owned)
+        state, g_m, fwd_post_p = _gossip_phase_fused(state, round_r, params, adaptive=armed)
     ctx = _shard()
     with _phase(timer, "sync"):
         if ctx is None:
@@ -1608,15 +1597,11 @@ def pview_tick_fused(state: PviewState, fd_r, round_r: SparseRoundRandoms, param
             state, props_sync, s_m = _sync_phase_sharded(state, params, adaptive=armed, trace=traced)
     with _phase(timer, "refute"):
         state, props_ref = _refute_phase(state, params)
-    # the [N, M] plane the gossip phase aged is the window's own: the sweep
-    # and the pool clear its columns in place (the caller may hold the input)
-    owned = minf_owned or state.minf_age is not minf_in
-    del minf_in
     with _phase(timer, "sweep"):
-        state = _rumor_sweeps_fused(state, params, fwd_post_p, owned)
+        state = _rumor_sweeps_fused(state, params, fwd_post_p)
     with _phase(timer, "alloc"):
         state, a_m = alloc_phase(state, (*map(_global_props, (props_fd, props_exp, props_ref)), props_sync),
-                                 params, owned=owned)
+                                 params)
     trace_fd = fd_m.pop("trace_fd", None)
     trace_sync = s_m.pop("trace_sync", None)
     with _phase(timer, "telemetry"):
@@ -1648,24 +1633,6 @@ def pview_tick_fused(state: PviewState, fd_r, round_r: SparseRoundRandoms, param
     return state, metrics
 
 
-def window_ticks(tick=None):
-    """The tick of ONE window (``tick``: :func:`pview_tick_fused` or the
-    sharded tick that calls it): from its second tick on, the [N, M]
-    ``minf_age`` plane the previous tick of the window made is updated in
-    place (``minf_owned``), so a window holds the caller's plane and its
-    own, not a third."""
-    tick = tick or pview_tick_fused
-    made = []
-
-    def step(state, fd_r, round_r, params, **kw):
-        owned = bool(made) and state.minf_age is made[0]
-        out = tick(state, fd_r, round_r, params, minf_owned=owned, **kw)
-        made[:] = [out[0].minf_age]
-        return out
-
-    return step
-
-
 def run_pview_ticks_fused(state: PviewState, draws, n_ticks: int, params: PviewParams,
                           watch_rows=None):
     """Run ``n_ticks`` fused ticks (:func:`._tick.run_window`: ``draws`` is
@@ -1673,7 +1640,7 @@ def run_pview_ticks_fused(state: PviewState, draws, n_ticks: int, params: PviewP
     round)`` draw pairs). Returns ``(state, metrics stacked to [n_ticks],
     watched)``; ``watched`` is the [n_ticks, W, N] synthesized key rows of
     ``watch_rows`` after each tick, or None."""
-    return run_window(window_ticks(), view_rows, draw_sparse_tick, state, draws, n_ticks, params, watch_rows)
+    return run_window(pview_tick_fused, view_rows, draw_sparse_tick, state, draws, n_ticks, params, watch_rows)
 
 
 def make_pview_fused_run(params: PviewParams, n_ticks: int):
@@ -1700,7 +1667,7 @@ def run_pview_ticks_traced(state: PviewState, ring, draws, n_ticks: int, params:
     """Trace-armed :func:`run_pview_ticks`: each tick's record block is
     appended in place to ``ring`` at its host cursor; the trajectory is the
     unarmed window's. Returns ``(state, metrics, watched)``."""
-    return run_window(window_ticks(), view_rows, draw_sparse_tick, state, draws, n_ticks, params, watch_rows,
+    return run_window(pview_tick_fused, view_rows, draw_sparse_tick, state, draws, n_ticks, params, watch_rows,
                       trace=trace, ring=ring)
 
 
@@ -1736,7 +1703,7 @@ def run_pview_ticks_adaptive(state: PviewState, ad, draws, n_ticks: int, params:
                              watch_rows=None):
     """:func:`run_pview_ticks_fused` with the adaptive plane ``ad`` threaded
     through the window. Returns ``(state, ad, metrics, watched)``."""
-    return run_window(window_ticks(), view_rows, draw_sparse_tick, state, draws, n_ticks, params,
+    return run_window(pview_tick_fused, view_rows, draw_sparse_tick, state, draws, n_ticks, params,
                       watch_rows, ad=ad)
 
 

@@ -501,12 +501,12 @@ def _builder_checks(mesh, params, budget) -> None:
 
 def _window(mesh, params, n_ticks: int, budget, **kw):
     from ._tick import run_window
-    from .pview import view_rows, window_ticks
+    from .pview import view_rows
     from .rand import draw_sparse_tick
 
     def run(state, draws, watch_rows=None, ad=None, ring=None):
         with ragged_delivery_context(mesh, params.capacity, budget):
-            return run_window(window_ticks(_sharded_tick), view_rows, draw_sparse_tick, state, draws, n_ticks,
+            return run_window(_sharded_tick, view_rows, draw_sparse_tick, state, draws, n_ticks,
                               params, watch_rows, ad=ad, ring=ring, **kw)
 
     return run
