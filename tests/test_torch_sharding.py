@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -366,3 +367,32 @@ def test_draws_every_rank_shares():
         for f in dataclasses.fields(x):
             assert torch.equal(getattr(x, f.name), getattr(y, f.name))
             assert getattr(x, f.name).shape[0] == N
+
+
+@pytest.mark.parametrize("engine", ["dense", "pview"])
+@pytest.mark.parametrize("dense_links", [True, False])
+@pytest.mark.parametrize("delay_slots", [0, 4])
+def test_engine_state_shardings_match_jax(engine, dense_links, delay_slots):
+    """Each engine descriptor's ``state_shardings`` tags every leaf as JAX's
+    places it: a spec led by the member axis is a row split, one with the
+    member axis second a ring split on dim 1, an empty one replicated;
+    what JAX refuses, the port refuses."""
+    from scalecube_cluster_tpu.ops import engine_api as JEA
+    from scalecube_cluster_tpu_torch.ops import engine_api as TEA
+
+    mesh = JSH.make_mesh(jax.devices()[:1])
+    try:
+        ref = JEA.engine(engine).state_shardings(mesh, dense_links, delay_slots)
+    except ValueError as exc:
+        # pview has no dense link planes: both refuse them alike
+        with pytest.raises(ValueError, match=re.escape(str(exc))):
+            TEA.engine(engine).state_shardings(None, dense_links, delay_slots)
+        return
+    got = TEA.engine(engine).state_shardings(None, dense_links, delay_slots)
+    names = [f.name for f in dataclasses.fields(ref)]
+    assert names == [f.name for f in dataclasses.fields(got)]
+    for name in names:
+        spec = tuple(getattr(ref, name).spec)
+        want = (TSH.ROW if spec[:1] == (TSH.MEMBER_AXIS,) else
+                TSH.RING if spec[1:2] == (TSH.MEMBER_AXIS,) else TSH.REPLICATED)
+        assert getattr(got, name) == want, (engine, name, spec)
