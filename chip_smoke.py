@@ -333,9 +333,26 @@ passes:
    ms/tick sharded vs unsharded and the peak,
    stamped with the card's name and power limit. ``python3 chip_smoke.py
    --mesh-dense-only`` runs the build and phase 49 alone.
+50. mesh-sparse — the sparse engine on a member mesh, on the same group
+   (run after phase 49): config5's churn at its published width
+   (``benchmarks/config5_churn.py: sparse_main --n 49152``: a 3,072-slot
+   pool, scalar links, 1% churn per simulated second of 5 ticks) for
+   ``MESH_SPARSE_SECONDS``, as a window pair (``make_sharded_sparse_run``
+   against ``make_sparse_run``, each second's crashes and joins through
+   the gathered state) and as a driver pair (``SimDriver(mesh=)`` against
+   ``SimDriver``, the same churn through the driver's host-mutation path),
+   then config3's delay run (sparse lean, 1,024 members, loss 0.05, mean
+   delay 1.5, D = 6) for ``MESH_SPARSE_DELAY_TICKS``: every leaf, metric,
+   readback and telemetry row bit-equal, 0 delivery-kernel launches on
+   the sharded paths and > 0 on the unsharded ones (counted), the
+   delivery and exact exchanges' bytes per tick, ms/tick sharded vs
+   unsharded, and the sharded window's peak over its state gated by the
+   sparse ``memory_factor``, stamped with the card's name and power
+   limit. ``python3 chip_smoke.py --mesh-sparse-only`` runs the build and
+   phase 50 alone.
 
-The dense paths launch no hand-written kernel; their launch counts
-stand in the kernels line as measured. Every path's count is zeroed just
+The dense paths and every member-mesh path launch no hand-written
+kernel; their launch counts stand in the kernels line as measured. Every path's count is zeroed just
 before it runs and read just after, in the worker processes too.
 
 Order of the run: phases 1-3; then one pool of 8 worker processes on the
@@ -351,6 +368,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -4606,82 +4624,104 @@ def dense_mesh_draws(params, ticks: int, device, seed: int) -> list:
     return [PR.draw_dense_tick(gen, params, (t + 1) % params.fd_every == 0) for t in range(ticks)]
 
 
-def dense_mesh_pair(device, mesh, label: str, params, start, segments) -> dict:
-    """The dense sharded window against the unsharded one from copies of
-    ``start`` over the same full draws. ``segments`` is a list of ``(ticks,
-    mutation or None)``: the mutation (``state -> state``) runs before its
-    segment, on the sharded side on the gathered state re-sharded (the
-    driver's host path). In each segment tick 1 runs untimed (it grows the
-    allocator's pools) and the rest are timed. Every leaf, metric and
-    telemetry row must be bit-equal, and neither side may launch the
-    delivery kernel. Returns the ms/tick of each side by segment, the
-    sharded side's exchange bytes per tick and its peak, and for each
-    segment the DEAD cells at its end, its last alive-view fraction and
-    its lowest."""
-    from scalecube_cluster_tpu_torch.ops import delivery, ragged_a2a
-    from scalecube_cluster_tpu_torch.ops import kernel as K
+def mesh_pair(device, mesh, label: str, engine: str, params, start, segments, gate_memory: bool = False) -> dict:
+    """An engine's sharded window against its unsharded one from copies of
+    ``start`` over the same full draws (``engine``: "dense" or "sparse").
+    ``segments`` is a list of ``(ticks, mutation or None)``: the mutation
+    (``state -> state``) runs before its segment, on the sharded side on
+    the gathered state re-sharded (the driver's host path). In each
+    segment tick 1 runs untimed (it grows the allocator's pools) and the
+    rest are timed. Every leaf, metric and telemetry row must be
+    bit-equal; the sharded window may not launch the delivery kernel, and
+    the unsharded one launches it on the sparse engine (every gossip tick)
+    and not on the dense one. ``gate_memory``: the sharded window's peak
+    over its state (each segment's ticks, the host mutation before them
+    left out) must stay within the engine's declared memory factor.
+    Returns the ms/tick of each side by segment, the sharded side's exact
+    exchanges' bytes per tick, its peak and its window ratio, the
+    launches, and for each segment the DEAD cells at its end, its last
+    alive-view fraction and its lowest."""
+    from scalecube_cluster_tpu_torch.audit.programs import tree_bytes
+    from scalecube_cluster_tpu_torch.ops import delivery, engine_api, ragged_a2a
     from scalecube_cluster_tpu_torch.ops import sharding as SH
 
-    draws = [dense_mesh_draws(params, t, device, seed=40 + i) for i, (t, _) in enumerate(segments)]
+    eng = engine_api.engine(engine)
+    draw = dense_mesh_draws if engine == "dense" else mesh_draws
+    draws = [draw(params, t, device, seed=40 + i) for i, (t, _) in enumerate(segments)]
 
     def run(make, st, sharded):
-        walls, mss, ends = [], [], []
+        walls, mss, ends, above, peaks = [], [], [], [], []
         for (ticks, mutate), dr in zip(segments, draws):
             if mutate is not None:
-                st = SH.shard_state(mutate(SH.gather_state(st, mesh)), mesh) if sharded else mutate(st)
+                st = eng.shard_state(mutate(eng.gather_state(st, mesh)), mesh) if sharded else mutate(st)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             st, first, _ = make(1)(st, dr[:1])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             st, rest, _ = make(ticks - 1)(st, dr[1:])
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) / (ticks - 1) * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated())
+            above.append(peaks[-1] - base)
             mss.append({k: torch.cat([first[k], rest[k]]) for k in first})
             if not sharded:
                 alive = mss[-1]["alive_view_fraction"]
-                ends.append((int(((st.view_key & 3) == 3).sum()), float(alive[-1]), float(alive.min())))
-        return st, mss, walls, ends
+                dead = (st.view_key >= 0) & ((st.view_key & 3) == 3)
+                ends.append((int(dead.sum()), float(alive[-1]), float(alive.min())))
+        return st, mss, walls, ends, max(above), max(peaks)
 
     delivery.delivery_combine.launches = 0
-    st, ms_u, wall_u, ends = run(lambda t: K.make_run(params, t), copy_state(start, device), False)
+    st, ms_u, wall_u, ends, above_u, _ = run(lambda t: eng.make_run(params, t), copy_state(start, device), False)
+    ratio_u = (tree_bytes(st) + above_u) / tree_bytes(st)
     launches_u = delivery.delivery_combine.launches
-    mine = SH.shard_state(start, mesh)
+    mine = eng.shard_state(start, mesh)
     del start
     torch.cuda.synchronize()
     live = torch.cuda.memory_allocated()  # the unsharded result and what earlier phases hold
-    torch.cuda.reset_peak_memory_stats()
     delivery.delivery_combine.launches = 0
     ragged_a2a.TRAFFIC.sent = 0
-    mine, ms_s, wall_s, _ = run(lambda t: SH.make_sharded_run(mesh, params, t), mine, True)
+    mine, ms_s, wall_s, _, above, peak = run(lambda t: eng.make_sharded_run(mesh, params, t), mine, True)
     launches = delivery.delivery_combine.launches
     sent = ragged_a2a.TRAFFIC.sent
-    peak = torch.cuda.max_memory_allocated()
     ticks = sum(t for t, _ in segments)
-    row_u = K.telemetry_window_vector(ms_u[-1], st)
-    row_s = SH.make_sharded_telemetry_row(mesh, K.telemetry_window_vector)(ms_s[-1], mine)
-    whole = SH.gather_state(mine, mesh)
+    row_u = eng.telemetry_window_vector(ms_u[-1], st)
+    row_s = SH.make_sharded_telemetry_row(mesh, eng.telemetry_window_vector)(ms_s[-1], mine)
+    state_bytes = tree_bytes(mine)
+    whole = eng.gather_state(mine, mesh)
+    del mine
     diff = device_state_differences(st, whole)
     for a, b in zip(ms_u, ms_s):
         diff += metric_differences(a, b)
     if not torch.equal(row_u, row_s):
         diff.append("telemetry row")
     if diff:
-        raise AssertionError(f"[{label}] the sharded dense window differs from the unsharded one in {diff}")
-    if launches or launches_u:
+        raise AssertionError(f"[{label}] the sharded {engine} window differs from the unsharded one in {diff}")
+    gossip = int(sum(int((m["gossip_msgs"] > 0).sum()) for m in ms_u))
+    if launches or (launches_u <= 0 if engine != "dense" else launches_u):
         raise AssertionError(f"[{label}] delivery_combine launches sharded {launches}, unsharded {launches_u}")
+    ratio = (state_bytes + above) / state_bytes
+    factor = eng.contracts.memory_factor
     walls = ", ".join(f"segment {i + 1} ({t} ticks) sharded {ws:.2f} ms/tick against unsharded {wu:.2f} "
                       f"({ws / wu - 1:+.1%})" for i, ((t, _), ws, wu) in enumerate(zip(segments, wall_s, wall_u)))
-    dead = ", ".join(f"{d} DEAD cells and alive-view fraction {a} (lowest {low}) after segment {i + 1}"
-                     for i, (d, a, low) in enumerate(ends))
+    dead = ", ".join(f"{d} DEAD cells" + (f" and alive-view fraction {a} (lowest {low})" if params.full_metrics
+                                          else "") + f" after segment {i + 1}" for i, (d, a, low) in enumerate(ends))
     phase(label, f"N={params.capacity}, {ticks} ticks from one start state and draws on {nvidia_smi()}: every leaf, "
-                 f"metric and the telemetry row bit-equal; {walls}; {dead}; exchange "
-                 f"{sent / ticks / 2 ** 20:.2f} MiB sent per tick (the exact exchanges raise on a record "
-                 f"addressed outside the group); peak allocated {peak / 2 ** 30:.2f} GiB, "
-                 f"{(peak - live) / 2 ** 30:.2f} GiB above the {live / 2 ** 30:.2f} live before the sharded run; "
-                 f"delivery_combine launches 0 sharded and 0 unsharded")
-    del st, mine, whole, draws
+                 f"metric and the telemetry row bit-equal; {walls}; {dead}; exact exchanges "
+                 f"{sent / ticks / 2 ** 20:.2f} MiB sent per tick (they raise on a record addressed outside the "
+                 f"group); peak allocated {peak / 2 ** 30:.2f} GiB in the sharded ticks, "
+                 f"{(peak - live) / 2 ** 30:.2f} GiB above the {live / 2 ** 30:.2f} live before the sharded run; the "
+                 f"sharded window's peak over its state {ratio:.3f} (state {state_bytes / 2 ** 30:.3f} GiB; the "
+                 f"unsharded one's {ratio_u:.3f}) beside the declared memory_factor {factor}; "
+                 f"delivery_combine launches 0 sharded and {launches_u} unsharded ({gossip} gossip ticks)")
+    if gate_memory and ratio > factor:
+        raise AssertionError(f"[{label}] the sharded window's peak over its state {ratio:.3f} is above the "
+                             f"{engine} engine's declared memory_factor {factor}")
+    del st, whole, draws
     torch.cuda.empty_cache()
     return {"ms_sharded": wall_s, "ms_unsharded": wall_u, "bytes_per_tick": sent / ticks, "peak": peak,
-            "launches": launches, "ends": ends}
+            "launches": launches, "launches_unsharded": launches_u, "ends": ends, "ratio": ratio}
 
 
 def run_mesh_dense(device, mesh) -> dict:
@@ -4699,9 +4739,8 @@ def run_mesh_dense(device, mesh) -> dict:
     start = S.block_partition(S.init_state(params, n, warm=True, dense_links=True, device=device),
                               minority, majority)
     part, healed = MESH_DENSE_TICKS
-    out = {"mesh-dense": dense_mesh_pair(device, mesh, "mesh-dense", params, start,
-                                         [(part, None),
-                                          (healed, lambda st: S.heal_partition(st, minority, majority))])}
+    out = {"mesh-dense": mesh_pair(device, mesh, "mesh-dense", "dense", params, start,
+                                   [(part, None), (healed, lambda st: S.heal_partition(st, minority, majority))])}
     (dead_part, _, _), (dead_healed, alive_healed, low_healed) = out["mesh-dense"]["ends"]
     # the partition must reach its suspicion expiries and the heal its
     # refutations, so that both run through the seams
@@ -4713,9 +4752,116 @@ def run_mesh_dense(device, mesh) -> dict:
     params = config4_params(n, **CONFIG3_KNOBS)
     st = S.init_state(params, n, warm=True, dense_links=True, device=device)
     st = S.set_link_delay(S.set_uniform_loss(st, CONFIG3_LOSS), range(n), range(n), CONFIG3_DELAY_MEAN)
-    out["mesh-dense-delay"] = dense_mesh_pair(device, mesh, "mesh-dense-delay", params, st,
-                                              [(MESH_DENSE_DELAY_TICKS, None)])
+    out["mesh-dense-delay"] = mesh_pair(device, mesh, "mesh-dense-delay", "dense", params, st,
+                                        [(MESH_DENSE_DELAY_TICKS, None)])
     return {k: v["launches"] for k, v in out.items()}
+
+
+# Depth cut for phase 50's time: config5's churn run (60 simulated seconds
+# by default) cut to its first seconds, each path; config3's delay run (its
+# 200 FD rounds) cut past the ring's wrap
+MESH_SPARSE_SECONDS = 6  # phase 50: config5's churn seconds at 49,152 (5 ticks each), each path
+MESH_SPARSE_DELAY_TICKS = 14  # phase 50: config3's delay run at 1,024 (D = 6), each path
+
+
+def sparse_mesh_driver_pair(device, mesh, params, n: int, churn: int, crash, join) -> dict:
+    """config5's churn through the driver: an unsharded and a sharded
+    ``SimDriver`` from one seed (one at a time: each holds a 9.66 GB view
+    plane at 49,152), each simulated second's crashes and joins through
+    the driver's host-mutation path (on the sharded driver, the gathered
+    state re-sharded), then ``step(5)``. The whole states, every step's
+    readback and the telemetry rings must be equal; the sharded driver
+    launches the delivery kernel 0 times, the unsharded one every gossip
+    tick."""
+    from scalecube_cluster_tpu_torch.ops import delivery
+    from scalecube_cluster_tpu_torch.ops import sparse as SP
+    from scalecube_cluster_tpu_torch.sim import SimDriver
+
+    rec = {}
+    for sharded in (False, True):
+        d = SimDriver(params, n - churn, warm=True, seed=0, device=device, mesh=mesh if sharded else None)
+        d.arm_telemetry()
+        torch.cuda.synchronize()
+        delivery.delivery_combine.launches = 0
+        steps, mutation_ms, t_step = [], [], 0.0
+        for c, j in zip(crash, join):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d._apply(lambda st, c=c, j=j: SP.join_rows(SP.crash_rows(st, c), j, params.seed_rows))
+            torch.cuda.synchronize()
+            mutation_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            steps.append({k: v.cpu().numpy() for k, v in d.step(TICKS_PER_SECOND).items()})
+            d.sync()
+            t_step += time.perf_counter() - t0
+        whole = d._eng.gather_state(d.state, mesh) if sharded else d.state
+        rec[sharded] = {"state": whole, "steps": steps, "ring": d.telemetry.collect()["ring"]["rows"],
+                        "launches": delivery.delivery_combine.launches, "mutation_ms": mutation_ms,
+                        "ms_tick": t_step / (len(steps) * TICKS_PER_SECOND) * 1e3}
+        del d, whole
+        gc.collect()  # the driver and its planes refer to each other
+        torch.cuda.empty_cache()
+    u, s = rec[False], rec[True]
+    diff = device_state_differences(u["state"], s["state"])
+    diff += sorted({k for a, b in zip(u["steps"], s["steps"]) for k in a if not np.array_equal(a[k], b[k])})
+    if u["ring"] != s["ring"]:
+        diff.append("telemetry ring")
+    if diff or s["launches"] or u["launches"] <= 0:
+        raise AssertionError(f"[mesh-sparse-driver] sharded against unsharded differs in {diff}; delivery_combine "
+                             f"launches {s['launches']} sharded, {u['launches']} unsharded")
+    ticks = len(crash) * TICKS_PER_SECOND
+    phase("mesh-sparse-driver", f"N={n}, config5's churn through SimDriver on {nvidia_smi()}, {len(crash)} "
+                                f"simulated seconds ({ticks} ticks, {churn} crashes and {churn} joins a second): the "
+                                f"whole state, every step's readback and the telemetry ring bit-equal; step(5) "
+                                f"sharded {s['ms_tick']:.2f} ms/tick against unsharded {u['ms_tick']:.2f} "
+                                f"({s['ms_tick'] / u['ms_tick'] - 1:+.1%}); the churn mutation sharded "
+                                f"{statistics.median(s['mutation_ms']):.1f} ms (median, gather and re-shard) "
+                                f"against {statistics.median(u['mutation_ms']):.1f}; delivery_combine launches "
+                                f"0 sharded, {u['launches']} unsharded")
+    del rec, u, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"mesh-sparse-driver": 0}
+
+
+def run_mesh_sparse(device, mesh) -> dict:
+    """Phase 50, [mesh-sparse]: on the same world-size-1 group, the sparse
+    engine on a member mesh. config5's churn at its published width
+    (``benchmarks/config5_churn.py: sparse_main --n 49152``: a 3,072-slot
+    pool, scalar links, 1% churn per simulated second of 5 ticks), as a
+    window pair and as a driver pair, then config3's delay run (sparse
+    lean, 1,024 members, loss 0.05, mean delay 1.5 ticks, D = 6), each
+    sharded against unsharded."""
+    from scalecube_cluster_tpu_torch.ops import ragged_a2a
+    from scalecube_cluster_tpu_torch.ops import sharding as SH
+    from scalecube_cluster_tpu_torch.ops import sparse as SP
+    from scalecube_cluster_tpu_torch.ops.bitplane import words_for
+
+    n = N_SPARSE
+    params = config5_params(n)
+    seconds = MESH_SPARSE_SECONDS
+    churn, crash, join = churn_schedule(n, seconds, params.seed_rows)
+    wt = words_for(params.mr_slots) + words_for(params.rumor_slots) + params.rumor_slots
+    nbytes = ragged_a2a.exchange_bytes(params.fanout, n, SH.member_mesh_size(mesh), wt)
+    phase("mesh-sparse", f"N={n}: delivery exchange buffer [W=1, B={params.fanout * n}, 3 + {wt}] int32, "
+                         f"{nbytes / 2 ** 20:.1f} MiB sent and as much received per gossip tick")
+    segments = [(TICKS_PER_SECOND, lambda st, c=c, j=j: SP.join_rows(SP.crash_rows(st, c), j, params.seed_rows))
+                for c, j in zip(crash, join)]
+    # the start goes in unnamed: the pair drops it once both sides hold theirs
+    out = {"mesh-sparse": mesh_pair(device, mesh, "mesh-sparse", "sparse", params,
+                                    SP.init_sparse_state(params, n - churn, warm=True, device=device), segments,
+                                    gate_memory=True)}
+    out["mesh-sparse"]["delivery_bytes"] = nbytes
+    out.update(sparse_mesh_driver_pair(device, mesh, params, n, churn, crash, join))
+    n = 1024
+    params = config5_params(n, mr_slots=512, announce_slots=256, **CONFIG3_KNOBS)
+    st = SP.init_sparse_state(params, n, warm=True, uniform_loss=CONFIG3_LOSS, uniform_delay=CONFIG3_DELAY_MEAN,
+                              device=device)
+    # ungated: at 1,024 the tick's [N, M] temporaries (M = N / 2) and its
+    # fixed costs outweigh a 7 MiB state (the line prints both sides')
+    out["mesh-sparse-delay"] = mesh_pair(device, mesh, "mesh-sparse-delay", "sparse", params, st,
+                                         [(MESH_SPARSE_DELAY_TICKS, None)])
+    return {k: v if isinstance(v, int) else v["launches"] for k, v in out.items()}
 
 
 def run_mesh2(device, mesh, cpu_mesh) -> tuple:
@@ -4730,11 +4876,11 @@ def run_mesh2(device, mesh, cpu_mesh) -> tuple:
     return launches, fleet
 
 
-def run_mesh(device, marks=None, dense_only: bool = False) -> tuple:
+def run_mesh(device, marks=None, only: str = "") -> tuple:
     """Phase 45: a world-size-1 NCCL group (``file://`` init, the card as
     its device), a gloo group beside it for the CPU reference, the mesh
-    phases (``dense_only``: phase 49 alone), and the group destroyed at
-    the end."""
+    phases (``only``: "dense" for phase 49 alone, "sparse" for phase 50
+    alone), and the group destroyed at the end."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -4749,8 +4895,8 @@ def run_mesh(device, marks=None, dense_only: bool = False) -> tuple:
         cpu_mesh = DeviceMesh.from_group(dist.new_group(backend="gloo"), "cpu", mesh_dim_names=(SH.MEMBER_AXIS,))
         phase("mesh", f"process group: backend {dist.get_backend()}, world {dist.get_world_size()}, mesh "
                       f"{mesh.mesh_dim_names} on {SH.mesh_device(mesh)}; started in {time.perf_counter() - t0:.2f} s")
-        if dense_only:
-            return run_mesh_dense(device, mesh), {}
+        if only:
+            return (run_mesh_dense if only == "dense" else run_mesh_sparse)(device, mesh), {}
         launches = run_mesh_window(device, mesh)
         launches.update(run_mesh_starved(device, mesh, cpu_mesh))
         launches.update(run_mesh_driver(device, mesh))
@@ -4765,6 +4911,9 @@ def run_mesh(device, marks=None, dense_only: bool = False) -> tuple:
         launches.update(run_mesh_dense(device, mesh))
         if marks is not None:
             marks.append(("phase 49 (mesh-dense)", time.perf_counter()))
+        launches.update(run_mesh_sparse(device, mesh))
+        if marks is not None:
+            marks.append(("phase 50 (mesh-sparse)", time.perf_counter()))
     finally:
         dist.destroy_process_group()
     phase("mesh", "process group destroyed")
@@ -5313,17 +5462,16 @@ def run_audit(device, slices: list) -> dict:
                     for v in cv["violations"]]
         bad += [f"restore seam {v['engine']}: {v['message']} [{v['where']}]"
                 for v in verdict["restore_seams"]["violations"]]
-        for miss in verdict["not_ported"]:
-            phase("audit", f"{miss['program']}: not ported ({miss['reason']})")
     if bad:
         raise AssertionError("[audit] violations on the card:\n" + "\n".join(bad))
     if launches.get("pview/i32/fused-pallas", 0) <= 0:
         raise AssertionError("[audit] fused-pallas launched no delivery_combine kernel on the card")
-    dense_mesh = [f"dense/{p}" for p in ("i32/sharded", "i16/sharded", "i32/sharded-telemetry-row",
+    plane_mesh = [f"dense/{p}" for p in ("i32/sharded", "i16/sharded", "i32/sharded-telemetry-row",
                                          "i32/sharded-telemetry-append")]
-    if any(launches.get(p) != 0 for p in dense_mesh):
-        raise AssertionError(f"[audit] the dense member-mesh programs are missing or launched the kernel: "
-                             f"{ {p: launches.get(p) for p in dense_mesh} }")
+    plane_mesh += [f"sparse/{p}" for p in ("i32/sharded", "i32/sharded-telemetry-row", "i32/sharded-telemetry-append")]
+    if any(launches.get(p) != 0 for p in plane_mesh):
+        raise AssertionError(f"[audit] the dense or sparse member-mesh programs are missing or launched the kernel: "
+                             f"{ {p: launches.get(p) for p in plane_mesh} }")
     phase("audit", f"{n_programs} programs clean on {torch.cuda.get_device_name(device)} ({nvidia_smi()}); "
                    f"fused-pallas launched delivery_combine {launches['pview/i32/fused-pallas']} times; the "
                    f"fleet programs launched delivery_combine_fleet {fleet_launches} times")
@@ -5386,8 +5534,12 @@ def main(argv=()) -> int:
                       f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if "--mesh-dense-only" in argv:
-        run_mesh(device, dense_only=True)
+        run_mesh(device, only="dense")
         phase("time", f"phase 49 (mesh-dense) alone, the build included: {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--mesh-sparse-only" in argv:
+        run_mesh(device, only="sparse")
+        phase("time", f"phase 50 (mesh-sparse) alone, the build included: {time.perf_counter() - t_start:.1f} s")
         return 0
     if "--mesh-only" in argv:
         run_mesh(device, marks)

@@ -45,7 +45,6 @@ from .programs import (
     AuditProgram,
     build_engine_programs,
     build_matrix,
-    not_ported,
 )
 from .report import audit_all, audit_programs, format_text
 
@@ -70,6 +69,5 @@ __all__ = [
     "check_restore_seams",
     "check_transfer_free",
     "format_text",
-    "not_ported",
     "run_contracts",
 ]

@@ -28,10 +28,6 @@ that is NOT the member capacity (rumor/pool/announce slots, trace ring
 length and field count, scenarios) is kept STRICTLY below ``capacity``,
 so "dim >= capacity" is exactly "capacity-scaled dim" for the wide-plane
 checks; :func:`_assert_audit_shape` asserts it.
-
-The sparse engine does not run on a member mesh yet (ROADMAP A12 item
-5): its sharded programs are not built, and :func:`not_ported` names
-them.
 """
 
 from __future__ import annotations
@@ -55,9 +51,6 @@ DEFAULT_FLEET_SCENARIOS = 4
 SEED = 12
 
 MIB = 1 << 20
-
-#: why a JAX program has no counterpart in the port yet
-NOT_PORTED = "ROADMAP A12 item 5: the sparse engine on a member mesh is not ported yet"
 
 VARIANTS = ("unarmed", "traced", "telemetry", "sharded", "strategy", "adaptive", "fleet", "control", "fused",
             "replay", "bridge")
@@ -747,24 +740,6 @@ def _sharded_programs(eng, kd, dev, capacity, n_ticks, contracts, mesh, first: b
     add("sharded-profile-gossip", gossip, gossip_args, (),
         lambda args, o: ((o[0],), [(f"metric {k}", v) for k, v in o[1].items()]), shard_bytes, is_window=False)
     return out
-
-
-def not_ported(engines: Optional[Sequence[str]] = None, variants: Optional[Sequence[str]] = None) -> List[Dict]:
-    """The JAX programs with no counterpart in the port yet, by name: the
-    sparse engine's sharded programs (:data:`NOT_PORTED`)."""
-    want = set(variants) if variants else set(VARIANTS)
-    if "sharded" not in want:
-        return []
-    out = []
-    for name in engines or ("dense", "sparse", "pview"):
-        eng = engine_api.engine(name)
-        if eng.supports_mesh:
-            continue
-        for kd in eng.contracts.key_dtypes:
-            out.append(f"{name}/{kd}/sharded")
-        out += [f"{name}/{eng.contracts.key_dtypes[0]}/sharded-telemetry-row",
-                f"{name}/{eng.contracts.key_dtypes[0]}/sharded-telemetry-append"]
-    return [{"program": p, "reason": NOT_PORTED} for p in out]
 
 
 def build_matrix(

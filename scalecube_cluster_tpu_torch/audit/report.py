@@ -2,9 +2,7 @@
 
 The port's counterpart of the JAX package's ``audit/report.py``, with its
 keys (a flat program list with per-contract verdicts), plus ``device`` (per
-program and for the run: a CPU run says it is one) and ``not_ported`` (the
-JAX programs the port has no counterpart of yet, by name, never counted
-as passed).
+program and for the run: a CPU run says it is one).
 """
 
 from __future__ import annotations
@@ -18,7 +16,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from . import contracts as C
-from .programs import AuditProgram, build_matrix, check_instruments, not_ported
+from .programs import AuditProgram, build_matrix, check_instruments
 
 SCHEMA = 1
 
@@ -29,12 +27,10 @@ def audit_programs(
     engine_names: Optional[Sequence[str]] = None,
     restore_seams: bool = True,
     device=None,
-    missing: Sequence[Dict] = (),
 ) -> Dict:
     """Run every applicable contract over ``programs`` and assemble the
     verdict dict. ``compile_programs=False`` skips the measured run (no
-    memory figures, no waits) — the fast mode. ``missing`` is the
-    ``not_ported`` list to carry (:func:`.programs.not_ported`)."""
+    memory figures, no waits) — the fast mode."""
     t0 = time.perf_counter()
     dev = str(device if device is not None else (programs[0].device if programs else "cpu"))
     instrument = check_instruments(dev) if compile_programs else None
@@ -83,7 +79,6 @@ def audit_programs(
         "n_violations": n_violations,
         "ok": n_violations == 0,
         "programs": entries,
-        "not_ported": list(missing),
         "restore_seams": {
             "checked": restore_seams,
             "ok": not seam_violations,
@@ -134,8 +129,7 @@ def audit_all(
     with scope as mesh:
         programs = build_matrix(engines, capacity=capacity, n_ticks=n_ticks, variants=variants,
                                 sharded_capacity=sharded_capacity, device=device, mesh=mesh)
-        return audit_programs(programs, compile_programs=compile_programs, engine_names=engines, device=device,
-                              missing=not_ported(engines, variants))
+        return audit_programs(programs, compile_programs=compile_programs, engine_names=engines, device=device)
 
 
 def format_text(verdict: Dict) -> str:
@@ -158,8 +152,6 @@ def format_text(verdict: Dict) -> str:
             for v in c["violations"]:
                 where = f" [{v['where']}]" if v["where"] else ""
                 lines.append(f"    ! {cname}: {v['message']}{where}")
-    for miss in verdict["not_ported"]:
-        lines.append(f"  {miss['program']}: not ported ({miss['reason']})")
     seams = verdict["restore_seams"]
     if seams["checked"]:
         lines.append(f"  restore seams: {'ok' if seams['ok'] else 'VIOLATED'}")

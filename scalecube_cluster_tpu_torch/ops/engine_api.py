@@ -101,10 +101,11 @@ class EngineOps:
     # (state, tracer_rows) -> [N, K] int32 view-key columns of the tracers
     # (the trace plane's window-boundary diff feed)
     tracer_view_cols: Callable = None
-    # the member mesh (ops/sharding.py; None where the engine is not ported
-    # to one): (mesh, params, n_ticks, dense_links) -> window, its adaptive
-    # twin (mesh, params, n_ticks), its traced twin (mesh, params, n_ticks,
-    # TraceSpec), and (state, mesh) -> this rank's shard / the whole state
+    # the member mesh (ops/sharding.py; None where the engine registers no
+    # such program, as in JAX): (mesh, params, n_ticks, dense_links) ->
+    # window, its adaptive twin (mesh, params, n_ticks), its traced twin
+    # (mesh, params, n_ticks, TraceSpec), and (state, mesh) -> this rank's
+    # shard / the whole state
     make_sharded_run: Callable = None
     make_sharded_adaptive_run: Callable = None
     make_sharded_traced_run: Callable = None
@@ -325,6 +326,7 @@ def _pview_engine() -> EngineOps:
 
 
 def _sparse_engine() -> EngineOps:
+    from . import sharding as SH
     from . import sparse as SP
 
     def _init(p, n, warm, dense_links, device):
@@ -357,6 +359,14 @@ def _sparse_engine() -> EngineOps:
         inplace_leaves=("view_key", "pending_minf", "pending_inf", "pending_src"),
         make_traced_run=SP.make_sparse_traced_run,
         tracer_view_cols=SP.tracer_view_cols,
+        # the member mesh: JAX's sparse engine registers the sharded window,
+        # state and ring append only (no adaptive, traced or fleet window)
+        make_sharded_run=lambda mesh, params, n_ticks, dense_links=False: SH.make_sharded_sparse_run(
+            mesh, params, n_ticks),
+        shard_state=SH.shard_sparse_state,
+        gather_state=SH.gather_sparse_state,
+        state_shardings=SH.sparse_state_shardings,
+        make_sharded_telemetry_append=SH.make_sharded_metric_append,
     )
 
 

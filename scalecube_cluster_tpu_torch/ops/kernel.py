@@ -146,6 +146,15 @@ def _mine(x: torch.Tensor) -> torch.Tensor:
     return x if ctx is None else ctx.mine(x)
 
 
+def _capped(mask: torch.Tensor, V: int) -> torch.Tensor:
+    """``mask`` less the entries past the first V in global row order."""
+    pos = torch.cumsum(mask, 0) - 1
+    ctx = sharding.active()
+    if ctx is not None:
+        pos = pos + ctx.offset(mask.sum())
+    return mask & (pos < V)
+
+
 def _full_draws(r):
     """The tick's round draws over all N rows (read at other members' rows):
     on a mesh the full block every rank draws alike."""

@@ -95,7 +95,7 @@ from ._tick import seed_rows_tensor as _seed_rows_tensor
 from ._tick import set_at as _set
 from ._tick import sync_trace as _sync_trace
 from ._tensor import first_true, host_flags, keep_columns_, nonzero_fixed, put_drop_, row_chunks, scatter_, scatter_reduce_1d
-from .kernel import _f32, _fold_evidence, _no_evidence, _timely_rt, telemetry_window_core
+from .kernel import _capped, _f32, _fold_evidence, _no_evidence, _timely_rt, telemetry_window_core
 from .sparse import _trace_rows as _sparse_trace_rows
 from .sparse import TELEMETRY_SERIES as _SPARSE_TELEMETRY_SERIES
 from .sparse import pool_telemetry
@@ -664,15 +664,6 @@ def _mine(x: torch.Tensor, op: str) -> torch.Tensor:
     the ranks; this rank's rows of it."""
     ctx = _shard()
     return x if ctx is None else ctx.reduce_mine(x, op)
-
-
-def _capped(mask: torch.Tensor, V: int) -> torch.Tensor:
-    """``mask`` less the entries past the first V in global row order."""
-    pos = torch.cumsum(mask, 0) - 1
-    ctx = _shard()
-    if ctx is not None:
-        pos = pos + ctx.offset(mask.sum())
-    return mask & (pos < V)
 
 
 def _global_props(props):

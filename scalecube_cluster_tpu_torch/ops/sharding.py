@@ -1,9 +1,9 @@
-"""Member-axis sharding of the partial-view and dense engines over
+"""Member-axis sharding of the partial-view, dense and sparse engines over
 ``torch.distributed``.
 
-A port of the JAX package's ``ops/sharding.py`` for the pview and dense
-engines. JAX row-shards every ``[N, ...]`` state tensor over a
-``"members"`` mesh axis and lets GSPMD insert the collectives. PyTorch has no GSPMD: here each rank
+A port of the JAX package's ``ops/sharding.py`` for its three engines. JAX
+row-shards every ``[N, ...]`` state tensor over a ``"members"`` mesh axis
+and lets GSPMD insert the collectives. PyTorch has no GSPMD: here each rank
 of a process group holds its own rows, and every access across rows is an
 explicit collective, spelled once in :class:`ShardContext` and called from
 the tick at each such site (``ops/pview.py``). The rules:
@@ -66,8 +66,14 @@ fetches its K callers' and peers' rows (never the whole plane) and each
 rank writes its own rows of the merge. The dense engine has no kernel,
 and, as in JAX, no sharded adaptive, traced or fleet window.
 
-Not ported yet, and refused by name: the sparse sharded windows and states
-(ROADMAP A12 item 5).
+The sparse engine (:func:`sparse_state_shardings`,
+:func:`shard_sparse_state`, :func:`make_sharded_sparse_tick`,
+:func:`make_sharded_sparse_run`) runs its one tick (``ops/sparse.py``)
+through the dense engine's seams over its ``[N, N]`` view plane and the
+pview engine's pool, ring and pull-leg code: the gossip delivery is the
+ragged exchange at its lossless default budget (no kernel launch), SYNC
+fetches its K callers' and peers' rows, and the V caps count in global
+row order. As in JAX, it has no sharded adaptive, traced or fleet window.
 """
 
 from __future__ import annotations
@@ -84,10 +90,6 @@ MEMBER_AXIS = "members"
 
 #: the member-axis dimension of a leaf, by its tag (None: replicated)
 ROW, RING, REPLICATED = 0, 1, None
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP A12 item 5)")
 
 
 # ---------------------------------------------------------------------------
@@ -480,15 +482,20 @@ def unsharded():
 # ---------------------------------------------------------------------------
 
 
-def _sharded_tick(state, fd, rd, params, **kw):
-    """The fused pview tick on this rank's rows: the full draws go to the
-    context (SYNC and the structured peers read them), the rows' slices to
-    the tick."""
-    from .pview import pview_tick_fused
-
+def _rank_tick(tick, state, fd, rd, params, kw):
+    """An engine's ``tick`` on this rank's rows: the full draws go to the
+    context (SYNC reads its callers' rows of them, the structured peers
+    every row's), the rows' slices to the tick."""
     ctx = active()
     ctx.begin_tick(fd, rd)
-    return pview_tick_fused(state, ctx.local_draws(fd), ctx.local_draws(rd), params, **kw)
+    return tick(state, ctx.local_draws(fd), ctx.local_draws(rd), params, **kw)
+
+
+def _sharded_tick(state, fd, rd, params, **kw):
+    """The fused pview tick on this rank's rows."""
+    from .pview import pview_tick_fused
+
+    return _rank_tick(pview_tick_fused, state, fd, rd, params, kw)
 
 
 def _builder_checks(mesh, params, budget) -> None:
@@ -784,14 +791,10 @@ def gather_state(state, mesh):
 
 
 def _dense_sharded_tick(state, fd, rd, params, **kw):
-    """The dense tick on this rank's rows: the full draws go to the context
-    (SYNC reads its callers' rows of them, the structured peers every
-    row's), the rows' slices to the tick."""
+    """The dense tick on this rank's rows."""
     from .kernel import tick
 
-    ctx = active()
-    ctx.begin_tick(fd, rd)
-    return tick(state, ctx.local_draws(fd), ctx.local_draws(rd), params, **kw)
+    return _rank_tick(tick, state, fd, rd, params, kw)
 
 
 def make_sharded_tick(mesh, params, dense_links: bool = True):
@@ -835,21 +838,112 @@ def make_sharded_run(mesh, params, n_ticks: int, dense_links: bool = True):
 
 
 # ---------------------------------------------------------------------------
-# refused by name (ROADMAP A12 item 5)
+# the sparse engine on a member mesh
 # ---------------------------------------------------------------------------
 
 
 def sparse_state_shardings(mesh, dense_links: bool = False, delay_slots: int = 0):
-    _not_ported("the sparse engine's sharded state (sparse_state_shardings)")
+    """A ``SparseState``-shaped record of each leaf's placement (JAX's
+    ``sparse_state_shardings``): :data:`ROW` for every ``[N, ...]`` leaf,
+    the link planes with ``dense_links`` (replicated scalars without),
+    :data:`RING` for the ``[D, N, ...]`` rings (replicated when
+    ``delay_slots`` is 0: they are empty), :data:`REPLICATED` for the tick,
+    the namespace relation and the two rumor pools."""
+    from .sparse import SparseState
+
+    ring = RING if delay_slots else REPLICATED
+    link = ROW if dense_links else REPLICATED
+    tags = {f.name: ROW for f in dataclasses.fields(SparseState)}
+    for name in ("tick", "ns_rel", "mr_active", "mr_subject", "mr_key", "mr_created", "mr_origin",
+                 "rumor_active", "rumor_origin", "rumor_created"):
+        tags[name] = REPLICATED
+    for name in ("loss", "fetch_rt", "delay_q"):
+        tags[name] = link
+    for name in ("pending_minf", "pending_inf", "pending_src"):
+        tags[name] = ring
+    return SparseState(**tags)
+
+
+def _sparse_tags(state, mesh):
+    return sparse_state_shardings(mesh, state.loss.dim() != 0, state.pending_minf.shape[0])
 
 
 def shard_sparse_state(state, mesh):
-    _not_ported("the sparse engine's sharded state (shard_sparse_state)")
+    """This rank's shard of a whole sparse state (on any device; JAX's
+    ``shard_sparse_state``): its rows of every member-axis leaf, the
+    replicated leaves whole, all copied onto the mesh's device."""
+    _check_member_mesh(mesh)
+    return _shard_by(state, mesh, _sparse_tags(state, mesh))
+
+
+def gather_sparse_state(state, mesh):
+    """The whole sparse state from its shards, identical on every rank:
+    what the driver's host mutators and checkpoints run on."""
+    _check_member_mesh(mesh)
+    return _gather_by(state, mesh, _sparse_tags(state, mesh))
+
+
+def _check_sparse_word_alignment(mesh, params) -> None:
+    """Sparse mesh preconditions, as JAX states them: plain row
+    divisibility, and the 32-row word rule of its word-sharded apply."""
+    size = member_mesh_size(mesh)
+    if params.capacity % size != 0:
+        raise ValueError(f"capacity {params.capacity} not divisible by mesh size {size}")
+    if params.capacity % (32 * size) != 0:
+        raise ValueError(
+            f"capacity {params.capacity} must be divisible by 32 * mesh size "
+            f"({32 * size}): the word-sharded apply staging packs "
+            "observers into u32 words that must align with the row shards "
+            "(pad capacity up to the next multiple and leave the extra rows "
+            "up=False — masks make padding free)"
+        )
+
+
+def _sparse_sharded_tick(state, fd, rd, params, **kw):
+    """The sparse tick on this rank's rows."""
+    from .sparse import sparse_tick_fused
+
+    return _rank_tick(sparse_tick_fused, state, fd, rd, params, kw)
 
 
 def make_sharded_sparse_tick(mesh, params, dense_links: bool = False):
-    _not_ported("the sparse engine's sharded tick (make_sharded_sparse_tick)")
+    """The sparse tick over ``mesh`` (JAX's ``make_sharded_sparse_tick``):
+    ``step(state, fd, rd) -> (state, metrics)``, ``state`` this rank's
+    shard (:func:`shard_sparse_state`), ``fd`` / ``rd`` the tick's full
+    draws, the same on every rank (``fd`` None off FD ticks). Metrics come
+    out whole and identical on every rank. Consumes ``state``, as the
+    one-device tick does. ``dense_links`` is the state's link layout (the
+    shard carries it; kept for JAX's signature)."""
+    _check_member_mesh(mesh)
+    _check_sparse_word_alignment(mesh, params)
+
+    def step(state, fd, rd):
+        with ragged_delivery_context(mesh, params.capacity):
+            return _sparse_sharded_tick(state, fd, rd, params)
+
+    return step
 
 
 def make_sharded_sparse_run(mesh, params, n_ticks: int):
-    _not_ported("the sparse engine's sharded window (make_sharded_sparse_run)")
+    """The sparse window over ``mesh`` (JAX's ``make_sharded_sparse_run``):
+    ``run(state, draws, watch_rows=None) -> (state, metrics, watched)``,
+    ``state`` this rank's shard, ``draws`` the generator every rank seeds
+    alike or the per-tick full draws; metrics and watched rows come out
+    whole and identical on every rank. The window consumes its state, as
+    JAX's donated one does: its view plane and rings update in place. The
+    delivery exchange runs at its lossless default budget, as JAX's
+    sharded scatter drops nothing: the window has no budget knob and no
+    ``delivery_overflow`` metric."""
+    from ._tick import run_window
+    from .engine_api import plane_view_rows
+    from .rand import draw_sparse_tick
+
+    _check_member_mesh(mesh)
+    _check_sparse_word_alignment(mesh, params)
+
+    def run(state, draws, watch_rows=None):
+        with ragged_delivery_context(mesh, params.capacity):
+            return run_window(_sparse_sharded_tick, plane_view_rows, draw_sparse_tick, state, draws, n_ticks,
+                              params, watch_rows)
+
+    return run

@@ -63,10 +63,18 @@ the telemetry plane's per-window row.
 
 The causal trace capture (``sparse_tick(trace=...)``,
 :func:`make_sparse_traced_run`) exports the phases' own internals, one
-record block per tick, into the trace ring (:mod:`..trace`). Not ported
-yet, and refused: meshes (A12). The fleet windows (``make_sparse_fleet_run``, its fused name,
+record block per tick, into the trace ring (:mod:`..trace`). The fleet
+windows (``make_sparse_fleet_run``, its fused name,
 ``make_sparse_fleet_adaptive_run``) run the fused tick under
 ``torch.func.vmap`` (:mod:`.fleet`).
+
+On a member mesh (:mod:`.sharding`: ``make_sharded_sparse_run``) the same
+tick runs on each rank's rows through the dense engine's seams: the reads
+at other members' rows are gathers, fetched rows or point reads, the
+per-subject tables combine over the ranks, the V caps count in global row
+order, SYNC runs its K slots on every rank over the fetched rows, and the
+delivery is the ragged record exchange (no kernel launch). As in JAX, the
+sharded tick has no adaptive or traced twin.
 """
 
 from __future__ import annotations
@@ -80,7 +88,7 @@ from .. import adaptive as _adp
 from ..adaptive import AdaptiveSpec
 from ..dissemination import strategies as dz
 from ..dissemination.spec import DissemSpec
-from . import delivery
+from . import delivery, sharding
 from ._tensor import first_true, host_flags, keep_columns_, nonzero_fixed, plane_chunks, put_drop_, row_chunks, scatter_, scatter_reduce_1d
 from ._tick import announce, covered_columns, crash_row, crash_rows, rumor_metrics, run_window, spread_rumor  # noqa: F401
 from ._tick import (  # the pending delivery rings
@@ -91,6 +99,7 @@ from ._tick import (  # the pending delivery rings
     pending_now_flags,
     receive_pending,
 )
+from ._tick import _rows_here as _grows
 from ._tick import count_i32 as _i32
 from ._tick import fd_trace as _fd_trace
 from ._tick import no_props as _no_props
@@ -107,6 +116,19 @@ from .engine_api import plane_tracer_view_cols as tracer_view_cols  # noqa: F401
 from .engine_api import plane_view_rows as view_rows
 from .kernel import TELEMETRY_SERIES as _CORE_TELEMETRY_SERIES
 from .kernel import _fold_evidence, _no_evidence, _timely_rt, ceil_log2, sentinel_core, telemetry_window_core
+from .kernel import (  # the member-mesh seams: identities off a mesh (ops/sharding.py)
+    _capped,
+    _diag,
+    _fetch_gate,
+    _full,
+    _full_draws,
+    _gcap,
+    _link_at_rows,
+    _reduce,
+    _rows_at,
+    _write_rows_amax_,
+)
+from .kernel import _mine as _my_rows  # this rank's rows of a global [N] table (a slice, no reduction)
 from .lattice import ALIVE, RANK_ALIVE, RANK_DEAD, RANK_LEAVING, RANK_SUSPECT, UNKNOWN_KEY, precedence_key
 from .pool import alloc_phase, allocate
 from .rand import (
@@ -486,9 +508,19 @@ def restore(arrays: dict, device="cuda") -> SparseState:
 # ---------------------------------------------------------------------------
 
 
+# The link readers below take the state's own rows ``i`` (local indices);
+# a link cell at another member's row goes through ``_link_at_rows``.
+
+
 def _loss_at(state: SparseState, i, j) -> torch.Tensor:
     """Link loss i -> j; the scalar broadcasts."""
     return state.loss if state.loss.dim() == 0 else state.loss[i, j]
+
+
+def _link_loss(state: SparseState, i, j) -> torch.Tensor:
+    """Link loss i -> j at global rows ``i`` of any member (the push-pull
+    reply's reverse link)."""
+    return _link_at_rows(state.loss, i, j)
 
 
 def _rt_at(state: SparseState, i, j) -> torch.Tensor:
@@ -501,25 +533,18 @@ def _delay_q_at(state: SparseState, i, j) -> torch.Tensor:
     return state.delay_q if state.delay_q.dim() == 0 else state.delay_q[i, j]
 
 
-def _fetch_gate(state: SparseState, salt: int, i, j, cand_key, p_fetch) -> torch.Tensor:
-    """ALIVE-rank candidates gated on the metadata-fetch round trip (the
-    same stateless hash draw as the other engines)."""
-    needs = (cand_key & 3) == RANK_ALIVE
-    u = fetch_uniform(state.tick, salt, i, j)
-    ok = state.up[j] & (u < p_fetch)
-    return ~needs | ok
-
-
-def _sample_rejection(state: SparseState, rows, u, n_picks: int, tries: int, extra_mask=None):
+def _sample_rejection(view, rows, u, n_picks: int, tries: int, extra_mask=None):
     """Per-row ``n_picks`` distinct draws from the live view by bounded
     rejection: each pick takes the first of ``tries`` uniform column draws
     that is not self, not DEAD/unknown in the row's view, or allowed by
     ``extra_mask``, and differs from the earlier picks (deviation 4).
+    ``rows`` are the drawing rows' global ids and ``view`` their [R, N]
+    view rows (the state's rows, or SYNC's fetched callers).
 
     Returns (idx [R, n_picks] clamped, valid [R, n_picks])."""
-    n = state.capacity
+    n = view.shape[1]
     cols = (u * float(n)).to(torch.int32).clamp(max=n - 1)  # [R, P*T]
-    live = (state.view_key[rows[:, None].long(), cols.long()] & 3) != RANK_DEAD
+    live = (view.gather(1, cols.long()) & 3) != RANK_DEAD
     if extra_mask is not None:
         live = live | extra_mask[cols]
     ok_base = (cols != rows[:, None]) & live
@@ -551,14 +576,19 @@ def _fd_phase(state: SparseState, r: SparseFdRandoms, params: SparseParams, ad=N
     ``trace`` the probe internals (``trace_fd``). Returns (state,
     proposals, metrics)."""
     n = state.capacity
-    rows = _rows(state)
+    N = _gcap(state)
+    lrows = _rows(state)
+    rows = _grows(state)
     vk = state.view_key
-    sel, valid = _sample_rejection(state, rows, r.fd_try, 1 + params.ping_req_k, params.sample_tries)
+    sel, valid = _sample_rejection(vk, rows, r.fd_try, 1 + params.ping_req_k, params.sample_tries)
     tgt = sel[:, 0]
     has_tgt = valid[:, 0] & state.up
-    p_direct = _rt_at(state, rows, tgt)
+    up_all = _full(state.up)
+    # the link cells at other members' rows are point reads on a mesh
+    dq = state.delay_q
+    p_direct = _rt_at(state, lrows, tgt)
     if params.delay_slots:
-        q_out, q_back = _delay_q_at(state, rows, tgt), _delay_q_at(state, tgt, rows)
+        q_out, q_back = _delay_q_at(state, lrows, tgt), _link_at_rows(dq, tgt, rows)
         if ad is not None:
             # the prober's own direct timeout stretches to t_base * (1 + lh)
             if q_out.dim() == 0:
@@ -568,32 +598,34 @@ def _fd_phase(state: SparseState, r: SparseFdRandoms, params: SparseParams, ad=N
             )
         else:
             p_direct = p_direct * _timely_rt(q_out, q_back, params.fd_direct_timeout_ticks)
-    direct_ok = has_tgt & state.up[tgt] & (r.fd_direct < p_direct)
+    direct_ok = has_tgt & up_all[tgt] & (r.fd_direct < p_direct)
 
     relays = sel[:, 1:]
     relay_valid = valid[:, 1:]
     tgt_b = tgt[:, None]
-    p_relay = _rt_at(state, rows[:, None], relays) * _rt_at(state, relays, tgt_b)
+    p_relay = _rt_at(state, lrows[:, None], relays) * _link_at_rows(state.fetch_rt, relays, tgt_b)
     if params.delay_slots:
         leg = params.fd_leg_timeout_ticks
-        rows_b = rows[:, None]
-        p_relay = p_relay * _timely_rt(_delay_q_at(state, rows_b, relays), _delay_q_at(state, relays, rows_b), leg)
-        p_relay = p_relay * _timely_rt(_delay_q_at(state, relays, tgt_b), _delay_q_at(state, tgt_b, relays), leg)
-    relay_ok = relay_valid & state.up[relays] & state.up[tgt_b] & (r.fd_relay < p_relay)
+        p_relay = p_relay * _timely_rt(_delay_q_at(state, lrows[:, None], relays),
+                                       _link_at_rows(dq, relays, rows[:, None]), leg)
+        p_relay = p_relay * _timely_rt(_link_at_rows(dq, relays, tgt_b), _link_at_rows(dq, tgt_b, relays), leg)
+    relay_ok = relay_valid & up_all[relays] & up_all[tgt_b] & (r.fd_relay < p_relay)
     ack = direct_ok | relay_ok.any(dim=1)
 
-    own_key = vk[rows.long(), tgt.long()]
-    alive_key = (vk[tgt.long(), tgt.long()] >> 2) << 2
+    own_key = vk[lrows.long(), tgt.long()]
+    # the target's own record: its diagonal cell (gathered on a mesh)
+    alive_key = (_full(_diag(vk).contiguous())[tgt.long()] >> 2) << 2
     suspect_key = ((own_key >> 2) << 2) | RANK_SUSPECT
     cand = torch.where(ack, alive_key, suspect_key)
     accept = has_tgt & (cand > own_key)
-    V = min(n, params.fd_accept_slots or max(64, n // 16))
-    eff = accept & (torch.cumsum(accept, 0) - 1 < V)
+    V = min(N, params.fd_accept_slots or max(64, N // 16))
+    eff = _capped(accept, V)
     # each row writes at most its own cell (i, tgt[i]): distinct targets
-    put_drop_(vk, (rows, tgt), cand, eff)
-    sus_cand = scatter_reduce_1d(
-        n, tgt, torch.where(eff & ~ack, cand, NO_CANDIDATE), "amax", NO_CANDIDATE, torch.int32
-    )
+    put_drop_(vk, (lrows, tgt), cand, eff)
+    # each subject's highest new suspicion, over every rank's probers
+    sus_cand = _my_rows(_reduce(scatter_reduce_1d(
+        N, tgt, torch.where(eff & ~ack, cand, NO_CANDIDATE), "amax", NO_CANDIDATE, torch.int32
+    ), "max"))
     st = _register_sus(state, sus_cand)
     # verdicts flip between non-DEAD ranks only: n_live is unchanged
     metrics = {
@@ -605,7 +637,7 @@ def _fd_phase(state: SparseState, r: SparseFdRandoms, params: SparseParams, ad=N
         sus_w = eff & ~ack
         metrics["_ad_miss"] = has_tgt & ~ack
         metrics["_ad_succ"] = has_tgt & ack
-        metrics["_ad_cnt"] = torch.zeros((n,), dtype=torch.int32, device=state.device).index_add_(
+        metrics["_ad_cnt"] = torch.zeros((N,), dtype=torch.int32, device=state.device).index_add_(
             0, tgt.long(), sus_w.to(torch.int32)
         )
         metrics["_ad_key"] = sus_cand
@@ -619,8 +651,11 @@ def _suspicion_sweep(state: SparseState, params: SparseParams, ad=None, trace=No
     cells whose subject's episode stamp is older than the observer's
     suspicion timeout become DEAD at the same incarnation (rank + 1), in
     place over row chunks. Each expiring subject is proposed once, by its
-    lowest expiring row (deviation 3); when no up observer holds a
-    SUSPECT cell afterwards, every episode is over. With ``ad`` the timeout
+    lowest expiring row (deviation 3; a row announcing several subjects
+    proposes the lowest); when no up observer holds a SUSPECT cell
+    afterwards, every episode is over. On a mesh the episode leaves are
+    read gathered, and the lowest rows and the SUSPECT test combine over
+    the ranks. With ``ad`` the timeout
     is the dense engine's confirmation- and health-scaled one. Returns
     (state, proposals), and with ``trace`` (a TraceSpec) the tracers'
     expiry export as a third item, read off each chunk's own ``expired``
@@ -641,8 +676,9 @@ def _suspicion_sweep(state: SparseState, params: SparseParams, ad=None, trace=No
 def _sweep_chunks(state: SparseState, params: SparseParams, ad, trace_acc):
     """The expiry pass over the row chunks (see :func:`_suspicion_sweep`)."""
     n = state.capacity
+    N = _gcap(state)
     dev = state.device
-    rows = _rows(state)
+    rows = _grows(state)
     vk = state.view_key
     if ad is not None:
         aspec = params.adaptive
@@ -652,14 +688,12 @@ def _sweep_chunks(state: SparseState, params: SparseParams, ad, trace_acc):
         factor = base * (1 + ad.lh)  # [N]: observer scaling (AD-3)
     else:
         timeout = params.suspicion_mult * ceil_log2(state.n_live) * params.fd_every  # [N]
-    waited = state.tick - state.sus_since  # [N] per subject
+    sus_key = _full(state.sus_key)  # [N] per subject
+    waited = state.tick - _full(state.sus_since)  # [N] per subject
     expired_cnt = torch.zeros((n,), dtype=torch.int32, device=dev)
     left = torch.zeros((), dtype=torch.bool, device=dev)
-    claimed = torch.zeros((n,), dtype=torch.bool, device=dev)  # subjects with an announcer
-    col = torch.zeros((n,), dtype=torch.int64, device=dev)
-    any_exp = torch.zeros((n,), dtype=torch.bool, device=dev)
-    key = torch.zeros((n,), dtype=torch.int32, device=dev)
-    for lo, hi in plane_chunks(n, n):
+    first = torch.full((N,), N, dtype=torch.int32, device=dev)  # each subject's lowest expiring row
+    for lo, hi in plane_chunks(n, N):
         blk = vk[lo:hi]
         if ad is not None:
             num = torch.where(blk <= ad.conf_key[None, :], num_conf[None, :], aspec.max_mult * L)
@@ -671,28 +705,29 @@ def _sweep_chunks(state: SparseState, params: SparseParams, ad, trace_acc):
             ((blk & 3) == RANK_SUSPECT)
             & state.up[lo:hi, None]
             & overdue
-            & (blk <= state.sus_key[None, :])
+            & (blk <= sus_key[None, :])
         )
         if trace_acc is not None:
             trace_acc.add_plane(expired, lo)
         blk += expired  # in place: SUSPECT rank 2 -> DEAD rank 3
         expired_cnt[lo:hi] = expired.sum(dim=1, dtype=torch.int32)
         left |= (((blk & 3) == RANK_SUSPECT) & state.up[lo:hi, None]).any()
-        # the lowest expiring row of each subject not claimed by an
-        # earlier chunk announces it
-        first = first_true(expired, 0) + lo
-        mine = expired & (first[None, :] == rows[lo:hi, None]) & ~claimed[None, :]
-        claimed |= expired.any(dim=0)
-        c = first_true(mine, 1)
-        col[lo:hi] = c
-        any_exp[lo:hi] = mine.any(dim=1)
-        key[lo:hi] = blk.gather(1, c[:, None])[:, 0]
+        # the chunks run in ascending row order: an earlier one's row wins
+        first = torch.minimum(first, torch.where(expired.any(dim=0), rows[lo:hi][first_true(expired, 0)], N))
+    left = _reduce(left, "max")
+    # the lowest expiring row of each subject on any rank announces it;
+    # each row proposes the lowest subject it announces
+    col = _my_rows(scatter_reduce_1d(N, _reduce(first, "min"), torch.arange(N, dtype=torch.int32, device=dev),
+                                     "amin", N, torch.int32))
+    any_exp = col < N
+    col = torch.where(any_exp, col, 0)
+    key = vk.gather(1, col[:, None].long())[:, 0]
     state = state.replace(
         n_live=state.n_live - expired_cnt,
         sus_key=torch.where(left, state.sus_key, NO_CANDIDATE).to(torch.int32),
         sus_since=torch.where(left, state.sus_since, NEVER).to(torch.int32),
     )
-    return state, (col.to(torch.int32), key, rows, any_exp)
+    return state, (col, key, rows, any_exp)
 
 
 def _mr_apply(state: SparseState, recv_m_p, params: SparseParams, adaptive: bool = False):
@@ -706,21 +741,22 @@ def _mr_apply(state: SparseState, recv_m_p, params: SparseParams, adaptive: bool
     and with ``adaptive`` the confirmation evidence (accepted SUSPECT
     records per subject, and their max key)."""
     n = state.capacity
+    N = _gcap(state)
     m = params.mr_slots
     dev = state.device
-    rows = _rows(state)
+    rows = _grows(state)
     recv_m = unpack_bits(recv_m_p, m) & (state.mr_origin[None, :] != rows[:, None])
     newly = recv_m & (state.minf_age == 0) & state.up[:, None] & state.mr_active[None, :]
     del recv_m
     minf = state.minf_age.masked_fill_(newly, 1)
 
-    subj = state.mr_subject.clamp(0, n - 1)
+    subj = state.mr_subject.clamp(0, N - 1)
     cand = state.mr_key
     rank = cand & 3
     needs_fetch = (rank == RANK_ALIVE)[None, :]
     admit_unknown = (rank <= RANK_LEAVING)[None, :]
-    up_subj = state.up[subj][None, :]
-    ns_subj = state.ns_id[subj][None, :].long()
+    up_subj = _full(state.up)[subj][None, :]
+    ns_subj = _full(state.ns_id)[subj][None, :].long() if params.namespace_gate else None
     dense_rt = state.fetch_rt.dim() != 0
     vk = state.view_key
     delta = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -750,19 +786,20 @@ def _mr_apply(state: SparseState, recv_m_p, params: SparseParams, adaptive: bool
         acc_slot |= accept.any(dim=0)
         if adaptive:
             acc_per_slot += accept.sum(dim=0, dtype=torch.int32)
-    # episode registration for accepted SUSPECT records, per subject
-    sus_slot = state.mr_active & acc_slot & (rank == RANK_SUSPECT)
+    # episode registration for accepted SUSPECT records, per subject (a
+    # slot accepted on any rank registers on every rank: the pool is whole)
+    sus_slot = state.mr_active & _reduce(acc_slot, "max") & (rank == RANK_SUSPECT)
     sus_cand = scatter_reduce_1d(
-        n, torch.where(sus_slot, subj, n), cand, "amax", NO_CANDIDATE, torch.int32
+        N, torch.where(sus_slot, subj, N), cand, "amax", NO_CANDIDATE, torch.int32
     )
-    state = _register_sus(state.replace(minf_age=minf, n_live=state.n_live + delta), sus_cand)
+    state = _register_sus(state.replace(minf_age=minf, n_live=state.n_live + delta), _my_rows(sus_cand))
     if not adaptive:
         return state, newly.sum(dtype=torch.int32), accepts
     # active slots carry distinct subjects; the others accepted nothing
     sus_cnt = torch.where(rank == RANK_SUSPECT, acc_per_slot, 0)
-    ad_cnt = torch.zeros((n + 1,), dtype=torch.int32, device=dev).index_add_(
-        0, torch.where(state.mr_active, subj_l, n), sus_cnt
-    )[:n]
+    ad_cnt = torch.zeros((N + 1,), dtype=torch.int32, device=dev).index_add_(
+        0, torch.where(state.mr_active, subj_l, N), sus_cnt
+    )[:N]
     return state, newly.sum(dtype=torch.int32), accepts, {"_ad_cnt": ad_cnt, "_ad_key": sus_cand}
 
 
@@ -782,15 +819,22 @@ def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: Spars
     ``push_pull``, the reply leg (:func:`._tick.pull_replies`).
     ``adaptive`` adds the membership apply's confirmation evidence.
 
+    On a mesh the delivery is the ragged record exchange
+    (:mod:`.ragged_a2a`; no kernel launch) at its lossless default budget,
+    as JAX's sharded scatter drops nothing.
+
     Returns ``(state, metrics, covered, mr_any)``: the early-free coverage
     of the post-apply pool (the gossip→sweep hand-off) and whether the pool
     held an active slot, which the rumor sweep reads instead of asking the
     device again (nothing in between changes ``mr_active``)."""
     n = state.capacity
+    N = _gcap(state)
     m = params.mr_slots
     F = params.fanout
     dev = state.device
-    rows = _rows(state)
+    lrows = _rows(state)
+    rows = _grows(state)
+    ctx = sharding.active()
 
     D = params.delay_slots
     # one read: the pools, and with the rings their slot due this tick
@@ -832,44 +876,61 @@ def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: Spars
         ym_p = torch.zeros((n, words_for(m)), dtype=torch.int32, device=dev)
 
     if spec.uniform_selection:
-        peers, peer_valid = _sample_rejection(state, rows, r.gossip_try, F, params.sample_tries)
+        peers, peer_valid = _sample_rejection(state.view_key, rows, r.gossip_try, F, params.sample_tries)
     else:
-        # circulant targets (DZ-1); the random strategies read the first
-        # try of each pick's rejection block
+        # circulant targets (DZ-1) over all N rows, each rank keeping its
+        # rows' picks; the random strategies read the first try of each
+        # pick's rejection block
         peers, peer_valid = dz.structured_peers(
-            spec, n, state.tick, dz.try_stride_uniforms(r.gossip_try, params.sample_tries)
+            spec, N, state.tick, dz.try_stride_uniforms(_full_draws(r).gossip_try, params.sample_tries)
         )
+        peers, peer_valid = _my_rows(peers), _my_rows(peer_valid)
     yu_p = pack_bits(young_u)
     sender_has = young_u.any(dim=1) | (ym_p != 0).any(dim=1)
     p_all = peers.T.contiguous()  # [F, N]
-    rows_b = rows[None, :].expand(F, n)
+    lrows_b = lrows[None, :].expand(F, n)
     ok_all = (
         peer_valid.T
         & sender_has[None, :]
         & state.up[None, :]
-        & state.up[p_all]
-        & (r.gossip_edge.T < (1.0 - _loss_at(state, rows_b, p_all)))
+        & _full(state.up)[p_all]
+        & (r.gossip_edge.T < (1.0 - _loss_at(state, lrows_b, p_all)))
     )
     sent = _i32(ok_all)
     if D:
         # each edge's delay: only the undelayed contacts deliver now
-        d_all = delay_ticks(r.gossip_delay.T, _delay_q_at(state, rows_b, p_all), D)
+        d_all = delay_ticks(r.gossip_delay.T, _delay_q_at(state, lrows_b, p_all), D)
         ok_now_all = ok_all & (d_all == 0)
     else:
         ok_now_all = ok_all
-    # receiver-pulled delivery (deviation 6): per slot, the highest-row
-    # sender that reached each receiver
-    inv = torch.full((F, n), -1, dtype=torch.int32, device=dev)
-    inv.scatter_reduce_(1, p_all.long(), torch.where(ok_now_all, rows_b, -1), "amax", include_self=True)
-    recv_u, recv_src, recv_m_p, rumor_sent = delivery.delivery_combine(
-        ym_p, yu_p, state.infected_from, inv, state.rumor_origin.contiguous()
-    )
+    if ctx is not None:
+        from .ragged_a2a import ragged_delivery_combine
+
+        payload = torch.cat([ym_p, yu_p, state.infected_from], dim=1)
+        recv_u, recv_src, recv_m_p, rumor_sent, overflow = ragged_delivery_combine(
+            payload, p_all, ok_now_all, state.rumor_origin, ym_p.shape[1], state.infected_from.shape[1],
+            mesh=ctx.mesh, capacity=ctx.n,
+        )
+        del payload
+        # the default budget holds every record a rank can send
+        torch._assert_async(overflow == 0, "the sparse mesh delivery dropped a record")
+    else:
+        # receiver-pulled delivery (deviation 6): per slot, the highest-row
+        # sender that reached each receiver
+        inv = torch.full((F, n), -1, dtype=torch.int32, device=dev)
+        inv.scatter_reduce_(1, p_all.long(), torch.where(ok_now_all, rows[None, :].expand(F, n), -1), "amax",
+                            include_self=True)
+        recv_u, recv_src, recv_m_p, rumor_sent = delivery.delivery_combine(
+            ym_p, yu_p, state.infected_from, inv, state.rumor_origin.contiguous()
+        )
     if D:
         recv_u, recv_src, recv_m_p = receive_pending(state, D, pu, pm, recv_u, recv_src, recv_m_p)
     if spec.wants_pull:
-        pulled, rumor_pulled = pull_replies(state, ok_now_all, p_all, ym_p, yu_p, _loss_at, recv_u, recv_src, recv_m_p)
+        pulled, rumor_pulled = pull_replies(state, ok_now_all, p_all, ym_p, yu_p, _link_loss, recv_u, recv_src,
+                                            recv_m_p)
         sent = sent + pulled
-        rumor_sent = rumor_sent + rumor_pulled
+        # on a mesh the exchange's rumor count is global already
+        rumor_sent = rumor_sent + _reduce(rumor_pulled, "sum")
     if D:
         late_deliveries_(state, D, ok_all, d_all, p_all, ym_p, yu_p, u_any, m_any)
 
@@ -885,7 +946,7 @@ def _gossip_phase_fused(state: SparseState, r: SparseRoundRandoms, params: Spars
         if adaptive:
             ev = rest[0]
         if params.early_free:
-            covered = covered_columns(state)
+            covered = _reduce(covered_columns(state), "min")
     else:
         n_mr_deliveries = n_mr_accepts = torch.zeros((), dtype=torch.int32, device=dev)
     if D:
@@ -927,72 +988,85 @@ def _sync_phase(state: SparseState, r: SparseRoundRandoms, params: SparseParams,
     registration and capped re-gossip proposals (deviation 3). ``adaptive``
     adds the accepted SUSPECT records of both directions as confirmation
     evidence (the first slot per peer on the request side); ``trace`` the
-    compacted callers' outcomes (``trace_sync``)."""
-    n = state.capacity
+    compacted callers' outcomes (``trace_sync``).
+
+    On a member mesh the callers are compacted over all N rows (the
+    gathered ``due`` flags), so every rank runs the same K slots over the
+    callers' and peers' [K, N] rows fetched from their ranks (never the
+    whole plane), the link cells as point reads and the full draws at the
+    callers; each rank writes its rows of the merges, and the proposals
+    and the round-trip count come out whole."""
+    N = _gcap(state)
     dev = state.device
-    rows = _rows(state)
+    rf = _full_draws(r)
+    cols = torch.arange(N, dtype=torch.int32, device=dev)
     P = params.sync_announce
-    K = min(n, params.sync_slots or (n // params.sync_every + 32))
+    K = min(N, params.sync_slots or (N // params.sync_every + 32))
     karange = torch.arange(K, device=dev)
-    due_p = ((state.tick + rows * params.sync_stagger) % params.sync_every) == 0
+    due_p = ((state.tick + _grows(state) * params.sync_stagger) % params.sync_every) == 0
     due_f = state.force_sync & state.up
-    due_p = due_p & state.up & ~due_f
-    cf = nonzero_fixed(due_f, K, n)
-    nf = (cf < n).sum()
-    cp = nonzero_fixed(due_p, K, n)
-    buf = torch.cat([cf, cf.new_full((1,), n)])
+    due_p = _full(due_p & state.up & ~due_f)
+    due_f = _full(due_f)
+    cf = nonzero_fixed(due_f, K, N)
+    nf = (cf < N).sum()
+    cp = nonzero_fixed(due_p, K, N)
+    buf = torch.cat([cf, cf.new_full((1,), N)])
     pos = karange + nf
     scatter_(buf, 0, torch.where(pos < K, pos, K), cp)
     caller = buf[:K]
-    valid_c = caller < n
-    caller = caller.clamp(max=n - 1)
+    valid_c = caller < N
+    caller = caller.clamp(max=N - 1)
+    up_all = _full(state.up)
 
     seed_mask = None
     if params.seed_rows:
         seeds_arr = _seed_rows_tensor(tuple(params.seed_rows), dev)
-        seed_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
+        seed_mask = torch.zeros((N,), dtype=torch.bool, device=dev)
         seed_mask[seeds_arr.long()] = True
+    vk = state.view_key
+    # the callers' rows of the pre-SYNC plane
+    caller_tables = _rows_at(vk, caller)  # [K, N]
     peer_idx, peer_valid = _sample_rejection(
-        state, caller, r.sync_try[caller], 1, params.sample_tries, extra_mask=seed_mask
+        caller_tables, caller, rf.sync_try[caller], 1, params.sample_tries, extra_mask=seed_mask
     )
     peer = peer_idx[:, 0].long()
     valid_pick = peer_valid[:, 0]
     if params.seed_rows:
         S = len(params.seed_rows)
-        fb = seeds_arr[(r.sync_fb[caller] * float(S)).to(torch.int32).clamp(max=S - 1)].long()
+        fb = seeds_arr[(rf.sync_fb[caller] * float(S)).to(torch.int32).clamp(max=S - 1)].long()
         use_fb = ~valid_pick & (fb != caller)
         peer = torch.where(use_fb, fb, peer)
         valid_pick = valid_pick | use_fb
-    p_rt = _rt_at(state, caller, peer)
+    p_rt = _link_at_rows(state.fetch_rt, caller, peer)
     if params.delay_slots:
-        p_rt = p_rt * _timely_rt(_delay_q_at(state, caller, peer), _delay_q_at(state, peer, caller),
-                                 params.sync_timeout_ticks)
-    ok = valid_c & valid_pick & state.up[peer] & (r.sync_edge[caller] < p_rt)
+        p_rt = p_rt * _timely_rt(_link_at_rows(state.delay_q, caller, peer),
+                                 _link_at_rows(state.delay_q, peer, caller), params.sync_timeout_ticks)
+    ok = valid_c & valid_pick & up_all[peer] & (rf.sync_edge[caller] < p_rt)
 
-    vk = state.view_key
     dense_rt = state.fetch_rt.dim() != 0
-    # both gathers read the pre-SYNC plane
-    caller_tables = vk[caller]  # [K, N]
-    own_p = vk[peer]  # [K, N]
+    rt_rows = _rows_at(state.fetch_rt, torch.cat([peer, caller])) if dense_rt else None
+    ns_all = _full(state.ns_id) if params.namespace_gate else None
+    # the peers' rows of the pre-SYNC plane
+    own_p = _rows_at(vk, peer)  # [K, N]
     # callers on one peer merge together: dup_to_first[k] is the first
     # slot with slot k's peer (invalid slots are singletons)
     peer_eff = torch.where(ok, peer, -1 - karange)
     dup_to_first = first_true(peer_eff[:, None] == peer_eff[None, :], 1)
     first_p = ok & (dup_to_first == karange)
     cand_k = torch.where(ok[:, None], caller_tables, NO_CANDIDATE)
-    merged = torch.full((K, n), NO_CANDIDATE, dtype=torch.int32, device=dev)
-    merged.scatter_reduce_(0, dup_to_first[:, None].expand(K, n), cand_k, "amax", include_self=True)
+    merged = torch.full((K, N), NO_CANDIDATE, dtype=torch.int32, device=dev)
+    merged.scatter_reduce_(0, dup_to_first[:, None].expand(K, N), cand_k, "amax", include_self=True)
     buf_p = torch.maximum(own_p, merged[dup_to_first])
     del merged, cand_k
     acc = (
         (buf_p > own_p)
         & ((own_p >= 0) | ((buf_p & 3) <= RANK_LEAVING))
-        & state.up[peer][:, None]
-        & _fetch_gate(state, SALT_SYNC_REQ, peer[:, None], rows[None, :], buf_p,
-                      state.fetch_rt[peer] if dense_rt else state.fetch_rt)
+        & up_all[peer][:, None]
+        & _fetch_gate(state, SALT_SYNC_REQ, peer[:, None], cols[None, :], buf_p,
+                      rt_rows[:K] if dense_rt else state.fetch_rt, up_all)
     )
     if params.namespace_gate:
-        acc &= state.ns_rel[state.ns_id[peer][:, None].long(), state.ns_id[None, :].long()]
+        acc &= state.ns_rel[ns_all[peer][:, None].long(), ns_all[None, :].long()]
     new_p = torch.where(acc, buf_p, own_p)
     # duplicate peer slots recompute the same merged row; the liveness
     # delta counts each distinct peer once
@@ -1000,9 +1074,10 @@ def _sync_phase(state: SparseState, r: SparseRoundRandoms, params: SparseParams,
         ((new_p & 3) != RANK_DEAD).sum(dim=1, dtype=torch.int32)
         - ((own_p & 3) != RANK_DEAD).sum(dim=1, dtype=torch.int32)
     ) * first_p
-    vk.scatter_reduce_(0, peer[:, None].expand(K, n), new_p, "amax", include_self=True)
-    n_live = state.n_live.clone()
-    n_live.index_add_(0, peer, delta_p.to(torch.int32))
+    _write_rows_amax_(vk, peer, new_p, NO_CANDIDATE)
+    # every rank runs the same K slots: the per-row deltas are whole
+    d_live = torch.zeros((N,), dtype=torch.int32, device=dev)
+    d_live.index_add_(0, peer, delta_p.to(torch.int32))
     sus_req = torch.where(acc & ((buf_p & 3) == RANK_SUSPECT), buf_p, NO_CANDIDATE).amax(dim=0)
 
     # SYNC_ACK: the peer's post-merge row back to the caller; a caller row
@@ -1017,24 +1092,24 @@ def _sync_phase(state: SparseState, r: SparseRoundRandoms, params: SparseParams,
     accept = (
         (ack_cand > own_rows)
         & ((own_rows >= 0) | ((ack_cand & 3) <= RANK_LEAVING))
-        & state.up[caller][:, None]
-        & _fetch_gate(state, SALT_SYNC_ACK, caller[:, None], rows[None, :], ack_cand,
-                      state.fetch_rt[caller] if dense_rt else state.fetch_rt)
+        & up_all[caller][:, None]
+        & _fetch_gate(state, SALT_SYNC_ACK, caller[:, None], cols[None, :], ack_cand,
+                      rt_rows[K:] if dense_rt else state.fetch_rt, up_all)
     )
     if params.namespace_gate:
-        accept &= state.ns_rel[state.ns_id[caller][:, None].long(), state.ns_id[None, :].long()]
+        accept &= state.ns_rel[ns_all[caller][:, None].long(), ns_all[None, :].long()]
     new_c = torch.where(accept, ack_cand, own_rows)
     delta_c = (
         ((new_c & 3) != RANK_DEAD).sum(dim=1, dtype=torch.int32)
         - ((own_rows & 3) != RANK_DEAD).sum(dim=1, dtype=torch.int32)
     ) * valid_c
-    vk.scatter_reduce_(0, caller[:, None].expand(K, n), new_c, "amax", include_self=True)
-    n_live.index_add_(0, caller, delta_c.to(torch.int32))
+    _write_rows_amax_(vk, caller, new_c, NO_CANDIDATE)
+    d_live.index_add_(0, caller, delta_c.to(torch.int32))
     sus_ack = torch.where(accept & ((ack_cand & 3) == RANK_SUSPECT), ack_cand, NO_CANDIDATE).amax(dim=0)
     sus_cand = torch.maximum(sus_req, sus_ack)
-    st = _register_sus(state.replace(n_live=n_live), sus_cand)
-    ok_full = scatter_reduce_1d(n, caller, ok, "amax", 0, torch.int32) > 0
-    st = st.replace(force_sync=st.force_sync & ~ok_full)
+    st = _register_sus(state.replace(n_live=state.n_live + _my_rows(d_live)), _my_rows(sus_cand))
+    ok_full = scatter_reduce_1d(N, caller, ok, "amax", 0, torch.int32) > 0
+    st = st.replace(force_sync=st.force_sync & ~_my_rows(ok_full))
 
     props_p = _top_props(acc & first_p[:, None], buf_p, peer, ok & first_p, P)
     props_c = _top_props(accept, ack_cand, caller, ok, P)
@@ -1058,16 +1133,16 @@ def _refute_phase(state: SparseState, params: SparseParams):
     re-announce ALIVE (or LEAVING), written on the diagonal in place; a
     DEAD diagonal was counted out of the row's own live view, hence the
     regain."""
-    n = state.capacity
-    rows = _rows(state)
-    diag_view = state.view_key.diagonal()
+    N = _gcap(state)
+    rows = _grows(state)
+    diag_view = _diag(state.view_key)
     diag = diag_view.clone()
     rank = diag & 3
     need = state.up & (
         (rank == RANK_SUSPECT) | (rank == RANK_DEAD) | (state.leaving & (rank != RANK_LEAVING))
     )
-    V = min(n, params.refute_slots or max(64, n // 16))
-    eff = need & (torch.cumsum(need, 0) - 1 < V)
+    V = min(N, params.refute_slots or max(64, N // 16))
+    eff = _capped(need, V)
     announce_rank = torch.where(state.leaving, RANK_LEAVING, RANK_ALIVE)
     new_diag = torch.where(eff, (((diag >> 2) + 1) << 2) | announce_rank, diag).to(torch.int32)
     diag_view.copy_(new_diag)
@@ -1083,15 +1158,17 @@ def _rumor_sweeps_fused(state: SparseState, params: SparseParams, covered, mr_an
     sweep = 2 * (params.repeat_mult * ceil_log2(n_up) + 1)
     spread = params.repeat_mult * ceil_log2(state.n_live)  # [N]
     keep_u = (state.tick - state.rumor_created) <= sweep
-    forwarding_u = (
+    # on a mesh a rumor some rank still forwards, or holds in flight, stays
+    # on every rank (the pools are whole)
+    forwarding_u = _reduce((
         state.infected
         & state.up[:, None]
         & ((state.tick - state.infected_at) < spread[:, None])
-    ).any(dim=0)
+    ).any(dim=0), "max")
     keep_u = keep_u | forwarding_u
     D = params.delay_slots
     if D:
-        keep_u = keep_u | state.pending_inf.flatten(0, 1).any(dim=0)
+        keep_u = keep_u | _reduce(state.pending_inf.flatten(0, 1).any(dim=0), "max")
     state = state.replace(rumor_active=state.rumor_active & keep_u)
     if not mr_any:
         return state
@@ -1101,9 +1178,9 @@ def _rumor_sweeps_fused(state: SparseState, params: SparseParams, covered, mr_an
         forwarding_m |= (
             ((state.minf_age[lo:hi] - 1) < spread8[lo:hi, None]) & state.up[lo:hi, None]
         ).any(dim=0)
-    keep_m = ((state.tick - state.mr_created) <= sweep) | forwarding_m
+    keep_m = ((state.tick - state.mr_created) <= sweep) | _reduce(forwarding_m, "max")
     # a rumor with deliveries in flight stays, and is not freed as covered
-    pending_m = state.pending_minf.flatten(0, 1).any(dim=0) if D else None
+    pending_m = _reduce(state.pending_minf.flatten(0, 1).any(dim=0), "max") if D else None
     if D:
         keep_m = keep_m | pending_m
     if params.early_free:
@@ -1126,17 +1203,21 @@ def state_metrics(state: SparseState, params: SparseParams, n_up) -> dict:
     up-count); ``full_metrics`` adds the view-plane counts, over row
     chunks."""
     n = state.capacity
+    N = _gcap(state)
     dev = state.device
-    metrics = rumor_metrics(state, params, n_up)
+    metrics = rumor_metrics(state, params, n_up, reduce=_reduce)
     if params.full_metrics:
-        cols = torch.arange(n, device=dev)
+        cols = torch.arange(N, device=dev)
+        rows = _grows(state)
+        up_all = _full(state.up)
         alive = torch.zeros((), dtype=torch.int64, device=dev)
         suspect = torch.zeros((), dtype=torch.int64, device=dev)
-        for lo, hi in plane_chunks(n, n):
+        for lo, hi in plane_chunks(n, N):
             rank = state.view_key[lo:hi] & 3
-            pair = state.up[lo:hi, None] & state.up[None, :] & (cols[lo:hi, None] != cols[None, :])
+            pair = state.up[lo:hi, None] & up_all[None, :] & (rows[lo:hi, None] != cols[None, :])
             alive += (pair & (rank == RANK_ALIVE)).sum()
             suspect += (pair & (rank == RANK_SUSPECT)).sum()
+        alive, suspect = _reduce(torch.stack([alive, suspect]), "sum").unbind(0)
         n_up64 = n_up.to(torch.int64)
         pairs = (n_up64 * n_up64 - n_up64).clamp(min=1)
         metrics["alive_view_fraction"] = alive.to(torch.float32) / pairs.to(torch.float32)
@@ -1153,6 +1234,9 @@ def state_metrics(state: SparseState, params: SparseParams, n_up) -> dict:
 
 
 _FD_METRICS = ("fd_probes", "fd_failed_probes", "fd_new_suspects")
+#: the metrics that count this rank's rows on a mesh (the others come out
+#: whole: reduced where they are made, or from the whole pools and SYNC)
+_ROW_SUMS = _FD_METRICS + ("gossip_msgs", "rumor_deliveries", "mr_deliveries", "mr_accepts")
 
 
 def sparse_tick_fused(state: SparseState, fd_r, round_r: SparseRoundRandoms, params: SparseParams,
@@ -1166,9 +1250,20 @@ def sparse_tick_fused(state: SparseState, fd_r, round_r: SparseRoundRandoms, par
     metrics)``. ``trace`` (a TraceSpec) adds the ``_trace_rows`` record
     block, as in the dense ``tick`` (a skipped phase yields JAX's zero
     record; the gossip phase exports nothing); ``timer`` scopes each phase
-    for the phase-split profiler."""
+    for the phase-split profiler.
+
+    On a member mesh (:mod:`.sharding`) the tick runs on each rank's rows:
+    the seams of :mod:`.kernel` (``_full``, ``_reduce``, ``_my_rows``,
+    ``_capped``, ``_rows_at``, ...) are identities on one device and the
+    site's collective on a mesh; the phases' proposals are gathered in
+    global row order, so every rank allocates the same pool slots. As in
+    JAX, the sharded tick runs unarmed."""
     armed = ad is not None
     traced = trace is not None
+    ctx = sharding.active()
+    if ctx is not None and (armed or traced):
+        raise ValueError("the sparse engine's sharded tick runs unarmed: JAX has no sharded adaptive or traced "
+                         "sparse window")
     if armed and traced:
         raise ValueError("trace-armed adaptive windows are not supported")
     if armed and params.adaptive.is_default:
@@ -1202,18 +1297,24 @@ def sparse_tick_fused(state: SparseState, fd_r, round_r: SparseRoundRandoms, par
     with _phase(timer, "refute"):
         state, props_ref = _refute_phase(state, params)
     with _phase(timer, "sweep"):
-        n_up = _i32(state.up)
+        n_up = _reduce(state.up.sum(), "sum").to(torch.int32)
         state = _rumor_sweeps_fused(state, params, covered, mr_any, n_up)
     with _phase(timer, "alloc"):
         # the allocation takes the first E valid proposals in this order:
-        # refutations rank before the sync re-gossip flood
-        state, a_m = alloc_phase(state, (props_fd, props_exp, props_ref, props_sync), params)
+        # refutations rank before the sync re-gossip flood (SYNC's are
+        # whole already)
+        rows_props = tuple(tuple(map(_full, p)) for p in (props_fd, props_exp, props_ref))
+        state, a_m = alloc_phase(state, (*rows_props, props_sync), params)
     trace_fd = fd_m.pop("trace_fd", None)
     trace_sync = s_m.pop("trace_sync", None)
     with _phase(timer, "telemetry"):
         if armed:
             ad = _fold_evidence(params, ad, fd_m, g_m, s_m, props_ref[3], state.up)
         metrics = {**fd_m, **g_m, **s_m, **a_m, **state_metrics(state, params, n_up)}
+        if ctx is not None:
+            # the rows' counts, summed over the ranks in one collective
+            total = _reduce(torch.stack([metrics[k].to(torch.int64) for k in _ROW_SUMS]), "sum")
+            metrics.update(zip(_ROW_SUMS, total.to(torch.int32).unbind(0)))
         if armed:
             metrics["adaptive_lh_high"] = ad.lh.max()
             metrics["adaptive_conf_high"] = ad.conf.max()
@@ -1342,10 +1443,10 @@ def sentinel_reduce(state: SparseState, sent: dict, spec: dict) -> dict:
     sent = sentinel_core(state.view_key, state.up, state.tick, sent, spec)
     n = state.capacity
     drift = torch.zeros((), dtype=torch.int32, device=state.device)
-    for lo, hi in plane_chunks(n, n):
+    for lo, hi in plane_chunks(n, _gcap(state)):
         recount = ((state.view_key[lo:hi] & 3) != RANK_DEAD).sum(dim=1, dtype=torch.int32)
         drift += (state.up[lo:hi] & (recount != state.n_live[lo:hi])).sum(dtype=torch.int32)
-    sent["n_live_drift"] = sent["n_live_drift"] + drift
+    sent["n_live_drift"] = sent["n_live_drift"] + _reduce(drift, "sum")
     return sent
 
 

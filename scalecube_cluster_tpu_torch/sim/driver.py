@@ -56,8 +56,8 @@ reports the window functions it ran, keyed as the JAX driver keys its
 compiled programs, with the kernels' build directory
 (:mod:`..compile_cache`; ``compile_cache_dir`` points it elsewhere).
 
-On a member mesh (``mesh=``, :mod:`..ops.sharding`; the pview and dense
-engines) the driver is SPMD: every rank runs the same script with the same
+On a member mesh (``mesh=``, :mod:`..ops.sharding`; the three engines)
+the driver is SPMD: every rank runs the same script with the same
 seed and holds its rows of the state; the windows are the sharded ones, a host
 mutation runs on the whole state (gathered) and each rank keeps its rows,
 and a host read (views, statuses, events, coverage) returns the same whole
@@ -73,12 +73,10 @@ gathers the state, rank 0 writes the unsharded driver's archive, and a
 restore keeps each rank's rows of it, so an archive moves between a
 sharded and an unsharded driver either way.
 
-On a dense mesh, as in JAX, the trace plane and the adaptive plane are
-refused (the dense engine has no sharded traced or adaptive window), and
-so is a control ladder whose rungs arm adaptive FD; a static ladder arms.
-
-Not ported yet, and refused by name: the sparse engine on a mesh (ROADMAP
-A12 item 5).
+On a dense or sparse mesh, as in JAX, the trace plane and the adaptive
+plane are refused (those engines have no sharded traced or adaptive
+window), and so is a control ladder whose rungs arm adaptive FD; a static
+ladder arms.
 """
 
 from __future__ import annotations
@@ -125,10 +123,6 @@ _RANK_TO_STATUS_NP = np.array([ALIVE, LEAVING, SUSPECT, DEAD], dtype=np.int8)
 def _status_of_key(k: int) -> int:
     """Host-side decode of a packed table key (lattice.py layout)."""
     return UNKNOWN if k < 0 else int(_RANK_TO_STATUS_NP[k & 3])
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def auto_params(
@@ -232,8 +226,6 @@ class SimDriver:
         if mesh is not None:
             from ..ops import sharding
 
-            if not self._eng.supports_mesh:
-                _not_ported(f"a sharded {self.engine} driver (mesh=)", "A12 item 5")
             sharding._check_member_mesh(mesh)
             self.device = sharding.mesh_device(mesh)
             if torch.device(device).type != self.device.type:

@@ -201,21 +201,23 @@ def _result(engine: str, n: int, n_ticks: int, warmup_ticks: int, wall: float, t
 
 
 def _mesh_checks(mesh, params, a2a_budget, fleet: bool = False):
-    """The sharded window builders' preconditions (the pview and dense
-    engines on a 1-D mesh; pview's fleet on a 2-D one). Returns the sharded
-    tick."""
+    """The sharded window builders' preconditions (the three engines on a
+    1-D mesh; pview's fleet on a 2-D one). Returns the sharded tick."""
     from ..ops import sharding as SH
     from ..ops.pview import PviewParams
     from ..ops.ragged_a2a import check_budget
     from ..ops.sparse import SparseParams
 
-    if isinstance(params, SparseParams):
-        SH._not_ported(f"profiling the {type(params).__name__} engine on a mesh (its sharded tick)")
     if not isinstance(params, PviewParams):
+        sparse = isinstance(params, SparseParams)
         if fleet:
-            raise ValueError("the dense engine has no fleet on a member mesh (as in JAX: no sharded dense fleet "
-                             "window)")
+            engine = "sparse" if sparse else "dense"
+            raise ValueError(f"the {engine} engine has no fleet on a member mesh (as in JAX: no sharded "
+                             f"{engine} fleet window)")
         SH._check_member_mesh(mesh)
+        if sparse:
+            SH._check_sparse_word_alignment(mesh, params)
+            return SH._sparse_sharded_tick
         SH._check_dense_word_alignment(mesh, params)
         return SH._dense_sharded_tick
     if fleet:
@@ -243,8 +245,9 @@ def profile_ticks(params, state, draws, n_ticks: int, warmup_ticks: int = 1, mes
     ``warmup_ticks + n_ticks`` per-tick ``(fd, round)`` pairs. The state
     equals the window's over the same draws; the warm-up ticks are left out
     of the phase totals and the wall time. Consumes ``state``. With
-    ``mesh`` (and ``a2a_budget``) ``state`` is this rank's shard and the
-    ticks are the sharded window's (:func:`..ops.sharding.make_sharded_pview_run`)."""
+    ``mesh`` (and, for pview, ``a2a_budget``) ``state`` is this rank's
+    shard and the ticks are the engine's sharded window's
+    (:mod:`..ops.sharding`)."""
     engine, tick, draw = _engine_of(params)
     if mesh is not None:
         tick = _mesh_checks(mesh, params, a2a_budget)

@@ -1,5 +1,6 @@
 """Rank-side functions of the dense member-mesh tests
-(``tests/test_torch_dense_mesh.py``): each runs on every rank of a
+(``tests/test_torch_dense_mesh.py``; the engine-generic ones serve
+``tests/test_torch_sparse_mesh.py`` too): each runs on every rank of a
 :class:`scalecube_cluster_tpu_torch.ops.dcn.LocalWorld` (gloo, one thread
 per rank) and returns plain numpy, whole and identical on every rank. This
 module imports no JAX: the ranks never load it."""
@@ -96,34 +97,40 @@ def alignment(cases) -> dict:
 
 
 def profile_window(params, state_np: dict, seed: int, n_ticks: int, warmup: int) -> dict:
-    """``profile_ticks(mesh=)`` on the dense engine against the sharded
-    window over the same generator: both whole final states and the
-    result's phase names."""
+    """``profile_ticks(mesh=)`` on the dense or sparse engine (by
+    ``params``) against its sharded window over the same generator: both
+    whole final states and the result's phase names."""
+    from scalecube_cluster_tpu_torch.ops import engine_api
     from scalecube_cluster_tpu_torch.trace import profile as PR
 
+    eng = engine_api.resolve(params)
     mesh = dcn.global_mesh("cpu")
     start = convert.state_from_numpy(state_np, device="cpu")
-    st, res = PR.profile_ticks(params, SH.shard_state(start, mesh), torch.Generator().manual_seed(seed), n_ticks,
+    st, res = PR.profile_ticks(params, eng.shard_state(start, mesh), torch.Generator().manual_seed(seed), n_ticks,
                                warmup_ticks=warmup, mesh=mesh)
     start = convert.state_from_numpy(state_np, device="cpu")
-    ref, _, _ = SH.make_sharded_run(mesh, params, warmup + n_ticks)(SH.shard_state(start, mesh),
-                                                                     torch.Generator().manual_seed(seed))
-    return {"profiled": _whole(st, mesh), "window": _whole(ref, mesh), "phases": sorted(res["phases_s"]),
+    ref, _, _ = eng.make_sharded_run(mesh, params, warmup + n_ticks)(eng.shard_state(start, mesh),
+                                                                      torch.Generator().manual_seed(seed))
+
+    def whole(s):
+        return {k: v.copy() for k, v in convert.state_to_numpy(eng.gather_state(s, mesh)).items()}
+
+    return {"profiled": whole(st), "window": whole(ref), "phases": sorted(res["phases_s"]),
             "mesh": res["mesh"], "engine": res["engine"], "ticks": res["ticks"]}
 
 
-def scenario_report(params, n: int, seed: int, scenario, sharded: bool = True) -> dict:
-    """``run_scenario`` on a (sharded) dense driver with the telemetry plane
-    armed: the report without its host stamp, the ring, the whole final
-    state."""
+def scenario_report(params, n: int, seed: int, scenario, sharded: bool = True, **kw) -> dict:
+    """``run_scenario`` on a (sharded) driver with the telemetry plane
+    armed (``kw`` goes to the driver): the report without its host stamp,
+    the ring, the whole final state."""
     from scalecube_cluster_tpu_torch.config import TelemetryConfig
     from scalecube_cluster_tpu_torch.sim import SimDriver
 
-    d = SimDriver(params, n, seed=seed, mesh=dcn.global_mesh("cpu") if sharded else None, device="cpu")
+    d = SimDriver(params, n, seed=seed, mesh=dcn.global_mesh("cpu") if sharded else None, device="cpu", **kw)
     d.arm_telemetry(TelemetryConfig(ring_len=8))
     rep = d.run_scenario(scenario, max_window=6)
     rep.pop("host_cpus", None)
     ring = d.telemetry.collect()["ring"]
-    whole = SH.gather_state(d.state, d.mesh) if d.mesh is not None else d.state
+    whole = d._eng.gather_state(d.state, d.mesh) if d.mesh is not None else d.state
     return {"report": rep, "ring": ring["rows"], "names": ring["names"], "windows": ring["windows"],
             "state": convert.state_to_numpy(whole)}

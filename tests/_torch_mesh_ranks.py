@@ -127,12 +127,13 @@ def driver_record(d, n: int) -> dict:
     return rec
 
 
-def sharded_driver(params, n: int, armed: str, seed: int = 3) -> dict:
+def sharded_driver(params, n: int, armed: str, seed: int = 3, **kw) -> dict:
     """The driver script on the group's member mesh with the telemetry plane
-    and ``armed`` ("adaptive" or "trace") armed."""
+    and ``armed`` ("adaptive" or "trace") armed; ``kw`` goes to the
+    driver."""
     from scalecube_cluster_tpu_torch.sim import SimDriver
 
-    d = SimDriver(params, n - 8, seed=seed, mesh=dcn.global_mesh("cpu"), device="cpu")
+    d = SimDriver(params, n - 8, seed=seed, mesh=dcn.global_mesh("cpu"), device="cpu", **kw)
     d.arm_telemetry()
     if armed == "trace":
         d.arm_trace(tracer_rows=(0, n // 2 - 1, n // 2, n - 1), rumor_slots=(0, 1))
@@ -174,12 +175,11 @@ def fleet_window(params, fleet_np: dict, seed: int, n_ticks: int) -> dict:
 
 def refusals() -> dict:
     """What a mesh still refuses, tried on this rank: the exception's type
-    and message by name ("none" where the call went through). The sparse
-    engine on a mesh waits for ROADMAP A12 item 5; the dense engine runs
-    there, without the trace plane or an adaptive ladder (JAX refuses
-    both); the compile cache, the audit, the sim transport and the
-    emulator runner run on a sharded driver; a 2-D mesh runs only the
-    fleet."""
+    and message by name ("none" where the call went through). The dense
+    and sparse engines run there, without the trace plane or an adaptive
+    ladder (JAX refuses both); the compile cache, the audit, the sim
+    transport and the emulator runner run on a sharded driver; a 2-D mesh
+    runs only the fleet."""
     from scalecube_cluster_tpu_torch.chaos.engine import EmulatorChaosRunner
     from scalecube_cluster_tpu_torch.ops import fleet as FL
     from scalecube_cluster_tpu_torch.ops import sparse as SP
@@ -209,14 +209,18 @@ def refusals() -> dict:
     attempt("dense driver", lambda: SimDriver(ST.SimParams(capacity=64), 64, mesh=mesh, device="cpu"))
     attempt("sparse window", lambda: SH.make_sharded_sparse_run(mesh, sp, 1))
     attempt("sparse tick", lambda: SH.make_sharded_sparse_tick(mesh, sp))
-    attempt("sparse state", lambda: SH.shard_sparse_state(None, mesh))
+    attempt("sparse state", lambda: SH.shard_sparse_state(SP.init_sparse_state(sp, 64, device="cpu"), mesh))
     attempt("dense window", lambda: SH.make_sharded_run(mesh, ST.SimParams(capacity=64), 1))
     attempt("dense tick", lambda: SH.make_sharded_tick(mesh, ST.SimParams(capacity=64)))
     attempt("dense state", lambda: dcn.make_global_state(ST.SimParams(capacity=64), 64, mesh))
     dense = SimDriver(ST.SimParams(capacity=64), 48, mesh=mesh, device="cpu")
     attempt("dense trace capture", dense.arm_trace)
     attempt("dense adaptive ladder", dense.arm_control)
-    attempt("sparse profile", lambda: PR.profile_ticks(sp, None, torch.Generator(), 1, mesh=mesh))
+    sparse = SimDriver(sp, 48, mesh=mesh, device="cpu")
+    attempt("sparse trace capture", sparse.arm_trace)
+    attempt("sparse adaptive ladder", sparse.arm_control)
+    attempt("sparse profile", lambda: PR.profile_ticks(sp, SH.shard_sparse_state(
+        SP.init_sparse_state(sp, 64, device="cpu"), mesh), torch.Generator(), 1, mesh=mesh))
     import tempfile
 
     from scalecube_cluster_tpu_torch import compile_cache

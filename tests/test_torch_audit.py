@@ -5,9 +5,8 @@ falsifiability (``scalecube_cluster_tpu_torch/audit/``).
    for field (``restore_module`` names the port module where restore
    copies); the port's matrix has JAX's program names, variants and
    applicable-contract sets, compared without running (the port's listed
-   on a two-rank gloo group, so the member-mesh programs are there), with
-   the JAX programs the port reports as ``not_ported`` set aside; the
-   verdict has JAX's keys.
+   on a two-rank gloo group, so the member-mesh programs are there), none
+   set aside; the verdict has JAX's keys.
 2. **Falsifiability.** One seeded violation for each of JAX's, each caught
    with a message naming its source line: a window rebinding a plane to a
    clone; a strategy, a fleet, a fused, a bridge and a sharded window each
@@ -93,25 +92,21 @@ def port_listing():
 
 def test_matrix_names_variants_and_contracts_equal_jax(port_listing):
     """JAX's ``build_matrix()`` on its 8 virtual devices against the port's
-    on two gloo ranks: the same programs, variants and contract sets. Set
-    aside: the sparse sharded programs (``sparse/i32/sharded``,
-    ``sparse/i32/sharded-telemetry-row``/``-append``), which the port
-    reports as ``not_ported`` (ROADMAP A12 item 5); the dense four are
-    built and held."""
+    on two gloo ranks: the same programs, variants and contract sets, none
+    missing. The sparse sharded three (``sparse/i32/sharded``,
+    ``sparse/i32/sharded-telemetry-row``/``-append``) and the dense four
+    are built and held."""
     from scalecube_cluster_tpu.audit import build_matrix as jax_matrix
     from scalecube_cluster_tpu.audit.contracts import applicable_contracts as jax_applicable
 
-    from scalecube_cluster_tpu_torch.audit import not_ported
+    import scalecube_cluster_tpu_torch.audit as port_audit
 
-    missing = {m["program"] for m in not_ported()}
-    assert missing == {"sparse/i32/sharded", "sparse/i32/sharded-telemetry-row",
-                       "sparse/i32/sharded-telemetry-append"}
-    assert all("ROADMAP A12 item 5" in m["reason"] for m in not_ported())
     jax_rows = {(p.name, p.variant, tuple(jax_applicable(p))) for p in jax_matrix()}
     port_rows = set(port_listing)
-    assert {r[0] for r in jax_rows} - {r[0] for r in port_rows} == missing
-    assert port_rows == {r for r in jax_rows if r[0] not in missing}
-    assert not_ported(variants=["unarmed"]) == []
+    assert port_rows == jax_rows
+    assert {"sparse/i32/sharded", "sparse/i32/sharded-telemetry-row",
+            "sparse/i32/sharded-telemetry-append"} <= {r[0] for r in port_rows}
+    assert not hasattr(port_audit, "not_ported")
 
 
 def test_verdict_has_jax_keys():
@@ -126,7 +121,7 @@ def test_verdict_has_jax_keys():
     assert port_v["ok"] and port_v["device"] == "cpu" and port_v["device_name"] == "cpu"
     assert "CPU run" in port_v["instrument"]
     assert set(jax_v) - {"jax_version"} <= set(port_v)
-    assert {"device", "not_ported", "torch_version"} <= set(port_v)
+    assert {"device", "torch_version"} <= set(port_v) and "not_ported" not in port_v
     for jax_e, port_e in zip(jax_v["programs"], port_v["programs"]):
         assert set(port_e) == set(jax_e) | {"device"}
         assert port_e["program"] == jax_e["program"] and set(port_e["contracts"]) == set(jax_e["contracts"])

@@ -210,12 +210,12 @@ def test_refusals_name_their_items():
     from scalecube_cluster_tpu_torch.ops.sparse import SparseParams
 
     params = TS.SimParams(capacity=33)
-    # the dense engine runs on a member mesh (tests/test_torch_dense_mesh.py):
-    # what it refuses is a mesh that is not a 1-D members mesh; the sparse
-    # engine on a mesh is still refused by name
+    # the dense and sparse engines run on a member mesh
+    # (tests/test_torch_dense_mesh.py, tests/test_torch_sparse_mesh.py):
+    # what they refuse is a mesh that is not a 1-D members mesh
     with pytest.raises(ValueError, match="1-D 'members' mesh"):
         SimDriver(params, 33, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="1-D 'members' mesh"):
         SimDriver(SparseParams(capacity=64), 64, mesh=object(), device="cpu")
     d = SimDriver(params, 33, device="cpu")
     # the adaptive plane is ported: set_adaptive arms it

@@ -254,12 +254,14 @@ def test_compile_cache_dir_points_the_builds_elsewhere_without_building(tmp_path
 
 def test_refusals_lifted_by_this_slice_are_gone():
     """The sim transport, the compile-cache directory and audit, the
-    emulator runner: no source of the port refuses them any more, and the
-    only refusals left name A12 item 5."""
+    emulator runner: no source of the port refuses them any more, and no
+    refusal by a ROADMAP item is left (the sparse engine on a mesh, A12
+    item 5, was the last)."""
     texts = {p.relative_to(REPO).as_posix(): p.read_text()
              for p in (REPO / "scalecube_cluster_tpu_torch").rglob("*.py")}
     assert [p for p, t in texts.items() if "ROADMAP A13" in t] == []
     flat = [re.sub(r"\s+", " ", re.sub(r'"\s+f?"', "", t)) for t in texts.values()]
     left = {m for t in flat for m in re.findall(r"not ported yet \(ROADMAP (A[^)]+)\)", t)}
     left |= {m for t in flat for m in re.findall(r'_not_ported\([^;]*?, "(A[^"]+)"\)', t)}
-    assert left == {"A12 item 5"}, left
+    assert left == set(), left
+    assert [p for p, t in texts.items() if "_not_ported" in t or "NotImplementedError" in t] == []

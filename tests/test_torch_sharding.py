@@ -324,34 +324,31 @@ def test_fleet_on_a_scenario_mesh_equals_one_process_fleet(lane2):
 
 
 def test_refusals_by_name(lane2):
-    """What a mesh still refuses: the sparse engine's sharded windows,
-    states and drivers raise NotImplementedError naming ROADMAP A12 item
-    5; the dense engine's (A12 item 5(a)) go through, and a dense sharded
-    driver refuses the trace plane and an adaptive ladder with JAX's
-    ValueErrors; the compile cache, the audit, the sim transport and the
-    emulator runner (once refused as A13) go through on a sharded driver;
-    the alignment, fleet-size and 2-D mesh rules raise JAX's ValueErrors
-    (a 2-D mesh runs only the fleet)."""
+    """What a mesh still refuses: nothing by name. The sparse engine's
+    sharded windows, states, drivers and profile (A12 item 5(b)) and the
+    dense engine's (A12 item 5(a)) go through, and a dense or sparse
+    sharded driver refuses the trace plane and an adaptive ladder with
+    JAX's ValueErrors; the compile cache, the audit, the sim transport and
+    the emulator runner (once refused as A13) go through on a sharded
+    driver; the alignment, fleet-size and 2-D mesh rules raise JAX's
+    ValueErrors (a 2-D mesh runs only the fleet)."""
     got = lane2.run(RK.refusals)
     value_errors = {"misaligned capacity", "fleet of 3", "2-D mesh driver", "2-D mesh window", "2-D factoring",
-                    "2-D fleet on a 1-D mesh", "dense trace capture", "dense adaptive ladder"}
+                    "2-D fleet on a 1-D mesh", "dense trace capture", "dense adaptive ladder",
+                    "sparse trace capture", "sparse adaptive ladder"}
     through = {"compile cache", "cache audit", "sim transport", "emulator chaos", "dense driver", "dense window",
-               "dense tick", "dense state"}
+               "dense tick", "dense state", "sparse driver", "sparse window", "sparse tick", "sparse state",
+               "sparse profile"}
     for rank in got:
+        assert set(rank) == value_errors | through
         for what, (kind, msg) in rank.items():
-            want = "ValueError" if what in value_errors else "none" if what in through else "NotImplementedError"
-            assert kind == want, (what, kind, msg)
-            if want == "NotImplementedError":
-                assert "ROADMAP A12 item 5" in msg and "sparse" in msg.lower(), (what, msg)
+            assert kind == ("ValueError" if what in value_errors else "none"), (what, kind, msg)
         assert "factor" in rank["2-D factoring"][1] and "2-D" in rank["2-D fleet on a 1-D mesh"][1]
-        assert "trace capture is single-device for the dense engine" in rank["dense trace capture"][1]
-        assert "make_sharded_adaptive_run" in rank["dense adaptive ladder"][1]
-    assert set(got[0]) >= {"misaligned capacity", "2-D mesh driver", "2-D mesh window", "sparse driver",
-                           "sparse window", "sparse tick", "sparse state", "sparse profile",
-                           "fleet of 3"} | value_errors | through
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 item 5"):
-        TSH.make_sharded_sparse_run(None, None, 1)
-    for fn in (lambda: TSH.make_sharded_run(None, None, 1), lambda: TSH.make_sharded_tick(None, None)):
+        for engine in ("dense", "sparse"):
+            assert f"trace capture is single-device for the {engine} engine" in rank[f"{engine} trace capture"][1]
+            assert "make_sharded_adaptive_run" in rank[f"{engine} adaptive ladder"][1]
+    for fn in (lambda: TSH.make_sharded_run(None, None, 1), lambda: TSH.make_sharded_tick(None, None),
+               lambda: TSH.make_sharded_sparse_run(None, None, 1), lambda: TSH.make_sharded_sparse_tick(None, None)):
         with pytest.raises(ValueError, match="1-D 'members' mesh"):
             fn()
 
@@ -369,7 +366,7 @@ def test_draws_every_rank_shares():
             assert getattr(x, f.name).shape[0] == N
 
 
-@pytest.mark.parametrize("engine", ["dense", "pview"])
+@pytest.mark.parametrize("engine", ["dense", "pview", "sparse"])
 @pytest.mark.parametrize("dense_links", [True, False])
 @pytest.mark.parametrize("delay_slots", [0, 4])
 def test_engine_state_shardings_match_jax(engine, dense_links, delay_slots):

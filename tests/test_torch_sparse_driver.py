@@ -191,7 +191,9 @@ def test_default_device_is_the_card():
 
 def test_refusals_name_their_items():
     params = TSP.SparseParams(capacity=33)
-    with pytest.raises(NotImplementedError, match="A12"):
+    # the sparse engine runs on a member mesh (tests/test_torch_sparse_mesh.py):
+    # what it refuses is a mesh that is not a 1-D members mesh
+    with pytest.raises(ValueError, match="1-D 'members' mesh"):
         SimDriver(params, 33, mesh=object(), device="cpu")
     d = SimDriver(params, 33, device="cpu")
     # the adaptive plane is ported: set_adaptive arms it
